@@ -8,6 +8,7 @@ port's runs unchanged. The timer brackets the whole run (saves included)
 after a warm-up run that builds the kernels.
 
     python -m mpi_and_open_mp_tpu_torch.apps.life configs/gun_big_500x500.cfg --layout serial
+    python -m mpi_and_open_mp_tpu_torch.apps.life configs/gun_big_500x500.cfg --batch 64
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+
+import numpy as np
 
 from mpi_and_open_mp_tpu_torch.models.life import IMPLS, LifeSim
 from mpi_and_open_mp_tpu_torch.utils.config import load_config
@@ -33,6 +36,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="native = the hand-written kernels (the JAX "
                         "package's pallas); auto = native on the card")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--batch", type=int, default=0, metavar="B",
+                   help="throughput mode: advance B stacked copies of the "
+                        "cfg board together (batched LifeSim; excludes "
+                        "--outdir). The elapsed line then covers B boards' "
+                        "worth of updates, and the final population is the "
+                        "sum over the stack")
     p.add_argument("--outdir", default=None,
                    help="write VTK snapshots here (default: no saves)")
     p.add_argument("--times-file", default=None,
@@ -45,10 +54,18 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.batch < 0:
+        parser.error("--batch must be >= 1")
+    if args.batch and args.outdir:
+        parser.error("--batch is a throughput mode: drop --outdir")
     cfg = load_config(args.cfg)
+    # B stacked copies of the cfg board: the work does not depend on the
+    # boards' content, so copies time what B distinct requests would.
+    stack = np.stack([cfg.board()] * args.batch) if args.batch else None
     sim = LifeSim(cfg, layout=args.layout, impl=args.impl,
-                  device=args.device, outdir=args.outdir)
+                  device=args.device, outdir=args.outdir, initial_board=stack)
     sim.warmup()
     if args.debug_check:
         sim.debug_check()

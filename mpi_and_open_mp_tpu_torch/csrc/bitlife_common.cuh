@@ -1,13 +1,18 @@
-// Shared device code of the two bit-packed Life kernels (bitlife_vmem.cu,
-// bitlife_fused.cu): one packed Life step over a window held in shared
-// memory.
+// Shared device code of the bit-packed Life kernels (bitlife_vmem.cu,
+// bitlife_vmem_batch.cu, bitlife_fused.cu, bitlife_bitsliced.cu): one Life
+// step over a window of 32-bit words held in shared memory, and the
+// resident step loop of one cell-packed board.
 //
-// Layout: 32 board rows per 32-bit word along y. A window is R word rows
-// by C columns, row-major. Both axes wrap at the window's edge: on a whole
-// board (the resident kernel) that is the torus; on a halo window (the
-// fused kernel) the wrap feeds junk in at the edges, one bit row and one
-// column per step, which never reaches the valid interior within the
-// halo's depth.
+// Two layouts put 32 cells in a word. Cell-packed: 32 board rows per word
+// along y, so a word's y neighbours are its own bits shifted by one, with
+// a carry from the word row above or below (PackedRule). Board-sliced: bit
+// b of every word belongs to board b, so a word's eight neighbours are the
+// eight words around it and no shift is needed (SlicedRule). A window is R
+// word rows by C columns, row-major. Both axes wrap at the window's edge:
+// on a whole board (the resident kernels) that is the torus; on a halo
+// window (the fused and bitsliced kernels) the wrap feeds junk in at the
+// edges, one word row or bit row and one column per step, which never
+// reaches the valid interior within the halo's depth.
 //
 // The rule is the carry-save adder form of mpi_and_open_mp_tpu/ops/
 // bitlife.py:_carry_save_rule: 2-bit column sums, a mod-8 neighbour count
@@ -15,17 +20,37 @@
 // life_word recomputes the y shifts and the 3-cell sums of the side columns
 // for every word, about 49 two-input operations per 32 cells, which nvcc
 // merges into funnel shifts (SHF) and 3-input logic (LOP3). The fewest
-// sm_90 instructions known for the rule are 17 per word with those sums
-// shared between neighbouring columns (chip_smoke.py:OPS_PER_WORD_STEP).
+// sm_90 instructions known for the rule are 17 per cell-packed word and 15
+// per board-sliced word (no shifts), with the column sums shared between
+// neighbouring columns (chip_smoke.py:OPS_PER_WORD_STEP).
 #pragma once
 
 #include <cstdint>
 
 namespace bitlife {
 
-// One packed word of the next state, from the 3x3 block of words around
-// it: a* is the word row above (lower bit positions), m* the centre row,
-// b* the row below; *L, *C, *R the left, centre and right columns.
+// The next state of 32 cells from the 2-bit sums of the side columns
+// (l, r: three cells each) and of the centre column without the centre
+// (cs), and the centre c.
+__device__ __forceinline__ uint32_t count_rule(
+    uint32_t l0, uint32_t l1, uint32_t r0, uint32_t r1,
+    uint32_t cs0, uint32_t cs1, uint32_t c) {
+  // P = L + R (3 bits).
+  const uint32_t p0 = l0 ^ r0, q0 = l0 & r0;
+  const uint32_t p1x = l1 ^ r1;
+  const uint32_t p1 = p1x ^ q0;
+  const uint32_t p2 = (l1 & r1) | (p1x & q0);
+  // N = P + centre column, mod 8.
+  const uint32_t n0 = p0 ^ cs0, rc = p0 & cs0;
+  const uint32_t n1x = p1 ^ cs1;
+  const uint32_t n1 = n1x ^ rc;
+  const uint32_t n2 = p2 ^ ((p1 & cs1) | (n1x & rc));
+  return (n0 | c) & n1 & ~n2;
+}
+
+// One cell-packed word of the next state, from the 3x3 block of words
+// around it: a* is the word row above (lower bit positions), m* the centre
+// row, b* the row below; *L, *C, *R the left, centre and right columns.
 __device__ __forceinline__ uint32_t life_word(
     uint32_t aL, uint32_t aC, uint32_t aR,
     uint32_t mL, uint32_t mC, uint32_t mR,
@@ -41,27 +66,49 @@ __device__ __forceinline__ uint32_t life_word(
   const uint32_t l0 = lx ^ mL, l1 = ly | (lx & mL);
   const uint32_t rx = upR ^ dnR, ry = upR & dnR;
   const uint32_t r0 = rx ^ mR, r1 = ry | (rx & mR);
-  // P = L + R (3 bits).
-  const uint32_t p0 = l0 ^ r0, q0 = l0 & r0;
-  const uint32_t p1x = l1 ^ r1;
-  const uint32_t p1 = p1x ^ q0;
-  const uint32_t p2 = (l1 & r1) | (p1x & q0);
-  // N = P + centre column, mod 8.
-  const uint32_t n0 = p0 ^ cs0, rc = p0 & cs0;
-  const uint32_t n1x = p1 ^ cs1;
-  const uint32_t n1 = n1x ^ rc;
-  const uint32_t n2 = p2 ^ ((p1 & cs1) | (n1x & rc));
-  return (n0 | mC) & n1 & ~n2;
+  return count_rule(l0, l1, r0, r1, cs0, cs1, mC);
 }
 
-// One step of the R x C window src into dst (both in shared memory). The
-// block's threads split the window into vertical strips: a thread owns one
-// column and a run of rows, and slides a 3x3 register window down it, so
-// each word costs three shared-memory loads. When the window is narrower
-// than the block, the rows split into segments so that every thread works.
+// One board-sliced word of the next state (32 boards at one cell), from
+// the 3x3 block of words around it, named as in life_word.
+__device__ __forceinline__ uint32_t sliced_word(
+    uint32_t aL, uint32_t aC, uint32_t aR,
+    uint32_t mL, uint32_t mC, uint32_t mR,
+    uint32_t bL, uint32_t bC, uint32_t bR) {
+  const uint32_t cs0 = aC ^ bC, cs1 = aC & bC;
+  const uint32_t lx = aL ^ bL;
+  const uint32_t l0 = lx ^ mL, l1 = (aL & bL) | (lx & mL);
+  const uint32_t rx = aR ^ bR;
+  const uint32_t r0 = rx ^ mR, r1 = (aR & bR) | (rx & mR);
+  return count_rule(l0, l1, r0, r1, cs0, cs1, mC);
+}
+
+struct PackedRule {
+  __device__ __forceinline__ uint32_t operator()(
+      uint32_t aL, uint32_t aC, uint32_t aR, uint32_t mL, uint32_t mC,
+      uint32_t mR, uint32_t bL, uint32_t bC, uint32_t bR) const {
+    return life_word(aL, aC, aR, mL, mC, mR, bL, bC, bR);
+  }
+};
+
+struct SlicedRule {
+  __device__ __forceinline__ uint32_t operator()(
+      uint32_t aL, uint32_t aC, uint32_t aR, uint32_t mL, uint32_t mC,
+      uint32_t mR, uint32_t bL, uint32_t bC, uint32_t bR) const {
+    return sliced_word(aL, aC, aR, mL, mC, mR, bL, bC, bR);
+  }
+};
+
+// One step of the R x C window src into dst (both in shared memory) under
+// `rule`. The block's threads split the window into vertical strips: a
+// thread owns one column and a run of rows, and slides a 3x3 register
+// window down it, so each word costs three shared-memory loads. When the
+// window is narrower than the block, the rows split into segments so that
+// every thread works.
+template <class Rule = PackedRule>
 __device__ __forceinline__ void window_step(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-    int R, int C) {
+    int R, int C, Rule rule = Rule()) {
   const int T = blockDim.x, t = threadIdx.x;
   int nseg = T / C;
   nseg = nseg < 1 ? 1 : (nseg > R ? R : nseg);
@@ -87,11 +134,46 @@ __device__ __forceinline__ void window_step(
     for (int r = r0; r < r1; ++r) {
       const uint32_t* rb = src + (r == R - 1 ? 0 : r + 1) * C;
       const uint32_t bL = rb[cl], bC = rb[c], bR = rb[cr];
-      dst[r * C + c] = life_word(aL, aC, aR, mL, mC, mR, bL, bC, bR);
+      dst[r * C + c] = rule(aL, aC, aR, mL, mC, mR, bL, bC, bR);
       aL = mL; aC = mC; aR = mR;
       mL = bL; mC = bC; mR = bR;
     }
   }
+}
+
+// The resident loop of one offset-ghost packed board (nw x nx words): copy
+// `in` into smem (2 * nw * nx words: the step reads one copy and writes the
+// other), then per step refresh the torus ghosts from live rows (position
+// 0 <- ny, board row ny-1; position ny+1 <- 1, board row 0) and step the
+// whole board; finally copy the result to `out`. Called by every thread of
+// the block.
+__device__ __forceinline__ void resident_steps(
+    const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+    uint32_t* smem, int nw, int nx, int ny, int steps) {
+  const int n = nw * nx;
+  uint32_t* cur = smem;
+  uint32_t* nxt = smem + n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) cur[i] = in[i];
+  const int w_lo = ny >> 5, b_lo = ny & 31;
+  const int w_hi = (ny + 1) >> 5, b_hi = (ny + 1) & 31;
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    // One thread per column does both ghost bits in order (they may share
+    // word 0 when nw == 1).
+    for (int c = threadIdx.x; c < nx; c += blockDim.x) {
+      const uint32_t w0 = (cur[c] & ~1u) | ((cur[w_lo * nx + c] >> b_lo) & 1u);
+      cur[c] = w0;
+      const uint32_t hi = cur[w_hi * nx + c];
+      cur[w_hi * nx + c] = (hi & ~(1u << b_hi)) | (((w0 >> 1) & 1u) << b_hi);
+    }
+    __syncthreads();
+    window_step(cur, nxt, nw, nx);
+    __syncthreads();
+    uint32_t* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = cur[i];
 }
 
 }  // namespace bitlife

@@ -21,7 +21,9 @@
 // 3x3 register window (three shared-memory loads per word), and all 1024
 // threads of the block busy even on narrow boards (rows split into
 // segments). Gate: 2 buffers x 4 bytes per word within the 227 KB a block
-// may use (bitlife.py:fits_vmem_packed).
+// may use (bitlife.py:fits_vmem_packed). The loop itself is
+// bitlife_common.cuh:resident_steps, which the batched kernel
+// (bitlife_vmem_batch.cu) runs once per board.
 #include <cuda_runtime.h>
 
 #include "bitlife_common.cuh"
@@ -34,31 +36,7 @@ __global__ void __launch_bounds__(kThreads)
 bitlife_vmem_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
                     int nw, int nx, int ny, int steps) {
   extern __shared__ uint32_t smem[];
-  const int n = nw * nx;
-  uint32_t* cur = smem;
-  uint32_t* nxt = smem + n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) cur[i] = in[i];
-  // Ghost positions: 0 <- ny (board row ny-1), ny+1 <- 1 (board row 0).
-  const int w_lo = ny >> 5, b_lo = ny & 31;
-  const int w_hi = (ny + 1) >> 5, b_hi = (ny + 1) & 31;
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    // One thread per column does both ghost bits in order (they may share
-    // word 0 when nw == 1).
-    for (int c = threadIdx.x; c < nx; c += blockDim.x) {
-      const uint32_t w0 = (cur[c] & ~1u) | ((cur[w_lo * nx + c] >> b_lo) & 1u);
-      cur[c] = w0;
-      const uint32_t hi = cur[w_hi * nx + c];
-      cur[w_hi * nx + c] = (hi & ~(1u << b_hi)) | (((w0 >> 1) & 1u) << b_hi);
-    }
-    __syncthreads();
-    bitlife::window_step(cur, nxt, nw, nx);
-    __syncthreads();
-    uint32_t* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[i] = cur[i];
+  bitlife::resident_steps(in, out, smem, nw, nx, ny, steps);
 }
 
 }  // namespace

@@ -10,6 +10,13 @@ board is a ``(ny, nx)`` uint8 tensor on ``device``; the step is
 * ``impl="roll"``: the unpacked torus step by circular shifts;
 * ``impl="auto"``: ``native`` on the card, ``roll`` on the CPU.
 
+A stacked ``(B, ny, nx)`` ``initial_board`` puts the sim in batched mode:
+all B independent boards advance together, through
+``ops.native_life.life_run_vmem_batch`` (``impl="native"``, which ``auto``
+means on every device) or the roll step over the stack. Batched runs have
+no snapshot or checkpoint channel (both serialise one board), and
+``debug_check`` holds every board against the oracle on its own.
+
 The run loop keeps the reference's order (``3-life/life_mpi.c:51-62``): at
 step ``i``, save a snapshot when ``i % save_steps == 0`` (before stepping),
 then advance. Between snapshots the board advances in one call.
@@ -56,34 +63,53 @@ class LifeSim:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if workload != "life":
+            raise _not_ported(f"workload={workload!r}", "7 (stencils)")
+        # Batched mode: a stacked (B, ny, nx) initial board. Serial layout
+        # only, and no snapshot or checkpoint channel.
+        self.batch: int | None = None
+        if initial_board is not None and np.asarray(initial_board).ndim == 3:
+            if layout != "serial":
+                raise ValueError(
+                    "stacked (B, ny, nx) boards need layout='serial'; "
+                    "sharded layouts advance one board per program")
+            if outdir is not None or checkpoint_dir is not None:
+                raise ValueError(
+                    "batched runs have no snapshot/checkpoint channels "
+                    "(both serialise one board); drop outdir/checkpoint_dir")
+            self.batch = int(np.asarray(initial_board).shape[0])
         if layout != "serial":
             raise _not_ported(f"layout={layout!r}", "3 (sharded layouts)")
         if checkpoint_dir is not None:
             raise _not_ported("checkpoint_dir", "4 (checkpoint and resume)")
-        if workload != "life":
-            raise _not_ported(f"workload={workload!r}", "7 (stencils)")
-        if initial_board is not None and np.asarray(initial_board).ndim == 3:
-            raise _not_ported("a stacked (B, ny, nx) board", "5 (batched Life)")
         self.cfg = cfg
         self.layout = layout
         self.device = resolve_device(device)
+        on_card = self.device.type == "cuda"
         if impl == "auto":
-            impl = "native" if self.device.type == "cuda" else "roll"
+            # A stack takes the batched dispatch on every device, as the
+            # JAX package's batched auto does.
+            impl = "native" if on_card or self.batch is not None else "roll"
         self.impl = impl
         # The engine native runs take (the JAX package's plan_note).
-        self.native_path = (
-            native_life.native_path(
-                cfg.shape, on_card=self.device.type == "cuda")
-            if impl == "native" else None
-        )
+        if impl != "native":
+            self.native_path = None
+        elif self.batch is not None:
+            self.native_path = "batch:" + native_life.native_path_batch(
+                (self.batch, *cfg.shape), on_card=on_card)
+        else:
+            self.native_path = native_life.native_path(
+                cfg.shape, on_card=on_card)
         self.outdir = os.fspath(outdir) if outdir is not None else None
         self.step_count = int(initial_step)
         self._initial_step = int(initial_step)
         if initial_board is not None:
             board = np.asarray(initial_board, dtype=np.uint8)
-            if board.shape != cfg.shape:
+            expect = (cfg.shape if self.batch is None
+                      else (self.batch, *cfg.shape))
+            if board.shape != expect:
                 raise ValueError(
-                    f"initial_board {board.shape} != expected {cfg.shape}")
+                    f"initial_board {board.shape} != expected {expect}")
         else:
             board = cfg.board()
         self._initial = board
@@ -96,6 +122,8 @@ class LifeSim:
     def _advance(self, board: torch.Tensor, n: int) -> torch.Tensor:
         """``board`` advanced ``n`` steps (``board`` itself is untouched)."""
         if self.impl == "native":
+            if self.batch is not None:
+                return native_life.life_run_vmem_batch(board, n)
             return native_life.life_run_vmem(board, n)
         for _ in range(int(n)):
             board = life_ops.life_step_roll(board)
@@ -146,31 +174,48 @@ class LifeSim:
             sync(self._advance(self.board, n))
 
     def collect(self) -> np.ndarray:
-        """The board on the host, ``(ny, nx)`` uint8."""
+        """The board on the host, ``(ny, nx)`` uint8 (``(B, ny, nx)`` in
+        batched mode)."""
         return self.board.cpu().numpy().astype(np.uint8, copy=False)
+
+    def _divergence(self, got: np.ndarray, want: np.ndarray) -> str | None:
+        """How ``got`` differs from the oracle's ``want``, or None: the
+        differing cells, and in batched mode every diverging board."""
+        if np.array_equal(got, want):
+            return None
+        why = f"{int((got != want).sum())} cells diverge from the oracle"
+        if self.batch is not None:
+            bad = [f"board {b}: {int((got[b] != want[b]).sum())}"
+                   for b in range(self.batch)
+                   if not np.array_equal(got[b], want[b])]
+            why += f" ({'; '.join(bad)})"
+        return why
 
     def _consistency_violation(self) -> str | None:
         """One step of the configured stepper must equal one oracle
         (NumPy) step, on the live board and on a fixed dense random
-        board; returns a description of the first failure, or None."""
+        board (B distinct ones in batched mode); returns a description of
+        the first failure, or None."""
         before = self.collect()
         if not np.isin(before, (0, 1)).all():
             return "non-binary cells on the board"
         after = self._advance(self.board, 1).cpu().numpy()
-        expect = life_ops.life_step_numpy(before)
-        if not np.array_equal(after, expect):
-            return (f"{int((after != expect).sum())} cells diverge from the "
-                    f"oracle after one {self.impl}/{self.layout} step")
+        why = self._divergence(after, life_ops.life_step_numpy(before))
+        if why is not None:
+            return f"{why} after one {self.impl}/{self.layout} step"
         if self._probe is None:
             rng = np.random.default_rng(0xC0FFEE)
-            host = rng.integers(0, 2, self.cfg.shape, dtype=np.uint8)
+            shape = self.cfg.shape
+            if self.batch is not None:
+                shape = (self.batch, *shape)
+            host = rng.integers(0, 2, shape, dtype=np.uint8)
             self._probe = (self._to_device(host), life_ops.life_step_numpy(host))
         probe, probe_expect = self._probe
         after = self._advance(probe, 1).cpu().numpy()
-        if not np.array_equal(after, probe_expect):
-            return (f"{int((after != probe_expect).sum())} cells diverge from "
-                    f"the oracle after one {self.impl}/{self.layout} step on "
-                    "the fixed probe board")
+        why = self._divergence(after, probe_expect)
+        if why is not None:
+            return (f"{why} after one {self.impl}/{self.layout} step on the "
+                    "fixed probe board")
         return None
 
     def debug_check(self) -> None:

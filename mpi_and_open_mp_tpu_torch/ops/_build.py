@@ -26,11 +26,14 @@ NVCC_FLAGS = [
 ]
 
 # Argument types of each kernel's C entry point (pointers and the stream
-# as c_void_p: a default ctypes int would cut a pointer to 32 bits).
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# as c_void_p: a default ctypes int would cut a pointer to 32 bits; _IP is
+# an int out-parameter).
+_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "bitlife_vmem": [_P, _P, _I, _I, _I, _I, _P],
     "bitlife_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,8 @@
-"""Bit-packed Life on one board: 32 cells per 32-bit word, bitwise rule.
+"""Bit-packed Life on one board and on stacks: 32 cells per 32-bit word,
+bitwise rule.
 
-Counterpart of ``mpi_and_open_mp_tpu/ops/bitlife.py`` (its single-board
-subset). The packing is the same bit for bit: 32 cells per word along y,
+Counterpart of ``mpi_and_open_mp_tpu/ops/bitlife.py`` (its single-device
+part). The packing is the same bit for bit: 32 cells per word along y,
 and the rule is the same carry-save adder form, ``(n0 | alive) & n1 & ~n2``
 over the mod-8 neighbour count (at least 17 funnel-shift and 3-input
 logic instructions per 32 cells on the card, y shifts included).
@@ -19,8 +20,8 @@ wraps. The CUDA kernels read the same memory as ``uint32``.
 ``np.ndarray.view(np.uint32)`` turns a packed tensor into the JAX
 package's words.
 
-Two hand-written Hopper kernels carry the packed engines on the card (see
-``csrc/``), each with a plain PyTorch version beside it:
+Two hand-written Hopper kernels carry the single-board engines on the card
+(see ``csrc/``), each with a plain PyTorch version beside it:
 
 * :func:`vmem_steps` - the whole packed board resident in one thread
   block's shared memory for the entire step loop (``"vmem"``), replacing
@@ -30,11 +31,25 @@ Two hand-written Hopper kernels carry the packed engines on the card (see
   shared memory, interior written back (``"fused"`` and ``"frame"``),
   replacing ``_fused_tiles_kernel``.
 
+Stacks of B boards come in two layouts, each with its kernel:
+
+* cell-packed, ``(B, nw, nx)`` words (:func:`pack_boards`): the board
+  layout above with a leading batch axis. :func:`vmem_batch_steps` runs one
+  block per board, each resident for the whole loop (``"vmem-grid"``),
+  replacing ``_vmem_bits_batch_kernel``; big boards loop through
+  :func:`fused_steps` one board at a time.
+* board-sliced, ``(n_planes, ny, nx)`` words (:func:`pack_batch_bits`):
+  bit ``b % 32`` of plane ``b // 32`` holds board ``b``, so one word
+  operation advances 32 boards and a word's neighbours are whole words.
+  :func:`bitsliced_steps` runs rounds of up to 16 steps over halo tiles
+  (``"bitsliced"``), replacing ``_bitsliced_kernel``. Ragged B zero-pads
+  the high bits: an all-dead board stays dead under the rule.
+
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.
 
 The Hopper gates differ from the TPU's: a block has at most 227 KB of
-dynamic shared memory (:data:`SMEM_BYTES`), and both kernels keep a double
+dynamic shared memory (:data:`SMEM_BYTES`), and every kernel keeps a double
 buffer of the resident words, 8 bytes per word. The port never pads x to a
 lane multiple: the kernels index columns modulo the window width, so the
 TPU's wrap-column patch (``nx_exact``) has no counterpart here and the
@@ -43,6 +58,7 @@ padded frame pads rows only.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import math
@@ -91,37 +107,39 @@ def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
     return (x >> s) & ((1 << (32 - s)) - 1)
 
 
-def _or_rows(rows: torch.Tensor) -> torch.Tensor:
-    """(nw, 32, nx) 0/1 int32 -> (nw, nx) words, bit b from rows[:, b]."""
-    out = torch.zeros(
-        (rows.shape[0], rows.shape[2]), dtype=torch.int32, device=rows.device)
+def _or_bits(bits: torch.Tensor, dim: int) -> torch.Tensor:
+    """0/1 int32 with a 32-long axis ``dim`` -> int32 words without it,
+    bit b from index b along ``dim``."""
+    out = torch.zeros_like(bits.select(dim, 0))
     for b in range(32):
-        out |= rows[:, b] << b
+        out |= bits.select(dim, b) << b
     return out
 
 
 def _bits_to_rows(packed: torch.Tensor) -> torch.Tensor:
-    """(nw, nx) words -> (32*nw, nx) 0/1 uint8 rows."""
-    nw, nx = packed.shape
+    """(..., nw, nx) words -> (..., 32*nw, nx) 0/1 uint8 rows."""
+    *lead, nw, nx = packed.shape
     shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
-    rows = (packed[:, None, :] >> shifts[None, :, None]) & 1
-    return rows.reshape(nw * 32, nx).to(torch.uint8)
+    rows = (packed[..., :, None, :] >> shifts[:, None]) & 1
+    return rows.reshape(*lead, nw * 32, nx).to(torch.uint8)
 
 
 def pack_board(board: torch.Tensor) -> torch.Tensor:
-    """(ny, nx) 0/1 ints -> (n_words(ny), nx) int32, offset-ghost layout.
+    """(..., ny, nx) 0/1 ints -> (..., n_words(ny), nx) int32, offset-ghost
+    layout (leading axes, if any, are a stack of boards).
 
     Ghost bits are left zero: every step refreshes them first."""
-    ny, nx = board.shape
+    *lead, ny, nx = board.shape
     nw = n_words(ny)
-    rows = torch.zeros((nw * 32, nx), dtype=torch.int32, device=board.device)
-    rows[1 : ny + 1] = board.to(torch.int32)
-    return _or_rows(rows.view(nw, 32, nx))
+    rows = torch.zeros((*lead, nw * 32, nx), dtype=torch.int32,
+                       device=board.device)
+    rows[..., 1 : ny + 1, :] = board.to(torch.int32)
+    return _or_bits(rows.view(*lead, nw, 32, nx), -2)
 
 
 def unpack_board(packed: torch.Tensor, ny: int) -> torch.Tensor:
-    """Inverse of :func:`pack_board`; returns (ny, nx) uint8."""
-    return _bits_to_rows(packed)[1 : ny + 1]
+    """Inverse of :func:`pack_board`; returns (..., ny, nx) uint8."""
+    return _bits_to_rows(packed)[..., 1 : ny + 1, :]
 
 
 def pack_board_exact(board: torch.Tensor) -> torch.Tensor:
@@ -131,7 +149,7 @@ def pack_board_exact(board: torch.Tensor) -> torch.Tensor:
     ny, nx = board.shape
     if ny % 32:
         raise ValueError(f"pack_board_exact needs ny % 32 == 0, got {ny}")
-    return _or_rows(board.to(torch.int32).reshape(ny // 32, 32, nx))
+    return _or_bits(board.to(torch.int32).reshape(ny // 32, 32, nx), 1)
 
 
 def unpack_board_exact(packed: torch.Tensor) -> torch.Tensor:
@@ -146,28 +164,36 @@ def state_from_jax(
     layout: str = "offset-ghost",
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
-    """Carry a JAX packed board across: ``packed`` is the uint32 output of
-    the JAX package's ``pack_board`` (``layout="offset-ghost"``, possibly
-    lane-padded past ``nx``) or ``pack_board_exact`` (``layout="exact"``).
-    Returns the port's int32 ``(words, nx)`` tensor with the same bits."""
+    """Carry JAX packed state across. ``packed`` is the uint32 output of the
+    JAX package's ``pack_board`` (``layout="offset-ghost"``) or
+    ``pack_board_exact`` (``layout="exact"``), possibly lane-padded past
+    ``nx``, either 2-D or a cell-packed stack with a leading batch axis (its
+    ``pack_boards``, as ``life_run_vmem_bits_batch`` packs); or the
+    ``(n_planes, ny, nx)`` planes of its ``pack_batch_bits``
+    (``layout="board-sliced"``). Returns the port's int32 tensor with the
+    same bits and the last axis cut to ``nx``."""
     dev = resolve_device(device)
     words = np.asarray(packed)
-    if words.dtype != np.uint32 or words.ndim != 2:
-        raise ValueError(f"expected 2-D uint32 words, got {words.dtype} "
-                         f"{words.shape}")
+    if words.dtype != np.uint32 or words.ndim not in (2, 3):
+        raise ValueError(f"expected 2-D or 3-D uint32 words, got "
+                         f"{words.dtype} {words.shape}")
     if layout == "offset-ghost":
         rows = n_words(ny)
     elif layout == "exact":
         if ny % 32:
             raise ValueError(f"exact layout needs ny % 32 == 0, got {ny}")
         rows = ny // 32
+    elif layout == "board-sliced":
+        if words.ndim != 3:
+            raise ValueError(f"board-sliced planes are 3-D, got {words.shape}")
+        rows = ny
     else:
         raise ValueError(f"unknown layout {layout!r}")
-    if words.shape[0] != rows or words.shape[1] < nx:
+    if words.shape[-2] != rows or words.shape[-1] < nx:
         raise ValueError(
-            f"packed shape {words.shape} does not hold a {layout} "
-            f"({ny}, {nx}) board ({rows} word rows, >= {nx} columns)")
-    own = np.ascontiguousarray(words[:, :nx]).view(np.int32)
+            f"packed shape {words.shape} does not hold {layout} "
+            f"({ny}, {nx}) state ({rows} word rows, >= {nx} columns)")
+    own = np.ascontiguousarray(words[..., :nx]).view(np.int32)
     return torch.from_numpy(own.copy()).to(dev)
 
 
@@ -177,13 +203,15 @@ def state_from_jax(
 def _refresh_ghosts(p: torch.Tensor, ny: int) -> torch.Tensor:
     """Rewrite the two torus ghost bits from live board state: position
     0 := position ny (board row ny-1); position ny+1 := position 1 (board
-    row 0). Returns a new tensor."""
+    row 0). ``p`` is ``(..., nw, nx)``; returns a new tensor."""
     p = p.clone()
     w_lo, b_lo = divmod(ny, 32)
-    p[0] = (p[0] & _i32(0xFFFFFFFE)) | ((p[w_lo] >> b_lo) & 1)
+    p[..., 0, :] = ((p[..., 0, :] & _i32(0xFFFFFFFE))
+                    | ((p[..., w_lo, :] >> b_lo) & 1))
     w_hi, b_hi = divmod(ny + 1, 32)
-    src = (p[0] >> 1) & 1
-    p[w_hi] = (p[w_hi] & _i32(0xFFFFFFFF ^ (1 << b_hi))) | (src << b_hi)
+    src = (p[..., 0, :] >> 1) & 1
+    p[..., w_hi, :] = ((p[..., w_hi, :] & _i32(0xFFFFFFFF ^ (1 << b_hi)))
+                       | (src << b_hi))
     return p
 
 
@@ -216,20 +244,20 @@ def _carry_save_rule(c, up, dn, roll_left, roll_right):
     return (n0 | c) & n1 & ~n2
 
 
+# Left and right neighbour columns, wrapping at the last axis.
+_X_ROLLS = (lambda x: torch.roll(x, 1, -1), lambda x: torch.roll(x, -1, -1))
+
+
 def _window_step(w: torch.Tensor) -> torch.Tensor:
     """One packed step over a whole window, both axes wrapping at the
     window's edge: single-bit y shifts through the words (carries from
     the neighbouring word row) and column rolls. On a whole board this is
     the torus step; on a halo window the wrap feeds junk in at the edges,
     one bit row (and one column) per step, which never reaches the valid
-    interior within the halo's depth."""
-    dn = (w << 1) | _srl(torch.roll(w, 1, 0), 31)
-    up = _srl(w, 1) | (torch.roll(w, -1, 0) << 31)
-    return _carry_save_rule(
-        w, up, dn,
-        lambda x: torch.roll(x, 1, 1),
-        lambda x: torch.roll(x, -1, 1),
-    )
+    interior within the halo's depth. Leading axes of ``w`` are a stack."""
+    dn = (w << 1) | _srl(torch.roll(w, 1, -2), 31)
+    up = _srl(w, 1) | (torch.roll(w, -1, -2) << 31)
+    return _carry_save_rule(w, up, dn, *_X_ROLLS)
 
 
 def bit_step(p: torch.Tensor, ny: int) -> torch.Tensor:
@@ -239,16 +267,25 @@ def bit_step(p: torch.Tensor, ny: int) -> torch.Tensor:
     return _window_step(_refresh_ghosts(p, ny))
 
 
+def bit_step_b(p: torch.Tensor, ny: int) -> torch.Tensor:
+    """:func:`bit_step` on a ``(B, nw, nx)`` stack: every roll stays within
+    a board, so boards never interact."""
+    if p.dim() != 3:
+        raise ValueError(f"bit_step_b: expected (B, nw, nx), got "
+                         f"{tuple(p.shape)}")
+    return bit_step(p, ny)
+
+
 # ------------------------------------------------- kernel 1: resident board
 
 
-def _check_card_words(t: torch.Tensor, name: str) -> None:
+def _check_card_words(t: torch.Tensor, name: str, ndim: int = 2) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA or CPU tensor, got "
                          f"{t.device}")
-    if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
-        raise ValueError(f"{name}: expected contiguous 2-D int32 words, got "
-                         f"{t.dtype} {tuple(t.shape)}")
+    if t.dtype != torch.int32 or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {ndim}-D int32 words, "
+                         f"got {t.dtype} {tuple(t.shape)}")
 
 
 def _vmem_steps_plain(packed: torch.Tensor, ny: int, steps: int):
@@ -559,3 +596,219 @@ def life_run_bits_plain(board: torch.Tensor, n: int) -> torch.Tensor:
     ny, _ = board.shape
     out = _vmem_steps_plain(pack_board(board), ny, n)
     return unpack_board(out, ny).to(board.dtype)
+
+
+# ------------------------------------------- cell-packed stacks (batched)
+
+
+def pack_boards(boards: torch.Tensor) -> torch.Tensor:
+    """(B, ny, nx) 0/1 ints -> (B, n_words(ny), nx) int32: the offset-ghost
+    :func:`pack_board` of every board."""
+    if boards.dim() != 3:
+        raise ValueError(f"pack_boards: expected (B, ny, nx), got "
+                         f"{tuple(boards.shape)}")
+    return pack_board(boards)
+
+
+def unpack_boards(packed: torch.Tensor, ny: int) -> torch.Tensor:
+    """Inverse of :func:`pack_boards`; returns (B, ny, nx) uint8."""
+    return unpack_board(packed, ny)
+
+
+def fits_vmem_packed_batch(shape: tuple[int, int, int]) -> bool:
+    """Whether the batched resident kernel takes a (B, ny, nx) stack. On
+    Hopper a block is the unit of residency and each board gets its own,
+    so the gate is per board (:func:`fits_vmem_packed`) whatever B; the
+    TPU's whole-stack gate (B times the board within one core's VMEM) has
+    no counterpart."""
+    return fits_vmem_packed((int(shape[1]), int(shape[2])))
+
+
+def _vmem_batch_steps_plain(packed: torch.Tensor, ny: int, steps: int):
+    for _ in range(int(steps)):
+        packed = bit_step_b(packed, ny)
+    return packed
+
+
+def vmem_batch_steps(packed: torch.Tensor, ny: int, steps: int) -> torch.Tensor:
+    """Advance a ``(B, nw, nx)`` offset-ghost packed stack ``steps`` steps:
+    the ``bitlife_vmem_batch`` kernel (one block per board, each resident in
+    its block's shared memory for the whole loop) on the card,
+    :func:`bit_step_b` looped on the CPU."""
+    if packed.device.type == "cpu":
+        return _vmem_batch_steps_plain(packed, ny, steps)
+    _check_card_words(packed, "vmem_batch_steps", ndim=3)
+    b, nw, nx = packed.shape
+    if b < 1 or nw != n_words(ny) or not fits_vmem_packed_batch((b, ny, nx)):
+        raise ValueError(
+            f"vmem_batch_steps: packed {tuple(packed.shape)} for ny={ny} does "
+            f"not fit the resident kernel (gate fits_vmem_packed_batch)")
+    out = torch.empty_like(packed)
+    lib = _build.load("bitlife_vmem_batch")
+    with torch.cuda.device(packed.device):
+        rc = lib.bitlife_vmem_batch(
+            packed.data_ptr(), out.data_ptr(), b, nw, nx, ny, int(steps),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "bitlife_vmem_batch", rc)
+    vmem_batch_steps.launches += 1
+    return out
+
+
+vmem_batch_steps.launches = 0
+
+
+def life_run_vmem_bits_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
+    """Advance B stacked boards ``n`` steps in one launch, each board
+    resident for the whole loop. Gate callers on
+    :func:`fits_vmem_packed_batch`."""
+    ny = boards.shape[1]
+    out = vmem_batch_steps(pack_boards(boards), ny, n)
+    return unpack_boards(out, ny).to(boards.dtype)
+
+
+def life_run_bits_plain_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
+    """Advance B stacked boards with the plain packed loop (any shape; the
+    CPU's path for stacks the board-sliced layout does not take)."""
+    ny = boards.shape[1]
+    out = _vmem_batch_steps_plain(pack_boards(boards), ny, n)
+    return unpack_boards(out, ny).to(boards.dtype)
+
+
+def life_run_fused_bits_batch(
+    boards: torch.Tensor, n: int, *, budget: int = SMEM_BYTES
+) -> torch.Tensor:
+    """Advance B stacked aligned big boards through
+    :func:`life_run_fused_bits`, one board after another (each board's
+    tiles fill the card already; the JAX package scans the stack with
+    ``lax.map`` for the same reason)."""
+    return torch.stack([life_run_fused_bits(b, n, budget=budget)
+                        for b in boards])
+
+
+def life_run_frame_bits_batch(
+    boards: torch.Tensor, n: int, *, budget: int = SMEM_BYTES
+) -> torch.Tensor:
+    """Advance B stacked unaligned big boards through
+    :func:`life_run_frame_bits`, one board after another."""
+    return torch.stack([life_run_frame_bits(b, n, budget=budget)
+                        for b in boards])
+
+
+# -------------------------------------------- board-sliced stacks (batched)
+
+# Steps per bitsliced launch, which is also the halo depth, in words, on
+# each side of a tile (junk from the window's edge walks one word a step).
+SLICE_HALO = 16
+
+
+def n_planes(b: int) -> int:
+    """Board-sliced planes for a B-board stack: ``ceil(B / 32)``."""
+    return -(-b // 32)
+
+
+def pack_batch_bits(boards: torch.Tensor) -> torch.Tensor:
+    """(B, ny, nx) 0/1 ints -> (n_planes(B), ny, nx) int32, board-sliced:
+    bit ``b % 32`` of plane ``b // 32`` holds board ``b``'s cell. Ragged B
+    zero-pads the high bits."""
+    b, ny, nx = boards.shape
+    npl = n_planes(b)
+    bits = torch.zeros((npl * 32, ny, nx), dtype=torch.int32,
+                       device=boards.device)
+    bits[:b] = boards.to(torch.int32)
+    return _or_bits(bits.view(npl, 32, ny, nx), 1)
+
+
+def unpack_batch_bits(planes: torch.Tensor, b: int) -> torch.Tensor:
+    """Inverse of :func:`pack_batch_bits`; returns (b, ny, nx) uint8."""
+    npl, ny, nx = planes.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=planes.device)
+    cells = (planes[:, None] >> shifts[:, None, None]) & 1
+    return cells.reshape(npl * 32, ny, nx)[:b].to(torch.uint8)
+
+
+def bitsliced_step(planes: torch.Tensor) -> torch.Tensor:
+    """One Life step on a (n_planes, ny, nx) stack, the roll form: the bit
+    axis is the batch, so a word's neighbours are the whole words at
+    (y +- 1, x +- 1), gathered by torus rolls, under the same carry-save
+    rule as the cell-packed step."""
+    up = torch.roll(planes, -1, -2)
+    dn = torch.roll(planes, 1, -2)
+    return _carry_save_rule(planes, up, dn, *_X_ROLLS)
+
+
+@dataclasses.dataclass(frozen=True)
+class SlicePlan:
+    """How a plane stack runs through the bitsliced kernel: the tile, and
+    the steps per round (the halo depth). Produced by
+    :func:`plan_bitsliced`."""
+
+    tr: int  # tile rows (the last row tile may be shorter)
+    tc: int  # tile columns (the last column tile may be shorter)
+    k: int   # steps per launch = halo words per side
+
+
+def _tile_sizes(n: int) -> list[int]:
+    return sorted({min(n, s) for s in (8, 16, 32, 64, 128)})
+
+
+@functools.lru_cache(maxsize=64)
+def plan_bitsliced(shape: tuple[int, int, int]) -> SlicePlan:
+    """The tile of the bitsliced kernel for an (n_planes, ny, nx) stack: of
+    tiles up to 128 x 128 words (a window of 160 x 160 words, double-
+    buffered, is 200 KB, within a block's 227 KB), the one that minimises
+    the estimated time of a round - waves of blocks over the 132 SMs times
+    the window words each block steps - and then the words stepped in all."""
+    npl, ny, nx = shape
+    k = SLICE_HALO
+    best = None
+    for tr in _tile_sizes(ny):
+        for tc in _tile_sizes(nx):
+            words = (tr + 2 * k) * (tc + 2 * k)
+            blocks = npl * math.ceil(ny / tr) * math.ceil(nx / tc)
+            cost = (math.ceil(blocks / N_SMS) * words, blocks * words)
+            if best is None or cost < best[0]:
+                best = (cost, tr, tc)
+    return SlicePlan(tr=best[1], tc=best[2], k=k)
+
+
+def _bitsliced_steps_plain(planes: torch.Tensor, steps: int) -> torch.Tensor:
+    for _ in range(int(steps)):
+        planes = bitsliced_step(planes)
+    return planes
+
+
+def bitsliced_steps(planes: torch.Tensor, steps: int) -> torch.Tensor:
+    """Advance a (n_planes, ny, nx) board-sliced stack ``steps`` steps: the
+    ``bitlife_bitsliced`` kernel on the card - ``ceil(steps / 16)``
+    launches, one round of halo tiles each, counted as the C entry point
+    reports them - :func:`bitsliced_step` looped on the CPU."""
+    if planes.device.type == "cpu":
+        return _bitsliced_steps_plain(planes, steps)
+    _check_card_words(planes, "bitsliced_steps", ndim=3)
+    steps = int(steps)
+    if steps == 0:
+        return planes.clone()
+    npl, ny, nx = planes.shape
+    plan = plan_bitsliced((npl, ny, nx))
+    out = torch.empty_like(planes)
+    scratch = torch.empty_like(planes)
+    launched = ctypes.c_int(0)
+    lib = _build.load("bitlife_bitsliced")
+    with torch.cuda.device(planes.device):
+        rc = lib.bitlife_bitsliced(
+            planes.data_ptr(), out.data_ptr(), scratch.data_ptr(), npl, ny,
+            nx, plan.tr, plan.tc, plan.k, steps,
+            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+    bitsliced_steps.launches += launched.value
+    _build.check(lib, "bitlife_bitsliced", rc)
+    return out
+
+
+bitsliced_steps.launches = 0
+
+
+def life_run_bitsliced_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
+    """Advance B stacked boards ``n`` steps through the board-sliced layout:
+    pack to planes, step, unpack, drop the ragged padding."""
+    out = bitsliced_steps(pack_batch_bits(boards), n)
+    return unpack_batch_bits(out, boards.shape[0]).to(boards.dtype)

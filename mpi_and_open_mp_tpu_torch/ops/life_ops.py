@@ -28,10 +28,11 @@ def life_rule(alive, neighbours):
 
 
 def life_step_numpy(board: np.ndarray) -> np.ndarray:
-    """Host-side oracle step; torus wrap via ``np.roll`` on both axes."""
+    """Host-side oracle step; torus wrap via ``np.roll`` on both board axes
+    (the last two; leading axes are a stack of boards)."""
     board = np.asarray(board)
     n = sum(
-        np.roll(np.roll(board, dj, axis=0), di, axis=1)
+        np.roll(np.roll(board, dj, axis=-2), di, axis=-1)
         for dj in (-1, 0, 1)
         for di in (-1, 0, 1)
         if (dj, di) != (0, 0)
@@ -42,9 +43,10 @@ def life_step_numpy(board: np.ndarray) -> np.ndarray:
 def life_step_roll(board: torch.Tensor) -> torch.Tensor:
     """One torus step by circular shifts: the 3-row column sums, then
     their 3-column sums, minus the centre (4 rolls; exact in any integer
-    dtype, since a count never exceeds 9)."""
-    col = board + torch.roll(board, 1, 0) + torch.roll(board, -1, 0)
-    total = col + torch.roll(col, 1, 1) + torch.roll(col, -1, 1)
+    dtype, since a count never exceeds 9). Leading axes are a stack of
+    boards, each stepped on its own."""
+    col = board + torch.roll(board, 1, -2) + torch.roll(board, -1, -2)
+    total = col + torch.roll(col, 1, -1) + torch.roll(col, -1, -1)
     return life_rule(board, total - board)
 
 

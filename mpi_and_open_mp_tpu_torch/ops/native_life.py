@@ -1,8 +1,8 @@
-"""Single-board dispatch over the hand-written Life kernels.
+"""Dispatch over the hand-written Life kernels, for one board and for stacks.
 
-Counterpart of ``mpi_and_open_mp_tpu/ops/pallas_life.py`` (its
-single-board part): :func:`native_path` picks the engine for a board
-shape and :func:`life_run_vmem` runs it.
+Counterpart of ``mpi_and_open_mp_tpu/ops/pallas_life.py`` (its dispatch).
+For one board, :func:`native_path` picks the engine for a board shape and
+:func:`life_run_vmem` runs it:
 
 * ``"vmem"`` - the whole packed board resident in one block's shared
   memory for the entire step loop (``bitlife.life_run_vmem_bits``);
@@ -13,17 +13,54 @@ shape and :func:`life_run_vmem` runs it.
 * ``"plain"`` - the plain packed loop, the CPU's path for boards past the
   resident gate (the counterpart of the JAX package's ``"xla"`` rung).
 
-On the card only the three kernel paths exist: a shape none of them covers
-raises. On the CPU the resident path runs its plain version, and bigger
-boards take ``"plain"``, as the JAX package's CPU dispatch takes its XLA
-loop.
+For a (B, ny, nx) stack, :func:`native_path_batch` picks the path and
+:func:`life_run_vmem_batch` runs it: ``"bitsliced"`` (board-sliced planes,
+32 boards per word), ``"vmem-grid"`` (one resident block per board),
+``"fused"`` and ``"frame"`` (the big-board engines, board after board), and
+``"plain"`` on the CPU. The JAX package's ``"vmem"`` (whole stack resident
+in one program) has no counterpart: on Hopper a block holds one board, so
+both TPU forms are ``"vmem-grid"``. Installed tuned plans
+(``pallas_life.planned_path``) are not ported yet.
+
+On the card only the kernel paths exist: a shape none of them covers
+raises. On the CPU the resident and board-sliced paths run their plain
+versions, and other shapes take ``"plain"``, as the JAX package's CPU
+dispatch takes its XLA loop.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
 
 from mpi_and_open_mp_tpu_torch.ops import bitlife
+
+# MOMP_BITSLICE=0 pins every batched dispatch to the cell-packed ladder
+# (for triage; the answers do not change, only the path).
+_BITSLICE = os.environ.get("MOMP_BITSLICE", "1") != "0"
+
+# Below this batch a plane is more than 75 % padding, and the cell-packed
+# ladder (whose work scales with B, not ceil(B / 32)) takes the stack. The
+# JAX package's figure, kept until the tuning port. On an H100 no stack
+# measured so far favours "bitsliced": "vmem-grid" is faster at B in {64,
+# 128, 256, 512} x 500^2 and {8, 64, 256, 512} x 95x130, by 1.03-1.84x
+# (PERF.md, chip_smoke.py phase 6).
+BITSLICE_MIN_BATCH = 8
+
+
+@contextlib.contextmanager
+def _bitslice_pinned(value: bool):
+    """Pin the board-sliced layout gate for the duration (the flag is read
+    when a dispatch picks its path)."""
+    global _BITSLICE
+    prev = _BITSLICE
+    _BITSLICE = value
+    try:
+        yield
+    finally:
+        _BITSLICE = prev
 
 
 def native_path(shape: tuple[int, int], on_card: bool = True) -> str:
@@ -35,6 +72,10 @@ def native_path(shape: tuple[int, int], on_card: bool = True) -> str:
         return "vmem"
     if not on_card:
         return "plain"
+    return _big_board_path(shape)
+
+
+def _big_board_path(shape: tuple[int, int]) -> str:
     if bitlife.fused_bits_supported(shape):
         return "fused"
     if bitlife.plan_sharded_bits(shape) is not None:
@@ -55,3 +96,64 @@ def life_run_vmem(board: torch.Tensor, n: int) -> torch.Tensor:
     if path == "frame":
         return bitlife.life_run_frame_bits(board, n)
     return bitlife.life_run_bits_plain(board, n)
+
+
+def native_path_batch(
+    shape: tuple[int, int, int], on_card: bool = True,
+    allow_bitsliced: bool = True,
+) -> str:
+    """Which path :func:`life_run_vmem_batch` takes for a (B, ny, nx)
+    stack: ``"bitsliced"`` from :data:`BITSLICE_MIN_BATCH` boards up, for
+    boards under the resident gate (on every device, unless
+    ``MOMP_BITSLICE=0`` or ``allow_bitsliced=False``), else on the card
+    ``"vmem-grid"``, ``"fused"`` or ``"frame"`` (raising for a shape no
+    kernel covers), and on the CPU ``"plain"``.
+
+    The bitsliced kernel tiles a plane of any size and has no gate of its
+    own. Boards past the resident gate stay on the big-board ladder, which
+    tiles each board over the card already, as the JAX package's VMEM gate
+    (``fits_vmem_bitsliced``) hands boards past about 1000^2 to it."""
+    b, ny, nx = (int(s) for s in shape)
+    resident = bitlife.fits_vmem_packed((ny, nx))
+    if allow_bitsliced and _BITSLICE and b >= BITSLICE_MIN_BATCH and resident:
+        return "bitsliced"
+    if not on_card:
+        return "plain"
+    if resident:
+        return "vmem-grid"
+    return _big_board_path((ny, nx))
+
+
+def batch_pack_layout(shape: tuple[int, int, int], on_card: bool = True) -> str:
+    """The pack layout :func:`life_run_vmem_batch` uses for a stack:
+    ``"bitsliced"`` (bit axis = batch) or ``"cell-packed"`` (bit axis =
+    space), derived from :func:`native_path_batch` so the two agree."""
+    path = native_path_batch(shape, on_card=on_card)
+    return "bitsliced" if path == "bitsliced" else "cell-packed"
+
+
+def batch_slice_width(shape: tuple[int, int]) -> int | None:
+    """Plane width (32) when (ny, nx) boards take the board-sliced path at
+    some batch size (on every device), else None. The serve layer pads
+    such buckets to multiples of 32: a board-sliced dispatch costs the same
+    for every B within a plane."""
+    ny, nx = shape
+    if _BITSLICE and bitlife.fits_vmem_packed((ny, nx)):
+        return 32
+    return None
+
+
+def life_run_vmem_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
+    """Advance a (B, ny, nx) stack (on the card or the CPU) ``n`` steps on
+    the path :func:`native_path_batch` picks; bit-exact per board against
+    the single-board engines."""
+    path = native_path_batch(boards.shape, on_card=boards.device.type == "cuda")
+    if path == "bitsliced":
+        return bitlife.life_run_bitsliced_batch(boards, n)
+    if path == "vmem-grid":
+        return bitlife.life_run_vmem_bits_batch(boards, n)
+    if path == "fused":
+        return bitlife.life_run_fused_bits_batch(boards, n)
+    if path == "frame":
+        return bitlife.life_run_frame_bits_batch(boards, n)
+    return bitlife.life_run_bits_plain_batch(boards, n)

@@ -1,0 +1,173 @@
+"""Shape-bucketed micro-batch dispatcher for Life boards.
+
+Counterpart of ``mpi_and_open_mp_tpu/serve/batcher.py`` for
+``workload="life"``. A queue of submitted boards on the host; one
+:meth:`ShapeBucketBatcher.flush` drains it bucket by bucket, turning R
+same-shape requests into ``ceil(R / max_batch)`` stacked dispatches
+instead of R. Padding boards are all dead, and a dead board stays dead
+under Life's rule, so padding never perturbs a live board.
+
+Not ported yet: other stencil workloads (ROADMAP Queue 1 item 7), the
+resident-session pool behind ``submit_session`` (Queue 1 item 9), and the
+trace spans, metrics and retrace counters (Queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from mpi_and_open_mp_tpu_torch.ops import native_life
+from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
+
+
+def bucket_batch_size(
+    n_requests: int, max_batch: int, slice_width: int | None = None
+) -> int:
+    """The padded batch a dispatch of ``n_requests`` same-shape boards
+    uses: the next power of two, capped at ``max_batch``.
+
+    ``slice_width`` (``native_life.batch_slice_width``) rounds to plane
+    multiples instead when the shape is board-sliced: such a dispatch costs
+    the same for every live count within a 32-board plane, so 20 requests
+    pad to 32 and 65 to 96 (not pow2's 128). Chunks below
+    ``BITSLICE_MIN_BATCH`` keep the pow2 rule (their stack dispatches
+    cell-packed), as do widths past ``max_batch`` (the plane can never
+    dispatch whole)."""
+    if n_requests < 1:
+        raise ValueError(f"bucket_batch_size: need >= 1 request, got {n_requests}")
+    if (slice_width and slice_width <= max_batch
+            and n_requests >= native_life.BITSLICE_MIN_BATCH):
+        padded = -(-n_requests // slice_width) * slice_width
+        if padded <= max_batch:
+            return padded
+    b = 1
+    while b < n_requests and b < max_batch:
+        b *= 2
+    return min(b, max_batch)
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+@dataclass
+class _Request:
+    ticket: int
+    board: np.ndarray
+    steps: int
+    workload: str = "life"
+
+
+@dataclass
+class _BatchStat:
+    """One dispatched stack, as reported by ``last_flush_stats``."""
+
+    shape: tuple[int, int]
+    steps: int
+    requests: int
+    padded_batch: int
+    path: str
+    tickets: tuple[int, ...] = field(default_factory=tuple)
+
+
+class ShapeBucketBatcher:
+    """Collect independent Life requests; flush them in shape buckets.
+
+    ``submit(board, steps)`` enqueues a 2-D board and returns a ticket;
+    ``flush()`` advances everything queued and returns the results in
+    submission (ticket) order, one host array per request. Boards bucket
+    by ``(shape, dtype, workload)``; inside a bucket, requests with the same
+    step count share a dispatch (all boards of a stack advance together),
+    chunked at ``max_batch``. Stacks run on ``device``: the card unless the
+    caller asks for the CPU."""
+
+    def __init__(self, max_batch: int = 8,
+                 device: str | torch.device = "cuda"):
+        if max_batch < 1:
+            raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+        self.max_batch = int(max_batch)
+        self.device = resolve_device(device)
+        self._queue: list[_Request] = []
+        self._next_ticket = 0
+        self.last_flush_stats: list[_BatchStat] = []
+
+    def __len__(self) -> int:
+        return len(self._queue)
+
+    def submit(self, board: np.ndarray, steps: int,
+               workload: str = "life") -> int:
+        """Enqueue one board for ``steps`` Life steps; returns a ticket (the
+        request's index in the next flush's result list)."""
+        if workload != "life":
+            raise _not_ported(f"workload={workload!r}", "7 (stencils)")
+        board = np.asarray(board)
+        if board.ndim != 2:
+            raise ValueError(
+                f"submit: workload 'life' wants one 2D (ny, nx) board per "
+                f"request, got shape {board.shape} (stacks are the engine "
+                "layout; the batcher builds them)")
+        steps = int(steps)
+        if steps < 0:
+            raise ValueError(f"submit: steps must be >= 0, got {steps}")
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self._queue.append(_Request(ticket, board, steps, workload))
+        return ticket
+
+    def submit_session(self, session: str, steps: int) -> int:
+        """Resident-session steps need the session pool, not ported yet."""
+        raise _not_ported("submit_session (the resident-session pool)",
+                          "9 (serving stack)")
+
+    def bucket_keys(self) -> list[tuple]:
+        """The distinct buckets currently queued, in first-submission
+        order: ``(shape, dtype, workload)``."""
+        seen: dict[tuple, None] = {}
+        for r in self._queue:
+            seen.setdefault((r.board.shape, r.board.dtype.str, r.workload),
+                            None)
+        return list(seen)
+
+    def flush(self) -> list[np.ndarray]:
+        """Advance every queued request; results in submission order."""
+        on_card = self.device.type == "cuda"
+        results: dict[int, np.ndarray] = {}
+        stats: list[_BatchStat] = []
+        buckets: dict[tuple, list[_Request]] = {}
+        for r in self._queue:
+            buckets.setdefault(
+                (r.board.shape, r.board.dtype.str, r.workload), []).append(r)
+        for (shape, _dtype, _workload), reqs in buckets.items():
+            by_steps: dict[int, list[_Request]] = {}
+            for r in reqs:
+                by_steps.setdefault(r.steps, []).append(r)
+            width = native_life.batch_slice_width(shape)
+            for steps, group in by_steps.items():
+                for lo in range(0, len(group), self.max_batch):
+                    chunk = group[lo:lo + self.max_batch]
+                    padded = bucket_batch_size(
+                        len(chunk), self.max_batch, slice_width=width)
+                    stack = np.zeros((padded, *shape),
+                                     dtype=chunk[0].board.dtype)
+                    for i, r in enumerate(chunk):
+                        stack[i] = r.board
+                    path = native_life.native_path_batch(
+                        stack.shape, on_card=on_card)
+                    out = native_life.life_run_vmem_batch(
+                        torch.from_numpy(stack).to(self.device), steps)
+                    host = out[: len(chunk)].cpu().numpy()
+                    for i, r in enumerate(chunk):
+                        results[r.ticket] = host[i]
+                    stats.append(_BatchStat(
+                        shape=shape, steps=steps, requests=len(chunk),
+                        padded_batch=padded, path=path,
+                        tickets=tuple(r.ticket for r in chunk)))
+        ordered = [results[r.ticket] for r in sorted(
+            self._queue, key=lambda r: r.ticket)]
+        self._queue.clear()
+        self.last_flush_stats = stats
+        return ordered

@@ -28,6 +28,7 @@ def test_import_pulls_in_no_jax():
         "import mpi_and_open_mp_tpu_torch as p\n"
         "from mpi_and_open_mp_tpu_torch.apps import life\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_life, _build\n"
+        "from mpi_and_open_mp_tpu_torch.serve import batcher\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -65,6 +66,34 @@ def test_default_device_entry_points_raise_without_cuda():
         state_from_jax(np.zeros((1, 10), np.uint32), 10, 10)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         life_app.main([GLIDER])
+
+
+def _batched_sim():
+    from mpi_and_open_mp_tpu_torch import LifeSim, load_config
+
+    LifeSim(load_config(GLIDER), initial_board=np.zeros((3, 10, 10), np.uint8))
+
+
+def _batched_cli():
+    from mpi_and_open_mp_tpu_torch.apps import life as life_app
+
+    life_app.main([GLIDER, "--batch", "3"])
+
+
+def _batcher():
+    from mpi_and_open_mp_tpu_torch.serve import ShapeBucketBatcher
+
+    ShapeBucketBatcher(max_batch=8)
+
+
+@pytest.mark.parametrize("entry", [_batched_sim, _batched_cli, _batcher],
+                         ids=["LifeSim-stack", "cli-batch", "batcher"])
+def test_batched_entry_points_raise_without_cuda(entry):
+    """The batched entry points default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
 
 
 def test_chip_smoke_refuses_without_cuda_and_alone(tmp_path):

@@ -110,7 +110,7 @@ def test_debug_check_catches_a_wrong_stepper():
 @pytest.mark.parametrize("kwargs,item", [
     ({"layout": "row"}, "item 3"),
     ({"checkpoint_dir": "ck"}, "item 4"),
-    ({"initial_board": np.zeros((2, 10, 10), np.uint8)}, "item 5"),
+    ({"layout": "cart"}, "item 3"),
     ({"workload": "heat"}, "item 7"),
 ])
 def test_not_ported_options_raise(kwargs, item):
