@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the four kernels of ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc,
+1. build the five kernels of ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc,
    in parallel;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
@@ -38,7 +38,29 @@ Phases, each of which raises (exit code 1) when it fails:
    difference of two step counts, the batched path's split into pack,
    kernel, unpack and the copy to the host, and both batched kernels side by
    side at B in {64, 128, 256, 512} x 500^2 and {8, 64, 256, 512} x 95x130
-   (where each wins), their boards compared.
+   (where each wins), their boards compared;
+7. ``stencil_padded`` against its plain version (``stencils.engine.
+   step_padded``) on the card, for every registered stencil spec, a
+   ``make_lenia(3)`` and gray_scott as one 2-channel block, at (500, 500),
+   (37, 45), (17, 23) and an extent smaller than the radius, over n in
+   {1, 8} steps for the lenia specs and {1, 8, 100} for the rest: integer
+   specs exact, float specs within ``parity_tol_for("offset")``;
+8. the stencil main paths, counts set to 0 just before each:
+   ``run_padded_native_batch`` on 64 x 500^2 stacks - wireworld and heat for
+   10 000 steps (every board against ``run_roll_batch`` on the card, board
+   0 against the NumPy oracle at 1 000 steps), lenia for 1 000 steps
+   (in [0, 1], and 8 steps against the oracle and the roll engine); then
+   ``LifeSim(workload="heat")`` at 500^2 for 1 000 steps, the batcher on
+   mixed life, heat, wireworld and gray_scott requests, and
+   ``ActiveTileEngine`` on a mostly-dead 2048^2 Life board, each against
+   the NumPy oracle;
+9. stencil times at 64 x 500^2 (gray_scott: one 500^2 board): the
+   kernel per launch, the runner's us/step differenced over two step
+   counts, the plain version per step, the bound, and for heat and lenia
+   ``torch.nn.functional.conv2d`` computing the aggregate alone (float32,
+   TF32 off) as the library's yardstick; then a ``torch.profiler`` trace of
+   10 runner steps for heat, lenia and gray_scott: device kernels and
+   device busy time per step, and the device's idle share.
 
 Prints the card's name and power limit, then one JSON line with a record
 for each kernel, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -77,6 +99,14 @@ OPS_PER_WORD_STEP = 17
 # The same count for a board-sliced word (32 boards at one cell): its eight
 # neighbours are whole words, so the 2 SHF drop out.
 OPS_PER_SLICED_WORD_STEP = 15
+# FP32 peak of the data sheet (an FMA counts 2), for the float stencils.
+FP32_FLOPS_PER_S = 67e12
+# Operations of each stencil rule per cell past the aggregate, counted from
+# csrc/stencil_padded.cu's device functions (compares and logic for the
+# integer rules; add, sub, mul, div, exp each 1 for the float ones; both
+# channels for gray_scott).
+# Indexed by the kernel's rule id: life, heat, gray_scott, wireworld, lenia.
+STENCIL_RULE_OPS = (5, 4, 19, 12, 10)
 
 
 def log(msg: str) -> None:
@@ -121,6 +151,21 @@ def diff_count(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a != b).sum())
 
 
+def stencil_bound_ms(spec, rule: int, offsets, cells: int, in_bytes: int,
+                     out_bytes: int) -> tuple[float, str]:
+    """The least time for one stencil step: the padded input read once and
+    the interior written once over HBM, against the aggregate (an add per
+    tap past the first, a multiply per non-unit weight, per channel) plus
+    the rule's operations over the peak of the cell type (FP32 or INT32)."""
+    taps = len(offsets)
+    per_cell = spec.channels * (taps - 1 + sum(w != 1 for _, _, w in offsets))
+    ops = cells * (per_cell + STENCIL_RULE_OPS[rule])
+    rate = FP32_FLOPS_PER_S if spec.is_float else INT32_OPS_PER_S
+    t_ops = ops / rate * 1e3
+    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def run_counted(wrappers, fn):
     """``fn()`` with every kernel wrapper's launch count set to 0 just
     before and read just after; returns its result and the counts."""
@@ -139,15 +184,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from mpi_and_open_mp_tpu_torch import LifeSim, load_config
+    from mpi_and_open_mp_tpu_torch import LifeSim, load_config, stencils
     from mpi_and_open_mp_tpu_torch.ops import _build, life_ops
     from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
+    from mpi_and_open_mp_tpu_torch.ops import native_stencil as ns
     from mpi_and_open_mp_tpu_torch.serve import ShapeBucketBatcher
+    from mpi_and_open_mp_tpu_torch.stencils import engine as se
     from mpi_and_open_mp_tpu_torch.utils.config import LifeConfig
 
     wrappers = {"vmem": tb.vmem_steps, "fused": tb.fused_steps,
                 "vmem_batch": tb.vmem_batch_steps,
-                "bitsliced": tb.bitsliced_steps}
+                "bitsliced": tb.bitsliced_steps,
+                "stencil": ns.stencil_step_padded}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -543,6 +591,250 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase 6 timings: {time.perf_counter() - t0:.2f} s")
 
+    # ------------------------------------- 7. stencil kernel against plain
+    t0 = time.perf_counter()
+
+    def padded_steps(spec, board, n, step):
+        """``n`` torus steps of ``board`` (a stack, or one multi-channel
+        board) through ``step`` on wrap-padded blocks."""
+        for _ in range(n):
+            board = step(spec, se.torus_pad(board, spec.radius))
+        return board
+
+    def stencil_board(spec, shape, seed, count=None):
+        """``spec.init`` boards from ``seed`` (a stack of ``count``), on
+        the card."""
+        rng = np.random.default_rng(seed)
+        if count is None:
+            return torch.from_numpy(spec.init(rng, shape)).cuda()
+        return torch.from_numpy(np.stack(
+            [spec.init(rng, shape) for _ in range(count)])).cuda()
+
+    def stencil_err(spec, got, want, what):
+        """Max abs difference; raises unless integer specs are equal and
+        float specs within parity_tol_for("offset")."""
+        g, w = got.cpu().numpy(), want.cpu().numpy()
+        err = float(np.abs(g.astype(np.float64) - w).max()) if g.size else 0.0
+        if not se.parity_ok(spec, g, w, **se.parity_tol_for("offset")):
+            raise AssertionError(f"{what}: max abs error {err}")
+        return err
+
+    stencil_err_max = 0.0
+    stencil_specs = [stencils.get(n) for n in stencils.names()]
+    stencil_specs.append(stencils.make_lenia(3))
+    for spec in stencil_specs:
+        r = spec.radius
+        lenia = ns.kernel_rule(spec).rule == 4
+        small = (max(1, r - 3), max(2, r - 2))
+        for shape in [(500, 500), (37, 45), (17, 23), small]:
+            count = None if spec.channels > 1 else 3
+            board = stencil_board(spec, shape, seed, count)
+            seed += 1
+            for n in ((1, 8) if lenia else (1, 8, 100)):
+                got = padded_steps(spec, board, n, ns.stencil_step_padded)
+                want = padded_steps(spec, board, n, se.step_padded)
+                err = stencil_err(spec, got, want,
+                                  f"stencil_padded {spec.name} {shape} n={n}")
+                stencil_err_max = max(stencil_err_max, err)
+                log(f"  stencil {spec.name} {tuple(board.shape)} n={n}: "
+                    f"max abs error {err}")
+    torch.cuda.synchronize()
+    log(f"phase 7 stencil kernel vs plain: ok "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # ---------------------------------------------- 8. stencil main paths
+    t0 = time.perf_counter()
+    nb = 64
+    stencil_launches = {}
+    for name, steps in (("wireworld", 10000), ("heat", 10000),
+                        ("lenia", 1000)):
+        spec = stencils.get(name)
+        stack = stencil_board(spec, (ny, nx), 46, nb)
+        check_at = 8 if name == "lenia" else 1000
+
+        def main_path():
+            early = se.run_padded_native_batch(spec, stack, check_at)
+            return early, se.run_padded_native_batch(
+                spec, early, steps - check_at)
+
+        (early, final), counts = run_counted(wrappers, main_path)
+        stencil_launches[name] = counts["stencil"]
+        log(f"  main path {name} {nb} x {ny}x{nx}, {steps} steps through "
+            f"run_padded_native_batch: launches={counts}")
+        if counts["stencil"] < steps:
+            raise AssertionError(f"{name} did not run through stencil_padded")
+        oracle_early = se.oracle_run(spec, stack[0].cpu().numpy(), check_at)
+        err = stencil_err(spec, early[0], torch.from_numpy(oracle_early),
+                          f"{name} board 0 at {check_at} steps vs the oracle")
+        log(f"  {name} board 0 at {check_at} steps vs the NumPy oracle: "
+            f"max abs error {err}")
+        if name == "lenia":
+            roll = se.run_roll_batch(spec, stack, check_at)
+            err = stencil_err(spec, early, roll, "lenia vs run_roll_batch")
+            host = final.cpu().numpy()
+            if (not spec.valid_board(host) or host.min() < 0
+                    or host.max() > 1):
+                raise AssertionError("lenia left [0, 1] or went non-finite")
+            log(f"  lenia all boards at 8 steps vs run_roll_batch: max abs "
+                f"error {err}; at {steps} steps finite, in "
+                f"[{host.min():.6f}, {host.max():.6f}]")
+        else:
+            roll = se.run_roll_batch(spec, stack, steps)
+            err = stencil_err(spec, final, roll,
+                              f"{name} vs run_roll_batch at {steps} steps")
+            log(f"  {name} all {nb} boards at {steps} steps vs "
+                f"run_roll_batch on the card: max abs error {err}")
+        del stack, early, final, roll
+
+    heat_cfg = LifeConfig(steps=1000, save_steps=0, nx=nx, ny=ny,
+                          cells=np.zeros((0, 2), np.int64))
+    hsim = LifeSim(heat_cfg, workload="heat")
+    heat_start = hsim.collect()
+    hfinal = hsim.run()
+    hsim.debug_check()
+    err = stencil_err(stencils.get("heat"), torch.from_numpy(hfinal),
+                      torch.from_numpy(se.oracle_run(
+                          stencils.get("heat"), heat_start, 1000)),
+                      "LifeSim(workload='heat') vs the oracle")
+    log(f"  LifeSim(workload='heat') {ny}x{nx}, impl={hsim.impl}, "
+        f"{hsim.step_count} steps vs the NumPy oracle: max abs error {err}")
+
+    rng = np.random.default_rng(71)
+    mixed = []
+    for i in range(24):
+        name = ("life", "heat", "wireworld", "gray_scott")[i % 4]
+        mixed.append((stencils.get(name).init(rng, (ny, nx)),
+                      20 if i % 3 else 30, name))
+    batcher = ShapeBucketBatcher(max_batch=8)
+    for board, steps, name in mixed:
+        batcher.submit(board, steps, workload=name)
+    served, launches_mixed = run_counted(wrappers, batcher.flush)
+    log(f"  batcher, mixed workloads: 24 requests, dispatches "
+        f"{[(s.steps, s.requests, s.padded_batch, s.path) for s in batcher.last_flush_stats]}, "
+        f"launches={launches_mixed}")
+    for i, ((board, steps, name), got) in enumerate(zip(mixed, served)):
+        spec = stencils.get(name)
+        stencil_err(spec, torch.from_numpy(got),
+                    torch.from_numpy(se.oracle_run(spec, board, steps)),
+                    f"batcher request {i} ({name})")
+    log("  every mixed batcher result matches the NumPy oracle")
+
+    sparse_board = np.zeros((2048, 2048), np.uint8)
+    glider = np.array([[0, 1, 0], [0, 0, 1], [1, 1, 1]], np.uint8)
+    for k, (y, x) in enumerate([(126, 126), (700, 1300), (1500, 400),
+                                (1023, 1023)]):
+        sparse_board[y:y + 3, x:x + 3] = glider if k % 2 else glider[::-1]
+    sparse_board[300:303, 1800] = 1  # a blinker
+    tiles = stencils.ActiveTileEngine(stencils.get("life"), sparse_board,
+                                      tile=128)
+    sparse_final = tiles.step(100)
+    sparse_oracle = se.oracle_run(stencils.get("life"), sparse_board, 100)
+    if not np.array_equal(sparse_final, sparse_oracle):
+        raise AssertionError(
+            f"ActiveTileEngine: {int((sparse_final != sparse_oracle).sum())} "
+            "cells differ from the oracle")
+    log(f"  ActiveTileEngine 2048^2 life, 100 steps: matches the NumPy "
+        f"oracle; {tiles.engine_stamp} {tiles.counters()}")
+    del mixed, served, sparse_board, sparse_final, sparse_oracle
+    torch.cuda.empty_cache()
+    log(f"phase 8 stencil main paths: ok ({time.perf_counter() - t0:.2f} s)")
+
+    # -------------------------------------------------- 9. stencil timings
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    stencil_rec = {}
+    for name in stencils.names():
+        spec = stencils.get(name)
+        rule = ns.kernel_rule(spec).rule
+        r = spec.radius
+        count = None if spec.channels > 1 else nb
+        stack = stencil_board(spec, (ny, nx), 46, count)
+        padded = se.torus_pad(stack, r)
+        ns.stencil_step_padded(spec, padded)  # warm-ups
+        se.step_padded(spec, padded)
+        k_ms = cuda_ms(lambda: ns.stencil_step_padded(spec, padded), reps=20)
+        p_ms = cuda_ms(lambda: se.step_padded(spec, padded), reps=3)
+        lo, hi = (20, 120) if name == "lenia" else (200, 1200)
+        se.run_padded_native_batch(spec, stack, 2)  # warm-up
+        ns.stencil_step_padded.launches = 0
+        t_a = cuda_ms(lambda: se.run_padded_native_batch(spec, stack, lo))
+        t_b = cuda_ms(lambda: se.run_padded_native_batch(spec, stack, hi))
+        per_step = ns.stencil_step_padded.launches / (lo + hi)
+        us_step = (t_b - t_a) / (hi - lo) * 1e3
+        gather_ms = cuda_ms(lambda: se.torus_pad(stack, r), reps=20)
+        offs = se.offsets(spec)
+        cells = stack.numel() // spec.channels
+        bound, by = stencil_bound_ms(
+            spec, rule, offs, cells, padded.numel() * padded.element_size(),
+            stack.numel() * stack.element_size())
+        lib_ms = None
+        if name in ("heat", "lenia"):
+            wt = torch.tensor(spec.weights, dtype=torch.float32,
+                              device="cuda")[None, None]
+            x = padded[:, None]
+            torch.nn.functional.conv2d(x, wt)  # warm-up
+            lib_ms = cuda_ms(lambda: torch.nn.functional.conv2d(x, wt),
+                             reps=20)
+            agg = torch.nn.functional.conv2d(x, wt)[:, 0]
+            want = se.aggregate_roll(spec, stack)
+            if not torch.allclose(agg, want, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"conv2d aggregate disagrees for {name}")
+        stencil_rec[name] = {
+            "shape": "x".join(str(d) for d in padded.shape),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib_ms, "us_per_step": us_step,
+            "gather_ms": gather_ms, "kernel_launches_per_step": per_step}
+        log(f"  stencil {name} padded {tuple(padded.shape)}: kernel "
+            f"{k_ms:.4f} ms per launch, bound {bound:.4f} ms ({by}, "
+            f"{bound / k_ms * 100:.1f} %), plain {p_ms:.4f} ms; runner "
+            f"{us_step:.4f} us/step differenced {hi}-{lo} steps "
+            f"({per_step:.3f} kernel launches per step, halo gather "
+            f"{gather_ms:.4f} ms)"
+            + (f"; library, aggregate only (conv2d, TF32 off): "
+               f"{lib_ms:.4f} ms" if lib_ms is not None else "")
+            + f" [{card}]")
+        del stack, padded
+    # Device launches per runner step, from a profiler trace of 10 steps.
+    from torch.profiler import ProfilerActivity, profile
+
+    # Device launches and busy time per runner step, from a profiler trace
+    # of 10 steps; the idle share is 1 - busy / wall.
+    for name in ("heat", "lenia", "gray_scott"):
+        spec = stencils.get(name)
+        stack = stencil_board(spec, (ny, nx), 46,
+                              None if spec.channels > 1 else nb)
+        se.run_padded_native_batch(spec, stack, 2)  # warm-up
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t_wall = time.perf_counter()
+                se.run_padded_native_batch(spec, stack, 10)
+                torch.cuda.synchronize()
+                t_wall = time.perf_counter() - t_wall
+        except RuntimeError as e:
+            log(f"  profiler unavailable ({e}); device launches not measured")
+            break
+        busy: dict[str, float] = {}
+        count = 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                count += 1
+                busy[ev.name] = (busy.get(ev.name, 0.0)
+                                 + ev.time_range.elapsed_us())
+        if not count:
+            log(f"  stencil {name} runner: the profiler saw no device "
+                "kernels; device launches not measured")
+            continue
+        stencil_rec[name]["device_launches_per_step"] = count / 10
+        busy_us = sum(busy.values()) / 10
+        log(f"  stencil {name} runner, profiler over 10 steps: {count / 10} "
+            f"device kernels per step, device busy {busy_us:.2f} us per step "
+            f"({', '.join(f'{k[:60]} {v / 10:.2f} us' for k, v in busy.items())}), "
+            f"wall {t_wall / 10 * 1e6:.2f} us per step, idle share "
+            f"{1 - busy_us / (t_wall / 10 * 1e6):.3f} [{card}]")
+        del stack
+    log(f"phase 9 stencil timings: {time.perf_counter() - t0:.2f} s")
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -580,6 +872,21 @@ def main() -> int:
          "shape": (f"{nb} x 500x500 (2 planes), 10000 steps per call in "
                    f"{rounds} launches, tile {plan.tr}x{plan.tc}"),
          "us_per_step": bs_us_step},
+        {"name": "stencil_padded", "route": "cuda",
+         "source": "mpi_and_open_mp_tpu_torch/csrc/stencil_padded.cu",
+         "replaces": "mpi_and_open_mp_tpu/ops/pallas_life.py:373",
+         "launches": sum(stencil_launches.values()),
+         "max_abs_err": stencil_err_max,
+         "ms": stencil_rec["heat"]["ms"],
+         "plain_ms": stencil_rec["heat"]["plain_ms"],
+         "bound_ms": stencil_rec["heat"]["bound_ms"],
+         "bound_by": stencil_rec["heat"]["bound_by"],
+         "library_ms": stencil_rec["heat"]["library_ms"],
+         "shape": (f"heat {stencil_rec['heat']['shape']} padded stack, one "
+                   "step per launch; library_ms is conv2d computing the "
+                   "aggregate alone"),
+         "launches_by_workload": stencil_launches,
+         "per_spec": stencil_rec},
     ]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -17,6 +17,17 @@ means on every device) or the roll step over the stack. Batched runs have
 no snapshot or checkpoint channel (both serialise one board), and
 ``debug_check`` holds every board against the oracle on its own.
 
+Any other registered stencil workload (``workload="heat"``,
+``"gray_scott"``, ``"wireworld"``, ``"lenia"``, ...; see
+``mpi_and_open_mp_tpu_torch.stencils``) runs one board through the spec's
+roll step (``stencils.engine.run_roll``): the spec sets the cell dtype and
+the board shape (channels leading), the default board is
+``spec.init(np.random.default_rng(0xD1CE), cfg.shape)``, ``impl="auto"``
+means ``roll``, and ``impl="native"`` (the packed Life kernels) and
+stacked boards raise, as the JAX package's serial ``"pallas"`` and its
+non-life batched mode do. Stacks of non-life boards go through the serve
+batcher.
+
 The run loop keeps the reference's order (``3-life/life_mpi.c:51-62``): at
 step ``i``, save a snapshot when ``i % save_steps == 0`` (before stepping),
 then advance. Between snapshots the board advances in one call.
@@ -29,6 +40,7 @@ import os
 import numpy as np
 import torch
 
+from mpi_and_open_mp_tpu_torch import stencils
 from mpi_and_open_mp_tpu_torch.ops import life_ops, native_life
 from mpi_and_open_mp_tpu_torch.utils import vtk as vtk_lib
 from mpi_and_open_mp_tpu_torch.utils.config import LifeConfig
@@ -63,12 +75,22 @@ class LifeSim:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-        if workload != "life":
-            raise _not_ported(f"workload={workload!r}", "7 (stencils)")
+        self.workload = str(workload)
+        self.spec = stencils.get(self.workload)
+        if self.workload != "life" and impl == "native":
+            raise ValueError(
+                "serial impl='native' runs the bit-packed Life kernels; "
+                f"workload={self.workload!r} uses impl='roll' (or 'auto')")
         # Batched mode: a stacked (B, ny, nx) initial board. Serial layout
         # only, and no snapshot or checkpoint channel.
         self.batch: int | None = None
-        if initial_board is not None and np.asarray(initial_board).ndim == 3:
+        if (initial_board is not None and np.asarray(initial_board).ndim
+                == 3 + (self.spec.channels > 1)):
+            if self.workload != "life":
+                # A 3-D multi-channel array is one board (channels lead).
+                raise ValueError(
+                    f"workload={self.workload!r} has no batched mode; "
+                    "submit stacks through the serve batcher instead")
             if layout != "serial":
                 raise ValueError(
                     "stacked (B, ny, nx) boards need layout='serial'; "
@@ -86,7 +108,9 @@ class LifeSim:
         self.layout = layout
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
-        if impl == "auto":
+        if impl == "auto" and self.workload != "life":
+            impl = "roll"
+        elif impl == "auto":
             # A stack takes the batched dispatch on every device, as the
             # JAX package's batched auto does.
             impl = "native" if on_card or self.batch is not None else "roll"
@@ -104,14 +128,18 @@ class LifeSim:
         self.step_count = int(initial_step)
         self._initial_step = int(initial_step)
         if initial_board is not None:
-            board = np.asarray(initial_board, dtype=np.uint8)
-            expect = (cfg.shape if self.batch is None
+            board = np.asarray(initial_board, dtype=self.spec.np_dtype)
+            expect = (self.spec.board_shape(*cfg.shape) if self.batch is None
                       else (self.batch, *cfg.shape))
             if board.shape != expect:
                 raise ValueError(
                     f"initial_board {board.shape} != expected {expect}")
-        else:
+        elif self.workload == "life":
             board = cfg.board()
+        else:
+            # The cfg's cell list encodes a Life pattern; other specs bring
+            # their own initialiser.
+            board = self.spec.init(np.random.default_rng(0xD1CE), cfg.shape)
         self._initial = board
         self._probe = None
         self.board = self._to_device(board)
@@ -125,6 +153,8 @@ class LifeSim:
             if self.batch is not None:
                 return native_life.life_run_vmem_batch(board, n)
             return native_life.life_run_vmem(board, n)
+        if self.workload != "life":
+            return stencils.run_roll(self.spec, board, n)
         for _ in range(int(n)):
             board = life_ops.life_step_roll(board)
         return board
@@ -174,16 +204,19 @@ class LifeSim:
             sync(self._advance(self.board, n))
 
     def collect(self) -> np.ndarray:
-        """The board on the host, ``(ny, nx)`` uint8 (``(B, ny, nx)`` in
-        batched mode)."""
-        return self.board.cpu().numpy().astype(np.uint8, copy=False)
+        """The board on the host, ``(ny, nx)`` in the spec's dtype (uint8
+        for Life; ``(B, ny, nx)`` in batched mode, channels leading for a
+        multi-channel spec)."""
+        return self.board.cpu().numpy().astype(self.spec.np_dtype, copy=False)
 
     def _divergence(self, got: np.ndarray, want: np.ndarray) -> str | None:
         """How ``got`` differs from the oracle's ``want``, or None: the
         differing cells, and in batched mode every diverging board."""
-        if np.array_equal(got, want):
+        if stencils.parity_ok(self.spec, got, want):
             return None
-        why = f"{int((got != want).sum())} cells diverge from the oracle"
+        off = (~np.isclose(got, want, rtol=1e-5, atol=1e-6)
+               if self.spec.is_float else got != want)
+        why = f"{int(off.sum())} cells diverge from the oracle"
         if self.batch is not None:
             bad = [f"board {b}: {int((got[b] != want[b]).sum())}"
                    for b in range(self.batch)
@@ -191,25 +224,36 @@ class LifeSim:
             why += f" ({'; '.join(bad)})"
         return why
 
+    def _oracle_step(self, board: np.ndarray) -> np.ndarray:
+        if self.workload == "life":
+            return life_ops.life_step_numpy(board)  # a stack steps per board
+        return stencils.step_numpy(self.spec, board)
+
     def _consistency_violation(self) -> str | None:
         """One step of the configured stepper must equal one oracle
-        (NumPy) step, on the live board and on a fixed dense random
-        board (B distinct ones in batched mode); returns a description of
-        the first failure, or None."""
+        (NumPy) step (within ``parity_ok`` for float specs), on the live
+        board and on a fixed probe board (B distinct ones in batched mode);
+        returns a description of the first failure, or None."""
         before = self.collect()
-        if not np.isin(before, (0, 1)).all():
-            return "non-binary cells on the board"
+        if not self.spec.valid_board(before):
+            return ("non-binary cells on the board" if self.workload == "life"
+                    else "out-of-domain cells on the board")
         after = self._advance(self.board, 1).cpu().numpy()
-        why = self._divergence(after, life_ops.life_step_numpy(before))
+        why = self._divergence(after, self._oracle_step(before))
         if why is not None:
             return f"{why} after one {self.impl}/{self.layout} step"
         if self._probe is None:
             rng = np.random.default_rng(0xC0FFEE)
-            shape = self.cfg.shape
-            if self.batch is not None:
-                shape = (self.batch, *shape)
-            host = rng.integers(0, 2, shape, dtype=np.uint8)
-            self._probe = (self._to_device(host), life_ops.life_step_numpy(host))
+            if self.workload == "life":
+                shape = self.cfg.shape
+                if self.batch is not None:
+                    shape = (self.batch, *shape)
+                host = rng.integers(0, 2, shape, dtype=np.uint8)
+            else:
+                # The spec's own initialiser is the probe state.
+                host = np.asarray(self.spec.init(rng, self.cfg.shape),
+                                  dtype=self.spec.np_dtype)
+            self._probe = (self._to_device(host), self._oracle_step(host))
         probe, probe_expect = self._probe
         after = self._advance(probe, 1).cpu().numpy()
         why = self._divergence(after, probe_expect)

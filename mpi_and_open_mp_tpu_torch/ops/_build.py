@@ -34,6 +34,7 @@ SIGNATURES = {
     "bitlife_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
+    "stencil_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -1,15 +1,19 @@
-"""Shape-bucketed micro-batch dispatcher for Life boards.
+"""Shape-bucketed micro-batch dispatcher for stencil boards.
 
-Counterpart of ``mpi_and_open_mp_tpu/serve/batcher.py`` for
-``workload="life"``. A queue of submitted boards on the host; one
-:meth:`ShapeBucketBatcher.flush` drains it bucket by bucket, turning R
-same-shape requests into ``ceil(R / max_batch)`` stacked dispatches
-instead of R. Padding boards are all dead, and a dead board stays dead
-under Life's rule, so padding never perturbs a live board.
+Counterpart of ``mpi_and_open_mp_tpu/serve/batcher.py``. A queue of
+submitted boards on the host; one :meth:`ShapeBucketBatcher.flush` drains
+it bucket by bucket, turning R same-shape requests into
+``ceil(R / max_batch)`` stacked dispatches instead of R. Buckets key on
+``(shape, dtype, workload)``: Life stacks ride the batched Life kernels
+(``ops.native_life.life_run_vmem_batch``), every other registered
+``stencils`` workload the spec's roll engine
+(``stencils.run_roll_batch``, path ``stencil:<name>``), as in the JAX
+package. Padding boards are zeros; boards never interact, and results are
+cut to the live requests.
 
-Not ported yet: other stencil workloads (ROADMAP Queue 1 item 7), the
-resident-session pool behind ``submit_session`` (Queue 1 item 9), and the
-trace spans, metrics and retrace counters (Queue 1 item 10).
+Not ported yet: the resident-session pool behind ``submit_session``
+(ROADMAP Queue 1 item 9), and the trace spans, metrics and retrace
+counters (Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from mpi_and_open_mp_tpu_torch import stencils
 from mpi_and_open_mp_tpu_torch.ops import native_life
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 
@@ -75,9 +80,10 @@ class _BatchStat:
 
 
 class ShapeBucketBatcher:
-    """Collect independent Life requests; flush them in shape buckets.
+    """Collect independent stencil requests; flush them in shape buckets.
 
-    ``submit(board, steps)`` enqueues a 2-D board and returns a ticket;
+    ``submit(board, steps, workload)`` enqueues one board and returns a
+    ticket;
     ``flush()`` advances everything queued and returns the results in
     submission (ticket) order, one host array per request. Boards bucket
     by ``(shape, dtype, workload)``; inside a bucket, requests with the same
@@ -100,22 +106,28 @@ class ShapeBucketBatcher:
 
     def submit(self, board: np.ndarray, steps: int,
                workload: str = "life") -> int:
-        """Enqueue one board for ``steps`` Life steps; returns a ticket (the
+        """Enqueue one board for ``steps`` steps of ``workload`` (a
+        registered ``stencils`` name, default life); returns a ticket (the
         request's index in the next flush's result list)."""
-        if workload != "life":
-            raise _not_ported(f"workload={workload!r}", "7 (stencils)")
+        try:
+            spec = stencils.get(workload)
+        except KeyError as e:
+            raise ValueError(str(e)) from None
         board = np.asarray(board)
-        if board.ndim != 2:
+        if (board.ndim < 2
+                or board.shape != spec.board_shape(*board.shape[-2:])):
+            want = ("3D (channels, ny, nx)" if spec.channels > 1
+                    else "2D (ny, nx)")
             raise ValueError(
-                f"submit: workload 'life' wants one 2D (ny, nx) board per "
-                f"request, got shape {board.shape} (stacks are the engine "
-                "layout; the batcher builds them)")
+                f"submit: workload {workload!r} wants one {want} board "
+                f"per request, got shape {board.shape} (stacks are the "
+                "engine layout; the batcher builds them)")
         steps = int(steps)
         if steps < 0:
             raise ValueError(f"submit: steps must be >= 0, got {steps}")
         ticket = self._next_ticket
         self._next_ticket += 1
-        self._queue.append(_Request(ticket, board, steps, workload))
+        self._queue.append(_Request(ticket, board, steps, str(workload)))
         return ticket
 
     def submit_session(self, session: str, steps: int) -> int:
@@ -141,11 +153,14 @@ class ShapeBucketBatcher:
         for r in self._queue:
             buckets.setdefault(
                 (r.board.shape, r.board.dtype.str, r.workload), []).append(r)
-        for (shape, _dtype, _workload), reqs in buckets.items():
+        for (shape, _dtype, workload), reqs in buckets.items():
             by_steps: dict[int, list[_Request]] = {}
             for r in reqs:
                 by_steps.setdefault(r.steps, []).append(r)
-            width = native_life.batch_slice_width(shape)
+            # Plane rounding is a Life layout; other workloads pad on the
+            # plain pow2 ladder.
+            width = (native_life.batch_slice_width(shape)
+                     if workload == "life" else None)
             for steps, group in by_steps.items():
                 for lo in range(0, len(group), self.max_batch):
                     chunk = group[lo:lo + self.max_batch]
@@ -155,10 +170,15 @@ class ShapeBucketBatcher:
                                      dtype=chunk[0].board.dtype)
                     for i, r in enumerate(chunk):
                         stack[i] = r.board
-                    path = native_life.native_path_batch(
-                        stack.shape, on_card=on_card)
-                    out = native_life.life_run_vmem_batch(
-                        torch.from_numpy(stack).to(self.device), steps)
+                    dev_stack = torch.from_numpy(stack).to(self.device)
+                    if workload == "life":
+                        path = native_life.native_path_batch(
+                            stack.shape, on_card=on_card)
+                        out = native_life.life_run_vmem_batch(dev_stack, steps)
+                    else:
+                        path = f"stencil:{workload}"
+                        out = stencils.run_roll_batch(
+                            stencils.get(workload), dev_stack, steps)
                     host = out[: len(chunk)].cpu().numpy()
                     for i, r in enumerate(chunk):
                         results[r.ticket] = host[i]

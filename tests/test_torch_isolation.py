@@ -29,6 +29,9 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.apps import life\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_life, _build\n"
         "from mpi_and_open_mp_tpu_torch.serve import batcher\n"
+        "from mpi_and_open_mp_tpu_torch import stencils\n"
+        "from mpi_and_open_mp_tpu_torch.stencils import engine, spec, sparse\n"
+        "from mpi_and_open_mp_tpu_torch.ops import native_stencil\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -90,6 +93,29 @@ def _batcher():
                          ids=["LifeSim-stack", "cli-batch", "batcher"])
 def test_batched_entry_points_raise_without_cuda(entry):
     """The batched entry points default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def _stencil_sim():
+    from mpi_and_open_mp_tpu_torch import LifeSim, load_config
+
+    LifeSim(load_config(GLIDER), workload="heat")
+
+
+def _active_tiles():
+    from mpi_and_open_mp_tpu_torch import stencils
+
+    stencils.ActiveTileEngine(stencils.get("life"),
+                              np.zeros((64, 64), np.uint8), tile=32)
+
+
+@pytest.mark.parametrize("entry", [_stencil_sim, _active_tiles],
+                         ids=["LifeSim-heat", "ActiveTileEngine"])
+def test_stencil_entry_points_raise_without_cuda(entry):
+    """The stencil entry points default to the card too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -111,7 +111,7 @@ def test_debug_check_catches_a_wrong_stepper():
     ({"layout": "row"}, "item 3"),
     ({"checkpoint_dir": "ck"}, "item 4"),
     ({"layout": "cart"}, "item 3"),
-    ({"workload": "heat"}, "item 7"),
+    ({"workload": "heat", "layout": "row"}, "item 3"),
 ])
 def test_not_ported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
