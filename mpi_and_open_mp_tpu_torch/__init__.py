@@ -8,7 +8,10 @@ run instead.
 
 from mpi_and_open_mp_tpu_torch.models.life import LifeSim
 from mpi_and_open_mp_tpu_torch.ops.bitlife import state_from_jax
+from mpi_and_open_mp_tpu_torch.parallel.context import (
+    attention_reference, flash_attention)
 from mpi_and_open_mp_tpu_torch.utils.config import load_config
 
-__all__ = ["LifeSim", "load_config", "state_from_jax"]
+__all__ = ["LifeSim", "attention_reference", "flash_attention", "load_config",
+           "state_from_jax"]
 __version__ = "0.1.0"

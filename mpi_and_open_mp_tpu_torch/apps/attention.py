@@ -1,0 +1,160 @@
+"""Long-context attention command-line entry point.
+
+Same flags and output as the JAX package's ``apps/attention.py``: one
+forward pass (or, with ``--grad``, one full (q, k, v) gradient step) of the
+chosen variant, timed after a warm-up run that builds the kernels, checked
+against the dense oracle, the elapsed seconds on stdout, and ``parity ok
+(...)`` and the ``tflops=`` line on stderr (the FLOP count of the JAX CLI:
+``4 h n^2 d``, halved under causal), followed by the kernels' launch counts.
+This slice runs one device: the ring and Ulysses variants run their
+single-device form, and ``--devices`` other than 1 is refused (the sharded
+slice).
+
+    python -m mpi_and_open_mp_tpu_torch.apps.attention --variant flash --seq 8192 --heads 8 --head-dim 128 --causal --grad
+    python -m mpi_and_open_mp_tpu_torch.apps.attention --variant flash --seq 640 --heads 2 --head-dim 16 --causal --grad --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd, native_flash
+from mpi_and_open_mp_tpu_torch.parallel import context
+from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
+
+KERNELS = {"flash_fwd": native_flash.flash_fwd,
+           "flash_hop_dq": flash_hop_bwd.flash_hop_dq,
+           "flash_hop_dkv": flash_hop_bwd.flash_hop_dkv}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="mpi_and_open_mp_tpu_torch.apps.attention",
+        description="long-context attention (PyTorch/CUDA port)")
+    p.add_argument("--variant", choices=("ring", "ulysses", "flash"),
+                   default="ring",
+                   help="ring / all-to-all (both single-device in this "
+                   "slice) / single-device flash")
+    p.add_argument("--seq", type=int, default=8192)
+    p.add_argument("--heads", type=int, default=8)
+    p.add_argument("--head-dim", type=int, default=64)
+    p.add_argument("--causal", action="store_true")
+    p.add_argument("--grad", action="store_true",
+                   help="time a full (q, k, v) gradient step instead of a "
+                   "forward (the flash backward, O(seq*d) saved)")
+    p.add_argument("--kv-heads", type=int, default=None,
+                   help="GQA/MQA: fewer K/V heads than query heads")
+    p.add_argument("--devices", type=int, default=None,
+                   help="ring size; this slice runs 1 device")
+    p.add_argument("--ring-layout", choices=("contiguous", "zigzag"),
+                   default="contiguous",
+                   help="ring variant only; on one device zigzag is the "
+                   "natural order")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   default="bfloat16")
+    p.add_argument("--no-check", action="store_true",
+                   help="skip the oracle parity check (long sequences)")
+    p.add_argument("--engine", choices=("auto", "jnp"), default="auto",
+                   help="auto = the kernels on the card (the plain engine "
+                   "on the CPU); jnp = the plain chunked engine")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    p.add_argument("--seed", type=int, default=0)
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.devices not in (None, 1):
+        p.error(f"--devices {args.devices}: {context._SHARDED}")
+    if args.ring_layout != "contiguous" and args.variant != "ring":
+        p.error("--ring-layout applies to --variant ring only")
+    dev = resolve_device(args.device)
+    engine = "plain" if args.engine == "jnp" else "auto"
+    if args.variant == "flash":
+        def fn(q, k, v):
+            return context.flash_attention(q, k, v, causal=args.causal,
+                                           device=dev, engine=engine)
+    elif args.variant == "ring":
+        def fn(q, k, v):
+            return context.ring_attention(q, k, v, causal=args.causal,
+                                          layout=args.ring_layout,
+                                          device=dev, engine=engine)
+    else:
+        def fn(q, k, v):
+            return context.ulysses_attention(q, k, v, causal=args.causal,
+                                             device=dev, engine=engine)
+    dtype = getattr(torch, args.dtype)
+    rng = np.random.default_rng(args.seed)
+    hkv = args.kv_heads or args.heads
+    q = torch.from_numpy(
+        rng.standard_normal((args.heads, args.seq, args.head_dim))).to(
+            dev, dtype)
+    k, v = (torch.from_numpy(
+        rng.standard_normal((hkv, args.seq, args.head_dim))).to(dev, dtype)
+        for _ in range(2))
+    zig = args.ring_layout == "zigzag"
+    if zig:  # the 1-device zigzag order, outside the timed bracket
+        q, k, v = (context.zigzag_shard(x, 1) for x in (q, k, v))
+
+    if args.grad:
+        def run():
+            qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            loss = (fn(*qkv).float() ** 2).sum()
+            return torch.autograd.grad(loss, qkv)
+    else:
+        def run():
+            with torch.no_grad():
+                return fn(q, k, v)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    for kernel in KERNELS.values():
+        kernel.launches = 0
+    run()  # builds the kernels and warms up
+    sync()
+    t0 = time.perf_counter()
+    run()
+    sync()
+    elapsed = time.perf_counter() - t0
+    if not args.no_check:
+        with torch.no_grad():
+            out = fn(q, k, v)
+        if zig:
+            out = context.zigzag_unshard(out, 1)
+        groups = args.heads // hkv
+        with context._full_f32_matmul():
+            want = context.attention_reference(
+                q.float(), *context._repeat_heads(k.float(), v.float(),
+                                                  groups),
+                causal=args.causal)
+        err = float((out.float() - want).abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 0.06
+        if not err <= tol:
+            print(f"PARITY FAIL: max|err|={err:.3g} > {tol}", file=sys.stderr)
+            return 1
+        print(f"parity ok (max|err|={err:.3g})", file=sys.stderr)
+
+    # 2*(softmax QK^T)*V matmuls = 4*h*n^2*d multiply-adds (x0.5 causal).
+    flops = 4 * args.heads * args.seq**2 * args.head_dim
+    if args.causal:
+        flops //= 2
+    print(f"{elapsed:.6f}")
+    print(f"variant={args.variant} seq={args.seq} devices=1 "
+          f"engine={context.flash_engine_for(q, k, v, engine)} "
+          f"tflops={flops / elapsed / 1e12:.2f}", file=sys.stderr)
+    print("launches " + " ".join(f"{name}={kernel.launches}"
+                                 for name, kernel in KERNELS.items()),
+          file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ``build/kernels/lib<name>.so`` at the root of
-the checkout, at first use, then loaded with ``ctypes``. A library older
+Each ``csrc/<name>.cu`` has a plain C interface (one entry point per
+kernel, :data:`SIGNATURES`) and is compiled by ``nvcc`` for Hopper
+(``sm_90a``) into ``build/kernels/lib<name>.so`` at the root of the
+checkout, at first use, then loaded with ``ctypes``. A library older
 than any source is rebuilt. :func:`build` compiles several sources at once,
 one ``nvcc`` process each. Nothing here runs at import time, so the package
 imports on machines without ``nvcc`` or a GPU.
@@ -25,9 +26,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-# Argument types of each kernel's C entry point (pointers and the stream
+# Argument types of each library's C entry points (pointers and the stream
 # as c_void_p: a default ctypes int would cut a pointer to 32 bits; _IP is
-# an int out-parameter).
+# an int out-parameter): a list for the one entry point named like the
+# library, or a dict of entry point -> list where one source holds several
+# kernels.
 _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "bitlife_vmem": [_P, _P, _I, _I, _I, _I, _P],
@@ -35,6 +38,11 @@ SIGNATURES = {
     "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
     "stencil_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_hop_bwd": {
+        "flash_hop_dq": [_P] * 7 + [_I] * 6 + [_P],
+        "flash_hop_dkv": [_P] * 8 + [_I] * 6 + [_P],
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
@@ -96,9 +104,13 @@ def load(name: str) -> ctypes.CDLL:
         if _stale(name):
             build([name])
         lib = ctypes.CDLL(str(lib_path(name)))
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
+        entries = SIGNATURES[name]
+        if not isinstance(entries, dict):
+            entries = {name: entries}
+        for entry, argtypes in entries.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p

@@ -1,0 +1,13 @@
+"""Long-context attention (``context``): flash attention on one card and
+the single-device forms of ring and Ulysses attention."""
+
+from mpi_and_open_mp_tpu_torch.parallel.context import (  # noqa: F401
+    attention_reference,
+    flash_attention,
+    gated_parity_check,
+    ring_attention,
+    ulysses_attention,
+    zigzag_order,
+    zigzag_shard,
+    zigzag_unshard,
+)

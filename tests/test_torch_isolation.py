@@ -32,6 +32,9 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch import stencils\n"
         "from mpi_and_open_mp_tpu_torch.stencils import engine, spec, sparse\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_stencil\n"
+        "from mpi_and_open_mp_tpu_torch.apps import attention\n"
+        "from mpi_and_open_mp_tpu_torch.parallel import context\n"
+        "from mpi_and_open_mp_tpu_torch.ops import native_flash, flash_hop_bwd\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -116,6 +119,47 @@ def _active_tiles():
                          ids=["LifeSim-heat", "ActiveTileEngine"])
 def test_stencil_entry_points_raise_without_cuda(entry):
     """The stencil entry points default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def _qkv():
+    return [np.zeros((2, 64, 16), np.float32) for _ in range(3)]
+
+
+def _flash():
+    from mpi_and_open_mp_tpu_torch import flash_attention
+
+    flash_attention(*_qkv(), causal=True)
+
+
+def _ring():
+    from mpi_and_open_mp_tpu_torch.parallel import ring_attention
+
+    ring_attention(*[torch.from_numpy(x) for x in _qkv()])
+
+
+def _gate():
+    from mpi_and_open_mp_tpu_torch.parallel import gated_parity_check
+
+    gated_parity_check(heads=2, n=64, dim=16)
+
+
+def _attention_cli():
+    from mpi_and_open_mp_tpu_torch.apps import attention
+
+    attention.main(["--variant", "flash", "--seq", "64", "--heads", "2",
+                    "--head-dim", "16"])
+
+
+@pytest.mark.parametrize("entry", [_flash, _ring, _gate, _attention_cli],
+                         ids=["flash_attention", "ring_attention",
+                              "gated_parity_check", "cli-attention"])
+def test_attention_entry_points_raise_without_cuda(entry):
+    """The attention entry points default to the card too, whatever device
+    their operands come from."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
     with pytest.raises(RuntimeError, match="device='cpu'"):
