@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the seven sources (eight kernels) of
+1. build the eight sources (nine kernels) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
@@ -80,7 +80,35 @@ Phases, each of which raises (exit code 1) when it fails:
    (``attention_32k_causal_sec`` ...), equal heads and GQA; each kernel
    per launch by CUDA events beside its plain version and its bound; and
    ``torch.nn.functional.scaled_dot_product_attention`` forward, backward
-   and both, as the library's yardstick (never on the port's path).
+   and both, as the library's yardstick (never on the port's path);
+13. ``bitlife_window`` against its plain version on the card, packed words
+   bit-exact, on stacked random windows at the shard shapes of phase 14
+   (p46gun_big on row 8, col 8 and cart 4x2; the 1024^2 row-2 overlap
+   split's interior and edges) for k in {1, 7, k_max}; the Life rule of
+   ``stencil_padded`` (``life_step_padded_native``) against
+   ``life_ops.life_step_padded`` on 1-padded shard stacks, uint8 and int32;
+14. the sharded main paths through ``LifeSim`` on meshes of virtual shards
+   of the card, counts set to 0 just before each run and read just after:
+   p46gun_big, all 10 000 steps, ``bitfused`` on row 8, col 8 and cart 4x2
+   (population 7288, boards equal to phase 5's serial ``bitlife_vmem``
+   board, ``bitlife_window`` launched and ``bitlife_vmem`` not); the same
+   board with ``impl="native"`` on row 4 and cart 4x2 (500 rows do not
+   divide over 8 row shards, which ``native`` needs); ``halo`` and
+   ``roll`` on cart 4x2 for 1 000 steps against the NumPy oracle; a 1024^2
+   soup on row 2, stamped ``window+overlap:packed``, against the serial
+   kernel; the 10000^2 soup of phase 3 on cart 2x2 (``tiled``: the fused
+   kernel per shard) for 300 steps against phase 5's serial frame board;
+   and the CLI once (``--layout cart --mesh 4,2 --virtual-devices 8``);
+15. sharded times: ``bitlife_window`` per launch at each phase-13 shape
+   (k = k_max) beside its plain version and its bound (the interior's
+   words, for the card and for the SMs its blocks occupy), the Life rule
+   of ``stencil_padded`` at the native path's shard stack beside its plain
+   version and ``conv2d`` of the aggregate, all by device time from a
+   profiler trace (CUDA events beside them); each sharded runner's us/step
+   from the difference of two step counts, split by a profiler trace into
+   the kernel and the ghost exchange, beside the serial resident kernel's
+   us/step (phase 6); and each geometry that takes the overlap split
+   against the same run under ``MOMP_HALO_OVERLAP=0``.
 
 Tolerances of phases 10-11 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -244,6 +272,28 @@ def attention_err(got, want, tol, what) -> tuple[float, float]:
     return err, share
 
 
+def device_ms(fn, reps: int, kernel_name: str | None = None) -> float:
+    """Mean device milliseconds per call of ``fn()`` over ``reps`` calls,
+    from a ``torch.profiler`` trace: the time of the device kernels named
+    like ``kernel_name``, or of every device kernel when it is None, without
+    the host's launch gaps that CUDA events around fast kernels take in.
+    Raises when the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA
+          and (kernel_name is None or kernel_name in ev.name)]
+    if not us:
+        raise RuntimeError(f"the profiler saw no device kernel "
+                           f"{kernel_name or ''} in {reps} calls")
+    return sum(us) / reps / 1e3
+
+
 def run_counted(wrappers, fn):
     """``fn()`` with every kernel wrapper's launch count set to 0 just
     before and read just after; returns its result and the counts."""
@@ -267,6 +317,8 @@ def main() -> int:
     from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
     from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd as fhb
     from mpi_and_open_mp_tpu_torch.ops import native_flash as nf
+    from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
     from mpi_and_open_mp_tpu_torch.ops import native_stencil as ns
     from mpi_and_open_mp_tpu_torch.parallel import context as cx
     from mpi_and_open_mp_tpu_torch.serve import ShapeBucketBatcher
@@ -274,6 +326,8 @@ def main() -> int:
     from mpi_and_open_mp_tpu_torch.utils.config import LifeConfig
 
     wrappers = {"vmem": tb.vmem_steps, "fused": tb.fused_steps,
+                "window": tb.window_steps,
+                "life_padded": nl.life_step_padded_native,
                 "vmem_batch": tb.vmem_batch_steps,
                 "bitsliced": tb.bitsliced_steps,
                 "stencil": ns.stencil_step_padded,
@@ -411,6 +465,7 @@ def main() -> int:
             f"p46gun_big at step {cfg.steps}: population {population}, "
             f"{int((final != oracle).sum())} cells differ from the oracle")
     log(f"  p46gun_big matches the numpy oracle, population {population}")
+    gun_serial = final.copy()  # phase 14's reference for the sharded runs
 
     big = soup((10000, 10000), 7).cpu().numpy()
     big_cfg = LifeConfig(steps=300, save_steps=0, nx=10000, ny=10000,
@@ -434,7 +489,9 @@ def main() -> int:
                              "from unpacked life_step_roll")
     log("  10000^2 LifeSim board matches the plain version's and "
         f"{big_cfg.steps} unpacked life_step_roll steps")
-    del big, big_final, big_sim, frame_plain_10k, roll
+    # Phase 14 holds the sharded 10000^2 run against this serial board.
+    soup_10k, serial_10k = big, big_final
+    del big_sim, frame_plain_10k, roll
     torch.cuda.empty_cache()
 
     def cli_run(*extra, population):
@@ -771,7 +828,7 @@ def main() -> int:
 
     heat_cfg = LifeConfig(steps=1000, save_steps=0, nx=nx, ny=ny,
                           cells=np.zeros((0, 2), np.int64))
-    hsim = LifeSim(heat_cfg, workload="heat")
+    hsim = LifeSim(heat_cfg, layout="serial", workload="heat")
     heat_start = hsim.collect()
     hfinal = hsim.run()
     hsim.debug_check()
@@ -1183,6 +1240,340 @@ def main() -> int:
         torch.cuda.empty_cache()
     log(f"phase 12 attention timings: {time.perf_counter() - t0:.2f} s")
 
+    # ----------------------- 13. sharded kernels against their plain versions
+    t0 = time.perf_counter()
+    gun_board = cfg.board()
+
+    def sharded_sim(layout, mesh_shape, impl, board=gun_board, steps=None,
+                    **kw):
+        """A LifeSim on a mesh of virtual shards of the card."""
+        ny_, nx_ = board.shape
+        c = LifeConfig(steps=cfg.steps if steps is None else steps,
+                       save_steps=0, nx=nx_, ny=ny_,
+                       cells=np.zeros((0, 2), np.int64))
+        mesh = (pm.make_mesh_2d(*mesh_shape) if layout == "cart" else
+                pm.make_mesh_1d(mesh_shape[0],
+                                axis="x" if layout == "col" else "y"))
+        return LifeSim(c, layout=layout, impl=impl, mesh=mesh,
+                       initial_board=board, **kw)
+
+    # The shard windows of phase 14's bitfused runs: p46gun_big on row 8,
+    # col 8 and cart 4x2, and the overlap split's interior and edges.
+    win_cases = []
+    for layout, mshape in (("row", (8,)), ("col", (8,)), ("cart", (4, 2))):
+        splan = sharded_sim(layout, mshape, "bitfused")._plan
+        win_cases.append((f"p46gun_big {layout} {'x'.join(map(str, mshape))}",
+                          splan.py * splan.px, splan.nw_s, splan.W, splan.h,
+                          splan.hx))
+    ovl_plan = tb.plan_sharded_bits((1024, 1024), 2, 1, True, False)
+    h_o = ovl_plan.h
+    win_cases.append(("1024^2 row 2 interior", 2, ovl_plan.nw_s - 2 * h_o,
+                      ovl_plan.W, h_o, 0))
+    win_cases.append(("1024^2 row 2 edge", 2, h_o, ovl_plan.W, h_o, 0))
+    window_err = 0
+    gen = torch.Generator(device="cuda").manual_seed(500)
+    for what, shards, nw_w, W_w, h_w, hx_w in win_cases:
+        ext = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                            (shards, nw_w + 2 * h_w, W_w + 2 * hx_w),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        k_max = tb.window_max_steps(h_w, hx_w)
+        for k in sorted({1, 7, k_max}):
+            got = tb.window_steps(ext, k, h_w, hx_w)
+            want = tb._window_steps_plain(ext, k, h_w, hx_w)
+            torch.cuda.synchronize()
+            bad = diff_count(got, want)
+            window_err = max(window_err, min(bad, 1))
+            log(f"  window {what}: {tuple(ext.shape)} h={h_w} hx={hx_w} "
+                f"k={k}: differing words {bad}")
+            if bad:
+                raise AssertionError(f"bitlife_window disagrees: {what} k={k}")
+    life_padded_err = 0
+    for shape, dtype in (((8, 127, 252), torch.uint8),
+                         ((4, 127, 502), torch.uint8),
+                         ((8, 3, 252), torch.uint8),
+                         ((8, 127, 252), torch.int32),
+                         ((8, 37, 45), torch.uint8)):
+        block = soup(shape, 600 + shape[-1]).to(dtype)
+        got = nl.life_step_padded_native(block)
+        want = life_ops.life_step_padded(block)
+        torch.cuda.synchronize()
+        bad = diff_count(got, want) + int(got.dtype != dtype)
+        life_padded_err = max(life_padded_err, min(bad, 1))
+        log(f"  life_step_padded_native {shape} {dtype}: differing cells "
+            f"{bad}")
+        if bad:
+            raise AssertionError(f"stencil_padded's life rule disagrees at "
+                                 f"{shape} {dtype}")
+    log(f"phase 13 sharded kernels vs plain: ok "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # ------------------------------------------------ 14. sharded main paths
+    t0 = time.perf_counter()
+    sharded_launches = {}
+
+    def check_board(what, got, want):
+        bad = int((got != want).sum())
+        if bad:
+            raise AssertionError(f"{what}: {bad} cells differ")
+
+    for layout, mshape in (("row", (8,)), ("col", (8,)), ("cart", (4, 2))):
+        ssim = sharded_sim(layout, mshape, "auto")
+        sfinal, counts = run_counted(wrappers, ssim.run)
+        name = f"bitfused {layout} {'x'.join(map(str, mshape))}"
+        sharded_launches[name] = counts
+        pop = int(sfinal.sum())
+        log(f"  main path p46gun_big {name}: impl={ssim.impl} "
+            f"plan={ssim.plan_note} steps={ssim.step_count} population "
+            f"{pop} launches={counts}")
+        if (ssim.impl != "bitfused" or counts["window"] < 1
+                or counts["vmem"] != 0):
+            raise AssertionError(f"{name} did not run through bitlife_window")
+        if pop != 7288:
+            raise AssertionError(f"{name}: population {pop}, not 7288")
+        check_board(f"{name} vs the serial bitlife_vmem board", sfinal,
+                    gun_serial)
+    log("  bitfused row 8, col 8 and cart 4x2: population 7288, boards equal "
+        "to the serial bitlife_vmem run")
+
+    for layout, mshape in (("row", (4,)), ("cart", (4, 2))):
+        nsim = sharded_sim(layout, mshape, "native")
+        nfinal, counts = run_counted(wrappers, nsim.run)
+        name = f"native {layout} {'x'.join(map(str, mshape))}"
+        sharded_launches[name] = counts
+        pop = int(nfinal.sum())
+        log(f"  main path p46gun_big {name}: plan={nsim.plan_note} "
+            f"population {pop} launches={counts}")
+        if counts["life_padded"] < 1:
+            raise AssertionError(f"{name} did not launch stencil_padded")
+        check_board(f"{name} vs the serial bitlife_vmem board", nfinal,
+                    gun_serial)
+
+    oracle_1k = gun_board
+    for _ in range(1000):
+        oracle_1k = life_ops.life_step_numpy(oracle_1k)
+    for impl in ("halo", "roll"):
+        hsim_ = sharded_sim("cart", (4, 2), impl, steps=1000)
+        hfinal_, counts = run_counted(wrappers, hsim_.run)
+        sharded_launches[f"{impl} cart 4x2"] = counts
+        check_board(f"{impl} cart 4x2 at 1000 steps vs the oracle", hfinal_,
+                    oracle_1k)
+        log(f"  {impl} cart 4x2, 1000 steps: matches the NumPy oracle "
+            f"(plan={hsim_.plan_note}, launches={counts})")
+
+    ovl_board = soup((1024, 1024), 77).cpu().numpy()
+    osim = sharded_sim("row", (2,), "bitfused", board=ovl_board, steps=1000)
+    ofinal, counts = run_counted(wrappers, osim.run)
+    sharded_launches["bitfused row 2 1024^2"] = counts
+    log(f"  1024^2 soup row 2: plan={osim.plan_note} launches={counts}")
+    if osim.plan_note != "window+overlap:packed" or counts["window"] < 3:
+        raise AssertionError("1024^2 row 2 did not take the packed overlap")
+    serial_1k = nl.life_run_vmem(torch.from_numpy(ovl_board).cuda(),
+                                 1000).cpu().numpy()
+    check_board("1024^2 row 2 overlap vs the serial kernel", ofinal,
+                serial_1k)
+    log("  1024^2 row 2 overlap:packed matches the serial fused kernel")
+
+    tsim = sharded_sim("cart", (2, 2), "bitfused", board=soup_10k, steps=300)
+    tfinal, counts = run_counted(wrappers, tsim.run)
+    sharded_launches["bitfused cart 2x2 10000^2"] = counts
+    log(f"  10000^2 soup cart 2x2: plan={tsim.plan_note} "
+        f"tile {tsim._plan.tr}x{tsim._plan.cx} hx={tsim._plan.hx} "
+        f"launches={counts}")
+    if tsim.plan_note != "tiled" or counts["fused"] < 1 or counts["window"]:
+        raise AssertionError("10000^2 cart 2x2 did not run tiled shards")
+    check_board("10000^2 cart 2x2 vs the serial frame board", tfinal,
+                serial_10k)
+    log("  10000^2 cart 2x2 matches phase 3's serial frame board")
+    del tsim, tfinal, soup_10k, serial_10k
+    torch.cuda.empty_cache()
+
+    cli_run("--layout", "cart", "--mesh", "4,2", "--virtual-devices", "8",
+            population=7288)
+    log(f"phase 14 sharded main paths: ok ({time.perf_counter() - t0:.2f} s)")
+
+    # ---------------------------------------------- 15. sharded timings
+    t0 = time.perf_counter()
+    from torch.profiler import ProfilerActivity, profile
+
+    def window_record(what, shards, nw_w, W_w, h_w, hx_w):
+        ext = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                            (shards, nw_w + 2 * h_w, W_w + 2 * hx_w),
+                            generator=gen, device="cuda", dtype=torch.int32)
+        k = tb.window_max_steps(h_w, hx_w)
+
+        def kernel():
+            return tb.window_steps(ext, k, h_w, hx_w)
+
+        def plain():
+            return tb._window_steps_plain(ext, k, h_w, hx_w)
+
+        kernel(), plain()  # warm-up
+        k_ms = device_ms(kernel, 50, "bitlife_window")
+        p_ms = device_ms(plain, 1)
+        k_events, p_events = cuda_ms(kernel, reps=50), cuda_ms(plain)
+        # The work is the interior's: each output word, k steps (as phase
+        # 6 bounds the fused kernel). The halo words a window recomputes
+        # are the design's redundancy, not work the function needs.
+        out_words = shards * nw_w * W_w
+        ops = OPS_PER_WORD_STEP * out_words * k
+        bound, by = bound_ms(ops, 4 * (ext.numel() + out_words))
+        sm_bound = ops / (INT32_OPS_PER_S * shards / N_SMS) * 1e3
+        log(f"  window {what} {tuple(ext.shape)} k={k}: device time per "
+            f"launch {k_ms:.4f} ms, plain {p_ms:.3f} ms (CUDA events around "
+            f"back-to-back calls: {k_events:.4f}, plain {p_events:.3f}); "
+            f"bound {bound:.6f} ms ({by}, the card) / {sm_bound:.5f} ms (the "
+            f"{shards} SMs it occupies) [{card}]")
+        return {"what": what, "shape": "x".join(map(str, ext.shape)),
+                "k": k, "ms": k_ms, "plain_ms": p_ms, "events_ms": k_events,
+                "plain_events_ms": p_events, "bound_ms": bound,
+                "bound_by": by, "bound_ms_occupied_sms": sm_bound}
+
+    window_rec = [window_record(*c) for c in win_cases]
+
+    # The Life rule of stencil_padded at the native main path's shard
+    # blocks (cart 4x2: eight 125 x 250 shards, 1-padded), beside conv2d
+    # computing the aggregate alone as the library's yardstick.
+    # Kernel, plain version and library each timed both ways: device time
+    # from a profiler trace (the figures in the kernels line) and CUDA
+    # events around back-to-back calls.
+    lp_block = soup((8, 127, 252), 610)
+    life_spec = stencils.get("life")
+    wt = torch.tensor(life_spec.weights, dtype=torch.float32,
+                      device="cuda")[None, None]
+    x_f = lp_block.float()[:, None]
+    lp_fns = {"kernel": lambda: nl.life_step_padded_native(lp_block),
+              "plain": lambda: life_ops.life_step_padded(lp_block),
+              "library": lambda: torch.nn.functional.conv2d(x_f, wt)}
+    for fn in lp_fns.values():
+        fn()  # warm-up
+    lp_dev = {name: device_ms(fn, 50,
+                              "stencil_padded" if name == "kernel" else None)
+              for name, fn in lp_fns.items()}
+    lp_events = {name: cuda_ms(fn, reps=50) for name, fn in lp_fns.items()}
+    lp_ms, lp_plain, lp_lib = (lp_dev["kernel"], lp_dev["plain"],
+                               lp_dev["library"])
+    lp_bound, lp_by = stencil_bound_ms(
+        life_spec, 0, se.offsets(life_spec), 8 * 125 * 250,
+        lp_block.numel(), 8 * 125 * 250)
+    log(f"  life_step_padded_native (8, 127, 252): device time per call: "
+        f"kernel {lp_ms:.4f} ms, plain {lp_plain:.4f} ms, library "
+        f"(aggregate only: conv2d, float32, TF32 off) {lp_lib:.4f} ms; "
+        f"CUDA events around back-to-back calls: kernel "
+        f"{lp_events['kernel']:.4f}, plain {lp_events['plain']:.4f}, "
+        f"library {lp_events['library']:.4f} ms; bound {lp_bound:.5f} ms "
+        f"({lp_by}) [{card}]")
+
+    # The sharded runners: us/step from the difference of two step counts,
+    # then a profiler trace of one advance for the device time by kernel
+    # (the window or padded kernel against the ghost exchange's copies).
+    def runner_record(name, sim_, lo, hi, kernel_name):
+        def advance(n):
+            return sim_._advance(sim_.board, n)
+
+        advance(lo)  # warm-up
+        t_a = cuda_ms(lambda: advance(lo))
+        t_b = cuda_ms(lambda: advance(hi))
+        us_step = (t_b - t_a) / (hi - lo) * 1e3
+        rec = {"us_per_step": us_step}
+        try:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t_wall = time.perf_counter()
+                advance(lo)
+                torch.cuda.synchronize()
+                t_wall = time.perf_counter() - t_wall
+        except RuntimeError as e:
+            log(f"  profiler unavailable ({e}); split not measured")
+            return rec
+        kern = other = 0.0
+        count = 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                count += 1
+                if kernel_name in ev.name:
+                    kern += ev.time_range.elapsed_us()
+                else:
+                    other += ev.time_range.elapsed_us()
+        if count:
+            wall_us = t_wall * 1e6
+            rec.update(kernel_us_per_step=kern / lo,
+                       exchange_us_per_step=other / lo,
+                       device_kernels_per_step=count / lo,
+                       idle_share=1 - (kern + other) / wall_us)
+            log(f"  runner {name}: {us_step:.4f} us/step differenced "
+                f"{hi}-{lo}; profiler over {lo} steps: kernel "
+                f"{kern / lo:.4f} us/step, ghost exchange and packing "
+                f"{other / lo:.4f} us/step, {count / lo:.3f} device kernels "
+                f"per step, idle share {rec['idle_share']:.3f} [{card}]")
+        else:
+            log(f"  runner {name}: {us_step:.4f} us/step differenced; the "
+                "profiler saw no device kernels, split not measured")
+        return rec
+
+    runner_rec = {}
+    for layout, mshape in (("row", (8,)), ("col", (8,)), ("cart", (4, 2))):
+        runner_rec[f"bitfused {layout}"] = runner_record(
+            f"bitfused {layout} p46gun_big",
+            sharded_sim(layout, mshape, "bitfused"), 2000, 12000,
+            "bitlife_window")
+    runner_rec["native cart 4x2"] = runner_record(
+        "native cart 4x2 p46gun_big", sharded_sim("cart", (4, 2), "native"),
+        200, 1200, "stencil_padded")
+    runner_rec["bitfused row 2 1024^2"] = runner_record(
+        "bitfused row 2 1024^2 (overlap)",
+        sharded_sim("row", (2,), "bitfused", board=ovl_board), 256, 1280,
+        "bitlife_window")
+    # Each geometry that takes the overlap split, against the same sim built
+    # under MOMP_HALO_OVERLAP=0, in the order overlap, sequential,
+    # sequential, overlap. Both schedules run on the one stream, so the
+    # split's extra launches show here.
+    def without_overlap(build):
+        old = os.environ.get("MOMP_HALO_OVERLAP")
+        os.environ["MOMP_HALO_OVERLAP"] = "0"
+        try:
+            return build()
+        finally:
+            if old is None:
+                del os.environ["MOMP_HALO_OVERLAP"]
+            else:
+                os.environ["MOMP_HALO_OVERLAP"] = old
+
+    def us_per_step(sim_, lo, hi):
+        sim_._advance(sim_.board, lo)  # warm-up
+        t_a = cuda_ms(lambda: sim_._advance(sim_.board, lo))
+        t_b = cuda_ms(lambda: sim_._advance(sim_.board, hi))
+        return (t_b - t_a) / (hi - lo) * 1e3
+
+    overlap_rec = {}
+    for name, args, kw, lo, hi in (
+            ("native row 4", ("row", (4,), "native"), {}, 200, 1200),
+            ("native cart 4x2", ("cart", (4, 2), "native"), {}, 200, 1200),
+            ("halo cart 4x2", ("cart", (4, 2), "halo"), {}, 200, 1200),
+            ("bitfused row 2 1024^2", ("row", (2,), "bitfused"),
+             {"board": ovl_board}, 256, 1280)):
+        sims = {"overlap": sharded_sim(*args, **kw),
+                "sequential": without_overlap(
+                    lambda: sharded_sim(*args, **kw))}
+        notes = {m: s.plan_note for m, s in sims.items()}
+        if ("overlap" not in notes["overlap"]
+                or "seq" not in notes["sequential"]):
+            raise AssertionError(f"{name}: schedules {notes}")
+        outs = [s._advance(s.board, lo) for s in sims.values()]
+        if not torch.equal(*outs):
+            raise AssertionError(f"{name}: overlap and sequential differ")
+        times = {m: [] for m in sims}
+        for m in ("overlap", "sequential", "sequential", "overlap"):
+            times[m].append(us_per_step(sims[m], lo, hi))
+        overlap_rec[name] = {"plan_note": notes, "us_per_step": times}
+        log(f"  {name}: {notes['overlap']} "
+            f"{', '.join(f'{t:.4f}' for t in times['overlap'])} us/step, "
+            f"{notes['sequential']} "
+            f"{', '.join(f'{t:.4f}' for t in times['sequential'])} us/step "
+            f"(differenced {hi}-{lo}; run in the order overlap, sequential, "
+            f"sequential, overlap; boards equal) [{card}]")
+    log(f"  serial bitlife_vmem on p46gun_big: {vmem_us_step:.4f} us/step "
+        f"(phase 6) [{card}]")
+    log(f"phase 15 sharded timings: {time.perf_counter() - t0:.2f} s")
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -1235,6 +1626,41 @@ def main() -> int:
                    "aggregate alone"),
          "launches_by_workload": stencil_launches,
          "per_spec": stencil_rec},
+    ]
+    kernels += [
+        {"name": "bitlife_window", "route": "cuda",
+         "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_window.cu",
+         "replaces": "mpi_and_open_mp_tpu/ops/bitlife.py:596",
+         "launches": sum(c["window"] for c in sharded_launches.values()),
+         "max_abs_err": float(window_err), "ms": window_rec[0]["ms"],
+         "plain_ms": window_rec[0]["plain_ms"],
+         "bound_ms": window_rec[0]["bound_ms"],
+         "bound_by": window_rec[0]["bound_by"], "library_ms": None,
+         "shape": (f"{window_rec[0]['what']}: {window_rec[0]['shape']} "
+                   f"windows, k={window_rec[0]['k']} per launch"),
+         "note": ("ms and plain_ms: device time per call from a "
+                  "torch.profiler trace; bound_ms counts the interior's "
+                  "words"),
+         "launches_by_run": {k: c["window"]
+                             for k, c in sharded_launches.items()},
+         "per_shape": window_rec, "runners": runner_rec,
+         "overlap_vs_sequential": overlap_rec},
+        {"name": "stencil_padded:life", "route": "cuda",
+         "source": "mpi_and_open_mp_tpu_torch/csrc/stencil_padded.cu",
+         "replaces": "mpi_and_open_mp_tpu/ops/pallas_life.py:345",
+         "launches": sum(c["life_padded"]
+                         for c in sharded_launches.values()),
+         "max_abs_err": float(life_padded_err), "ms": lp_ms,
+         "plain_ms": lp_plain, "bound_ms": lp_bound, "bound_by": lp_by,
+         "library_ms": lp_lib,
+         "shape": ("8 x 127 x 252 uint8 (cart 4x2 shards of p46gun_big, "
+                   "1-padded), one step per launch; library_ms is conv2d "
+                   "computing the aggregate alone"),
+         "note": ("ms, plain_ms and library_ms: device time per call from "
+                  "a torch.profiler trace of 50 calls"),
+         "events_ms": lp_events,
+         "launches_by_run": {k: c["life_padded"]
+                             for k, c in sharded_launches.items()}},
     ]
     rec = attn_rec[8]
     for name, source, replaces, bound, plain, lib in (

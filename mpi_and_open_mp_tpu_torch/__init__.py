@@ -6,12 +6,12 @@ Entry points run on the card (``device="cuda"``) unless the caller asks for
 run instead.
 """
 
-from mpi_and_open_mp_tpu_torch.models.life import LifeSim
+from mpi_and_open_mp_tpu_torch.models.life import LifeSim, state_from_jax_sim
 from mpi_and_open_mp_tpu_torch.ops.bitlife import state_from_jax
 from mpi_and_open_mp_tpu_torch.parallel.context import (
     attention_reference, flash_attention)
 from mpi_and_open_mp_tpu_torch.utils.config import load_config
 
 __all__ = ["LifeSim", "attention_reference", "flash_attention", "load_config",
-           "state_from_jax"]
+           "state_from_jax", "state_from_jax_sim"]
 __version__ = "0.1.0"

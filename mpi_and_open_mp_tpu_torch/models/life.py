@@ -1,32 +1,65 @@
 """Game-of-Life simulation: one board, its stepper, and snapshot IO.
 
-Counterpart of ``mpi_and_open_mp_tpu/models/life.py:LifeSim``, serial
-layout (the reference's single-process oracle ``3-life/life2d.c``). The
-board is a ``(ny, nx)`` uint8 tensor on ``device``; the step is
+Counterpart of ``mpi_and_open_mp_tpu/models/life.py:LifeSim``. Layouts,
+as the reference's four Life drivers:
 
-* ``impl="native"`` (the counterpart of the JAX package's ``"pallas"``):
-  the packed kernels picked by ``ops.native_life.native_path`` - on the CPU
-  their plain versions;
-* ``impl="roll"``: the unpacked torus step by circular shifts;
-* ``impl="auto"``: ``native`` on the card, ``roll`` on the CPU.
+* ``layout="row"`` (the default) - 1-D row strips (``3-life/life_mpi.c``);
+* ``layout="col"`` - 1-D column strips (``4-life/life_mpi.c``);
+* ``layout="cart"`` - 2-D Cartesian blocks (``6-cartesian/life_cart.c``);
+* ``layout="serial"`` - the single-process oracle (``3-life/life2d.c``).
 
-A stacked ``(B, ny, nx)`` ``initial_board`` puts the sim in batched mode:
-all B independent boards advance together, through
-``ops.native_life.life_run_vmem_batch`` (``impl="native"``, which ``auto``
-means on every device) or the roll step over the stack. Batched runs have
-no snapshot or checkpoint channel (both serialise one board), and
-``debug_check`` holds every board against the oracle on its own.
+A sharded layout holds the board as the stacked shards of a
+``parallel.mesh.Mesh`` (``(py, px, *C, hs, ws)``, every shard on one
+device: virtual shards of the CPU or of one card), the counterpart of the
+JAX package's one ``jax.Array`` sharded over a device mesh. Its step is
 
-Any other registered stencil workload (``workload="heat"``,
-``"gray_scott"``, ``"wireworld"``, ``"lenia"``, ...; see
-``mpi_and_open_mp_tpu_torch.stencils``) runs one board through the spec's
-roll step (``stencils.engine.run_roll``): the spec sets the cell dtype and
-the board shape (channels leading), the default board is
-``spec.init(np.random.default_rng(0xD1CE), cfg.shape)``, ``impl="auto"``
-means ``roll``, and ``impl="native"`` (the packed Life kernels) and
-stacked boards raise, as the JAX package's serial ``"pallas"`` and its
-non-life batched mode do. Stacks of non-life boards go through the serve
-batcher.
+* ``impl="roll"``: the global torus step by shifts. Any board size: a
+  board that does not divide the mesh is stored padded to the next even
+  multiple and un- and re-padded every step, so the torus stays on the
+  logical ``(ny, nx)``;
+* ``impl="halo"``: rounds of a depth-``k`` ghost exchange between the
+  shards (``parallel.halo``) then ``k = fuse_steps`` local steps of the
+  padded blocks, scheduled by a persistent plan that overlaps interior
+  and boundary when the geometry allows (``parallel.haloplan``). The
+  board must divide the mesh;
+* ``impl="native"`` (the JAX package's ``"pallas"``): like ``halo``, the
+  local step on the hand-written kernel - Life's padded step
+  (``ops.native_life.life_step_padded_native``) or any other spec's
+  (``ops.native_stencil.stencil_step_padded``), one launch over every
+  shard. A 1-shard mesh runs Life through the serial resident kernels;
+* ``impl="bitfused"``: each shard holds a bit-packed slab
+  (``ops.bitlife``), exchanges up to 4 halo words (128 rows) and up to 128
+  halo columns, then runs up to 128 fused steps before the next exchange:
+  one launch of the window kernel over every shard when a shard's window
+  fits shared memory (``"window"``), else the fused kernel per shard
+  (``"tiled"``); row shards of an exact frame split each round into
+  interior and edges (``"window+overlap:packed"``). Any board shape the
+  planner (``bitlife.plan_sharded_bits``) accepts: unaligned boards live
+  in a padded frame kept on the torus by mirror rows and columns. On the
+  card a 1-shard mesh dispatches to the serial kernels
+  (``"serial-1dev:<path>"``).
+
+``impl="auto"``: serial boards pick ``native`` on the card and ``roll`` on
+the CPU; sharded layouts pick ``bitfused`` on the card whenever the
+planner covers the geometry, else ``halo`` when the board divides the
+mesh, else ``roll`` (on the CPU never ``bitfused``, as the JAX package
+off the TPU). ``plan_note`` names the schedule a sharded run takes, with
+the JAX package's strings.
+
+A stacked ``(B, ny, nx)`` ``initial_board`` puts the sim in batched mode
+(serial layout only): all B boards advance together through
+``ops.native_life.life_run_vmem_batch`` (``impl="native"``, which
+``auto`` means on every device) or the roll step over the stack. Batched
+runs have no snapshot channel, and ``debug_check`` holds every board
+against the oracle on its own.
+
+Any other registered stencil workload (``workload="heat"``, ``"gray_scott"``,
+``"wireworld"``, ``"lenia"``, ...) runs through the same roll and halo
+machinery in the spec's dtype, channels leading; ``native`` takes the
+padded kernel on sharded layouts. The default board is
+``spec.init(np.random.default_rng(0xD1CE), cfg.shape)``; ``auto`` means
+``halo`` when the board divides the mesh, else ``roll``. The bit-packed
+engines (``bitfused``, serial ``native``, batched mode) are Life only.
 
 The run loop keeps the reference's order (``3-life/life_mpi.c:51-62``): at
 step ``i``, save a snapshot when ``i % save_steps == 0`` (before stepping),
@@ -39,16 +72,25 @@ import os
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from mpi_and_open_mp_tpu_torch import stencils
-from mpi_and_open_mp_tpu_torch.ops import life_ops, native_life
+from mpi_and_open_mp_tpu_torch.ops import (
+    bitlife, life_ops, native_life, native_stencil)
+from mpi_and_open_mp_tpu_torch.parallel import halo, haloplan
+from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 from mpi_and_open_mp_tpu_torch.utils import vtk as vtk_lib
 from mpi_and_open_mp_tpu_torch.utils.config import LifeConfig
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 from mpi_and_open_mp_tpu_torch.utils.timing import sync
 
 LAYOUTS = ("serial", "row", "col", "cart")
-IMPLS = ("auto", "roll", "native")
+IMPLS = ("auto", "roll", "halo", "native", "bitfused")
+
+# On the CPU a 1-shard bitfused mesh runs the exchange machinery (so the
+# tests exercise what the card's serial dispatch bypasses); tests flip
+# this to cover the dispatch itself.
+_BITFUSED_1DEV_SERIAL_ON_CPU = False
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -56,31 +98,70 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
+def _default_mesh(layout: str, device) -> mesh_lib.Mesh | None:
+    if layout == "serial":
+        return None
+    if layout == "row":
+        return mesh_lib.make_mesh_1d(axis="y", device=device)
+    if layout == "col":
+        return mesh_lib.make_mesh_1d(axis="x", device=device)
+    return mesh_lib.make_mesh_2d(device=device)
+
+
+def _mesh_divisors(layout: str, mesh) -> tuple[int, int]:
+    """(py, px) the board axes are split into under ``layout``."""
+    if layout == "serial" or mesh is None:
+        return (1, 1)
+    return stencils.engine.mesh_axes_for(layout, mesh)
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
 class LifeSim:
-    """One Life run: board state on a device, its stepper, snapshot IO."""
+    """One Life run: board state on a device (stacked shards for a
+    sharded layout), its stepper, snapshot IO."""
 
     def __init__(
         self,
         cfg: LifeConfig,
-        layout: str = "serial",
+        layout: str = "row",
         impl: str = "auto",
-        device: str | torch.device = "cuda",
+        mesh: mesh_lib.Mesh | None = None,
+        fuse_steps: int = 1,
+        device: str | torch.device | None = None,
         outdir: str | os.PathLike | None = None,
         checkpoint_dir: str | os.PathLike | None = None,
         initial_board: np.ndarray | None = None,
         initial_step: int = 0,
         workload: str = "life",
     ):
+        if mesh is not None:
+            if (device is not None
+                    and resolve_device(device).type != mesh.device.type):
+                raise ValueError(f"device={device!r} differs from the "
+                                 f"mesh's device {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device("cuda" if device is None else device)
         if layout not in LAYOUTS:
             raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         self.workload = str(workload)
         self.spec = stencils.get(self.workload)
-        if self.workload != "life" and impl == "native":
-            raise ValueError(
-                "serial impl='native' runs the bit-packed Life kernels; "
-                f"workload={self.workload!r} uses impl='roll' (or 'auto')")
+        if self.workload != "life":
+            if impl == "bitfused":
+                raise ValueError(
+                    "impl='bitfused' is a bit-packed Life engine; "
+                    f"workload={self.workload!r} runs 'roll', 'halo' or "
+                    "'native' (sharded)")
+            if impl == "native" and layout == "serial":
+                raise ValueError(
+                    "serial impl='native' runs the bit-packed Life kernels; "
+                    f"workload={self.workload!r} uses impl='roll' (or "
+                    "'auto'), or 'native' on a sharded layout")
         # Batched mode: a stacked (B, ny, nx) initial board. Serial layout
         # only, and no snapshot or checkpoint channel.
         self.batch: int | None = None
@@ -95,35 +176,87 @@ class LifeSim:
                 raise ValueError(
                     "stacked (B, ny, nx) boards need layout='serial'; "
                     "sharded layouts advance one board per program")
+            if impl in ("halo", "bitfused"):
+                raise ValueError(
+                    f"impl={impl!r} has no batched form; use 'auto', "
+                    "'native' (batched kernels) or 'roll'")
             if outdir is not None or checkpoint_dir is not None:
                 raise ValueError(
                     "batched runs have no snapshot/checkpoint channels "
                     "(both serialise one board); drop outdir/checkpoint_dir")
             self.batch = int(np.asarray(initial_board).shape[0])
-        if layout != "serial":
-            raise _not_ported(f"layout={layout!r}", "3 (sharded layouts)")
         if checkpoint_dir is not None:
             raise _not_ported("checkpoint_dir", "4 (checkpoint and resume)")
         self.cfg = cfg
         self.layout = layout
-        self.device = resolve_device(device)
+        self.mesh = (None if layout == "serial" else
+                     mesh if mesh is not None
+                     else _default_mesh(layout, self.device))
+        self.fuse_steps = max(1, int(fuse_steps))
         on_card = self.device.type == "cuda"
+        py, px = _mesh_divisors(layout, self.mesh)
+        self._py, self._px = py, px
+        divisible = cfg.ny % py == 0 and cfg.nx % px == 0
+        plan = None
+        if (impl in ("auto", "bitfused") and self.workload == "life"
+                and layout != "serial"):
+            plan = bitlife.plan_sharded_bits(
+                cfg.shape, py, px, y_sharded=layout in ("row", "cart"),
+                x_sharded=layout in ("col", "cart"))
         if impl == "auto" and self.workload != "life":
-            impl = "roll"
+            impl = "halo" if (layout != "serial" and divisible) else "roll"
         elif impl == "auto":
-            # A stack takes the batched dispatch on every device, as the
-            # JAX package's batched auto does.
-            impl = "native" if on_card or self.batch is not None else "roll"
+            if self.batch is not None:
+                # A stack takes the batched dispatch on every device.
+                impl = "native"
+            elif layout == "serial":
+                impl = "native" if on_card else "roll"
+            elif on_card and plan is not None:
+                impl = "bitfused"
+            elif divisible:
+                impl = "halo"
+            else:
+                impl = "roll"
+        if impl == "halo" and layout == "serial":
+            raise ValueError(
+                "impl='halo' needs a sharded layout (row/col/cart); serial "
+                "runs use impl='roll' or 'native'")
+        if impl in ("halo", "native") and layout != "serial" and not divisible:
+            raise ValueError(
+                f"impl={impl!r} needs board {cfg.shape} divisible by mesh "
+                f"{self.mesh.shape}; use impl='roll' (uneven shards OK)")
+        if impl == "bitfused":
+            if layout == "serial":
+                raise ValueError(
+                    "impl='bitfused' needs a sharded layout (row/col/cart); "
+                    "serial big boards already take the fused kernel via "
+                    "impl='native'")
+            if plan is None:
+                raise ValueError(
+                    f"impl='bitfused' can't plan board {cfg.shape} over mesh "
+                    f"{self.mesh.shape}: a shard is too small to carry a "
+                    "fused halo next to its frame padding; use impl='halo' "
+                    "or 'roll'")
         self.impl = impl
-        # The engine native runs take (the JAX package's plan_note).
-        if impl != "native":
-            self.native_path = None
-        elif self.batch is not None:
-            self.native_path = "batch:" + native_life.native_path_batch(
-                (self.batch, *cfg.shape), on_card=on_card)
+        self._plan = plan if impl == "bitfused" else None
+        if impl in ("halo", "native") and layout != "serial":
+            local = min(cfg.ny // py, cfg.nx // px)
+            if self.fuse_steps * self.spec.radius > local:
+                raise ValueError(
+                    f"fuse_steps={self.fuse_steps} x radius "
+                    f"{self.spec.radius} exceeds the smallest local shard "
+                    f"extent ({local}); a halo cannot be deeper than the "
+                    "shard it pads")
+        # Uneven boards are stored padded: to the next mesh-even multiple,
+        # or to the packed path's frame.
+        if self._plan is not None:
+            self.padded_shape = self._plan.frame
+        elif layout == "serial":
+            self.padded_shape = cfg.shape
         else:
-            self.native_path = native_life.native_path(
-                cfg.shape, on_card=on_card)
+            self.padded_shape = (_ceil_to(cfg.ny, py), _ceil_to(cfg.nx, px))
+        self.native_path = None  # the serial kernels' path, when they run
+        self.plan_note = None    # the sharded schedule (JAX's plan_note)
         self.outdir = os.fspath(outdir) if outdir is not None else None
         self.step_count = int(initial_step)
         self._initial_step = int(initial_step)
@@ -142,22 +275,189 @@ class LifeSim:
             board = self.spec.init(np.random.default_rng(0xD1CE), cfg.shape)
         self._initial = board
         self._probe = None
-        self.board = self._to_device(board)
+        self._advance = self._build_advance()
+        self.board = self._place(board)
 
-    def _to_device(self, board: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(board)).to(self.device)
+    # ------------------------------------------------------- board placement
 
-    def _advance(self, board: torch.Tensor, n: int) -> torch.Tensor:
-        """``board`` advanced ``n`` steps (``board`` itself is untouched)."""
+    def _place(self, board: np.ndarray) -> torch.Tensor:
+        """A host board (logical shape) as the stored state: on the device,
+        padded to ``padded_shape`` and split into stacked shards for a
+        sharded layout."""
+        t = torch.from_numpy(np.ascontiguousarray(board)).to(self.device)
+        if self.layout == "serial":
+            return t
+        ny, nx = self.cfg.shape
+        fy, fx = self.padded_shape
+        if (fy, fx) != (ny, nx):
+            t = F.pad(t, (0, fx - nx, 0, fy - ny))
+        return mesh_lib.shard(t, self._py, self._px)
+
+    def _global(self, board: torch.Tensor) -> torch.Tensor:
+        """The stored state as the logical ``(*C, ny, nx)`` board (or the
+        ``(B, ny, nx)`` stack), on the device."""
+        if self.layout == "serial":
+            return board
+        ny, nx = self.cfg.shape
+        return mesh_lib.unshard(board)[..., :ny, :nx]
+
+    # ---------------------------------------------------------- step builders
+
+    def _halo_plan(self, k: int) -> haloplan.HaloPlan:
+        """The persistent exchange plan for one ``k``-step fused round."""
+        py, px = self._py, self._px
+        return haloplan.plan_halo(
+            self.layout, (py, px),
+            (self.padded_shape[0] // py, self.padded_shape[1] // px),
+            self.spec.radius, k, channels=self.spec.channels)
+
+    def _padded_step(self, padded: torch.Tensor) -> torch.Tensor:
+        """One step of every shard's halo-padded block (the stack)."""
+        if self.impl == "native":
+            if self.workload == "life":
+                return native_life.life_step_padded_native(padded)
+            return native_stencil.stencil_step_padded(self.spec, padded)
+        return stencils.engine.channels_first(
+            self.spec, padded,
+            lambda b: stencils.step_padded(self.spec, b, torch))
+
+    def _build_advance(self):
+        """``advance(board, n)``: the stored state advanced ``n`` steps (the
+        argument itself is untouched)."""
+        if self.layout == "serial":
+            return self._build_serial_advance()
+        if self.impl == "bitfused":
+            return self._build_bitfused_advance()
+        if (self.impl == "native" and self.workload == "life"
+                and self.mesh.size == 1):
+            # One shard: the whole board on the serial resident kernels.
+            self.native_path = native_life.native_path(
+                self.cfg.shape, on_card=self.device.type == "cuda")
+            return lambda board, n: mesh_lib.shard(
+                native_life.life_run_vmem(mesh_lib.unshard(board), n), 1, 1)
+        if self.impl == "roll":
+            return self._build_roll_advance()
+        # halo / native: rounds of k fused steps per exchange.
+        k = self.fuse_steps
+        plan_k = self._halo_plan(k)
+        self.plan_note = plan_k.engine
+
+        def advance(board, n):
+            rounds, rem = divmod(int(n), k)
+            for _ in range(rounds):
+                board = haloplan.fused_step(plan_k, self._padded_step, board)
+            if rem:
+                board = haloplan.fused_step(self._halo_plan(rem),
+                                            self._padded_step, board)
+            return board
+
+        return advance
+
+    def _build_serial_advance(self):
+        on_card = self.device.type == "cuda"
         if self.impl == "native":
             if self.batch is not None:
-                return native_life.life_run_vmem_batch(board, n)
-            return native_life.life_run_vmem(board, n)
+                self.native_path = "batch:" + native_life.native_path_batch(
+                    (self.batch, *self.cfg.shape), on_card=on_card)
+                return native_life.life_run_vmem_batch
+            self.native_path = native_life.native_path(self.cfg.shape,
+                                                       on_card=on_card)
+            return native_life.life_run_vmem
         if self.workload != "life":
-            return stencils.run_roll(self.spec, board, n)
-        for _ in range(int(n)):
-            board = life_ops.life_step_roll(board)
-        return board
+            return lambda board, n: stencils.run_roll(self.spec, board, n)
+
+        def advance(board, n):
+            for _ in range(int(n)):
+                board = life_ops.life_step_roll(board)
+            return board
+
+        return advance
+
+    def _build_roll_advance(self):
+        """The global torus step over the assembled shards, un- and
+        re-padded every step when the board does not divide the mesh."""
+        ny, nx = self.cfg.shape
+        fy, fx = self.padded_shape
+        py, px = self._py, self._px
+
+        def advance(board, n):
+            b = mesh_lib.unshard(board)
+            for _ in range(int(n)):
+                if (fy, fx) != (ny, nx):
+                    v = stencils.step_roll(self.spec, b[..., :ny, :nx])
+                    b = F.pad(v, (0, fx - nx, 0, fy - ny))
+                else:
+                    b = stencils.step_roll(self.spec, b)
+            return mesh_lib.shard(b, py, px)
+
+        return advance
+
+    def _build_bitfused_advance(self):
+        """The packed path: pack the shards once per call, then rounds of
+        an exchange of packed halos and ``min(rem, k_max)`` fused steps."""
+        plan = self._plan
+        on_card = self.device.type == "cuda"
+        ny, nx = self.cfg.shape
+        fy, fx = plan.frame
+        if self.mesh.size == 1 and (on_card or _BITFUSED_1DEV_SERIAL_ON_CPU):
+            # No neighbours: the serial whole-board kernels, without the
+            # halo window's redundant rows or the per-round exchange.
+            self.native_path = native_life.native_path((ny, nx),
+                                                       on_card=on_card)
+            self.plan_note = f"serial-1dev:{self.native_path}"
+
+            def advance(board, n):
+                b = mesh_lib.unshard(board)[:ny, :nx].contiguous()
+                out = F.pad(native_life.life_run_vmem(b, n),
+                            (0, fx - nx, 0, fy - ny))
+                return mesh_lib.shard(out, 1, 1)
+
+            return advance
+
+        # Window-mode row shards of an exact frame split each round into
+        # the interior and two 3h-word edge windows (haloplan's gates).
+        hp = None
+        if bitlife.plan_overlap_supported(plan):
+            hp = haloplan.plan_halo(
+                "row", (plan.py, plan.px), (32 * plan.nw_s, plan.W),
+                32 * plan.h, 1, pack_layout="packed")
+        use_overlap = hp is not None and hp.overlap
+        self.plan_note = f"{plan.mode}+{hp.engine}" if hp else plan.mode
+        step_call = bitlife.make_plan_stepper(plan)
+        if use_overlap:
+            interior_call, edge_call = bitlife.make_overlap_steppers(plan)
+        h, hx = plan.h, plan.hx
+
+        def one_round(q, k):
+            if use_overlap:
+                top, bot = haloplan.packed_ghosts_y(q, h)
+                mid = interior_call(k, q)
+                lead = edge_call(k, torch.cat([top, q[..., : 2 * h, :]], -2))
+                tail = edge_call(k, torch.cat([q[..., -2 * h:, :], bot], -2))
+                return torch.cat([lead, mid, tail], dim=-2)
+            # x first, then y on the x-extended shards: the corners ride
+            # the y exchange. An unsharded axis wraps locally.
+            e = q
+            if plan.x_sharded:
+                e = halo.packed_halo_x(e, "x", hx, pad=plan.pad_x)
+            elif hx:
+                e = torch.cat([e[..., -hx:], e, e[..., :hx]], dim=-1)
+            if plan.y_sharded:
+                e = halo.packed_halo_y(e, "y", h, pad=plan.pad_y)
+            else:
+                e = bitlife.local_wrap_y(plan, e)
+            return step_call(k, e.contiguous())
+
+        def advance(board, n):
+            q = bitlife.pack_board_exact(board)
+            rem = int(n)
+            while rem > 0:
+                k = min(rem, plan.k_max)
+                q = one_round(q, k)
+                rem -= k
+            return bitlife.unpack_board_exact(q)
+
+        return advance
 
     # ------------------------------------------------------------ public API
 
@@ -173,7 +473,7 @@ class LifeSim:
 
     def reset(self) -> None:
         """Restore the initial board."""
-        self.board = self._to_device(self._initial)
+        self.board = self._place(self._initial)
         self.step_count = self._initial_step
 
     def _next_stop(self, i: int, save: bool) -> int:
@@ -206,8 +506,10 @@ class LifeSim:
     def collect(self) -> np.ndarray:
         """The board on the host, ``(ny, nx)`` in the spec's dtype (uint8
         for Life; ``(B, ny, nx)`` in batched mode, channels leading for a
-        multi-channel spec)."""
-        return self.board.cpu().numpy().astype(self.spec.np_dtype, copy=False)
+        multi-channel spec), cropped from the padded frame and gathered
+        from the shards."""
+        return self._global(self.board).cpu().numpy().astype(
+            self.spec.np_dtype, copy=False)
 
     def _divergence(self, got: np.ndarray, want: np.ndarray) -> str | None:
         """How ``got`` differs from the oracle's ``want``, or None: the
@@ -232,13 +534,14 @@ class LifeSim:
     def _consistency_violation(self) -> str | None:
         """One step of the configured stepper must equal one oracle
         (NumPy) step (within ``parity_ok`` for float specs), on the live
-        board and on a fixed probe board (B distinct ones in batched mode);
-        returns a description of the first failure, or None."""
+        board and on a fixed probe board (B distinct ones in batched mode),
+        both placed as the live board is (padded, sharded); returns a
+        description of the first failure, or None."""
         before = self.collect()
         if not self.spec.valid_board(before):
             return ("non-binary cells on the board" if self.workload == "life"
                     else "out-of-domain cells on the board")
-        after = self._advance(self.board, 1).cpu().numpy()
+        after = self._global(self._advance(self.board, 1)).cpu().numpy()
         why = self._divergence(after, self._oracle_step(before))
         if why is not None:
             return f"{why} after one {self.impl}/{self.layout} step"
@@ -253,9 +556,9 @@ class LifeSim:
                 # The spec's own initialiser is the probe state.
                 host = np.asarray(self.spec.init(rng, self.cfg.shape),
                                   dtype=self.spec.np_dtype)
-            self._probe = (self._to_device(host), self._oracle_step(host))
+            self._probe = (self._place(host), self._oracle_step(host))
         probe, probe_expect = self._probe
-        after = self._advance(probe, 1).cpu().numpy()
+        after = self._global(self._advance(probe, 1)).cpu().numpy()
         why = self._divergence(after, probe_expect)
         if why is not None:
             return (f"{why} after one {self.impl}/{self.layout} step on the "
@@ -300,3 +603,21 @@ class LifeSim:
             self.step(next_stop - i)
             i = next_stop
         return self.collect()
+
+
+def state_from_jax_sim(cfg: LifeConfig, board: np.ndarray, step: int,
+                       **sim_kwargs) -> LifeSim:
+    """A port sim that carries on from a JAX ``LifeSim``'s state: its
+    ``board`` as numpy (the JAX sim's stored array, in its
+    ``padded_shape``, channels leading for a multi-channel spec) at step
+    ``step``. The board is cropped to the logical ``(ny, nx)`` and placed
+    on the port's mesh in the port's own frame; ``sim_kwargs`` are
+    :class:`LifeSim`'s (layout, impl, mesh, device, ...)."""
+    board = np.asarray(board)
+    ny, nx = cfg.shape
+    if board.ndim < 2 or board.shape[-2] < ny or board.shape[-1] < nx:
+        raise ValueError(f"board {board.shape} does not hold a "
+                         f"({ny}, {nx}) board")
+    # A copy: a JAX array's numpy view is read-only.
+    return LifeSim(cfg, initial_board=board[..., :ny, :nx].copy(),
+                   initial_step=int(step), **sim_kwargs)

@@ -35,6 +35,7 @@ _P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "bitlife_vmem": [_P, _P, _I, _I, _I, _I, _P],
     "bitlife_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bitlife_window": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
     "stencil_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

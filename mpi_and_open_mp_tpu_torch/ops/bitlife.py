@@ -1,11 +1,11 @@
 """Bit-packed Life on one board and on stacks: 32 cells per 32-bit word,
 bitwise rule.
 
-Counterpart of ``mpi_and_open_mp_tpu/ops/bitlife.py`` (its single-device
-part). The packing is the same bit for bit: 32 cells per word along y,
-and the rule is the same carry-save adder form, ``(n0 | alive) & n1 & ~n2``
-over the mod-8 neighbour count (at least 17 funnel-shift and 3-input
-logic instructions per 32 cells on the card, y shifts included).
+Counterpart of ``mpi_and_open_mp_tpu/ops/bitlife.py``. The packing is
+the same bit for bit: 32 cells per word along y, and the rule is the
+same carry-save adder form, ``(n0 | alive) & n1 & ~n2`` over the mod-8
+neighbour count (at least 17 funnel-shift and 3-input logic
+instructions per 32 cells on the card, y shifts included).
 
 Packed layout ("offset-ghost", :func:`pack_board`): bit position ``p`` of a
 packed column holds board row ``y = p - 1``; position ``0`` mirrors row
@@ -31,6 +31,17 @@ Two hand-written Hopper kernels carry the single-board engines on the card
   shared memory, interior written back (``"fused"`` and ``"frame"``),
   replacing ``_fused_tiles_kernel``.
 
+The sharded layouts (``models.life``, ``bitfused``) plan a board over a
+mesh with :func:`plan_sharded_bits` and step the halo-extended shards of
+one device with a third kernel, or with :func:`fused_steps` per shard:
+
+* :func:`window_steps` - every shard's whole window (the shard plus the
+  exchanged halo words and columns) resident in one block's shared
+  memory for ``k <= min(32 h, hx or 128)`` steps, one block per shard,
+  interiors written back (``"window"``), replacing
+  ``make_window_stepper``'s kernel; :func:`make_plan_stepper` and
+  :func:`make_overlap_steppers` build the per-round calls.
+
 Stacks of B boards come in two layouts, each with its kernel:
 
 * cell-packed, ``(B, nw, nx)`` words (:func:`pack_boards`): the board
@@ -53,7 +64,9 @@ dynamic shared memory (:data:`SMEM_BYTES`), and every kernel keeps a double
 buffer of the resident words, 8 bytes per word. The port never pads x to a
 lane multiple: the kernels index columns modulo the window width, so the
 TPU's wrap-column patch (``nx_exact``) has no counterpart here and the
-padded frame pads rows only.
+serial padded frame pads rows only. A frame sharded in x pads columns to
+``W * px`` (``W = ceil(nx / px)``) with mirror columns, the column twin of
+the mirror rows (``parallel.halo.packed_halo_x``).
 """
 
 from __future__ import annotations
@@ -143,17 +156,19 @@ def unpack_board(packed: torch.Tensor, ny: int) -> torch.Tensor:
 
 
 def pack_board_exact(board: torch.Tensor) -> torch.Tensor:
-    """(ny, nx) 0/1 ints -> (ny/32, nx) int32 with no ghost offset: bit
-    ``b`` of word row ``w`` holds board row ``32*w + b``. Needs
-    ``ny % 32 == 0`` (the torus wrap is then word-aligned)."""
-    ny, nx = board.shape
+    """(..., ny, nx) 0/1 ints -> (..., ny/32, nx) int32 with no ghost
+    offset: bit ``b`` of word row ``w`` holds board row ``32*w + b``
+    (leading axes, if any, are a stack). Needs ``ny % 32 == 0`` (the
+    torus wrap is then word-aligned)."""
+    *lead, ny, nx = board.shape
     if ny % 32:
         raise ValueError(f"pack_board_exact needs ny % 32 == 0, got {ny}")
-    return _or_bits(board.to(torch.int32).reshape(ny // 32, 32, nx), 1)
+    return _or_bits(board.to(torch.int32).reshape(*lead, ny // 32, 32, nx),
+                    -2)
 
 
 def unpack_board_exact(packed: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`pack_board_exact`; returns (ny, nx) uint8."""
+    """Inverse of :func:`pack_board_exact`; returns (..., ny, nx) uint8."""
     return _bits_to_rows(packed)
 
 
@@ -334,12 +349,13 @@ def _tile_cost(nw, nx, tr, cx, h, hx, budget):
     return math.ceil(blocks / N_SMS) * words
 
 
-def _fused_tile_words(nw, nx, h, budget):
+def _fused_tile_words(nw, nx, h, budget, hx=0):
     """Best ``(cost, tr)`` for full-width row tiles (x wraps inside the
-    window, no x halo), or None when no row tile fits."""
+    window, or an x-sharded frame's ``hx`` exchanged columns per side), or
+    None when no row tile fits."""
     best = None
     for tr in range(1, nw + 1):
-        cost = _tile_cost(nw, nx, tr, nx, h, 0, budget)
+        cost = _tile_cost(nw, nx, tr, nx, h, hx, budget)
         if cost is None:
             break
         if best is None or cost < best[0]:
@@ -370,57 +386,101 @@ def _col_tile_plan(nw, nx, h, hx, budget):
 
 @dataclasses.dataclass(frozen=True)
 class BitPlan:
-    """How one board runs through the fused kernel: the padded frame, the
-    halo depths and fuse budget, and the tile split. Produced by
+    """How one board runs through the fused packed path over a ``(py,
+    px)`` mesh: the padded frame, the halo depths and fuse budget, the
+    stepper kind and the tile split of a shard. Produced by
     :func:`plan_sharded_bits`."""
 
     shape: tuple[int, int]   # logical (ny, nx)
-    frame: tuple[int, int]   # stored (32 * nw, nx): rows padded only
+    frame: tuple[int, int]   # stored (32 * nw_s * py, W * px)
     pad_y: int               # mirror rows below the board
-    nw: int                  # packed word rows of the frame
+    nw: int                  # packed word rows of the frame (nw_s * py)
     h: int                   # y halo words per side
-    hx: int                  # x halo columns per side (0 = full-width tiles)
+    hx: int                  # x halo columns per side (0 = none)
     k_max: int               # fused steps per round
     tr: int                  # tile word rows (the last tile may be shorter)
-    cx: int                  # tile columns (nx for full-width tiles)
+    cx: int                  # tile columns (W for full-width tiles)
+    py: int                  # mesh shards along y
+    px: int                  # mesh shards along x
+    y_sharded: bool
+    x_sharded: bool
+    nw_s: int                # packed word rows per shard
+    W: int                   # columns per shard
+    pad_x: int               # mirror columns right of the board
+    mode: str                # "window" | "tiled"
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
 def plan_sharded_bits(
-    shape: tuple[int, int], budget: int = SMEM_BYTES
+    shape: tuple[int, int], py: int = 1, px: int = 1,
+    y_sharded: bool = False, x_sharded: bool = False,
+    budget: int = SMEM_BYTES,
 ) -> BitPlan | None:
-    """Plan the fused packed path for any board on one device: a frame of
-    ``ceil(ny/32)`` word rows whose last ``pad_y`` rows mirror board rows
-    ``[0, pad_y)``, a ``min(4, ...)``-word y halo, and the cheapest tile
-    split that fits ``budget`` bytes of shared memory (full-width row
-    tiles, else 2-D tiles with a ``k_max``-column x halo). Returns None
-    when the board is too short to carry a halo beside its padding.
+    """Plan the fused packed path for any board over a ``(py, px)`` mesh
+    of shards. Returns None when a shard is too small to carry a halo
+    beside its padding, or no window or tile fits ``budget`` bytes of
+    shared memory.
 
-    The single-device plan of the JAX package's ``plan_sharded_bits``;
-    sharded plans come with the sharded layouts (ROADMAP Queue 1 item 3)."""
+    * y: a shard holds ``nw_s = ceil(ny / (32 py))`` word rows; the frame's
+      last ``pad_y`` rows mirror board rows ``[0, pad_y)``, so every
+      window cut from it agrees with the torus. ``h = min(4, ...)`` halo
+      words per side, as many as a neighbour can supply past its mirrors.
+    * x, sharded: ``W = ceil(nx / px)`` columns per shard, the last
+      ``pad_x`` mirroring board columns ``[0, pad_x)``, and ``hx = min(128,
+      W - pad_x)`` exchanged columns per side (junk walks one column per
+      step, so ``k <= hx``). Unsharded x: ``W = nx`` and the window wraps
+      its own columns, exactly the torus. The port indexes columns modulo
+      the window width, so it has no lane pitch and no wrap-patched rolls
+      (the JAX package's ``nx_exact``).
+    * ``mode="window"`` when the whole halo-extended shard window, double
+      buffered, fits one block's shared memory (:func:`window_steps`, one
+      block per shard), else ``"tiled"``: each shard through the fused
+      kernel, tile split by :func:`_tile_cost`.
+
+    A plan with neither axis sharded is the serial frame runner's
+    (``life_run_frame_bits``): always ``"tiled"``, a full-width or 2-D
+    tile split whose ``hx`` is a local wrap halo.
+    """
     ny, nx = shape
     if ny < 8 or nx < 8:
         return None
-    nw = -(-ny // 32)
-    pad_y = 32 * nw - ny
-    # The wrap funnel reads h + 1 words past the mirror rows.
-    h = min(_FUSE_HALO_WORDS, nw - 1 if pad_y else nw)
+    sharded = y_sharded or x_sharded
+    if x_sharded:
+        W = -(-nx // px)
+        pad_x = W * px - nx
+        hx = min(FUSE_MAX_STEPS, W - pad_x)
+        if hx < 1:
+            return None
+    else:
+        W, pad_x, hx = nx, 0, 0
+    nw_s = -(-ny // (32 * py))
+    pad_y = 32 * nw_s * py - ny
+    # The wrap funnel reads h + 1 + pad_y // 32 words past the mirrors.
+    h = min(_FUSE_HALO_WORDS,
+            nw_s - 1 - pad_y // 32 if pad_y else nw_s)
     if h < 1:
         return None
-    k_max = min(32 * h, FUSE_MAX_STEPS)
-    rows = _fused_tile_words(nw, nx, h, budget)
-    cols = _col_tile_plan(nw, nx, h, k_max, budget)
-    if rows is None and cols is None:
-        return None
-    if cols is not None and (rows is None or cols[0] < rows[0]):
-        _, tr, cx = cols
-        hx = k_max
+    k_max = min(32 * h, hx or FUSE_MAX_STEPS)
+    if sharded and (nw_s + 2 * h) * (W + 2 * hx) * BYTES_PER_WORD <= budget:
+        mode, tr, cx = "window", nw_s, W
     else:
-        _, tr = rows
-        cx, hx = nx, 0
+        mode = "tiled"
+        rows = _fused_tile_words(nw_s, W, h, budget, hx)
+        # 2-D tiles carry the exchanged columns, or a k_max-wide local wrap.
+        cols = _col_tile_plan(nw_s, W, h, hx or k_max, budget)
+        if rows is None and cols is None:
+            return None
+        if cols is not None and (rows is None or cols[0] < rows[0]):
+            _, tr, cx = cols
+            hx = hx or k_max
+        else:
+            _, tr = rows
+            cx = W
     return BitPlan(
-        shape=(ny, nx), frame=(32 * nw, nx), pad_y=pad_y, nw=nw, h=h,
-        hx=hx, k_max=k_max, tr=tr, cx=cx,
+        shape=(ny, nx), frame=(32 * nw_s * py, W * px), pad_y=pad_y,
+        nw=nw_s * py, h=h, hx=hx, k_max=k_max, tr=tr, cx=cx, py=py, px=px,
+        y_sharded=y_sharded, x_sharded=x_sharded, nw_s=nw_s, W=W,
+        pad_x=pad_x, mode=mode,
     )
 
 
@@ -435,7 +495,7 @@ def _fused_steps_plain(ext, k, plan):
     """Plain version of the fused kernel: the whole extended frame ``ext``
     stepped as one window, then cropped to the interior. The halo keeps
     the window edge's junk out of the interior, as it does per tile."""
-    h, hx, nw, nx = plan.h, plan.hx, plan.nw, plan.frame[1]
+    h, hx, nw, nx = plan.h, plan.hx, plan.nw_s, plan.W
     w = ext
     for _ in range(int(k)):
         w = _window_step(w)
@@ -444,10 +504,10 @@ def _fused_steps_plain(ext, k, plan):
 
 def fused_steps(ext: torch.Tensor, k: int, plan: BitPlan) -> torch.Tensor:
     """``k <= plan.k_max`` fused steps over the halo-extended packed frame
-    ``ext`` of shape ``(nw + 2h, nx + 2hx)``; returns the ``(nw, nx)``
-    interior. The ``bitlife_fused`` kernel on the card (one block per
-    tile), the plain version on the CPU."""
-    nw, nx = plan.nw, plan.frame[1]
+    (or one shard of it) ``ext`` of shape ``(nw_s + 2h, W + 2hx)``;
+    returns the ``(nw_s, W)`` interior. The ``bitlife_fused`` kernel on
+    the card (one block per tile), the plain version on the CPU."""
+    nw, nx = plan.nw_s, plan.W
     if tuple(ext.shape) != (nw + 2 * plan.h, nx + 2 * plan.hx):
         raise ValueError(f"fused_steps: ext {tuple(ext.shape)} does not "
                          f"match the plan's extended frame")
@@ -470,36 +530,101 @@ def fused_steps(ext: torch.Tensor, k: int, plan: BitPlan) -> torch.Tensor:
 fused_steps.launches = 0
 
 
+# ------------------------------------------ kernel 3: resident shard windows
+
+
+def window_max_steps(h: int, hx: int) -> int:
+    """Steps a halo window of ``h`` words and ``hx`` columns per side
+    takes before the junk that enters at its edges (one bit row and one
+    column per step) reaches the interior: ``min(32 h, hx or 128)``; with
+    ``hx == 0`` the window's own columns are the torus."""
+    return min(32 * h, hx or FUSE_MAX_STEPS)
+
+
+def _window_steps_plain(ext: torch.Tensor, k: int, h: int, hx: int):
+    """Plain version of the window kernel: :func:`_window_step` ``k`` times
+    over each whole window of the stack, then the interior."""
+    w = ext
+    for _ in range(int(k)):
+        w = _window_step(w)
+    R, C = ext.shape[-2:]
+    return w[..., h : R - h, hx : C - hx]
+
+
+def window_steps(ext: torch.Tensor, k: int, h: int, hx: int = 0
+                 ) -> torch.Tensor:
+    """``k`` fused packed steps of every halo-extended shard window in the
+    stack ``ext`` of shape ``(*S, nw + 2h, W + 2hx)``; returns the ``(*S,
+    nw, W)`` interiors. The ``bitlife_window`` kernel on the card (one
+    block per window, resident in shared memory for all ``k`` steps), the
+    plain version on the CPU. ``k`` is at most :func:`window_max_steps`."""
+    R, C = ext.shape[-2:]
+    if R <= 2 * h or C <= 2 * hx or h < 1 or hx < 0:
+        raise ValueError(f"window_steps: window {tuple(ext.shape)} with "
+                         f"halo h={h}, hx={hx} has no interior")
+    if not 0 <= k <= window_max_steps(h, hx):
+        raise ValueError(
+            f"window_steps: k={k} outside [0, {window_max_steps(h, hx)}] "
+            f"for halo h={h}, hx={hx}")
+    if ext.device.type == "cpu":
+        return _window_steps_plain(ext, k, h, hx)
+    if ext.device.type != "cuda":
+        raise ValueError(f"window_steps: expected a CUDA or CPU tensor, got "
+                         f"{ext.device}")
+    _check_card_words(ext, "window_steps", ndim=ext.dim())
+    lead = ext.shape[:-2]
+    out = torch.empty((*lead, R - 2 * h, C - 2 * hx), dtype=torch.int32,
+                      device=ext.device)
+    s = out[..., 0, 0].numel()
+    if s == 0:
+        return out
+    lib = _build.load("bitlife_window")
+    with torch.cuda.device(ext.device):
+        rc = lib.bitlife_window(
+            ext.data_ptr(), out.data_ptr(), s, R - 2 * h, C - 2 * hx, h, hx,
+            int(k), torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, "bitlife_window", rc)
+    window_steps.launches += 1
+    return out
+
+
+window_steps.launches = 0
+
+
 # ----------------------------------------------- frame helpers (host side)
 
 
 def wrap_y(p: torch.Tensor, h: int = _FUSE_HALO_WORDS) -> torch.Tensor:
-    """Extend a packed board with ``h`` torus-wrap word rows per side."""
-    return torch.cat([p[-h:], p, p[:h]], dim=0)
+    """Extend a packed board (word rows on the second-to-last axis) with
+    ``h`` torus-wrap word rows per side."""
+    return torch.cat([p[..., -h:, :], p, p[..., :h, :]], dim=-2)
 
 
 def take_rows(words: torch.Tensor, start: int, h: int) -> torch.Tensor:
-    """Bit rows ``[start, start + 32*h)`` of a packed word stack: a plain
-    slice when word-aligned, else each word funnelled from two."""
+    """Bit rows ``[start, start + 32*h)`` of packed words (word rows on the
+    second-to-last axis; leading axes are a stack): a plain slice when
+    word-aligned, else each word funnelled from two."""
     q, b = divmod(start, 32)
     if b == 0:
-        return words[q : q + h]
-    return _srl(words[q : q + h], b) | (words[q + 1 : q + h + 1] << (32 - b))
+        return words[..., q : q + h, :]
+    return (_srl(words[..., q : q + h, :], b)
+            | (words[..., q + 1 : q + h + 1, :] << (32 - b)))
 
 
 def mirror_tail(e: torch.Tensor, src: torch.Tensor, pad: int) -> torch.Tensor:
     """Rewrite the last ``pad`` bit rows of frame ``e`` with rows
     ``[0, pad)`` of ``src`` (which carries at least ``pad + 32`` rows from
     board row 0): the periodic-mirror refresh."""
-    nw = e.shape[0]
+    nw = e.shape[-2]
     q, b = divmod(pad, 32)
-    parts = [e[: nw - q - (1 if b else 0)]]
+    parts = [e[..., : nw - q - (1 if b else 0), :]]
     if b:
         keep = (1 << (32 - b)) - 1
-        parts.append(((e[nw - 1 - q] & keep) | (src[0] << (32 - b)))[None])
+        parts.append((e[..., nw - 1 - q : nw - q, :] & keep)
+                     | (src[..., :1, :] << (32 - b)))
     if q:
         parts.append(take_rows(src, b, q))
-    return torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
+    return torch.cat(parts, dim=-2) if len(parts) > 1 else parts[0]
 
 
 def wrap_y_padded(e: torch.Tensor, ny: int, h: int) -> torch.Tensor:
@@ -507,15 +632,15 @@ def wrap_y_padded(e: torch.Tensor, ny: int, h: int) -> torch.Tensor:
     the mirror rows, then add funnel-shifted torus borders (board rows
     ``[ny - 32h, ny)`` above, ``[pad, pad + 32h)`` below). Needs
     ``h + 1 + pad//32 <= nw``."""
-    nw = e.shape[0]
+    nw = e.shape[-2]
     pad = 32 * nw - ny
     if pad == 0:
         return wrap_y(e, h)
     s = h + 1 + pad // 32
-    top = take_rows(e[-s:], 32 * s - pad - 32 * h, h)
-    bot = take_rows(e[:s], pad, h)
-    e = mirror_tail(e, e[:s], pad)
-    return torch.cat([top, e, bot], dim=0)
+    top = take_rows(e[..., -s:, :], 32 * s - pad - 32 * h, h)
+    bot = take_rows(e[..., :s, :], pad, h)
+    e = mirror_tail(e, e[..., :s, :], pad)
+    return torch.cat([top, e, bot], dim=-2)
 
 
 def local_wrap_y(plan: BitPlan, q: torch.Tensor) -> torch.Tensor:
@@ -524,6 +649,58 @@ def local_wrap_y(plan: BitPlan, q: torch.Tensor) -> torch.Tensor:
     if plan.pad_y:
         return wrap_y_padded(q, plan.shape[0], plan.h)
     return wrap_y(q, plan.h)
+
+
+def make_plan_stepper(plan: BitPlan):
+    """``step_call(k, ext) -> (py, px, nw_s, W)`` for a :class:`BitPlan`
+    over stacked extended shards ``ext`` of shape ``(py, px, nw_s + 2h, W +
+    2hx)``: one :func:`window_steps` launch for every shard in
+    ``"window"`` mode, else :func:`fused_steps` once per shard (each
+    shard's tiles spread over the card already)."""
+    if plan.mode == "window":
+        return lambda k, ext: window_steps(ext, k, plan.h, plan.hx)
+
+    def tiled(k, ext):
+        py, px = ext.shape[:2]
+        return torch.stack([
+            torch.stack([fused_steps(ext[i, j], k, plan) for j in range(px)])
+            for i in range(py)])
+
+    return tiled
+
+
+def plan_overlap_supported(plan: BitPlan) -> bool:
+    """Whether the plan admits the interior/edge overlap split
+    (``parallel.haloplan``): window-mode row shards of an exact word frame
+    (``pad_y == 0``; padded frames exchange funnel-shifted ranges and
+    refresh mirrors, and an x-sharded plan's y ghosts ride after the x
+    exchange for the corners), with a non-empty interior (``nw_s > 2h``)."""
+    return (plan.mode == "window" and plan.y_sharded
+            and not plan.x_sharded and plan.pad_y == 0
+            and plan.nw_s > 2 * plan.h)
+
+
+def make_overlap_steppers(plan: BitPlan):
+    """``(interior_call, edge_call)`` for the overlapped packed round; gate
+    on :func:`plan_overlap_supported`.
+
+    * ``interior_call(k, q) -> (..., nw_s - 2h, W)``: the raw shard is its
+      own window, its outer ``h`` words playing the halo, so word rows
+      ``[h, nw_s - h)`` come from local words alone, while the ghosts move.
+    * ``edge_call(k, ext3h) -> (..., h, W)``: a ``3h``-word extension
+      (``cat([ghost, q[:2h]])`` or ``cat([q[-2h:], ghost])``) gives an
+      edge once its ghost is there.
+
+    Both are :func:`window_steps` launches over the stack. The junk that
+    enters a window's edge walks one bit row a step, and every output row
+    sits ``32h >= k`` rows from the nearest edge in all three windows, so
+    ``cat([edge, interior, edge])`` equals the sequential round bit for
+    bit."""
+    if not plan_overlap_supported(plan):
+        raise ValueError(f"plan admits no overlap split: {plan}")
+    h = plan.h
+    return (lambda k, q: window_steps(q, k, h, 0),
+            lambda k, ext3h: window_steps(ext3h, k, h, 0))
 
 
 def _run_plan(q: torch.Tensor, n: int, plan: BitPlan,

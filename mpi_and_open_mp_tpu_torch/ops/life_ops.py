@@ -51,17 +51,18 @@ def life_step_roll(board: torch.Tensor) -> torch.Tensor:
 
 
 def life_step_padded(padded: torch.Tensor) -> torch.Tensor:
-    """Step the interior of an ``(h + 2, w + 2)`` halo-padded block whose
-    ghost cells (edges and corners) already hold the neighbouring state;
-    returns the ``(h, w)`` interior."""
-    h, w = padded.shape[0] - 2, padded.shape[1] - 2
+    """Step the interior of an ``(..., h + 2, w + 2)`` halo-padded block
+    whose ghost cells (edges and corners) already hold the neighbouring
+    state; returns the ``(..., h, w)`` interior (leading axes are a stack
+    of blocks, each stepped on its own)."""
+    h, w = padded.shape[-2] - 2, padded.shape[-1] - 2
     n = sum(
-        padded[1 + dj : 1 + dj + h, 1 + di : 1 + di + w]
+        padded[..., 1 + dj : 1 + dj + h, 1 + di : 1 + di + w]
         for dj in (-1, 0, 1)
         for di in (-1, 0, 1)
         if (dj, di) != (0, 0)
     )
-    return life_rule(padded[1 : 1 + h, 1 : 1 + w], n)
+    return life_rule(padded[..., 1 : 1 + h, 1 : 1 + w], n)
 
 
 def pad_x_wrap(block: torch.Tensor, depth: int = 1) -> torch.Tensor:

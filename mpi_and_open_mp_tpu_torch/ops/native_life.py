@@ -26,6 +26,11 @@ On the card only the kernel paths exist: a shape none of them covers
 raises. On the CPU the resident and board-sliced paths run their plain
 versions, and other shapes take ``"plain"``, as the JAX package's CPU
 dispatch takes its XLA loop.
+
+For the sharded layouts, :func:`life_step_padded_native` steps the
+interiors of 1-padded blocks (the JAX package's
+``life_step_padded_pallas``) on the Life rule of the hand-written
+``csrc/stencil_padded.cu``.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ import os
 
 import torch
 
-from mpi_and_open_mp_tpu_torch.ops import bitlife
+from mpi_and_open_mp_tpu_torch.ops import bitlife, life_ops, native_stencil
+from mpi_and_open_mp_tpu_torch.stencils import spec as spec_lib
 
 # MOMP_BITSLICE=0 pins every batched dispatch to the cell-packed ladder
 # (for triage; the answers do not change, only the path).
@@ -157,3 +163,31 @@ def life_run_vmem_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
     if path == "frame":
         return bitlife.life_run_frame_bits_batch(boards, n)
     return bitlife.life_run_bits_plain_batch(boards, n)
+
+
+def life_step_padded_native(padded: torch.Tensor) -> torch.Tensor:
+    """One Life step of the interiors of ``(*lead, h + 2, w + 2)`` blocks
+    whose ghost cells hold the neighbouring state (uint8 or int32 cells);
+    returns ``(*lead, h, w)`` in the same dtype. On the card, one launch
+    of ``csrc/stencil_padded.cu`` with its Life rule (rule 0) over the
+    whole stack - the kernel computes ``life_ops.life_step_padded``
+    exactly, tiles any extent and takes a leading stack axis, so it serves
+    the JAX package's ``life_step_padded_pallas`` as it stands. On the
+    CPU, ``life_ops.life_step_padded``. The JAX package's VMEM gate
+    (``fits_vmem``, big blocks to jnp) has no counterpart here."""
+    if padded.dim() < 2 or padded.shape[-2] < 3 or padded.shape[-1] < 3:
+        raise ValueError(f"life_step_padded_native: expected (..., h+2, "
+                         f"w+2) blocks, got {tuple(padded.shape)}")
+    if padded.dtype not in (torch.uint8, torch.int32):
+        raise ValueError(f"life_step_padded_native: uint8 or int32 cells, "
+                         f"got {padded.dtype}")
+    if padded.device.type == "cpu":
+        return life_ops.life_step_padded(padded)
+    cells = padded.to(torch.uint8).contiguous()
+    out = native_stencil._launch(spec_lib.LIFE, cells)
+    if out.numel():
+        life_step_padded_native.launches += 1
+    return out.to(padded.dtype)
+
+
+life_step_padded_native.launches = 0

@@ -109,21 +109,41 @@ def _check_block(spec: spec_lib.StencilSpec, padded: torch.Tensor) -> None:
         raise ValueError(
             f"stencil_step_padded: a block with a {r}-wide halo needs both "
             f"last extents > {2 * r}, got {tuple(padded.shape)}")
-    if spec.channels > 1 and tuple(padded.shape[:-2]) != (spec.channels,):
+    if spec.channels > 1 and (padded.dim() < 3
+                              or padded.shape[-3] != spec.channels):
         raise ValueError(
-            f"stencil_step_padded: {spec.name!r} takes one "
-            f"({spec.channels}, h+2r, w+2r) board, got "
-            f"{tuple(padded.shape)} (a stack would read as channels)")
+            f"stencil_step_padded: {spec.name!r} takes "
+            f"(..., {spec.channels}, h+2r, w+2r) boards (channels on the "
+            f"third-to-last axis), got {tuple(padded.shape)}")
+
+
+def step_padded_plain(spec: spec_lib.StencilSpec,
+                      padded: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain version, ``engine.step_padded``, on blocks laid
+    out as the kernel takes them: a multi-channel rule indexes its
+    channels on the leading axis, so a stack ``(*S, C, H, W)`` goes
+    channels first and back."""
+    return engine.channels_first(
+        spec, padded, lambda b: engine.step_padded(spec, b, torch))
 
 
 def stencil_step_padded(spec: spec_lib.StencilSpec,
                         padded: torch.Tensor) -> torch.Tensor:
     """One step of ``spec`` over the interior of ``padded``: the
-    ``stencil_padded`` kernel on the card, ``engine.step_padded`` on the
-    CPU. The result has ``padded``'s dtype."""
+    ``stencil_padded`` kernel on the card, :func:`step_padded_plain` on
+    the CPU. The result has ``padded``'s dtype."""
     _check_block(spec, padded)
     if padded.device.type == "cpu":
-        return engine.step_padded(spec, padded, torch)
+        return step_padded_plain(spec, padded)
+    out = _launch(spec, padded)
+    if out.numel():
+        stencil_step_padded.launches += 1
+    return out
+
+
+def _launch(spec: spec_lib.StencilSpec, padded: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel over ``padded`` on the card (checked by
+    the caller, which counts the launch)."""
     if padded.device.type != "cuda":
         raise ValueError(f"stencil_step_padded: expected a CUDA or CPU "
                          f"tensor, got {padded.device}")
@@ -152,7 +172,6 @@ def stencil_step_padded(spec: spec_lib.StencilSpec,
             table.shape[0], groups, H, W, r, rule.rule,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "stencil_padded", rc)
-    stencil_step_padded.launches += 1
     return out
 
 

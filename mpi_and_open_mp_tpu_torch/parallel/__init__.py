@@ -1,5 +1,7 @@
-"""Long-context attention (``context``): flash attention on one card and
-the single-device forms of ring and Ulysses attention."""
+"""Shard meshes of one device (``mesh``), their ghost exchange (``halo``)
+and its persistent overlap plans (``haloplan``), for the sharded Life
+layouts; and long-context attention (``context``): flash attention on one
+card and the single-device forms of ring and Ulysses attention."""
 
 from mpi_and_open_mp_tpu_torch.parallel.context import (  # noqa: F401
     attention_reference,

@@ -1,0 +1,155 @@
+"""Halo (ghost-cell) exchange between the stacked shards of a mesh.
+
+Counterpart of ``mpi_and_open_mp_tpu/parallel/halo.py``, the JAX
+package's ``lax.ppermute`` ghost exchange (itself the reference's ghost
+``MPI_Send``/``MPI_Recv`` pairs, ``3-life/life_mpi.c:198-209`` for rows,
+``4-life/life_mpi.c:197-208`` for strided columns,
+``6-cartesian/life_cart.c:225-279`` for the 2-D sequence).
+
+Every function takes the stacked shards ``(py, px, *C, h, w)`` of one
+device (``parallel.mesh``). A ring ``ppermute`` along a mesh axis is one
+``torch.roll`` along that axis's shard dimension (:func:`ppermute`), and
+the per-shard branches of the JAX package (``lax.axis_index`` under
+``jnp.where``) become slices of the first and last shard on the axis
+(:func:`_with_shard`). Corners come by sequencing the two axes: pad x
+first, then exchange the x-padded rows along y, the reference's
+two-phase trick at ``life_cart.c:257-279``.
+
+The JAX package's trace-time hooks (``_chaos_ghost``, the fault injection
+of ``robust.chaos``, and ``_note_exchange``, the ``obs.metrics`` count)
+belong to the robust and observability port (ROADMAP Queue 1 item 10)
+and are left out here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpi_and_open_mp_tpu_torch.ops import bitlife
+from mpi_and_open_mp_tpu_torch.parallel.mesh import SHARD_DIM
+
+
+def ring_perm(p: int, shift: int = 1) -> list[tuple[int, int]]:
+    """Permutation sending each ring member's value to ``(i + shift) % p``."""
+    return [(i, (i + shift) % p) for i in range(p)]
+
+
+def axis_size(x: torch.Tensor, axis_name: str) -> int:
+    """Shards along mesh axis ``axis_name`` of stacked shards ``x``."""
+    return x.shape[SHARD_DIM[axis_name]]
+
+
+def ppermute(x: torch.Tensor, axis_name: str, shift: int) -> torch.Tensor:
+    """``lax.ppermute(x, axis_name, ring_perm(p, shift))`` on stacked
+    shards: shard ``i`` receives what shard ``i - shift`` holds."""
+    return torch.roll(x, shift, SHARD_DIM[axis_name])
+
+
+def _with_shard(x: torch.Tensor, axis_name: str, i: int,
+                value: torch.Tensor) -> torch.Tensor:
+    """``x`` with shard ``i`` of axis ``axis_name`` replaced by ``value``
+    (one shard thick along that axis)."""
+    dim = SHARD_DIM[axis_name]
+    p = x.shape[dim]
+    parts = [x.narrow(dim, 0, i)] if i else []
+    parts.append(value)
+    if i < p - 1:
+        parts.append(x.narrow(dim, i + 1, p - 1 - i))
+    return torch.cat(parts, dim) if len(parts) > 1 else value
+
+
+def _shard_of(x: torch.Tensor, axis_name: str, i: int) -> torch.Tensor:
+    return x.narrow(SHARD_DIM[axis_name], i, 1)
+
+
+def halo_pad_y(block: torch.Tensor, axis_name: str = "y",
+               depth: int = 1) -> torch.Tensor:
+    """Pad the rows (second-to-last axis) of every shard with ``depth``
+    ghost rows from its ring neighbours on ``axis_name``: the previous
+    shard's last rows on top, the next shard's first rows below. With one
+    shard on the axis this is the torus self-wrap. Channel axes ride
+    along; any dtype."""
+    top = ppermute(block[..., -depth:, :], axis_name, 1)
+    bot = ppermute(block[..., :depth, :], axis_name, -1)
+    return torch.cat([top, block, bot], dim=-2)
+
+
+def halo_pad_x(block: torch.Tensor, axis_name: str = "x",
+               depth: int = 1) -> torch.Tensor:
+    """Pad the columns (last axis) of every shard with ``depth`` ghost
+    columns from its ring neighbours: the reference's strided
+    ``MPI_Type_vector`` exchange (``4-life/life_mpi.c:106-109``) as a
+    slice and a roll."""
+    left = ppermute(block[..., -depth:], axis_name, 1)
+    right = ppermute(block[..., :depth], axis_name, -1)
+    return torch.cat([left, block, right], dim=-1)
+
+
+def halo_pad_2d(block: torch.Tensor, axis_y: str = "y", axis_x: str = "x",
+                depth: int = 1) -> torch.Tensor:
+    """Full 2-D halo with corners: columns first, then the rows of the
+    x-padded shards, so the row ghosts carry the corner cells
+    (``6-cartesian/life_cart.c:275-279``)."""
+    return halo_pad_y(halo_pad_x(block, axis_x, depth), axis_y, depth)
+
+
+def packed_halo_y(e: torch.Tensor, axis_name: str = "y", h: int = 4, *,
+                  pad: int = 0) -> torch.Tensor:
+    """y halo of bit-packed frame shards (word rows x cell columns).
+
+    ``h`` ghost words per side travel the ring. When the frame carries
+    ``pad`` mirror rows (the board height padded to ``32 * nw_s * py``,
+    ``ops.bitlife.plan_sharded_bits``), the wrap edges are funnel-shifted
+    onto the logical board height: shard 0's top ghost is board rows
+    ``[ny - 32h, ny)``, an unaligned range of the last shard, and the last
+    shard's bottom ghost starts at board row ``pad``; the last shard also
+    refreshes its mirror rows from shard 0's live rows. ``pad == 0`` is
+    :func:`halo_pad_y`. With one shard on the axis this is
+    ``bitlife.wrap_y_padded``."""
+    if pad == 0:
+        return halo_pad_y(e, axis_name, h)
+    p = axis_size(e, axis_name)
+    s = h + 1 + pad // 32
+    up = ppermute(e[..., -s:, :], axis_name, 1)
+    dn = ppermute(e[..., :s, :], axis_name, -1)
+    top = _with_shard(
+        up[..., s - h:, :], axis_name, 0,
+        bitlife.take_rows(_shard_of(up, axis_name, 0),
+                          32 * s - pad - 32 * h, h))
+    last = p - 1
+    dn_last = _shard_of(dn, axis_name, last)
+    bot = _with_shard(dn[..., :h, :], axis_name, last,
+                      bitlife.take_rows(dn_last, pad, h))
+    e = _with_shard(e, axis_name, last,
+                    bitlife.mirror_tail(_shard_of(e, axis_name, last),
+                                        dn_last, pad))
+    return torch.cat([top, e, bot], dim=-2)
+
+
+def packed_halo_x(block: torch.Tensor, axis_name: str = "x", hx: int = 128,
+                  *, pad: int = 0) -> torch.Tensor:
+    """x halo of packed frame shards, ``hx`` ghost columns per side.
+
+    The column twin of :func:`packed_halo_y`: with ``pad`` mirror columns
+    (the board width padded to ``W * px``), shard 0's left ghost skips the
+    last shard's mirror columns, the last shard's right ghost starts past
+    shard 0's first ``pad`` columns, and the last shard's mirror columns
+    are refreshed from shard 0. Packed columns are whole cell columns, so
+    there is no funnel, only offset slices. ``pad == 0`` is
+    :func:`halo_pad_x`."""
+    if pad == 0:
+        return halo_pad_x(block, axis_name, hx)
+    p = axis_size(block, axis_name)
+    s = hx + pad
+    left = ppermute(block[..., -s:], axis_name, 1)
+    right = ppermute(block[..., :s], axis_name, -1)
+    last = p - 1
+    right_last = _shard_of(right, axis_name, last)
+    lb = _with_shard(left[..., pad:], axis_name, 0,
+                     _shard_of(left, axis_name, 0)[..., :hx])
+    rb = _with_shard(right[..., :hx], axis_name, last,
+                     right_last[..., pad:pad + hx])
+    mirrored = torch.cat([_shard_of(block, axis_name, last)[..., :-pad],
+                          right_last[..., :pad]], dim=-1)
+    block = _with_shard(block, axis_name, last, mirrored)
+    return torch.cat([lb, block, rb], dim=-1)

@@ -1,0 +1,314 @@
+"""Persistent halo plans: the interior/boundary overlap schedule.
+
+Counterpart of ``mpi_and_open_mp_tpu/parallel/haloplan.py``. A frozen
+:class:`HaloPlan`, derived once per (layout, mesh, shard shape, depth,
+pack layout), splits each fused round of ``k`` steps (ghost depth ``d =
+k * radius``) into
+
+* an interior partition - rows ``[d, h - d)`` of each shard (columns for
+  ``col``), computable from local cells alone: ``k`` steps of the raw
+  shard, each consuming ``radius`` per side; and
+* a boundary partition - two depth-``d`` edge strips, each computed from
+  a ``3d``-deep extension ``cat([ghost, edge_2d])`` once the ghosts are
+  there.
+
+The boundary may itself be partitioned (``boundary_steps <
+fuse_steps``): each edge strip advances in ``boundary_steps``-deep
+sub-rounds, each sub-round's ghosts cut from the neighbour strip's fresh
+cells. Interior and boundary apply the same per-cell arithmetic to the
+same neighbourhoods as the sequential round, so the reassembled shards
+equal it bit for bit (and value for value for floats).
+
+The overlap is a schedule, not a different result. On the port's stacked
+shards (``parallel.mesh``) the ghost moves and the three partitions run
+one after another on the current stream; running the ghost copies on a
+side stream beside the interior is later work (ROADMAP Queue 1 item 3).
+
+Engine stamps, as the JAX package's: ``overlap:deferred`` (``…:pb{b}``
+when the boundary is partitioned), ``overlap:packed`` (the bit-packed
+twin, ``ops.bitlife.make_overlap_steppers``), and ``seq:halo`` /
+``seq:packed`` with the reason in :attr:`HaloPlan.why`.
+``MOMP_HALO_OVERLAP=0`` is the kill switch, read when a plan is made and
+part of the cache key. ``MOMP_HALO_RDMA=1`` asks for the JAX package's
+remote-copy ghost kernel (``_rdma_edge_pair``), which only means
+something across cards: it raises here (ROADMAP Queue 2 item 10), and the
+port never stamps ``overlap:rdma``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+
+import torch
+
+from mpi_and_open_mp_tpu_torch.parallel import halo
+
+ENV_OVERLAP = "MOMP_HALO_OVERLAP"
+ENV_RDMA = "MOMP_HALO_RDMA"
+
+LAYOUTS = ("row", "col", "cart")
+
+
+def overlap_enabled() -> bool:
+    """The ``MOMP_HALO_OVERLAP`` kill switch (default on)."""
+    return os.environ.get(ENV_OVERLAP, "1") != "0"
+
+
+def rdma_requested() -> bool:
+    """Whether ``MOMP_HALO_RDMA=1`` asks for the remote-copy ghost path."""
+    return os.environ.get(ENV_RDMA, "0") == "1"
+
+
+@dataclasses.dataclass(frozen=True)
+class HaloPlan:
+    """One (mesh, shard shape, depth, pack layout) exchange schedule,
+    derived once and reused every round."""
+
+    layout: str                  # row | col | cart
+    mesh_axes: tuple[int, int]   # (py, px) mesh axis sizes
+    shard_shape: tuple[int, int] # local (h, w) cell extent per shard
+    radius: int
+    fuse_steps: int
+    boundary_steps: int          # edge sub-round depth; == fuse_steps
+                                 # for the coupled (one-exchange) round
+    channels: int
+    pack_layout: str             # "cell" | "packed"
+    depth: int                   # radius * fuse_steps, ghost cells/side
+    overlap: bool                # interior/boundary schedule active
+    engine: str                  # provenance stamp (module docstring)
+    why: str                     # reason overlap was declined ("" if on)
+
+
+def _overlap_axis(layout: str) -> str:
+    """The axis whose exchange the plan overlaps: y for ``row`` and
+    ``cart`` (cart's x exchange stays sequential: its ghosts feed the y
+    ghosts' corners), x for ``col``."""
+    return "x" if layout == "col" else "y"
+
+
+@functools.lru_cache(maxsize=512)
+def _plan(layout: str, mesh_axes: tuple[int, int],
+          shard_shape: tuple[int, int], radius: int, fuse_steps: int,
+          boundary_steps: int, channels: int, pack_layout: str,
+          enabled: bool) -> HaloPlan:
+    depth = radius * fuse_steps
+    py, px = mesh_axes
+    h, w = shard_shape
+    axis = _overlap_axis(layout)
+    shards = py if axis == "y" else px
+    extent = h if axis == "y" else w
+
+    def seq(why: str) -> HaloPlan:
+        stamp = "seq:packed" if pack_layout == "packed" else "seq:halo"
+        return HaloPlan(layout, mesh_axes, shard_shape, radius,
+                        fuse_steps, fuse_steps, channels, pack_layout,
+                        depth, False, stamp, why)
+
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    if (boundary_steps < 1 or boundary_steps > fuse_steps
+            or fuse_steps % boundary_steps):
+        raise ValueError(
+            f"boundary_steps={boundary_steps} must divide "
+            f"fuse_steps={fuse_steps}")
+    if pack_layout == "packed" and boundary_steps != fuse_steps:
+        raise ValueError(
+            "packed frames keep the coupled boundary depth "
+            "(boundary_steps == fuse_steps)")
+    if not enabled:
+        return seq(f"{ENV_OVERLAP}=0")
+    if shards <= 1:
+        return seq(f"1-shard {axis} axis: nothing to overlap")
+    if extent <= 2 * depth:
+        return seq(
+            f"shard {axis} extent {extent} <= 2*depth {2 * depth}: "
+            "empty interior")
+    engine = "overlap:packed" if pack_layout == "packed" else "overlap:deferred"
+    if boundary_steps != fuse_steps:
+        engine += f":pb{boundary_steps}"
+    return HaloPlan(layout, mesh_axes, shard_shape, radius, fuse_steps,
+                    boundary_steps, channels, pack_layout, depth, True,
+                    engine, "")
+
+
+def plan_halo(layout: str, mesh_axes: tuple[int, int],
+              shard_shape: tuple[int, int], radius: int,
+              fuse_steps: int = 1, *, boundary_steps: int | None = None,
+              channels: int = 1,
+              pack_layout: str = "cell") -> HaloPlan:
+    """Derive (or fetch) the persistent plan for one geometry. The kill
+    switch is part of the cache key, so flipping ``MOMP_HALO_OVERLAP``
+    mid-process gives a fresh plan. ``boundary_steps`` (default: coupled,
+    ``== fuse_steps``) must divide ``fuse_steps``. Raises
+    NotImplementedError under ``MOMP_HALO_RDMA=1``."""
+    if rdma_requested():
+        raise NotImplementedError(
+            f"{ENV_RDMA}=1 asks for the remote-copy ghost kernel "
+            "(_rdma_edge_pair), which moves ghosts between cards; the port's "
+            "shards share one device. Meshes across cards are ROADMAP Queue "
+            "1 item 3, and this kernel is ROADMAP Queue 2 item 10")
+    bs = fuse_steps if boundary_steps is None else int(boundary_steps)
+    return _plan(layout, tuple(mesh_axes), tuple(shard_shape),
+                 int(radius), int(fuse_steps), bs, int(channels),
+                 pack_layout, overlap_enabled())
+
+
+# --------------------------------------------------------------- ghost moves
+
+
+def ghosts_y(block: torch.Tensor, depth: int,
+             axis_name: str = "y") -> tuple[torch.Tensor, torch.Tensor]:
+    """The y ghost pair ``(top, bot)``: the slices :func:`halo.halo_pad_y`
+    concatenates, without the concatenation."""
+    top = halo.ppermute(block[..., -depth:, :], axis_name, 1)
+    bot = halo.ppermute(block[..., :depth, :], axis_name, -1)
+    return top, bot
+
+
+def ghosts_x(block: torch.Tensor, depth: int,
+             axis_name: str = "x") -> tuple[torch.Tensor, torch.Tensor]:
+    """The x ghost pair ``(left, right)``, :func:`ghosts_y` on the last
+    axis."""
+    left = halo.ppermute(block[..., -depth:], axis_name, 1)
+    right = halo.ppermute(block[..., :depth], axis_name, -1)
+    return left, right
+
+
+def packed_ghosts_y(q: torch.Tensor, h: int,
+                    axis_name: str = "y") -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed-frame y ghost pair ``(top, bot)``, ``h`` words per side: the
+    deferred form of ``halo.packed_halo_y``'s ``pad == 0`` path (the packed
+    overlap is gated to exact frames)."""
+    return ghosts_y(q, h, axis_name)
+
+
+# --------------------------------------------------------- fused schedules
+
+
+def _steps(step_fn, padded: torch.Tensor, k: int) -> torch.Tensor:
+    for _ in range(k):
+        padded = step_fn(padded)
+    return padded
+
+
+def _wrap_y(block: torch.Tensor, d: int) -> torch.Tensor:
+    return torch.cat([block[..., -d:, :], block, block[..., :d, :]], dim=-2)
+
+
+def _wrap_x(block: torch.Tensor, d: int) -> torch.Tensor:
+    return torch.cat([block[..., -d:], block, block[..., :d]], dim=-1)
+
+
+def overlap_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
+                       ) -> torch.Tensor:
+    """One overlapped fused round of ``k = plan.fuse_steps`` steps over
+    the stacked shards ``block``. ``step_fn`` consumes one ``radius`` of
+    halo per side per call (``stencils.engine.step_padded``'s contract).
+    The ghosts are cut first and consumed last; the three partitions
+    reassemble into the sequential round's result."""
+    if not plan.overlap:
+        return sequential_fused_step(plan, step_fn, block)
+    if plan.boundary_steps != plan.fuse_steps:
+        return _partitioned_fused_step(plan, step_fn, block)
+    k, d = plan.fuse_steps, plan.depth
+    if plan.layout == "col":
+        # x-mirror of the row schedule: the unsharded y axis wraps itself.
+        left, right = ghosts_x(block, d)
+        interior = _steps(step_fn, _wrap_y(block, d), k)
+        lead = torch.cat([left, block[..., : 2 * d]], dim=-1)
+        tail = torch.cat([block[..., -2 * d:], right], dim=-1)
+        lead = _steps(step_fn, _wrap_y(lead, d), k)
+        tail = _steps(step_fn, _wrap_y(tail, d), k)
+        return torch.cat([lead, interior, tail], dim=-1)
+    # row / cart: overlap the y exchange. Cart first completes the x
+    # exchange (its ghost columns feed the y ghosts' corners); row wraps x
+    # locally. Either way `base` carries d ghost columns.
+    base = (halo.halo_pad_x(block, "x", d) if plan.layout == "cart"
+            else _wrap_x(block, d))
+    top, bot = ghosts_y(base, d)
+    interior = _steps(step_fn, base, k)
+    lead = _steps(step_fn, torch.cat([top, base[..., : 2 * d, :]], dim=-2), k)
+    tail = _steps(step_fn, torch.cat([base[..., -2 * d:, :], bot], dim=-2), k)
+    return torch.cat([lead, interior, tail], dim=-2)
+
+
+def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
+                            ) -> torch.Tensor:
+    """The partitioned-boundary round: the interior keeps the full ``k``;
+    each edge strip advances in ``b = boundary_steps`` sub-rounds, each
+    exchanging ``radius * b``-deep ghosts cut from the neighbour strip's
+    fresh cells. Sub-round ``j``'s ghost is the neighbour strip at step
+    ``j * b``, so the shards equal the coupled round bit for bit."""
+    k, d, b = plan.fuse_steps, plan.depth, plan.boundary_steps
+    e = plan.radius * b
+    if plan.layout == "col":
+        base = _wrap_y(block, d)
+        interior = _steps(step_fn, base, k)
+        lead, tail = base[..., : 2 * d], base[..., -2 * d:]
+        for _ in range(k // b):
+            left = halo.ppermute(tail[..., -e:], "x", 1)
+            right = halo.ppermute(lead[..., :e], "x", -1)
+            lead = _steps(step_fn, torch.cat([left, lead], dim=-1), b)
+            tail = _steps(step_fn, torch.cat([tail, right], dim=-1), b)
+        return torch.cat([lead, interior, tail], dim=-1)
+    # row / cart: bands along y, each starting with d ghost columns and
+    # narrowing by e per side per sub-round.
+    base = (halo.halo_pad_x(block, "x", d) if plan.layout == "cart"
+            else _wrap_x(block, d))
+    interior = _steps(step_fn, base, k)
+    lead, tail = base[..., : 2 * d, :], base[..., -2 * d:, :]
+    for _ in range(k // b):
+        top = halo.ppermute(tail[..., -e:, :], "y", 1)
+        bot = halo.ppermute(lead[..., :e, :], "y", -1)
+        lead = _steps(step_fn, torch.cat([top, lead], dim=-2), b)
+        tail = _steps(step_fn, torch.cat([tail, bot], dim=-2), b)
+    return torch.cat([lead, interior, tail], dim=-2)
+
+
+def sequential_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
+                          ) -> torch.Tensor:
+    """The sequential round: the whole halo-padded shards first
+    (:func:`padded_round_block`), then ``k`` steps."""
+    return _steps(step_fn, padded_round_block(plan.layout, block, plan.depth),
+                  plan.fuse_steps)
+
+
+def fused_step(plan: HaloPlan, step_fn, block: torch.Tensor) -> torch.Tensor:
+    """One fused round by the plan's schedule."""
+    if plan.overlap:
+        return overlap_fused_step(plan, step_fn, block)
+    return sequential_fused_step(plan, step_fn, block)
+
+
+# ------------------------------------------------- padded frames for engines
+
+
+def padded_round_block(layout: str, block: torch.Tensor,
+                       depth: int) -> torch.Tensor:
+    """One round's halo-padded shards, exchanged as the sequential
+    schedule pads them: the unsharded axis wraps locally, sharded axes
+    exchange (x before y on ``cart``, for the corners)."""
+    d = depth
+    if layout == "row":
+        return halo.halo_pad_y(_wrap_x(block, d), "y", d)
+    if layout == "col":
+        return halo.halo_pad_x(_wrap_y(block, d), "x", d)
+    return halo.halo_pad_2d(block, "y", "x", d)
+
+
+def padded_round_block_local(layout: str, block: torch.Tensor,
+                             depth: int) -> torch.Tensor:
+    """The zero-sentinel twin of :func:`padded_round_block`: unsharded
+    axes wrap locally, sharded axes pad with zeros and nothing is
+    exchanged. Equal to it when every shard's boundary band is dead (the
+    caller's decision)."""
+    d = depth
+    pad_y, pad_x = {"row": ((d, d), (0, 0)), "col": ((0, 0), (d, d)),
+                    "cart": ((d, d), (d, d))}[layout]
+    if layout == "row":
+        block = _wrap_x(block, d)
+    elif layout == "col":
+        block = _wrap_y(block, d)
+    return torch.nn.functional.pad(block, (*pad_x, *pad_y))

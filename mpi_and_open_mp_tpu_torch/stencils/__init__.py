@@ -4,8 +4,10 @@ Counterpart of ``mpi_and_open_mp_tpu/stencils`` on one device:
 ``stencils.spec`` (the declarative :class:`StencilSpec` and the registry),
 ``stencils.engine`` (roll, padded, oracle and engine-family steps, and the
 stack runner over the hand-written padded kernel) and ``stencils.sparse``
-(the active-tile engine for mostly-dead boards). The sharded runners and
-``SparseShardedEngine`` come with the sharded layouts.
+(the active-tile engine for mostly-dead boards), and the sharded runners
+over a mesh of shards on one device (``make_sharded_runner``,
+``run_sharded``). ``SparseShardedEngine`` is not ported yet (ROADMAP
+Queue 1 item 3).
 """
 
 from mpi_and_open_mp_tpu_torch.stencils.engine import (  # noqa: F401
@@ -16,6 +18,9 @@ from mpi_and_open_mp_tpu_torch.stencils.engine import (  # noqa: F401
     family_for_path,
     family_pinned,
     fft_supported,
+    fused_steps_valid,
+    make_sharded_runner,
+    mesh_axes_for,
     native_batch_supported,
     offsets,
     oracle_run,
@@ -26,7 +31,9 @@ from mpi_and_open_mp_tpu_torch.stencils.engine import (  # noqa: F401
     run_padded_native_batch,
     run_roll,
     run_roll_batch,
+    run_sharded,
     separable_supported,
+    sharded_pspec,
     step_fft,
     step_numpy,
     step_padded,

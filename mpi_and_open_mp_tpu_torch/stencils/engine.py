@@ -24,6 +24,17 @@ Paths (``xp`` is ``torch`` by default, or ``numpy``):
   ``native``). :func:`native_batch_supported` is its
   ``pallas_batch_supported``.
 
+Sharded runners (the JAX package's ``shard_map`` halo rounds), over a
+``parallel.mesh.Mesh`` of shards on one device:
+
+* :func:`make_sharded_runner` and :func:`run_sharded` - rounds of
+  ``fuse_steps`` steps scheduled by a persistent ``parallel.haloplan``
+  plan (overlap or sequential), on the stacked shards;
+  :func:`sharded_pspec`, :func:`mesh_axes_for` and
+  :func:`fused_steps_valid` are their helpers. The sparse sharded engine
+  (``stencils/sparse_sharded.py``) is not ported yet (ROADMAP Queue 1
+  item 3).
+
 Engine families restructure the aggregation for wide float kernels:
 
 * ``sep`` (:func:`step_sep`, :func:`step_padded_sep`) - the weight table
@@ -160,6 +171,16 @@ def parity_ok(spec: StencilSpec, got, want, *, rtol=1e-5, atol=1e-6) -> bool:
     if spec.is_float:
         return bool(np.allclose(got, want, rtol=rtol, atol=atol))
     return bool(np.array_equal(got, want))
+
+
+def channels_first(spec: StencilSpec, blocks: torch.Tensor, step):
+    """``step(blocks)`` for ``(*S, C, H, W)`` blocks of a multi-channel
+    rule, which indexes its channels on the leading axis: the stack goes
+    channels first and back. Single-channel blocks and one ``(C, H, W)``
+    board pass straight through."""
+    if spec.channels == 1 or blocks.dim() == 3:
+        return step(blocks)
+    return step(blocks.movedim(-3, 0)).movedim(0, -3)
 
 
 def _on_stack(spec: StencilSpec, stack: torch.Tensor, run):
@@ -500,3 +521,119 @@ def run_family_batch(spec: StencilSpec, stack, n: int,
     _require_family(spec, family)
     return _on_stack(spec, torch.as_tensor(stack),
                      lambda s: run_family(spec, s, n, family))
+
+
+# ------------------------------------------------------- sharded halo steps
+#
+# The engine-level sharded entry: halo rounds over the stacked shards of a
+# mesh (parallel.mesh), scheduled by a persistent HaloPlan
+# (parallel.haloplan), so the model layer and the runners measure the same
+# two schedules.
+
+
+def sharded_pspec(layout: str, channels: int) -> tuple:
+    """The board axes' mesh axes under ``layout`` (None = unsharded),
+    channels leading: the JAX package's ``PartitionSpec`` for the board,
+    as a tuple."""
+    axes = {"row": ("y", None), "col": (None, "x"),
+            "cart": ("y", "x")}[layout]
+    return (None, *axes) if channels > 1 else axes
+
+
+def mesh_axes_for(layout: str, mesh) -> tuple[int, int]:
+    """(py, px) shard counts per board axis under ``layout``."""
+    py = mesh.shape.get("y", 1) if layout in ("row", "cart") else 1
+    px = mesh.shape.get("x", 1) if layout in ("col", "cart") else 1
+    return py, px
+
+
+def fused_steps_valid(spec: StencilSpec, shard_shape: tuple[int, int],
+                      fuse_steps: int) -> bool:
+    """Whether ``fuse_steps`` fuses legally on this shard: the halo depth
+    ``fuse_steps * radius`` cannot exceed the smallest shard extent (a
+    deeper halo would wrap a neighbour's neighbour)."""
+    return fuse_steps * spec.radius <= min(shard_shape)
+
+
+def make_sharded_runner(spec: StencilSpec, mesh, layout: str,
+                        shape: tuple[int, int], *, fuse_steps: int = 1,
+                        boundary_steps: int | None = None,
+                        overlap: bool | None = None,
+                        family: str = "offset"):
+    """Build ``(run, plan)`` for a board sharded over ``mesh``:
+    ``run(board, n)`` advances a ``(*C, ny, nx)`` board on the mesh's
+    device ``n`` torus steps by plan-scheduled halo rounds over its
+    stacked shards, and returns the board.
+
+    ``overlap=None`` lets the plan decide (geometry and the
+    ``MOMP_HALO_OVERLAP`` kill switch); ``False`` forces the sequential
+    schedule and stamps ``why``. ``boundary_steps`` partitions each
+    round's boundary (it must divide ``fuse_steps``); ``family`` picks
+    the per-shard aggregation (:func:`step_padded_family`). A remainder
+    round gets its own coupled plan of the smaller depth."""
+    import dataclasses as _dc
+
+    from mpi_and_open_mp_tpu_torch.parallel import haloplan
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
+
+    _require_family(spec, family)
+    ny, nx = shape
+    py, px = mesh_axes_for(layout, mesh)
+    if ny % py or nx % px:
+        raise ValueError(
+            f"board {shape} does not divide mesh {mesh.shape} under "
+            f"layout={layout!r}")
+    shard = (ny // py, nx // px)
+    if not fused_steps_valid(spec, shard, fuse_steps):
+        raise ValueError(
+            f"fuse_steps={fuse_steps} x radius {spec.radius} exceeds "
+            f"shard {shard}")
+
+    def plan_for(k: int):
+        bs = boundary_steps if k == fuse_steps else None
+        p = haloplan.plan_halo(layout, (py, px), shard, spec.radius, k,
+                               boundary_steps=bs, channels=spec.channels)
+        if overlap is False and p.overlap:
+            p = _dc.replace(p, overlap=False, engine="seq:halo",
+                            why="forced sequential (A/B baseline)")
+        return p
+
+    plan = plan_for(fuse_steps)
+
+    def step_fn(padded):
+        return channels_first(
+            spec, padded,
+            lambda b: step_padded_family(spec, b, family, torch))
+
+    def run(board, n):
+        stack = mesh_lib.shard(torch.as_tensor(board, device=mesh.device),
+                               py, px)
+        rounds, rem = divmod(int(n), fuse_steps)
+        for _ in range(rounds):
+            stack = haloplan.fused_step(plan, step_fn, stack)
+        if rem:
+            stack = haloplan.fused_step(plan_for(rem), step_fn, stack)
+        return mesh_lib.unshard(stack)
+
+    return run, plan
+
+
+def run_sharded(spec: StencilSpec, board, n: int, *, mesh,
+                layout: str = "row", fuse_steps: int = 1,
+                boundary_steps: int | None = None,
+                overlap: bool | None = None, family: str = "offset"):
+    """Advance ``board`` (host or device; placed on the mesh's device in
+    the spec's dtype) ``n`` sharded steps; returns the board on the
+    mesh's device. The plan rides on ``run_sharded.last_plan``."""
+    board = torch.as_tensor(np.asarray(board, dtype=spec.np_dtype)
+                            if not isinstance(board, torch.Tensor) else board)
+    board = board.to(device=mesh.device, dtype=spec.torch_dtype)
+    run, plan = make_sharded_runner(
+        spec, mesh, layout, tuple(board.shape[-2:]),
+        fuse_steps=fuse_steps, boundary_steps=boundary_steps,
+        overlap=overlap, family=family)
+    run_sharded.last_plan = plan
+    return run(board, int(n))
+
+
+run_sharded.last_plan = None

@@ -301,7 +301,8 @@ def test_lifesim_batched_constructor_gates():
 
 def test_lifesim_batched_debug_check_names_diverging_board():
     cfg, _ = _cfgs(12, 12, 4)
-    sim = LifeSim(cfg, device="cpu", initial_board=_stack(5, 12, 12, seed=4))
+    sim = LifeSim(cfg, layout="serial", device="cpu",
+                  initial_board=_stack(5, 12, 12, seed=4))
     sim.step(2)
     sim.debug_check()
     good = sim._advance
@@ -315,8 +316,8 @@ def test_lifesim_batched_debug_check_names_diverging_board():
     with pytest.raises(AssertionError, match=r"board 3: 144\)"):
         sim.debug_check()
     # The probe leg names boards too: a live stack the stepper cannot break.
-    sim2 = LifeSim(cfg, device="cpu", initial_board=np.zeros((5, 12, 12),
-                                                             np.uint8))
+    sim2 = LifeSim(cfg, layout="serial", device="cpu",
+                   initial_board=np.zeros((5, 12, 12), np.uint8))
     sim2._advance = lambda board, n: (good(board, n) if not board.any()
                                       else board)
     with pytest.raises(AssertionError, match=r"\(board 0: .*probe board"):
@@ -328,8 +329,9 @@ def test_cli_batch_matches_jax_cli(capsys):
     over the stack, as the JAX CLI prints it."""
     from mpi_and_open_mp_tpu.apps import life as jax_app
 
-    assert life_app.main([GLIDER, "--batch", "3", "--device", "cpu",
-                          "--print-final-population", "--debug-check"]) == 0
+    assert life_app.main([GLIDER, "--layout", "serial", "--batch", "3",
+                          "--device", "cpu", "--print-final-population",
+                          "--debug-check"]) == 0
     out, err = capsys.readouterr()
     assert len(out.strip().splitlines()) == 1 and float(out) >= 0
     assert err.strip() == "15"
@@ -338,8 +340,8 @@ def test_cli_batch_matches_jax_cli(capsys):
     _, jax_err = capsys.readouterr()
     assert jax_err.strip().splitlines()[-1] == "15"
     with pytest.raises(SystemExit):
-        life_app.main([GLIDER, "--batch", "3", "--device", "cpu",
-                       "--outdir", "nope"])
+        life_app.main([GLIDER, "--layout", "serial", "--batch", "3",
+                       "--device", "cpu", "--outdir", "nope"])
 
 
 # ---------------------------------------------------------------- batcher

@@ -35,6 +35,9 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.apps import attention\n"
         "from mpi_and_open_mp_tpu_torch.parallel import context\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_flash, flash_hop_bwd\n"
+        "from mpi_and_open_mp_tpu_torch.parallel import mesh, halo, haloplan\n"
+        "from mpi_and_open_mp_tpu_torch.models import life as model\n"
+        "assert model.state_from_jax_sim and model.LAYOUTS\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -77,13 +80,14 @@ def test_default_device_entry_points_raise_without_cuda():
 def _batched_sim():
     from mpi_and_open_mp_tpu_torch import LifeSim, load_config
 
-    LifeSim(load_config(GLIDER), initial_board=np.zeros((3, 10, 10), np.uint8))
+    LifeSim(load_config(GLIDER), layout="serial",
+            initial_board=np.zeros((3, 10, 10), np.uint8))
 
 
 def _batched_cli():
     from mpi_and_open_mp_tpu_torch.apps import life as life_app
 
-    life_app.main([GLIDER, "--batch", "3"])
+    life_app.main([GLIDER, "--layout", "serial", "--batch", "3"])
 
 
 def _batcher():
@@ -106,6 +110,35 @@ def _stencil_sim():
     from mpi_and_open_mp_tpu_torch import LifeSim, load_config
 
     LifeSim(load_config(GLIDER), workload="heat")
+
+
+def _sharded_sim():
+    from mpi_and_open_mp_tpu_torch import LifeSim, load_config
+
+    LifeSim(load_config(GLIDER), layout="cart", impl="bitfused")
+
+
+def _mesh():
+    from mpi_and_open_mp_tpu_torch.parallel import mesh
+
+    mesh.make_mesh_1d(8)
+
+
+def _sharded_cli():
+    from mpi_and_open_mp_tpu_torch.apps import life as life_app
+
+    life_app.main([GLIDER, "--layout", "cart", "--mesh", "4,2",
+                   "--virtual-devices", "8"])
+
+
+@pytest.mark.parametrize("entry", [_sharded_sim, _mesh, _sharded_cli],
+                         ids=["LifeSim-cart", "make_mesh_1d", "cli-cart"])
+def test_sharded_entry_points_raise_without_cuda(entry):
+    """The sharded layouts and their meshes default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
 
 
 def _active_tiles():

@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from conftest import oracle_n as _oracle
 
@@ -65,7 +66,8 @@ def test_gun_big_full_width_matches_jax(tmp_path):
     cfg = load_config(GUN_BIG)
     cfg = type(cfg)(steps=300, save_steps=100, nx=cfg.nx, ny=cfg.ny,
                     cells=cfg.cells)
-    sim = LifeSim(cfg, impl="native", device="cpu", outdir=tmp_path / "port")
+    sim = LifeSim(cfg, layout="serial", impl="native", device="cpu",
+                  outdir=tmp_path / "port")
     assert sim.native_path == "vmem"
     ref = JaxSim(_jax_cfg(cfg), layout="serial", impl="pallas",
                  outdir=tmp_path / "jax")
@@ -77,7 +79,7 @@ def test_gun_big_full_width_matches_jax(tmp_path):
 
 def test_step_reset_warmup_debug_check():
     cfg = load_config(GLIDER)
-    sim = LifeSim(cfg, impl="native", device="cpu")
+    sim = LifeSim(cfg, layout="serial", impl="native", device="cpu")
     sim.warmup()
     assert sim.step_count == 0 and np.array_equal(sim.collect(), cfg.board())
     sim.step(4)
@@ -92,28 +94,49 @@ def test_step_reset_warmup_debug_check():
 def test_initial_board_and_step():
     cfg = load_config(GLIDER)
     board = _oracle(cfg.board(), 60)
-    sim = LifeSim(cfg, impl="native", device="cpu", initial_board=board,
-                  initial_step=60)
+    sim = LifeSim(cfg, layout="serial", impl="native", device="cpu",
+                  initial_board=board, initial_step=60)
     assert np.array_equal(sim.run(), _oracle(cfg.board(), 100))
     with pytest.raises(ValueError, match="initial_board"):
-        LifeSim(cfg, device="cpu", initial_board=np.zeros((3, 3), np.uint8))
+        LifeSim(cfg, layout="serial", device="cpu",
+                initial_board=np.zeros((3, 3), np.uint8))
 
 
 def test_debug_check_catches_a_wrong_stepper():
     cfg = load_config(GLIDER)
-    sim = LifeSim(cfg, impl="native", device="cpu")
+    sim = LifeSim(cfg, layout="serial", impl="native", device="cpu")
     sim._advance = lambda board, n: board  # a stepper that never steps
     with pytest.raises(AssertionError, match="diverge"):
         sim.debug_check()
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"layout": "row"}, "item 3"),
+    ({"layout": "row", "cards": 2}, "item 3"),
     ({"checkpoint_dir": "ck"}, "item 4"),
-    ({"layout": "cart"}, "item 3"),
-    ({"workload": "heat", "layout": "row"}, "item 3"),
+    ({"layout": "cart", "cards": 4}, "item 3"),
+    ({"workload": "heat", "layout": "row", "impl": "halo",
+      "env": "MOMP_HALO_RDMA"}, "item 3"),
 ])
-def test_not_ported_options_raise(kwargs, item):
+def test_not_ported_options_raise(kwargs, item, monkeypatch):
+    """What is still to port raises: a mesh across several cards (faked
+    here as a host of ``cards`` CUDA devices), the remote-copy ghost
+    exchange (``MOMP_HALO_RDMA=1``) and checkpoints."""
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
+
+    kwargs = dict(kwargs)
+    cards = kwargs.pop("cards", None)
+    if cards:
+        monkeypatch.setattr(mesh_lib, "resolve_device",
+                            lambda d="cuda": torch.device(d))
+        monkeypatch.setattr(mesh_lib, "device_count", lambda d="cuda": cards)
+        make = (mesh_lib.make_mesh_2d if kwargs["layout"] == "cart"
+                else mesh_lib.make_mesh_1d)
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1 {item}"):
+            make(device="cuda")
+        return
+    if "env" in kwargs:
+        monkeypatch.setenv(kwargs.pop("env"), "1")
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         LifeSim(load_config(GLIDER), device="cpu", **kwargs)
 

@@ -268,8 +268,15 @@ def test_torus_pad_matches_numpy_wrap(name, shape, r):
 
 def test_stencil_step_padded_refuses_bad_blocks():
     gs = T.get("gray_scott")
-    with pytest.raises(ValueError, match="one"):
-        ns.stencil_step_padded(gs, torch.zeros((3, 2, 6, 6)))
+    with pytest.raises(ValueError, match="third-to-last"):
+        ns.stencil_step_padded(gs, torch.zeros((3, 3, 6, 6)))
+    # A stack of 2-channel boards, channels third from last, steps each.
+    stack = torch.from_numpy(np.stack(
+        [gs.init(np.random.default_rng(s), (4, 4)) for s in (1, 2)]))
+    padded = TE.torus_pad(stack, 1)
+    both = ns.stencil_step_padded(gs, padded)
+    for i in range(2):
+        assert torch.equal(both[i], ns.stencil_step_padded(gs, padded[i]))
     with pytest.raises(ValueError, match="extents"):
         ns.stencil_step_padded(T.get("lenia"), torch.zeros((16, 30)))
 
@@ -369,7 +376,8 @@ def test_lifesim_workload_matches_jax(workload, steps):
     """The serial LifeSim on glider_10x10.cfg's geometry: heat, gray_scott
     and wireworld over the cfg's 100 steps, lenia over 8 (its noise grows
     ~1.5x a step)."""
-    ours = LifeSim(load_config(GLIDER), workload=workload, device="cpu")
+    ours = LifeSim(load_config(GLIDER), layout="serial", workload=workload,
+                   device="cpu")
     theirs = JaxSim(jax_load_config(GLIDER), layout="serial",
                     workload=workload)
     assert ours.impl == theirs.impl == "roll"
@@ -387,19 +395,19 @@ def test_lifesim_workload_matches_jax(workload, steps):
 def test_lifesim_workload_refusals():
     cfg = load_config(GLIDER)
     with pytest.raises(ValueError, match="native"):
-        LifeSim(cfg, workload="heat", impl="native", device="cpu")
+        LifeSim(cfg, workload="heat", impl="native", layout="serial", device="cpu")
     with pytest.raises(ValueError, match="no batched mode"):
-        LifeSim(cfg, workload="heat", device="cpu",
+        LifeSim(cfg, workload="heat", layout="serial", device="cpu",
                 initial_board=np.zeros((3, 10, 10), np.float32))
     with pytest.raises(ValueError, match="no batched mode"):
-        LifeSim(cfg, workload="gray_scott", device="cpu",
+        LifeSim(cfg, workload="gray_scott", layout="serial", device="cpu",
                 initial_board=np.zeros((3, 2, 10, 10), np.float32))
     with pytest.raises(ValueError, match="expected"):
-        LifeSim(cfg, workload="gray_scott", device="cpu",
+        LifeSim(cfg, workload="gray_scott", layout="serial", device="cpu",
                 initial_board=np.zeros((10, 10), np.float32))
     with pytest.raises(KeyError, match="registered"):
-        LifeSim(cfg, workload="warp-drive", device="cpu")
-    sim = LifeSim(cfg, workload="heat", device="cpu")
+        LifeSim(cfg, workload="warp-drive", layout="serial", device="cpu")
+    sim = LifeSim(cfg, workload="heat", layout="serial", device="cpu")
     sim._advance = lambda board, n: board  # a stepper that never steps
     with pytest.raises(AssertionError, match="diverge"):
         sim.debug_check()
