@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the eight sources (nine kernels) of
+1. build the nine sources (ten kernels) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
@@ -108,7 +108,33 @@ Phases, each of which raises (exit code 1) when it fails:
    from the difference of two step counts, split by a profiler trace into
    the kernel and the ghost exchange, beside the serial resident kernel's
    us/step (phase 6); and each geometry that takes the overlap split
-   against the same run under ``MOMP_HALO_OVERLAP=0``.
+   against the same run under ``MOMP_HALO_OVERLAP=0``;
+16. ``halo_edge_pair`` (the RDMA rung's ghost-pair kernel) against its
+   plain version, two ring ``ppermute`` copies, on the card, bit-exact:
+   uint8, int32, float32 and 2-channel float32 blocks, y and x edges, axis
+   sizes 1, 2, 4 and 8 with the other axis 1 or 2, depths 1, 3 and 32;
+   then at the shapes and strides that one round of each run of phase 17
+   hands it (recorded);
+17. the RDMA rung on the main paths under ``MOMP_HALO_RDMA=1``, counts set
+   to 0 just before each run and read just after: p46gun_big with
+   ``native`` on row 4 and cart 4x2 (10 000 steps) and ``halo`` on cart 4x2
+   (1 000 steps), each stamped ``overlap:rdma``, equal to the oracle, to
+   phase 5's serial board and to phase 14's ``overlap:deferred`` board, its
+   ``halo_edge_pair`` launches equal to the rounds times the exchanges a
+   round of its plan makes (two on cart: the corner exchange); heat (100
+   steps) and lenia (r = 8, 8 steps) through ``run_sharded`` on a 500^2
+   board on cart 4x2, coupled and ``:pb1``, bit-equal to the deferred
+   schedule and within ``parity_tol_for("offset")`` of the oracle; and the
+   1024^2 ``bitfused`` row-2 run under the flag, still stamped
+   ``window+overlap:packed`` with no edge-pair launch;
+18. the rung's times: ``halo_edge_pair`` per launch at the main path's edges
+   and at a float32 (4, 2, 4096, 8192) stack, depth 32, y and x, beside
+   its plain version and its bound (each edge byte read and written once),
+   by profiler device time with CUDA events beside them; each rung geometry
+   of phase 17 against ``overlap:deferred`` and ``seq:halo`` in the order
+   rdma, deferred, seq, seq, deferred, rdma (us/step differenced, boards
+   equal), and a profiler trace of each: the edge-pair kernel, the Life
+   rule and the other copies per step, device kernels per step, idle share.
 
 Tolerances of phases 10-11 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -317,7 +343,9 @@ def main() -> int:
     from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
     from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd as fhb
     from mpi_and_open_mp_tpu_torch.ops import native_flash as nf
+    from mpi_and_open_mp_tpu_torch.ops import native_halo as nh
     from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.parallel import haloplan as hp
     from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
     from mpi_and_open_mp_tpu_torch.ops import native_stencil as ns
     from mpi_and_open_mp_tpu_torch.parallel import context as cx
@@ -332,7 +360,8 @@ def main() -> int:
                 "bitsliced": tb.bitsliced_steps,
                 "stencil": ns.stencil_step_padded,
                 "flash_fwd": nf.flash_fwd, "flash_hop_dq": fhb.flash_hop_dq,
-                "flash_hop_dkv": fhb.flash_hop_dkv}
+                "flash_hop_dkv": fhb.flash_hop_dkv,
+                "edge_pair": nh.edge_pair}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1310,6 +1339,7 @@ def main() -> int:
     # ------------------------------------------------ 14. sharded main paths
     t0 = time.perf_counter()
     sharded_launches = {}
+    deferred_boards = {}
 
     def check_board(what, got, want):
         bad = int((got != want).sum())
@@ -1347,6 +1377,7 @@ def main() -> int:
             raise AssertionError(f"{name} did not launch stencil_padded")
         check_board(f"{name} vs the serial bitlife_vmem board", nfinal,
                     gun_serial)
+        deferred_boards[name] = nfinal  # phase 17's overlap:deferred board
 
     oracle_1k = gun_board
     for _ in range(1000):
@@ -1357,6 +1388,7 @@ def main() -> int:
         sharded_launches[f"{impl} cart 4x2"] = counts
         check_board(f"{impl} cart 4x2 at 1000 steps vs the oracle", hfinal_,
                     oracle_1k)
+        deferred_boards[f"{impl} cart 4x2"] = hfinal_
         log(f"  {impl} cart 4x2, 1000 steps: matches the NumPy oracle "
             f"(plan={hsim_.plan_note}, launches={counts})")
 
@@ -1526,16 +1558,21 @@ def main() -> int:
     # under MOMP_HALO_OVERLAP=0, in the order overlap, sequential,
     # sequential, overlap. Both schedules run on the one stream, so the
     # split's extra launches show here.
-    def without_overlap(build):
-        old = os.environ.get("MOMP_HALO_OVERLAP")
-        os.environ["MOMP_HALO_OVERLAP"] = "0"
+    def with_env(name, value, build):
+        """``build()`` with the environment variable ``name`` set to
+        ``value`` (plans read their flags when they are made)."""
+        old = os.environ.get(name)
+        os.environ[name] = value
         try:
             return build()
         finally:
             if old is None:
-                del os.environ["MOMP_HALO_OVERLAP"]
+                del os.environ[name]
             else:
-                os.environ["MOMP_HALO_OVERLAP"] = old
+                os.environ[name] = old
+
+    def without_overlap(build):
+        return with_env("MOMP_HALO_OVERLAP", "0", build)
 
     def us_per_step(sim_, lo, hi):
         sim_._advance(sim_.board, lo)  # warm-up
@@ -1573,6 +1610,316 @@ def main() -> int:
     log(f"  serial bitlife_vmem on p46gun_big: {vmem_us_step:.4f} us/step "
         f"(phase 6) [{card}]")
     log(f"phase 15 sharded timings: {time.perf_counter() - t0:.2f} s")
+
+    # ------------------------------------------------ the RDMA rung (16-18)
+    def rung_exchanges(plan):
+        """Edge-pair launches one round of ``plan`` makes on the rung: one
+        per sub-round of a partitioned boundary, else one per axis
+        exchange (two on cart with a sharded x axis: the corner exchange)."""
+        if not plan.engine.startswith("overlap:rdma"):
+            return 0
+        if plan.boundary_steps != plan.fuse_steps:
+            return plan.fuse_steps // plan.boundary_steps
+        return 2 if plan.layout == "cart" and plan.mesh_axes[1] > 1 else 1
+
+    def record_edges(fn):
+        """``fn()``, returning the (shape, strides, dtype, axis) of every
+        edge pair the rung hands its transport."""
+        seen = {}
+        transport = hp._rdma_edge_pair
+
+        def recorder(fwd, bwd, axis_name, p, *, collective_id):
+            seen[(tuple(fwd.shape), fwd.stride(), bwd.stride(), fwd.dtype,
+                  axis_name)] = None
+            return transport(fwd, bwd, axis_name, p,
+                             collective_id=collective_id)
+
+        hp._rdma_edge_pair = recorder
+        try:
+            fn()
+        finally:
+            hp._rdma_edge_pair = transport
+        return list(seen)
+
+    def rung_sim(*args, **kw):
+        return with_env("MOMP_HALO_RDMA", "1",
+                        lambda: sharded_sim(*args, **kw))
+
+    # The rung's float stencil runs: run_sharded on a 500^2 board, cart 4x2,
+    # fuse_steps 2, coupled and with boundary_steps 1.
+    rung_mesh = pm.make_mesh_2d(4, 2)
+    rung_stencils = {"heat": 100, "lenia": 8}
+    rung_boards = {w: stencils.get(w).init(np.random.default_rng(46),
+                                           (500, 500))
+                   for w in rung_stencils}
+
+    def rung_stencil_run(workload, n, boundary, rdma):
+        return with_env("MOMP_HALO_RDMA", "1" if rdma else "0",
+                        lambda: se.run_sharded(
+                            stencils.get(workload), rung_boards[workload], n,
+                            mesh=rung_mesh, layout="cart", fuse_steps=2,
+                            boundary_steps=boundary))
+
+    # ------------------------- 16. halo_edge_pair against its plain version
+    t0 = time.perf_counter()
+    edge_err = 0
+    edge_checks = 0
+    gen_e = torch.Generator(device="cuda").manual_seed(700)
+
+    def edge_case(fwd, bwd, axis, what):
+        nonlocal edge_err, edge_checks
+        got = nh.edge_pair(fwd, bwd, axis)
+        want = nh.edge_pair_plain(fwd, bwd, axis)
+        torch.cuda.synchronize()
+        bad = sum(diff_count(a, b) for a, b in zip(got, want))
+        bad += sum(int(not a.is_contiguous()) for a in got)
+        edge_checks += 1
+        if bad:
+            edge_err = 1
+            raise AssertionError(f"halo_edge_pair disagrees: {what}: {bad}")
+
+    def random_block(shape, dtype):
+        if dtype.is_floating_point:
+            return torch.rand(shape, generator=gen_e, device="cuda",
+                              dtype=dtype)
+        return torch.randint(0, 256, shape, generator=gen_e, device="cuda",
+                             dtype=torch.int32).to(dtype)
+
+    for dtype, channels in ((torch.uint8, 1), (torch.int32, 1),
+                            (torch.float32, 1), (torch.float32, 2)):
+        for axis, sizes in (("y", [(p, q) for p in (1, 2, 4, 8)
+                                   for q in (1, 2)]),
+                            ("x", [(q, p) for p in (1, 2, 4, 8)
+                                   for q in (1, 2)])):
+            for py, px in sizes:
+                lead = (py, px) + ((channels,) if channels > 1 else ())
+                block = random_block(lead + (72, 68), dtype)
+                for depth in (1, 3, 32):
+                    for edge in ("y", "x"):
+                        if edge == "y":
+                            f, b = block[..., -depth:, :], block[..., :depth, :]
+                        else:
+                            f, b = block[..., -depth:], block[..., :depth]
+                        edge_case(f, b, axis, f"{dtype} C={channels} "
+                                  f"{py}x{px} axis {axis} {edge} edges "
+                                  f"depth {depth}")
+    log(f"  halo_edge_pair: {edge_checks} grid cases bit-equal to the plain "
+        "version (uint8, int32, float32, 2-channel float32; y and x edges; "
+        "axis sizes 1, 2, 4, 8; depths 1, 3, 32)")
+    # The edges the rung's runs below pass it: one round of each, recorded.
+    rung_runs = [("native row 4", ("row", (4,), "native"), {}),
+                 ("native cart 4x2", ("cart", (4, 2), "native"), {}),
+                 ("halo cart 4x2", ("cart", (4, 2), "halo"), {})]
+    main_edges = {}
+    for name, args, kw in rung_runs:
+        probe = rung_sim(*args, **kw)
+        main_edges[name] = record_edges(
+            lambda: probe._advance(probe.board, 1))
+    for workload in rung_stencils:
+        for boundary in (None, 1):
+            main_edges[f"{workload} cart 4x2 b={boundary}"] = record_edges(
+                lambda: rung_stencil_run(workload, 2, boundary, True))
+
+    def strided_pair(shape, f_stride, b_stride, dtype):
+        """Random forward and backward edges of ``shape`` with the given
+        strides, views of one buffer as the rung's edges are of a block."""
+        span = 1 + sum((n - 1) * st for n, st in zip(shape, f_stride))
+        span_b = 1 + sum((n - 1) * st for n, st in zip(shape, b_stride))
+        buf = random_block((span + span_b,), dtype)
+        return (buf.as_strided(shape, f_stride, 0),
+                buf.as_strided(shape, b_stride, span))
+
+    for name, edges in main_edges.items():
+        for shape, f_stride, b_stride, dtype, axis in edges:
+            f, b = strided_pair(shape, f_stride, b_stride, dtype)
+            edge_case(f, b, axis, f"{name}: {shape} strides {f_stride}")
+            log(f"  halo_edge_pair at {name}'s edges {shape} {dtype} axis "
+                f"{axis}, strides {f_stride} / {b_stride}: bit-equal")
+    log(f"phase 16 halo_edge_pair vs plain: ok, {edge_checks} cases "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # ----------------------------------- 17. the RDMA rung on the main path
+    t0 = time.perf_counter()
+    rung_launches = {}
+
+    def expect_launches(what, plan_of, steps, k, got):
+        rounds, rem = divmod(steps, k)
+        want = rounds * rung_exchanges(plan_of(k))
+        if rem:
+            want += rung_exchanges(plan_of(rem))
+        if got != want:
+            raise AssertionError(f"{what}: {got} edge_pair launches, the "
+                                 f"plan implies {want}")
+        return want
+
+    for name, args, kw in rung_runs:
+        rsim = rung_sim(*args, steps=(1000 if args[2] == "halo" else None),
+                        **kw)
+        rfinal, counts = run_counted(wrappers, rsim.run)
+        rung_launches[name] = counts
+        if rsim.plan_note != "overlap:rdma":
+            raise AssertionError(f"{name}: stamped {rsim.plan_note}")
+        want = gun_serial if args[2] == "native" else oracle_1k
+        check_board(f"rdma {name} vs the oracle", rfinal, want)
+        check_board(f"rdma {name} vs its overlap:deferred board", rfinal,
+                    deferred_boards[name])
+        with_env("MOMP_HALO_RDMA", "1", lambda: expect_launches(
+            f"rdma {name}", rsim._halo_plan, rsim.step_count,
+            rsim.fuse_steps, counts["edge_pair"]))
+        log(f"  rdma {name}: plan={rsim.plan_note} steps={rsim.step_count} "
+            f"launches={counts}; board equal to the oracle, phase 5's "
+            "serial board and phase 14's overlap:deferred board")
+
+    for workload, n in rung_stencils.items():
+        spec = stencils.get(workload)
+        oracle_f = stencils.oracle_run(spec, rung_boards[workload], n)
+        for boundary in (None, 1):
+            name = f"{workload} cart 4x2 500^2 b={boundary}"
+            got, counts = run_counted(
+                wrappers,
+                lambda: rung_stencil_run(workload, n, boundary, True))
+            rplan = se.run_sharded.last_plan
+            rung_launches[name] = counts
+            deferred = rung_stencil_run(workload, n, boundary, False)
+            dplan = se.run_sharded.last_plan
+            want_stamp = "overlap:rdma" + (":pb1" if boundary else "")
+            if rplan.engine != want_stamp or not dplan.engine.startswith(
+                    "overlap:deferred"):
+                raise AssertionError(f"{name}: stamped {rplan.engine} and "
+                                     f"{dplan.engine}")
+            if not torch.equal(got, deferred):
+                raise AssertionError(f"{name}: the rung's board differs from "
+                                     "the deferred schedule's")
+            if not stencils.parity_ok(spec, got.cpu().numpy(), oracle_f,
+                                      **stencils.parity_tol_for("offset")):
+                raise AssertionError(f"{name}: outside parity_tol_for "
+                                     "of the oracle")
+            expect_launches(name, lambda k: rplan, n, 2, counts["edge_pair"])
+            err = float(np.abs(got.cpu().numpy() - oracle_f).max())
+            log(f"  rdma {name}, {n} steps: plan={rplan.engine} "
+                f"launches={counts}; bit-equal to {dplan.engine}, max abs "
+                f"error against the oracle {err:.3g}")
+
+    psim = rung_sim("row", (2,), "bitfused", board=ovl_board, steps=1000)
+    pfinal, counts = run_counted(wrappers, psim.run)
+    rung_launches["bitfused row 2 1024^2 (flag set)"] = counts
+    if psim.plan_note != "window+overlap:packed" or counts["edge_pair"]:
+        raise AssertionError(f"packed plan under the flag: {psim.plan_note}, "
+                             f"{counts['edge_pair']} edge_pair launches")
+    check_board("1024^2 row 2 under the flag vs the serial kernel", pfinal,
+                serial_1k)
+    log(f"  bitfused 1024^2 row 2 under MOMP_HALO_RDMA=1: plan="
+        f"{psim.plan_note}, launches={counts}; board equal to the serial "
+        "kernel's")
+    log(f"phase 17 rdma rung main paths: ok "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # ----------------------------------------------- 18. the rung's times
+    t0 = time.perf_counter()
+
+    def edge_bound(fwd):
+        # Each edge element read once and written once, both directions.
+        return bound_ms(0, 2 * 2 * fwd.numel() * fwd.element_size())
+
+    def edge_record(what, fwd, bwd, axis):
+        def kernel():
+            return nh.edge_pair(fwd, bwd, axis)
+
+        def plain():
+            return nh.edge_pair_plain(fwd, bwd, axis)
+
+        kernel(), plain()  # warm-up
+        k_ms = device_ms(kernel, 50, "halo_edge_pair")
+        p_ms = device_ms(plain, 50)
+        k_events, p_events = cuda_ms(kernel, reps=50), cuda_ms(plain, reps=50)
+        bound, by = edge_bound(fwd)
+        log(f"  halo_edge_pair {what} {tuple(fwd.shape)} {fwd.dtype} axis "
+            f"{axis}: device time per launch {k_ms:.5f} ms, plain {p_ms:.5f} "
+            f"ms (CUDA events around back-to-back calls: {k_events:.5f}, "
+            f"plain {p_events:.5f}); bound {bound:.6f} ms ({by}) [{card}]")
+        return {"what": what, "shape": "x".join(map(str, fwd.shape)),
+                "dtype": str(fwd.dtype).replace("torch.", ""), "axis": axis,
+                "ms": k_ms, "plain_ms": p_ms, "events_ms": k_events,
+                "plain_events_ms": p_events, "bound_ms": bound,
+                "bound_by": by}
+
+    edge_rec = []
+    for name in ("native cart 4x2", "native row 4"):
+        for shape, f_stride, b_stride, dtype, axis in main_edges[name]:
+            edge_rec.append(edge_record(
+                name, *strided_pair(shape, f_stride, b_stride, dtype), axis))
+    big = torch.rand((4, 2, 4096, 8192), generator=gen_e, device="cuda")
+    for axis, (f, b) in (("y", (big[..., -32:, :], big[..., :32, :])),
+                         ("x", (big[..., -32:], big[..., :32]))):
+        edge_rec.append(edge_record("float32 (4, 2, 4096, 8192) depth 32",
+                                    f, b, axis))
+    del big
+    torch.cuda.empty_cache()
+
+    def rung_record(name, sim_, lo):
+        """A profiler trace of ``lo`` steps: the edge-pair kernel, the Life
+        rule kernel and the rest (the rolls, slices and concatenations of
+        the exchange) per step, device kernels per step and the idle
+        share."""
+        rec = {"plan_note": sim_.plan_note}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t_wall = time.perf_counter()
+            sim_._advance(sim_.board, lo)
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t_wall
+        split = {"halo_edge_pair": 0.0, "stencil_padded": 0.0, "other": 0.0}
+        count = 0
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                count += 1
+                key = next((k for k in split if k in ev.name), "other")
+                split[key] += ev.time_range.elapsed_us()
+        if not count:
+            raise RuntimeError(f"{name}: the profiler saw no device kernel")
+        busy = sum(split.values())
+        rec.update(edge_pair_us_per_step=split["halo_edge_pair"] / lo,
+                   rule_us_per_step=split["stencil_padded"] / lo,
+                   other_us_per_step=split["other"] / lo,
+                   exchange_us_per_step=(split["halo_edge_pair"]
+                                         + split["other"]) / lo,
+                   device_kernels_per_step=count / lo,
+                   idle_share=1 - busy / (t_wall * 1e6))
+        return rec
+
+    rung_rec = {}
+    for name, args, kw in rung_runs:
+        sims = {"rdma": rung_sim(*args, **kw),
+                "deferred": sharded_sim(*args, **kw),
+                "seq": without_overlap(lambda: sharded_sim(*args, **kw))}
+        notes = {m: s.plan_note for m, s in sims.items()}
+        if (notes["rdma"] != "overlap:rdma"
+                or notes["deferred"] != "overlap:deferred"
+                or notes["seq"] != "seq:halo"):
+            raise AssertionError(f"{name}: schedules {notes}")
+        outs = [s._advance(s.board, 200) for s in sims.values()]
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"{name}: rdma, deferred and seq differ")
+        times = {m: [] for m in sims}
+        for m in ("rdma", "deferred", "seq", "seq", "deferred", "rdma"):
+            times[m].append(us_per_step(sims[m], 200, 1200))
+        traces = {m: rung_record(f"{name} {m}", s, 200)
+                  for m, s in sims.items()}
+        rung_rec[name] = {"plan_note": notes, "us_per_step": times,
+                          "trace": traces}
+        log(f"  {name}: us/step (differenced 1200-200; run in the order "
+            f"rdma, deferred, seq, seq, deferred, rdma; boards equal): "
+            + "; ".join(f"{notes[m]} "
+                        + ", ".join(f"{t:.4f}" for t in times[m])
+                        for m in sims) + f" [{card}]")
+        for m, tr in traces.items():
+            log(f"    {notes[m]} profiler over 200 steps: edge pair "
+                f"{tr['edge_pair_us_per_step']:.4f} us/step, Life rule "
+                f"{tr['rule_us_per_step']:.4f}, other copies "
+                f"{tr['other_us_per_step']:.4f} (exchange "
+                f"{tr['exchange_us_per_step']:.4f}), "
+                f"{tr['device_kernels_per_step']:.3f} device kernels per "
+                f"step, idle share {tr['idle_share']:.3f} [{card}]")
+    log(f"phase 18 rdma rung timings: {time.perf_counter() - t0:.2f} s")
 
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
@@ -1687,6 +2034,24 @@ def main() -> int:
                        "dv together; library_ms: scaled_dot_product_"
                        "attention's backward, dq, dk and dv together")
     kernels[-1]["attention_32k"] = attn_line
+    main_edge = edge_rec[0]
+    kernels.append({
+        "name": "halo_edge_pair", "route": "cuda",
+        "source": "mpi_and_open_mp_tpu_torch/csrc/halo_edge_pair.cu",
+        "replaces": "mpi_and_open_mp_tpu/parallel/haloplan.py:286",
+        "launches": sum(c["edge_pair"] for c in rung_launches.values()),
+        "max_abs_err": float(edge_err), "ms": main_edge["ms"],
+        "plain_ms": main_edge["plain_ms"], "bound_ms": main_edge["bound_ms"],
+        "bound_by": main_edge["bound_by"], "library_ms": None,
+        "shape": (f"{main_edge['what']}: {main_edge['shape']} "
+                  f"{main_edge['dtype']} edges over axis "
+                  f"{main_edge['axis']}, both directions per launch"),
+        "note": ("ms and plain_ms: device time per call from a "
+                 "torch.profiler trace of 50 calls; no single PyTorch call "
+                 "computes the pair"),
+        "launches_by_run": {k: c["edge_pair"]
+                            for k, c in rung_launches.items()},
+        "per_shape": edge_rec, "rung_vs_deferred_vs_seq": rung_rec})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

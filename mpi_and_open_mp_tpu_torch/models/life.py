@@ -309,7 +309,8 @@ class LifeSim:
         return haloplan.plan_halo(
             self.layout, (py, px),
             (self.padded_shape[0] // py, self.padded_shape[1] // px),
-            self.spec.radius, k, channels=self.spec.channels)
+            self.spec.radius, k, channels=self.spec.channels,
+            device=self.device)
 
     def _padded_step(self, padded: torch.Tensor) -> torch.Tensor:
         """One step of every shard's halo-padded block (the stack)."""
@@ -420,7 +421,7 @@ class LifeSim:
         if bitlife.plan_overlap_supported(plan):
             hp = haloplan.plan_halo(
                 "row", (plan.py, plan.px), (32 * plan.nw_s, plan.W),
-                32 * plan.h, 1, pack_layout="packed")
+                32 * plan.h, 1, pack_layout="packed", device=self.device)
         use_overlap = hp is not None and hp.overlap
         self.plan_note = f"{plan.mode}+{hp.engine}" if hp else plan.mode
         step_call = bitlife.make_plan_stepper(plan)

@@ -27,11 +27,12 @@ NVCC_FLAGS = [
 ]
 
 # Argument types of each library's C entry points (pointers and the stream
-# as c_void_p: a default ctypes int would cut a pointer to 32 bits; _IP is
-# an int out-parameter): a list for the one entry point named like the
+# as c_void_p: a default ctypes int would cut a pointer to 32 bits; _L is
+# a 64-bit extent or stride; _IP is an int out-parameter): a list for the one entry point named like the
 # library, or a dict of entry point -> list where one source holds several
 # kernels.
-_P, _I, _IP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "bitlife_vmem": [_P, _P, _I, _I, _I, _I, _P],
     "bitlife_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -44,6 +45,7 @@ SIGNATURES = {
         "flash_hop_dq": [_P] * 7 + [_I] * 6 + [_P],
         "flash_hop_dkv": [_P] * 8 + [_I] * 6 + [_P],
     },
+    "halo_edge_pair": [_P] * 5 + [_I, _L, _I, _I] + [_L] * 6 + [_I, _P],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -24,15 +24,31 @@ shards (``parallel.mesh``) the ghost moves and the three partitions run
 one after another on the current stream; running the ghost copies on a
 side stream beside the interior is later work (ROADMAP Queue 1 item 3).
 
-Engine stamps, as the JAX package's: ``overlap:deferred`` (``…:pb{b}``
-when the boundary is partitioned), ``overlap:packed`` (the bit-packed
-twin, ``ops.bitlife.make_overlap_steppers``), and ``seq:halo`` /
-``seq:packed`` with the reason in :attr:`HaloPlan.why`.
-``MOMP_HALO_OVERLAP=0`` is the kill switch, read when a plan is made and
-part of the cache key. ``MOMP_HALO_RDMA=1`` asks for the JAX package's
-remote-copy ghost kernel (``_rdma_edge_pair``), which only means
-something across cards: it raises here (ROADMAP Queue 2 item 10), and the
-port never stamps ``overlap:rdma``.
+Engine stamps, as the JAX package's:
+
+* ``overlap:deferred`` - the ghosts move by ring ``ppermute`` (two
+  ``torch.roll`` copies a pair), every device;
+* ``overlap:rdma`` - ``MOMP_HALO_RDMA=1`` on shards that live on a CUDA
+  device (:func:`on_card`, the counterpart of the JAX package's
+  ``jax.default_backend() == "tpu"``): each ghost pair moves through one
+  launch of the hand-written ``csrc/halo_edge_pair.cu``
+  (:func:`_rdma_edge_pair`); row and col exchange their edge pair over
+  the 1-D ring, cart runs the two-phase corner exchange, y edges first,
+  then the x edges of the y-padded block carrying the corner words. Off
+  the card the flag gives ``overlap:deferred``, as the JAX package off a
+  TPU;
+* ``...:pb{b}`` - suffix on either stamp when the boundary is partitioned
+  at ``boundary_steps = b < fuse_steps``;
+* ``overlap:packed`` - the bit-packed twin
+  (``ops.bitlife.make_overlap_steppers``), whatever the RDMA flag says;
+* ``seq:halo`` / ``seq:packed`` - the sequential round, with the reason
+  in :attr:`HaloPlan.why`.
+
+``MOMP_HALO_OVERLAP=0`` is the kill switch. Both flags are read when a plan
+is made and are part of the cache key, with whether the shards are on the
+card. The JAX package's trace-time hooks (``halo._chaos_ghost`` on every
+exchange, ``_note_schedule``) belong to the robust and observability port
+(ROADMAP Queue 1 item 10) and are left out here.
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ import os
 
 import torch
 
+from mpi_and_open_mp_tpu_torch.ops import native_halo
 from mpi_and_open_mp_tpu_torch.parallel import halo
 
 ENV_OVERLAP = "MOMP_HALO_OVERLAP"
@@ -57,8 +74,15 @@ def overlap_enabled() -> bool:
 
 
 def rdma_requested() -> bool:
-    """Whether ``MOMP_HALO_RDMA=1`` asks for the remote-copy ghost path."""
+    """Whether ``MOMP_HALO_RDMA=1`` asks for the remote-copy ghost rung
+    (default off)."""
     return os.environ.get(ENV_RDMA, "0") == "1"
+
+
+def on_card(device) -> bool:
+    """Whether shards on ``device`` can take the RDMA rung: a CUDA device.
+    The tests fake the card by replacing this predicate."""
+    return device is not None and torch.device(device).type == "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,8 +107,9 @@ class HaloPlan:
 
 def _overlap_axis(layout: str) -> str:
     """The axis whose exchange the plan overlaps: y for ``row`` and
-    ``cart`` (cart's x exchange stays sequential: its ghosts feed the y
-    ghosts' corners), x for ``col``."""
+    ``cart`` (cart's x exchange stays sequential on the deferred path: its
+    ghosts feed the y ghosts' corners; the RDMA rung folds it into phase 2
+    of the corner exchange), x for ``col``."""
     return "x" if layout == "col" else "y"
 
 
@@ -92,7 +117,7 @@ def _overlap_axis(layout: str) -> str:
 def _plan(layout: str, mesh_axes: tuple[int, int],
           shard_shape: tuple[int, int], radius: int, fuse_steps: int,
           boundary_steps: int, channels: int, pack_layout: str,
-          enabled: bool) -> HaloPlan:
+          enabled: bool, rdma: bool, card: bool) -> HaloPlan:
     depth = radius * fuse_steps
     py, px = mesh_axes
     h, w = shard_shape
@@ -125,7 +150,12 @@ def _plan(layout: str, mesh_axes: tuple[int, int],
         return seq(
             f"shard {axis} extent {extent} <= 2*depth {2 * depth}: "
             "empty interior")
-    engine = "overlap:packed" if pack_layout == "packed" else "overlap:deferred"
+    if pack_layout == "packed":
+        engine = "overlap:packed"
+    elif rdma and card:
+        engine = "overlap:rdma"
+    else:
+        engine = "overlap:deferred"
     if boundary_steps != fuse_steps:
         engine += f":pb{boundary_steps}"
     return HaloPlan(layout, mesh_axes, shard_shape, radius, fuse_steps,
@@ -136,23 +166,18 @@ def _plan(layout: str, mesh_axes: tuple[int, int],
 def plan_halo(layout: str, mesh_axes: tuple[int, int],
               shard_shape: tuple[int, int], radius: int,
               fuse_steps: int = 1, *, boundary_steps: int | None = None,
-              channels: int = 1,
-              pack_layout: str = "cell") -> HaloPlan:
-    """Derive (or fetch) the persistent plan for one geometry. The kill
-    switch is part of the cache key, so flipping ``MOMP_HALO_OVERLAP``
-    mid-process gives a fresh plan. ``boundary_steps`` (default: coupled,
-    ``== fuse_steps``) must divide ``fuse_steps``. Raises
-    NotImplementedError under ``MOMP_HALO_RDMA=1``."""
-    if rdma_requested():
-        raise NotImplementedError(
-            f"{ENV_RDMA}=1 asks for the remote-copy ghost kernel "
-            "(_rdma_edge_pair), which moves ghosts between cards; the port's "
-            "shards share one device. Meshes across cards are ROADMAP Queue "
-            "1 item 3, and this kernel is ROADMAP Queue 2 item 10")
+              channels: int = 1, pack_layout: str = "cell",
+              device: str | torch.device | None = None) -> HaloPlan:
+    """Derive (or fetch) the persistent plan for one geometry of shards
+    on ``device``. The kill switch, the RDMA opt-in and :func:`on_card`
+    are part of the cache key, so flipping ``MOMP_HALO_OVERLAP`` or
+    ``MOMP_HALO_RDMA`` mid-process gives a fresh plan. ``boundary_steps``
+    (default: coupled, ``== fuse_steps``) must divide ``fuse_steps``."""
     bs = fuse_steps if boundary_steps is None else int(boundary_steps)
     return _plan(layout, tuple(mesh_axes), tuple(shard_shape),
                  int(radius), int(fuse_steps), bs, int(channels),
-                 pack_layout, overlap_enabled())
+                 pack_layout, overlap_enabled(), rdma_requested(),
+                 on_card(device))
 
 
 # --------------------------------------------------------------- ghost moves
@@ -184,6 +209,68 @@ def packed_ghosts_y(q: torch.Tensor, h: int,
     return ghosts_y(q, h, axis_name)
 
 
+# ------------------------------------------------ the RDMA rung's transport
+
+# The JAX package's collective ids of the two rings (13 for y, 14 for x).
+COLLECTIVE_IDS = {"y": 13, "x": 14}
+
+
+def _rdma_edge_pair(fwd_edge: torch.Tensor, bwd_edge: torch.Tensor,
+                    axis_name: str, p: int, *, collective_id: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One ghost-pair exchange over the ``axis_name`` ring of ``p`` shards:
+    ``(from_prev, from_next)``, the predecessor's ``fwd_edge`` and the
+    successor's ``bwd_edge`` (``ops.native_halo.edge_pair``: one launch of
+    ``halo_edge_pair`` on the card). ``collective_id`` is the JAX package's
+    ring id, checked; on one card it carries no meaning. Transport only:
+    the ``_rdma_ghosts_*`` wrappers orient the ghosts."""
+    if collective_id != COLLECTIVE_IDS.get(axis_name):
+        raise ValueError(f"collective_id {collective_id} is not the "
+                         f"{axis_name!r} ring's ({COLLECTIVE_IDS})")
+    if p != halo.axis_size(fwd_edge, axis_name):
+        raise ValueError(f"p={p}, but the edges hold "
+                         f"{halo.axis_size(fwd_edge, axis_name)} shards on "
+                         f"axis {axis_name!r}")
+    return native_halo.edge_pair(fwd_edge, bwd_edge, axis_name)
+
+
+def _rdma_ghosts_y(block: torch.Tensor, depth: int, axis_name: str,
+                   p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ghosts_y` by the RDMA transport: bottom edge forward, top
+    edge backward over the y ring (row and cart layouts)."""
+    return _rdma_edge_pair(block[..., -depth:, :], block[..., :depth, :],
+                           axis_name, p, collective_id=COLLECTIVE_IDS["y"])
+
+
+def _rdma_ghosts_x(block: torch.Tensor, depth: int, axis_name: str,
+                   p: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ghosts_x` by the RDMA transport, for the col layout: right
+    edge forward, left edge backward over the x ring."""
+    return _rdma_edge_pair(block[..., -depth:], block[..., :depth],
+                           axis_name, p, collective_id=COLLECTIVE_IDS["x"])
+
+
+def _rdma_ghosts_cart(block: torch.Tensor, depth: int,
+                      mesh_axes: tuple[int, int]
+                      ) -> tuple[torch.Tensor, torch.Tensor,
+                                 torch.Tensor, torch.Tensor]:
+    """The two-phase cart corner exchange: phase 1 moves the raw y edge
+    pair over the y ring; phase 2 moves the x edge pair of the y-padded
+    block over the x ring, so each ``(h + 2d, d)`` column strip carries
+    phase 1's ghosts in its first and last ``d`` rows and the diagonal
+    corners ride the x exchange. Returns ``(top, bot, left, right)``:
+    ``top``/``bot`` of shape ``(..., d, w)``, ``left``/``right`` of shape
+    ``(..., h + 2d, d)``, corners included."""
+    d = depth
+    py, px = mesh_axes
+    top, bot = _rdma_edge_pair(block[..., -d:, :], block[..., :d, :], "y",
+                               py, collective_id=COLLECTIVE_IDS["y"])
+    pady = torch.cat([top, block, bot], dim=-2)
+    left, right = _rdma_edge_pair(pady[..., -d:], pady[..., :d], "x", px,
+                                  collective_id=COLLECTIVE_IDS["x"])
+    return top, bot, left, right
+
+
 # --------------------------------------------------------- fused schedules
 
 
@@ -213,21 +300,43 @@ def overlap_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
     if plan.boundary_steps != plan.fuse_steps:
         return _partitioned_fused_step(plan, step_fn, block)
     k, d = plan.fuse_steps, plan.depth
+    rdma = plan.engine.startswith("overlap:rdma")
     if plan.layout == "col":
         # x-mirror of the row schedule: the unsharded y axis wraps itself.
-        left, right = ghosts_x(block, d)
+        if rdma:
+            left, right = _rdma_ghosts_x(block, d, "x", plan.mesh_axes[1])
+        else:
+            left, right = ghosts_x(block, d)
         interior = _steps(step_fn, _wrap_y(block, d), k)
         lead = torch.cat([left, block[..., : 2 * d]], dim=-1)
         tail = torch.cat([block[..., -2 * d:], right], dim=-1)
         lead = _steps(step_fn, _wrap_y(lead, d), k)
         tail = _steps(step_fn, _wrap_y(tail, d), k)
         return torch.cat([lead, interior, tail], dim=-1)
+    if plan.layout == "cart" and rdma and plan.mesh_axes[1] > 1:
+        # The two-phase corner exchange: both axes' ghosts come before the
+        # interior (the deferred cart path below completes the x exchange
+        # first, on its own).
+        top2, bot2, left, right = _rdma_ghosts_cart(block, d, plan.mesh_axes)
+        base = torch.cat([left[..., d:-d, :], block, right[..., d:-d, :]],
+                         dim=-1)
+        top = torch.cat([left[..., :d, :], top2, right[..., :d, :]], dim=-1)
+        bot = torch.cat([left[..., -d:, :], bot2, right[..., -d:, :]], dim=-1)
+        interior = _steps(step_fn, base, k)
+        lead = _steps(step_fn, torch.cat([top, base[..., : 2 * d, :]], dim=-2),
+                      k)
+        tail = _steps(step_fn, torch.cat([base[..., -2 * d:, :], bot], dim=-2),
+                      k)
+        return torch.cat([lead, interior, tail], dim=-2)
     # row / cart: overlap the y exchange. Cart first completes the x
     # exchange (its ghost columns feed the y ghosts' corners); row wraps x
     # locally. Either way `base` carries d ghost columns.
     base = (halo.halo_pad_x(block, "x", d) if plan.layout == "cart"
             else _wrap_x(block, d))
-    top, bot = ghosts_y(base, d)
+    if rdma:
+        top, bot = _rdma_ghosts_y(base, d, "y", plan.mesh_axes[0])
+    else:
+        top, bot = ghosts_y(base, d)
     interior = _steps(step_fn, base, k)
     lead = _steps(step_fn, torch.cat([top, base[..., : 2 * d, :]], dim=-2), k)
     tail = _steps(step_fn, torch.cat([base[..., -2 * d:, :], bot], dim=-2), k)
@@ -243,13 +352,20 @@ def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
     ``j * b``, so the shards equal the coupled round bit for bit."""
     k, d, b = plan.fuse_steps, plan.depth, plan.boundary_steps
     e = plan.radius * b
+    rdma = plan.engine.startswith("overlap:rdma")
+    py, px = plan.mesh_axes
     if plan.layout == "col":
         base = _wrap_y(block, d)
         interior = _steps(step_fn, base, k)
         lead, tail = base[..., : 2 * d], base[..., -2 * d:]
         for _ in range(k // b):
-            left = halo.ppermute(tail[..., -e:], "x", 1)
-            right = halo.ppermute(lead[..., :e], "x", -1)
+            if rdma:
+                left, right = _rdma_edge_pair(
+                    tail[..., -e:], lead[..., :e], "x", px,
+                    collective_id=COLLECTIVE_IDS["x"])
+            else:
+                left = halo.ppermute(tail[..., -e:], "x", 1)
+                right = halo.ppermute(lead[..., :e], "x", -1)
             lead = _steps(step_fn, torch.cat([left, lead], dim=-1), b)
             tail = _steps(step_fn, torch.cat([tail, right], dim=-1), b)
         return torch.cat([lead, interior, tail], dim=-1)
@@ -260,8 +376,13 @@ def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
     interior = _steps(step_fn, base, k)
     lead, tail = base[..., : 2 * d, :], base[..., -2 * d:, :]
     for _ in range(k // b):
-        top = halo.ppermute(tail[..., -e:, :], "y", 1)
-        bot = halo.ppermute(lead[..., :e, :], "y", -1)
+        if rdma:
+            top, bot = _rdma_edge_pair(
+                tail[..., -e:, :], lead[..., :e, :], "y", py,
+                collective_id=COLLECTIVE_IDS["y"])
+        else:
+            top = halo.ppermute(tail[..., -e:, :], "y", 1)
+            bot = halo.ppermute(lead[..., :e, :], "y", -1)
         lead = _steps(step_fn, torch.cat([top, lead], dim=-2), b)
         tail = _steps(step_fn, torch.cat([tail, bot], dim=-2), b)
     return torch.cat([lead, interior, tail], dim=-2)

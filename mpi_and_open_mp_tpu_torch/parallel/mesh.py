@@ -7,8 +7,7 @@ sharded layout on 8 virtual CPU devices of one host. The port's
 :class:`Mesh` names the same axes and sizes, and every shard of it lives
 on ONE ``torch.device``: the virtual shards of the CPU in the tests, and
 virtual shards of one card on a GPU. A mesh that would span several CUDA
-devices raises (ROADMAP Queue 1 item 3 and Queue 2 item 10 carry the
-multi-card meshes and the remote-copy ghost exchange).
+devices raises (ROADMAP Queue 1 item 3 carries the multi-card meshes).
 
 A sharded board is one stacked tensor ``(py, px, *C, hs, ws)``
 (:func:`shard`): shard ``(i, j)`` holds rows ``[i*hs, (i+1)*hs)`` and
@@ -129,8 +128,7 @@ def _make(names: tuple[str, ...], sizes: tuple[int, ...],
             f"a {n}-shard mesh over {count} CUDA devices would span several "
             "cards; the port runs meshes of virtual shards on one device "
             "(ask for more shards than devices, or virtual=True). Meshes "
-            "across cards are ROADMAP Queue 1 item 3, and their remote-copy "
-            "ghost exchange is Queue 2 item 10")
+            "across cards are ROADMAP Queue 1 item 3")
     return Mesh(names, sizes, dev)
 
 

@@ -592,7 +592,8 @@ def make_sharded_runner(spec: StencilSpec, mesh, layout: str,
     def plan_for(k: int):
         bs = boundary_steps if k == fuse_steps else None
         p = haloplan.plan_halo(layout, (py, px), shard, spec.radius, k,
-                               boundary_steps=bs, channels=spec.channels)
+                               boundary_steps=bs, channels=spec.channels,
+                               device=mesh.device)
         if overlap is False and p.overlap:
             p = _dc.replace(p, overlap=False, engine="seq:halo",
                             why="forced sequential (A/B baseline)")

@@ -36,6 +36,8 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.parallel import context\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_flash, flash_hop_bwd\n"
         "from mpi_and_open_mp_tpu_torch.parallel import mesh, halo, haloplan\n"
+        "from mpi_and_open_mp_tpu_torch.ops import native_halo\n"
+        "assert haloplan._rdma_edge_pair and native_halo.edge_pair\n"
         "from mpi_and_open_mp_tpu_torch.models import life as model\n"
         "assert model.state_from_jax_sim and model.LAYOUTS\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -137,6 +139,32 @@ def test_sharded_entry_points_raise_without_cuda(entry):
     """The sharded layouts and their meshes default to the card too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def _rdma_sim():
+    from mpi_and_open_mp_tpu_torch import LifeSim, load_config
+
+    LifeSim(load_config(GLIDER), layout="cart", impl="halo")
+
+
+def _rdma_run_sharded():
+    from mpi_and_open_mp_tpu_torch import stencils
+    from mpi_and_open_mp_tpu_torch.parallel import mesh
+
+    stencils.run_sharded(stencils.get("heat"), np.zeros((16, 16), np.float32),
+                         2, mesh=mesh.make_mesh_2d(4, 2), layout="cart")
+
+
+@pytest.mark.parametrize("entry", [_rdma_sim, _rdma_run_sharded, _sharded_cli],
+                         ids=["LifeSim-halo", "run_sharded", "cli-cart"])
+def test_rdma_entry_points_raise_without_cuda(entry, monkeypatch):
+    """Under ``MOMP_HALO_RDMA=1`` the sharded entry points still default
+    to the card: the flag adds no quiet CPU path."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    monkeypatch.setenv("MOMP_HALO_RDMA", "1")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
 

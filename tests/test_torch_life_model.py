@@ -119,8 +119,10 @@ def test_debug_check_catches_a_wrong_stepper():
 ])
 def test_not_ported_options_raise(kwargs, item, monkeypatch):
     """What is still to port raises: a mesh across several cards (faked
-    here as a host of ``cards`` CUDA devices), the remote-copy ghost
-    exchange (``MOMP_HALO_RDMA=1``) and checkpoints."""
+    here as a host of ``cards`` CUDA devices) and checkpoints. The
+    remote-copy ghost rung (``MOMP_HALO_RDMA=1``) is ported: its case runs
+    heat on row ``halo`` under the flag, stamped as the JAX package's sim
+    is (``overlap:deferred`` off the card and off a TPU)."""
     from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 
     kwargs = dict(kwargs)
@@ -136,7 +138,19 @@ def test_not_ported_options_raise(kwargs, item, monkeypatch):
             make(device="cuda")
         return
     if "env" in kwargs:
+        from mpi_and_open_mp_tpu.parallel import mesh as jmesh
+
         monkeypatch.setenv(kwargs.pop("env"), "1")
+        cfg = load_config(GLIDER)
+        board = np.random.default_rng(117).random((10, 10)).astype(np.float32)
+        ours = LifeSim(cfg, mesh=mesh_lib.make_mesh_1d(2, device="cpu"),
+                       initial_board=board, fuse_steps=2, **kwargs)
+        theirs = JaxSim(_jax_cfg(cfg), mesh=jmesh.make_mesh_1d(2),
+                        initial_board=board, fuse_steps=2, **kwargs)
+        assert ours.plan_note == theirs.plan_note == "overlap:deferred"
+        np.testing.assert_allclose(ours.run(), np.asarray(theirs.run()),
+                                   rtol=1e-5, atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
         LifeSim(load_config(GLIDER), device="cpu", **kwargs)
 
