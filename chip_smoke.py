@@ -7,7 +7,11 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
 1. build the nine sources (ten kernels) of
-   ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel;
+   ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel, each one's
+   build seconds logged; for each ``flash_hop_bwd`` kernel its registers,
+   spills and shared memory, and its ``HGMMA`` (``wgmma``) instructions
+   in ``cuobjdump -sass`` of the library, which must not be 0 for the bf16
+   (tensor-core) kernels;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
 3. ``bitlife_fused`` against its plain version (the whole extended frame
@@ -64,8 +68,9 @@ Phases, each of which raises (exit code 1) when it fails:
 10. ``flash_fwd`` (``o`` and ``L``) and ``hop_block_grads`` (the
    ``flash_hop_dq`` and ``flash_hop_dkv`` kernels) against their plain
    versions on the card, at (2, 640, 64), (8, 1000, 128) (a ragged last
-   tile) and (4, 2048, 128), causal and not, float32 and bfloat16, equal
-   heads and GQA (h / 4 K/V heads: 8q/2kv at h = 8);
+   tile) and (4, 2048, 128), causal and not, float32 (the FMA kernels)
+   and bfloat16 (the tensor-core kernels), equal heads and GQA (h / 4 K/V
+   heads: 8q/2kv at h = 8);
 11. the attention main paths, counts set to 0 just before each: the
    attention CLI as a subprocess (``--variant flash --seq 8192 --heads 8
    --head-dim 128 --causal --dtype bfloat16 --grad``, its dense-oracle
@@ -78,9 +83,14 @@ Phases, each of which raises (exit code 1) when it fails:
 12. attention times at 32k: chain-differenced forward (r = 1, 9) and grad
    step (r = 1, 3) seconds under the bench's names
    (``attention_32k_causal_sec`` ...), equal heads and GQA; each kernel
-   per launch by CUDA events beside its plain version and its bound; and
+   per launch by CUDA events beside its plain version and its bound, the
+   hop kernels' TFLOP/s on their own products (3 for dq, 4 for dk/dv)
+   and share of the bound; a ``torch.profiler`` trace of one 32k grad
+   step, device ms by kernel, which must show the tensor-core hop kernels
+   and no other; and
    ``torch.nn.functional.scaled_dot_product_attention`` forward, backward
-   and both, as the library's yardstick (never on the port's path);
+   and both, K/V un-expanded under GQA (``enable_gqa``), as the library's
+   yardstick (never on the port's path);
 13. ``bitlife_window`` against its plain version on the card, packed words
    bit-exact, on stacked random windows at the shard shapes of phase 14
    (p46gun_big on row 8, col 8 and cart 4x2; the 1024^2 row-2 overlap
@@ -162,6 +172,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -320,6 +331,25 @@ def device_ms(fn, reps: int, kernel_name: str | None = None) -> float:
     return sum(us) / reps / 1e3
 
 
+def grad_step_kernels(fn) -> dict[str, float]:
+    """Device milliseconds of each kernel that ``fn()`` runs, by short
+    name (no namespace, return type or arguments), from one
+    ``torch.profiler`` trace, largest first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "",
+                          ev.name)[:60].strip()
+            ms[name] = ms.get(name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return dict(sorted(ms.items(), key=lambda kv: -kv[1]))
+
+
 def run_counted(wrappers, fn):
     """``fn()`` with every kernel wrapper's launch count set to 0 just
     before and read just after; returns its result and the counts."""
@@ -327,6 +357,50 @@ def run_counted(wrappers, fn):
         w.launches = 0
     out = fn()
     return out, {name: w.launches for name, w in wrappers.items()}
+
+
+HOP_KERNEL = re.compile(r"\d+(flash_hop_\w+?)ILi(\d+)E")
+
+
+def hop_kernel_key(m) -> tuple[str, int, torch.dtype]:
+    """(name, head width, dtype) of a flash_hop_bwd kernel from a match of
+    its mangled name against HOP_KERNEL: the ``_tc`` kernels take bf16,
+    the FMA ones float32."""
+    return (m[1], int(m[2]),
+            torch.bfloat16 if m[1].endswith("_tc") else torch.float32)
+
+
+def ptxas_kernels(text: str) -> dict[tuple, dict[str, int]]:
+    """Registers and spilled bytes of each flash_hop_bwd kernel from the
+    ``-Xptxas -v`` log, keyed by :func:`hop_kernel_key`."""
+    out, key = {}, None
+    for line in text.splitlines():
+        m = HOP_KERNEL.search(line)
+        if "Compiling entry function" in line and m:
+            key = hop_kernel_key(m)
+            out[key] = {}
+        elif key and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[key].update(stack=nums[0], spill_stores=nums[1],
+                            spill_loads=nums[2])
+        elif key and "Used" in line and "registers" in line:
+            out[key]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                  line)[1])
+    return out
+
+
+def sass_counts(cuobjdump: str, lib, opcode: str) -> dict[tuple, int]:
+    """How many ``opcode`` instructions each flash_hop_bwd kernel of the
+    built library holds (``cuobjdump -sass``), keyed by
+    :func:`hop_kernel_key`."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        m = HOP_KERNEL.search(part.split()[0])
+        if m:
+            counts[hop_kernel_key(m)] = part.count(opcode)
+    return counts
 
 
 def main() -> int:
@@ -374,9 +448,31 @@ def main() -> int:
     logs = _build.build(force=True)
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (set-up)")
     for name, text in logs.items():
+        log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
+        if name == "flash_hop_bwd":
+            continue  # per kernel below
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
+    # The hop kernels one by one: registers, spills and shared memory, and
+    # the tensor-core instructions (HGMMA: wgmma) in each one's SASS.
+    hop_sass = sass_counts(
+        os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+        _build.lib_path("flash_hop_bwd"), "HGMMA")
+    hop_build = {}
+    for (kernel, d, dtype), props in ptxas_kernels(
+            logs["flash_hop_bwd"]).items():
+        props["smem_bytes"] = fhb.smem_bytes(d, dtype)[
+            "dkv" if "dkv" in kernel else "dq"]
+        props["hgmma"] = hop_sass[kernel, d, dtype]
+        label = f"{kernel}<{d}, {str(dtype)[6:]}>"
+        hop_build[label] = props
+        log(f"  flash_hop_bwd {label}: {props['registers']} registers, "
+            f"{props['spill_stores']} + {props['spill_loads']} bytes spilled, "
+            f"{props['smem_bytes']} bytes shared memory, {props['hgmma']} "
+            "HGMMA")
+        if dtype == torch.bfloat16 and not props["hgmma"]:
+            raise AssertionError(f"{label} has no wgmma (HGMMA) in its SASS")
 
     # ------------------------------------------------ 2. vmem against plain
     t0 = time.perf_counter()
@@ -1185,8 +1281,16 @@ def main() -> int:
             f"attention_32k{tag}_causal_tflops": flops / fwd_sec / 1e12,
             f"attention_32k{tag}_grad_sec": grad_sec,
             f"attention_32k{tag}_grad_tflops": 3.5 * flops / grad_sec / 1e12})
+        if not tag:
+            step_kernels = grad_step_kernels(lambda: grad_chain(1))
         del q, k, v
     log("  attention " + json.dumps(attn_line) + f" [{card}]")
+    log("  profiler, one 32k grad step, kv 8, device ms by kernel: "
+        + "; ".join(f"{name} {ms:.3f}" for name, ms in step_kernels.items()))
+    hop_ran = [name for name in step_kernels if "flash_hop" in name]
+    if sorted(hop_ran) != ["flash_hop_dkv_tc<128>", "flash_hop_dq_tc<128>"]:
+        raise AssertionError("the 32k bf16 grad step did not run the "
+                             f"tensor-core hop kernels alone: {hop_ran}")
 
     # Each kernel per launch at 32k, equal heads and GQA, beside its plain
     # version, its bound and the library's call.
@@ -1219,51 +1323,63 @@ def main() -> int:
             3, 8, n32, d32, nbytes(q, k, v, do, L, D, dq))
         rec["bound_dkv"] = attention_bound_ms(
             4, 8, n32, d32, nbytes(q, k, v, do, L, D, dk, dk))
-        lib = "not measured (GQA)"
-        if hkv == 8:
-            # The library's yardstick: SDPA (bf16, causal), forward,
-            # backward and both, on the same operands (equal heads only);
-            # never on the port's path.
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            qs, ks, vs = (x[None].detach().requires_grad_(True)
-                          for x in (q, k, v))
-            lib_o = sdpa(qs, ks, vs, is_causal=True)
-            # The yardstick computes the same function: it rounds p to
-            # bfloat16 before its second product, so it is held only to
-            # 2e-2 plus one bfloat16 spacing of the value.
-            sdpa_diff = (lib_o[0].float() - o.float()).abs()
-            if bool((sdpa_diff > 2e-2 + BF16_SPACING * o.float().abs()
-                     ).any()):
-                raise AssertionError(
-                    f"SDPA o: max abs error {float(sdpa_diff.max())}")
-            del sdpa_diff
+        # The library's yardstick: SDPA (bf16, causal), forward, backward
+        # and both, on the same operands, K/V un-expanded under GQA
+        # (enable_gqa); never on the port's path.
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        gqa = {"enable_gqa": True} if hkv != 8 else {}
+        qs, ks, vs = (x[None].detach().requires_grad_(True)
+                      for x in (q, k, v))
+        lib_o = sdpa(qs, ks, vs, is_causal=True, **gqa)
+        # The yardstick computes the same function: it rounds p to bfloat16
+        # before its second product, so it is held only to 2e-2 plus one
+        # bfloat16 spacing of the value.
+        sdpa_diff = (lib_o[0].float() - o.float()).abs()
+        if bool((sdpa_diff > 2e-2 + BF16_SPACING * o.float().abs()).any()):
+            raise AssertionError(
+                f"SDPA o kv {hkv}: max abs error {float(sdpa_diff.max())}")
+        del sdpa_diff
 
-            def lib_fwd():
-                with torch.no_grad():
-                    return sdpa(qs, ks, vs, is_causal=True)
+        def lib_fwd():
+            with torch.no_grad():
+                return sdpa(qs, ks, vs, is_causal=True, **gqa)
 
-            def lib_bwd():
-                return torch.autograd.grad(lib_o, (qs, ks, vs), do[None],
-                                           retain_graph=True)
+        def lib_bwd():
+            return torch.autograd.grad(lib_o, (qs, ks, vs), do[None],
+                                       retain_graph=True)
 
-            def lib_both():
-                return torch.autograd.grad(sdpa(qs, ks, vs, is_causal=True),
-                                           (qs, ks, vs), do[None])
+        def lib_both():
+            return torch.autograd.grad(
+                sdpa(qs, ks, vs, is_causal=True, **gqa), (qs, ks, vs),
+                do[None])
 
-            for name, fn in (("sdpa_fwd", lib_fwd), ("sdpa_bwd", lib_bwd),
-                             ("sdpa_fwd_bwd", lib_both)):
-                fn()  # warm-up: the first call picks and builds a kernel
-                rec[name] = cuda_ms(fn, reps=10)
-            lib = (f"SDPA forward {rec['sdpa_fwd']:.3f}, backward "
-                   f"{rec['sdpa_bwd']:.3f}, both {rec['sdpa_fwd_bwd']:.3f}")
-            del qs, ks, vs, lib_o
+        for name, fn in (("sdpa_fwd", lib_fwd), ("sdpa_bwd", lib_bwd),
+                         ("sdpa_fwd_bwd", lib_both)):
+            fn()  # warm-up: the first call picks and builds a kernel
+            rec[name] = cuda_ms(fn, reps=10)
+        lib = (f"SDPA forward {rec['sdpa_fwd']:.3f}, backward "
+               f"{rec['sdpa_bwd']:.3f}, both {rec['sdpa_fwd_bwd']:.3f}")
+        del qs, ks, vs, lib_o
+        # Rates on each function's own products (h n^2 d FLOP each, causal:
+        # 3 for dq, 4 for dk/dv) and the share of the bound reached.
+        for name, products, bound in (("flash_hop_dq", 3, rec["bound_dq"]),
+                                      ("flash_hop_dkv", 4,
+                                       rec["bound_dkv"])):
+            rec[f"{name}_tflops"] = (products * 8 * n32 * n32 * d32
+                                     / rec[name] / 1e9)
+            rec[f"{name}_bound_share"] = bound[0] / rec[name]
         attn_rec[hkv] = rec
         log(f"  attention kernels 8 x {n32} x {d32} kv {hkv} causal bf16, ms "
             f"per launch: flash_fwd {rec['flash_fwd']:.3f} (bound "
             f"{rec['bound_fwd'][0]:.4f} {rec['bound_fwd'][1]}, plain "
             f"{rec['plain_fwd']:.2f}); flash_hop_dq {rec['flash_hop_dq']:.3f}"
-            f" (bound {rec['bound_dq'][0]:.4f}); flash_hop_dkv "
-            f"{rec['flash_hop_dkv']:.3f} (bound {rec['bound_dkv'][0]:.4f}); "
+            f" (bound {rec['bound_dq'][0]:.4f}, "
+            f"{rec['flash_hop_dq_tflops']:.1f} TFLOP/s, "
+            f"{rec['flash_hop_dq_bound_share']:.3f} of the bound); "
+            f"flash_hop_dkv {rec['flash_hop_dkv']:.3f} (bound "
+            f"{rec['bound_dkv'][0]:.4f}, "
+            f"{rec['flash_hop_dkv_tflops']:.1f} TFLOP/s, "
+            f"{rec['flash_hop_dkv_bound_share']:.3f} of the bound); "
             f"plain backward {rec['plain_bwd']:.2f}; {lib} [{card}]")
         del q, k, v, do, o, L, D, dq, dk
         torch.cuda.empty_cache()
@@ -2026,7 +2142,16 @@ def main() -> int:
             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib,
             "shape": "8 x 32768 x 128 causal bf16, equal heads",
-            "gqa_8q_2kv_ms": attn_rec[2][name]})
+            "gqa_8q_2kv_ms": attn_rec[2][name],
+            "gqa_8q_2kv_library_ms": attn_rec[2][
+                "sdpa_fwd" if name == "flash_fwd" else "sdpa_bwd"]})
+        if name != "flash_fwd":
+            kernels[-1].update(
+                tflops=rec[f"{name}_tflops"],
+                bound_share=rec[f"{name}_bound_share"],
+                gqa_8q_2kv_tflops=attn_rec[2][f"{name}_tflops"],
+                build={label: props for label, props in hop_build.items()
+                       if label.startswith(name + "_")})
     kernels[-3]["note"] = ("library_ms: scaled_dot_product_attention "
                            "forward (bf16, causal)")
     for row in kernels[-2:]:
@@ -2034,6 +2159,7 @@ def main() -> int:
                        "dv together; library_ms: scaled_dot_product_"
                        "attention's backward, dq, dk and dv together")
     kernels[-1]["attention_32k"] = attn_line
+    kernels[-1]["grad_step_kernels_ms"] = step_kernels
     main_edge = edge_rec[0]
     kernels.append({
         "name": "halo_edge_pair", "route": "cuda",

@@ -16,6 +16,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import time
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -49,6 +50,8 @@ SIGNATURES = {
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# Wall seconds of each source's last build, from the start of its build().
+BUILD_SECONDS: dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -75,20 +78,32 @@ def _stale(name: str) -> bool:
 def build(names=tuple(SIGNATURES), force: bool = False) -> dict[str, str]:
     """Compile the named kernels that are missing or stale, all ``nvcc``
     processes at once; returns each one's compiler log (``-Xptxas -v``:
-    registers, shared memory, spills). Raises on the first failure."""
+    registers, shared memory, spills) and records each one's wall seconds
+    in :data:`BUILD_SECONDS`. Raises on the first failure."""
     todo = [n for n in names if force or _stale(n)]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for name in todo:
         tmp = BUILD_DIR / f"lib{name}.so.{os.getpid()}.tmp"
+        log = BUILD_DIR / f"lib{name}.log.{os.getpid()}"
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        with open(log, "w") as out:
+            procs[name] = (tmp, log, subprocess.Popen(
+                cmd, stdout=out, stderr=subprocess.STDOUT))
+    pending = dict(procs)
+    while pending:
+        for name in [n for n, (*_, p) in pending.items()
+                     if p.poll() is not None]:
+            BUILD_SECONDS[name] = time.perf_counter() - t0
+            del pending[name]
+        time.sleep(0.05)
     logs = {}
     failed = []
-    for name, (tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
+    for name, (tmp, log, proc) in procs.items():
+        logs[name] = log.read_text()
+        log.unlink()
         if proc.returncode:
             failed.append(name)
             tmp.unlink(missing_ok=True)

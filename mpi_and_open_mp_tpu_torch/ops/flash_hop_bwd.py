@@ -24,11 +24,23 @@ float32 or bfloat16 alike; ``L`` (the logsumexp) and ``D = rowsum(do·o)``
 ``causal`` keeps ``k <= q`` in local coordinates (a ring's diagonal hop;
 here the whole sequence). Outputs float32.
 
-Tiles: BLOCK = 64 rows of q and of k per step, float32 in shared memory
-with rows padded by one word: the dq block holds q, do, k, v tiles and the
-t tile (148 736 bytes at d = 128), the dk/dv block k, v, q, do tiles and
-the p and t tiles (165 888 bytes), inside the 227 KB a block may take. The
-JAX package's ``MAX_BLOCK = 512`` is a VMEM budget and has no counterpart.
+Kernels. bf16 operands run on the tensor cores: two warpgroups of 64 rows
+issue Hopper's ``wgmma`` (bf16 in, float32 accumulators), the block's own
+128 rows stay in shared memory (q, do for dq; k, v for dk/dv) and the
+streamed 64-row tiles (k, v; q, do with their L, D rows) arrive by
+``cp.async`` into a two-stage ring in the 128-byte swizzle. ``s`` and ``do
+vᵀ`` take both operands from shared memory; ``p`` and ``t`` stay in
+registers as the A operand of the second products. A bf16 product would
+round them, which the JAX kernels and SDPA do and which misses the float32
+fold by several times the 5e-4 the gradients are held to; so each is split,
+``hi = bf16(x)``, ``lo = bf16(x - hi)``, and the second product runs on both
+into the float32 accumulator (exact to about 2^-16 of ``p`` and ``t``).
+On a causal diagonal tile dq sums ``do vᵀ`` again on the FP32 units, in
+order of ``d``: there lie the first rows, whose gradient cancels (row 0's
+exactly) and so is the rounding of that sum alone. float32 operands keep the first design: float32 tiles of 64 rows padded by
+one word, every product on the FMA units. :func:`smem_bytes` gives each
+block's shared memory; the JAX package's ``MAX_BLOCK = 512`` is a VMEM
+budget and has no counterpart.
 """
 
 from __future__ import annotations
@@ -39,15 +51,24 @@ from mpi_and_open_mp_tpu_torch.ops import _build
 from mpi_and_open_mp_tpu_torch.ops.native_flash import (
     DTYPE_CODES, check_kernel_operands, check_operands)
 
-BLOCK = 64
+BLOCK = 64       # the float32 kernels' tile rows (csrc/flash_common.cuh)
+OWN_ROWS = 128   # rows a bf16 block owns: two warpgroups of 64
+STREAM_ROWS = 64  # rows of a bf16 block's streamed tiles
+STAGES = 2       # the streamed tiles' ring
 
 
-def smem_bytes(d: int) -> dict[str, int]:
-    """Shared memory of one block of each kernel at head width ``d``."""
-    tile = BLOCK * (d + 1)
-    scores = BLOCK * (BLOCK + 1)
-    return {"dq": 4 * (4 * tile + scores),
-            "dkv": 4 * (4 * tile + 2 * scores + 2 * BLOCK)}
+def smem_bytes(d: int, dtype: torch.dtype = torch.bfloat16) -> dict[str, int]:
+    """Shared memory of one block of each kernel at head width ``d``
+    (``csrc/flash_hop_bwd.cu``: ``dq_smem``, ``dkv_smem`` for bf16)."""
+    if dtype == torch.float32:
+        tile = BLOCK * (d + 1)
+        scores = BLOCK * (BLOCK + 1)
+        return {"dq": 4 * (4 * tile + scores),
+                "dkv": 4 * (4 * tile + 2 * scores + 2 * BLOCK)}
+    own = 2 * OWN_ROWS * d * 2          # q, do (dq) or k, v (dk/dv)
+    stream = 2 * STREAM_ROWS * d * 2    # k, v (dq) or q, do (dk/dv)
+    return {"dq": 1024 + own + STAGES * stream,
+            "dkv": 1024 + own + STAGES * (stream + 2 * STREAM_ROWS * 4)}
 
 
 def _check(what, q, do, L, D, kb, vb) -> None:
@@ -63,6 +84,9 @@ def _launch(name: str, q, do, L, D, kb, vb, outs, causal: bool) -> None:
     check_kernel_operands(name, q, do, kb, vb)
     if L.dtype != torch.float32 or D.dtype != torch.float32:
         raise ValueError(f"{name}: L and D must be float32")
+    if any(x.data_ptr() % 16 for x in (q, do, kb, vb)):
+        raise ValueError(f"{name}: q, do, k and v must start on 16 bytes "
+                         "(the kernels load rows in 16-byte pieces)")
     h, n, d = q.shape
     lib = _build.load("flash_hop_bwd")
     args = [x.data_ptr() for x in (q, kb, vb, do, L, D)]
@@ -115,7 +139,8 @@ def hop_block_grads(q, do, L, D, kb, vb, *, causal: bool):
     """One hop's block gradients ``(dq, dk, dv)``, all float32: two kernel
     launches on the card (:func:`flash_hop_dq`, :func:`flash_hop_dkv`),
     the plain version on the CPU. The JAX function's ``blk`` has no
-    counterpart: the tile is the kernels' own (:data:`BLOCK`)."""
+    counterpart: the tiles are the kernels' own (:data:`OWN_ROWS`,
+    :data:`STREAM_ROWS`; :data:`BLOCK` for float32)."""
     _check("hop_block_grads", q, do, L, D, kb, vb)
     if q.device.type == "cpu":
         return hop_block_grads_plain(q, do, L, D, kb, vb, causal=causal)

@@ -14,8 +14,11 @@ Tolerances, float32: forward 1e-5 and gradients 1e-4 against the JAX
 engine (two float32 engines summing in their own orders); the hop
 gradients 2e-4, as the JAX package's own kernel test; 1e-6 for the
 online-softmax merge. bfloat16 operands: 0.1 against the float32 oracle.
+The bf16 hop kernels' split arithmetic, emulated here: 5e-4 absolute plus
+5e-4 relative, the limit chip_smoke.py holds the kernels to on the card.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -184,10 +187,14 @@ def test_flash_forward_matches_jax(small_chunks, causal, n, h, hkv):
     _close(L2, want, 1e-5)
 
 
-def _hop_inputs(causal, h=2, n=256, d=128, seed=11):
+def _hop_inputs(causal, h=2, n=256, d=128, seed=11, bf16_values=False):
     """The construction of the JAX package's hop kernel test: L the exact
-    logsumexp of the scaled (masked) scores, D = rowsum(do * o)."""
+    logsumexp of the scaled (masked) scores, D = rowsum(do * o); with
+    ``bf16_values`` q, k, v and do are first rounded to bfloat16."""
     q, k, v, do = _arrays([(h, n, d)] * 4, seed)
+    if bf16_values:
+        q, k, v, do = (torch.from_numpy(x).bfloat16().float().numpy()
+                       for x in (q, k, v, do))
     s = np.einsum("hqd,hkd->hqk", q, k) / np.sqrt(d)
     if causal:
         s = np.where(np.tril(np.ones((n, n), bool)), s, -1e30)
@@ -240,6 +247,60 @@ def test_hop_block_grads_gqa_sums_the_group(monkeypatch):
                                rtol=1e-5, atol=1e-5)
 
 
+def _split_products(q, do, L, D, k, v, causal, split=True):
+    """The bf16 hop kernels' arithmetic (csrc/flash_hop_bwd.cu), emulated
+    in float32: the first products of bf16 values with float32 sums, p by
+    exp2 with log2 e folded into scale and L, and p and t split into a bf16
+    hi + lo pair, each second product run on both halves into one float32
+    sum. ``split=False`` drops lo: p and t rounded once to bf16, as the
+    JAX kernels and SDPA feed them to their second products."""
+    n, d = q.shape[1:]
+    scale = 1.0 / math.sqrt(d)
+    log2e = 1.4426950408889634
+    s = torch.einsum("hqd,hkd->hqk", q, k)
+    p = torch.exp2(s * (scale * log2e) - (L * log2e)[..., None])
+    if causal:
+        p = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), p, 0.0)
+    t = p * (torch.einsum("hqd,hkd->hqk", do, v) - D[..., None])
+
+    def split_pair(x):
+        hi = x.bfloat16().float()
+        return hi, (x - hi).bfloat16().float() * split
+
+    (p_hi, p_lo), (t_hi, t_lo) = split_pair(p), split_pair(t)
+    dq = scale * (torch.einsum("hqk,hkd->hqd", t_hi, k)
+                  + torch.einsum("hqk,hkd->hqd", t_lo, k))
+    dk = scale * (torch.einsum("hqk,hqd->hkd", t_hi, q)
+                  + torch.einsum("hqk,hqd->hkd", t_lo, q))
+    dv = (torch.einsum("hqk,hqd->hkd", p_hi, do)
+          + torch.einsum("hqk,hqd->hkd", p_lo, do))
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_split_products_within_the_gate(causal, d):
+    """The bf16 kernels' split of p and t keeps their gradients within the
+    gradient limit that chip_smoke.py holds them to on the card (5e-4
+    absolute plus 5e-4 relative) of the JAX package's float32 fold,
+    _flash_block_grads, on bf16-valued operands; p and t rounded once
+    instead miss it."""
+    q, k, v, do, L, D = _hop_inputs(causal, n=512, d=d, seed=23,
+                                    bf16_values=True)
+    pos = jnp.arange(q.shape[1])
+    mask = J._mask_from_pos(pos, pos, None, causal)
+    want = [np.asarray(x) for x in J._flash_block_grads(
+        *map(jnp.asarray, (q, do, L, D, k, v)), mask, 1.0 / np.sqrt(d))]
+
+    def within(got):
+        return [bool((np.abs(a.numpy() - b) <= 5e-4 + 5e-4 * np.abs(b)).all())
+                for a, b in zip(got, want)]
+
+    operands = _t(q, do, L, D, k, v)
+    assert within(_split_products(*operands, causal)) == [True] * 3
+    assert not all(within(_split_products(*operands, causal, split=False)))
+
+
 def test_engine_stamps(monkeypatch):
     """The engine stamps of the CPU, and the kernel's (what the card
     reports), built from the kernels' tile and the group count."""
@@ -260,10 +321,14 @@ def test_kernel_tiles_fit_a_block():
     from mpi_and_open_mp_tpu_torch.ops.bitlife import SMEM_BYTES
 
     assert nf.smem_bytes(128) == 115_712
-    assert fb.smem_bytes(128) == {"dq": 148_736, "dkv": 165_888}
+    assert fb.smem_bytes(128, torch.float32) == {"dq": 148_736,
+                                                 "dkv": 165_888}
+    assert fb.smem_bytes(128, torch.bfloat16) == {"dq": 132_096,
+                                                  "dkv": 133_120}
     for d in nf.HEAD_DIMS:
         assert nf.smem_bytes(d) <= SMEM_BYTES
-        assert max(fb.smem_bytes(d).values()) <= SMEM_BYTES
+        for dtype in nf.DTYPE_CODES:
+            assert max(fb.smem_bytes(d, dtype).values()) <= SMEM_BYTES
 
 
 @pytest.mark.parametrize("shapes", [
