@@ -8,10 +8,10 @@ Phases, each of which raises (exit code 1) when it fails:
 
 1. build the nine sources (ten kernels) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel, each one's
-   build seconds logged; for each ``flash_hop_bwd`` kernel its registers,
-   spills and shared memory, and its ``HGMMA`` (``wgmma``) instructions
-   in ``cuobjdump -sass`` of the library, which must not be 0 for the bf16
-   (tensor-core) kernels;
+   build seconds logged; for each kernel of ``flash_fwd`` and
+   ``flash_hop_bwd`` its registers and spills (``-Xptxas -v``), and its
+   ``HGMMA`` (``wgmma``) instructions in ``cuobjdump -sass`` of the
+   library, which must not be 0 for the bf16 (tensor-core) kernels;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
 3. ``bitlife_fused`` against its plain version (the whole extended frame
@@ -70,7 +70,12 @@ Phases, each of which raises (exit code 1) when it fails:
    versions on the card, at (2, 640, 64), (8, 1000, 128) (a ragged last
    tile) and (4, 2048, 128), causal and not, float32 (the FMA kernels)
    and bfloat16 (the tensor-core kernels), equal heads and GQA (h / 4 K/V
-   heads: 8q/2kv at h = 8);
+   heads: 8q/2kv at h = 8); a bf16 view that does not start on 16 bytes,
+   which ``flash_fwd`` must refuse with a ValueError before any launch;
+   then, each kernel having launched, its registers, spills and static
+   and dynamic shared memory as the CUDA runtime reports them
+   (``cudaFuncGetAttributes``), the dynamic size equal to the wrappers'
+   ``smem_bytes``;
 11. the attention main paths, counts set to 0 just before each: the
    attention CLI as a subprocess (``--variant flash --seq 8192 --heads 8
    --head-dim 128 --causal --dtype bfloat16 --grad``, its dense-oracle
@@ -83,11 +88,11 @@ Phases, each of which raises (exit code 1) when it fails:
 12. attention times at 32k: chain-differenced forward (r = 1, 9) and grad
    step (r = 1, 3) seconds under the bench's names
    (``attention_32k_causal_sec`` ...), equal heads and GQA; each kernel
-   per launch by CUDA events beside its plain version and its bound, the
-   hop kernels' TFLOP/s on their own products (3 for dq, 4 for dk/dv)
-   and share of the bound; a ``torch.profiler`` trace of one 32k grad
-   step, device ms by kernel, which must show the tensor-core hop kernels
-   and no other; and
+   per launch by CUDA events beside its plain version and its bound, each
+   kernel's TFLOP/s on its own products (2 for the forward, 3 for dq, 4
+   for dk/dv) and share of the bound; a ``torch.profiler`` trace of one
+   32k grad step, device ms by kernel, which must show the tensor-core
+   forward and hop kernels and no other; and
    ``torch.nn.functional.scaled_dot_product_attention`` forward, backward
    and both, K/V un-expanded under GQA (``enable_gqa``), as the library's
    yardstick (never on the port's path);
@@ -170,6 +175,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -359,25 +365,25 @@ def run_counted(wrappers, fn):
     return out, {name: w.launches for name, w in wrappers.items()}
 
 
-HOP_KERNEL = re.compile(r"\d+(flash_hop_\w+?)ILi(\d+)E")
+FLASH_KERNEL = re.compile(r"\d+(flash_\w+?)ILi(\d+)E")
 
 
-def hop_kernel_key(m) -> tuple[str, int, torch.dtype]:
-    """(name, head width, dtype) of a flash_hop_bwd kernel from a match of
-    its mangled name against HOP_KERNEL: the ``_tc`` kernels take bf16,
-    the FMA ones float32."""
+def flash_kernel_key(m) -> tuple[str, int, torch.dtype]:
+    """(name, head width, dtype) of a flash_fwd or flash_hop_bwd kernel
+    from a match of its mangled name against FLASH_KERNEL: the ``_tc``
+    kernels take bf16, the FMA ones float32."""
     return (m[1], int(m[2]),
             torch.bfloat16 if m[1].endswith("_tc") else torch.float32)
 
 
 def ptxas_kernels(text: str) -> dict[tuple, dict[str, int]]:
-    """Registers and spilled bytes of each flash_hop_bwd kernel from the
-    ``-Xptxas -v`` log, keyed by :func:`hop_kernel_key`."""
+    """Registers and spilled bytes of each flash kernel from a source's
+    ``-Xptxas -v`` log, keyed by :func:`flash_kernel_key`."""
     out, key = {}, None
     for line in text.splitlines():
-        m = HOP_KERNEL.search(line)
+        m = FLASH_KERNEL.search(line)
         if "Compiling entry function" in line and m:
-            key = hop_kernel_key(m)
+            key = flash_kernel_key(m)
             out[key] = {}
         elif key and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
@@ -390,16 +396,16 @@ def ptxas_kernels(text: str) -> dict[tuple, dict[str, int]]:
 
 
 def sass_counts(cuobjdump: str, lib, opcode: str) -> dict[tuple, int]:
-    """How many ``opcode`` instructions each flash_hop_bwd kernel of the
-    built library holds (``cuobjdump -sass``), keyed by
-    :func:`hop_kernel_key`."""
+    """How many ``opcode`` instructions each flash kernel of the built
+    library holds (``cuobjdump -sass``), keyed by
+    :func:`flash_kernel_key`."""
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        m = HOP_KERNEL.search(part.split()[0])
+        m = FLASH_KERNEL.search(part.split()[0])
         if m:
-            counts[hop_kernel_key(m)] = part.count(opcode)
+            counts[flash_kernel_key(m)] = part.count(opcode)
     return counts
 
 
@@ -449,30 +455,33 @@ def main() -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (set-up)")
     for name, text in logs.items():
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
-        if name == "flash_hop_bwd":
+        if name in ("flash_fwd", "flash_hop_bwd"):
             continue  # per kernel below
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"  {name}: {line.strip()}")
-    # The hop kernels one by one: registers, spills and shared memory, and
-    # the tensor-core instructions (HGMMA: wgmma) in each one's SASS.
-    hop_sass = sass_counts(
-        os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
-        _build.lib_path("flash_hop_bwd"), "HGMMA")
-    hop_build = {}
-    for (kernel, d, dtype), props in ptxas_kernels(
-            logs["flash_hop_bwd"]).items():
-        props["smem_bytes"] = fhb.smem_bytes(d, dtype)[
-            "dkv" if "dkv" in kernel else "dq"]
-        props["hgmma"] = hop_sass[kernel, d, dtype]
-        label = f"{kernel}<{d}, {str(dtype)[6:]}>"
-        hop_build[label] = props
-        log(f"  flash_hop_bwd {label}: {props['registers']} registers, "
-            f"{props['spill_stores']} + {props['spill_loads']} bytes spilled, "
-            f"{props['smem_bytes']} bytes shared memory, {props['hgmma']} "
-            "HGMMA")
-        if dtype == torch.bfloat16 and not props["hgmma"]:
-            raise AssertionError(f"{label} has no wgmma (HGMMA) in its SASS")
+    # The attention kernels one by one: registers, spills and shared
+    # memory, and the tensor-core instructions (HGMMA: wgmma) in each one's
+    # SASS.
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    flash_build, flash_keys = {}, {}
+    for lib in ("flash_fwd", "flash_hop_bwd"):
+        lib_sass = sass_counts(cuobjdump, _build.lib_path(lib), "HGMMA")
+        for (kernel, d, dtype), props in ptxas_kernels(logs[lib]).items():
+            props["hgmma"] = lib_sass[kernel, d, dtype]
+            label = f"{kernel}<{d}, {str(dtype)[6:]}>"
+            flash_build[label] = props
+            flash_keys[label] = (lib, kernel, d, dtype)
+            log(f"  {lib} {label}: {props['registers']} registers, "
+                f"{props['spill_stores']} + {props['spill_loads']} bytes "
+                f"spilled, {props['hgmma']} HGMMA")
+            if dtype == torch.bfloat16 and not props["hgmma"]:
+                raise AssertionError(f"{label} has no wgmma (HGMMA) in its "
+                                     "SASS")
+    tc_built = sorted(label for label in flash_build if "_tc<" in label)
+    if tc_built != [f"{k}_tc<{d}, bfloat16>" for k in (
+            "flash_fwd", "flash_hop_dkv", "flash_hop_dq") for d in (128, 64)]:
+        raise AssertionError(f"tensor-core kernels built: {tc_built}")
 
     # ------------------------------------------------ 2. vmem against plain
     t0 = time.perf_counter()
@@ -1139,6 +1148,43 @@ def main() -> int:
                     log(f"  attention {case}: max abs error (share of the "
                         "limit) " + ", ".join(errs))
     del q, k, v, do, o, L, po, pL, D, got, want
+    # A bf16 view one element past 16 bytes: refused before any launch,
+    # where the kernel's 16-byte loads would fault. Zeros, so that the
+    # later phases draw the same operands from attn_gen.
+    base = torch.zeros(2 * 640 * 64 + 8, dtype=torch.bfloat16, device="cuda")
+    q = base[1:1 + 2 * 640 * 64].view(2, 640, 64)
+    try:
+        nf.flash_fwd(q, q, q, True)
+    except ValueError as e:
+        log(f"  attention misaligned bf16 view refused: {e}")
+    else:
+        raise AssertionError("flash_fwd took a bf16 view that does not "
+                             "start on 16 bytes")
+    del base, q
+    # Each kernel has launched: what the CUDA runtime reports of it. Its
+    # shared memory (static + the dynamic size its launches set) goes into
+    # the kernels line, and the dynamic size must be the wrappers'
+    # smem_bytes, the layout the modules document.
+    for label, (lib_name, kernel, d, dtype) in flash_keys.items():
+        lib, attrs = _build.load(lib_name), (ctypes.c_int * 4)()
+        code = nf.DTYPE_CODES[dtype]
+        if lib_name == "flash_fwd":
+            rc = lib.flash_fwd_attributes(d, code, attrs)
+            documented = nf.smem_bytes(d, dtype)
+        else:
+            dkv = "dkv" in kernel
+            rc = lib.flash_hop_attributes(int(dkv), d, code, attrs)
+            documented = fhb.smem_bytes(d, dtype)["dkv" if dkv else "dq"]
+        _build.check(lib, lib_name, rc)
+        regs, local, static, dynamic = attrs
+        flash_build[label]["smem_bytes"] = static + dynamic
+        log(f"  {lib_name} {label} (CUDA runtime): {regs} registers, "
+            f"{local} local bytes, {static} + {dynamic} bytes shared memory "
+            f"(static + dynamic)")
+        if dynamic != documented:
+            raise AssertionError(f"{label}: {dynamic} bytes of dynamic "
+                                 f"shared memory, smem_bytes says "
+                                 f"{documented}")
     torch.cuda.synchronize()
     log(f"phase 10 attention kernels vs plain: ok "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -1287,10 +1333,11 @@ def main() -> int:
     log("  attention " + json.dumps(attn_line) + f" [{card}]")
     log("  profiler, one 32k grad step, kv 8, device ms by kernel: "
         + "; ".join(f"{name} {ms:.3f}" for name, ms in step_kernels.items()))
-    hop_ran = [name for name in step_kernels if "flash_hop" in name]
-    if sorted(hop_ran) != ["flash_hop_dkv_tc<128>", "flash_hop_dq_tc<128>"]:
+    flash_ran = [name for name in step_kernels if "flash_" in name]
+    if sorted(flash_ran) != ["flash_fwd_tc<128>", "flash_hop_dkv_tc<128>",
+                             "flash_hop_dq_tc<128>"]:
         raise AssertionError("the 32k bf16 grad step did not run the "
-                             f"tensor-core hop kernels alone: {hop_ran}")
+                             f"tensor-core kernels alone: {flash_ran}")
 
     # Each kernel per launch at 32k, equal heads and GQA, beside its plain
     # version, its bound and the library's call.
@@ -1361,8 +1408,10 @@ def main() -> int:
                f"{rec['sdpa_bwd']:.3f}, both {rec['sdpa_fwd_bwd']:.3f}")
         del qs, ks, vs, lib_o
         # Rates on each function's own products (h n^2 d FLOP each, causal:
-        # 3 for dq, 4 for dk/dv) and the share of the bound reached.
-        for name, products, bound in (("flash_hop_dq", 3, rec["bound_dq"]),
+        # 2 for the forward, 3 for dq, 4 for dk/dv) and the share of the
+        # bound reached.
+        for name, products, bound in (("flash_fwd", 2, rec["bound_fwd"]),
+                                      ("flash_hop_dq", 3, rec["bound_dq"]),
                                       ("flash_hop_dkv", 4,
                                        rec["bound_dkv"])):
             rec[f"{name}_tflops"] = (products * 8 * n32 * n32 * d32
@@ -1371,7 +1420,9 @@ def main() -> int:
         attn_rec[hkv] = rec
         log(f"  attention kernels 8 x {n32} x {d32} kv {hkv} causal bf16, ms "
             f"per launch: flash_fwd {rec['flash_fwd']:.3f} (bound "
-            f"{rec['bound_fwd'][0]:.4f} {rec['bound_fwd'][1]}, plain "
+            f"{rec['bound_fwd'][0]:.4f} {rec['bound_fwd'][1]}, "
+            f"{rec['flash_fwd_tflops']:.1f} TFLOP/s, "
+            f"{rec['flash_fwd_bound_share']:.3f} of the bound, plain "
             f"{rec['plain_fwd']:.2f}); flash_hop_dq {rec['flash_hop_dq']:.3f}"
             f" (bound {rec['bound_dq'][0]:.4f}, "
             f"{rec['flash_hop_dq_tflops']:.1f} TFLOP/s, "
@@ -2145,19 +2196,22 @@ def main() -> int:
             "gqa_8q_2kv_ms": attn_rec[2][name],
             "gqa_8q_2kv_library_ms": attn_rec[2][
                 "sdpa_fwd" if name == "flash_fwd" else "sdpa_bwd"]})
-        if name != "flash_fwd":
-            kernels[-1].update(
-                tflops=rec[f"{name}_tflops"],
-                bound_share=rec[f"{name}_bound_share"],
-                gqa_8q_2kv_tflops=attn_rec[2][f"{name}_tflops"],
-                build={label: props for label, props in hop_build.items()
-                       if label.startswith(name + "_")})
+        kernels[-1].update(
+            tflops=rec[f"{name}_tflops"],
+            bound_share=rec[f"{name}_bound_share"],
+            gqa_8q_2kv_tflops=attn_rec[2][f"{name}_tflops"],
+            build={label: props for label, props in flash_build.items()
+                   if label.startswith(name + "_")})
+    build_note = ("build: registers and spills from ptxas -v, hgmma from "
+                  "cuobjdump -sass, smem_bytes (static + dynamic) from "
+                  "cudaFuncGetAttributes after the kernel's launches")
     kernels[-3]["note"] = ("library_ms: scaled_dot_product_attention "
-                           "forward (bf16, causal)")
+                           "forward (bf16, causal); " + build_note)
     for row in kernels[-2:]:
         row["note"] = ("plain_ms: the plain backward computing dq, dk and "
                        "dv together; library_ms: scaled_dot_product_"
-                       "attention's backward, dq, dk and dv together")
+                       "attention's backward, dq, dk and dv together; "
+                       + build_note)
     kernels[-1]["attention_32k"] = attn_line
     kernels[-1]["grad_step_kernels_ms"] = step_kernels
     main_edge = edge_rec[0]

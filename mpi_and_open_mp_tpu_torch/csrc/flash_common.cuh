@@ -1,7 +1,8 @@
-// flash_common.cuh: what the flash attention kernels (flash_fwd.cu,
-// flash_hop_bwd.cu) share: the tile shape, loads of a tile into shared
-// memory as float32, the two products of float32 tiles in shared memory,
-// and the row reductions across the 16 threads that share a row.
+// flash_common.cuh: what the float32 (FMA) flash attention kernels of
+// flash_fwd.cu and flash_hop_bwd.cu share: the tile shape, loads of a
+// float32 tile into shared memory, the two products of float32 tiles in
+// shared memory, and the row reductions across the 16 threads that share a
+// row; and kNeg, which the bf16 kernels use too.
 //
 // Layout of a block's 256 threads over a 64-row tile: thread (tx, ty) =
 // (tid % 16, tid / 16) owns rows ty + 16 i (i < 4) and, of a 64-column
@@ -16,7 +17,6 @@
 // (ty even and odd) differ by one bank. No bank conflicts, no swizzle.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -29,37 +29,21 @@ constexpr int kRows = kBlock / 16;     // rows (and score columns) per thread
 constexpr int kScoreLd = kBlock + 1;   // row stride of a 64 x 64 score tile
 constexpr float kNeg = -1e30f;         // parallel/context.py:_NEG
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
-
 __device__ __forceinline__ int tid_x() { return threadIdx.x & 15; }
 __device__ __forceinline__ int tid_y() { return threadIdx.x >> 4; }
 
 // Rows [row0, row0 + kBlock) of a (rows, D) row-major matrix into a
 // kBlock x (D + 1) float32 tile; rows at or past `rows` read as 0.
 // Neighbouring threads read neighbouring elements.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ src,
                                           int row0, int rows) {
   for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
     const int r = i / D;
     const int c = i % D;
     dst[r * (D + 1) + c] =
-        row0 + r < rows ? to_f32(src[static_cast<size_t>(row0 + r) * D + c])
-                        : 0.0f;
+        row0 + r < rows ? src[static_cast<size_t>(row0 + r) * D + c] : 0.0f;
   }
 }
 
@@ -124,6 +108,22 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// The CUDA runtime's record of a built kernel (cudaFuncGetAttributes) into
+// out: registers a thread, local (spilled) bytes a thread, static shared
+// bytes, and the dynamic shared bytes a launch may take, which allow_smem
+// sets at the kernel's launches.
+template <typename K>
+inline int func_attributes(K kernel, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = a.numRegs;
+  out[1] = static_cast<int>(a.localSizeBytes);
+  out[2] = static_cast<int>(a.sharedSizeBytes);
+  out[3] = a.maxDynamicSharedSizeBytes;
+  return 0;
 }
 
 }  // namespace flash

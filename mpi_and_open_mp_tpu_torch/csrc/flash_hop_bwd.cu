@@ -275,19 +275,8 @@ constexpr size_t dkv_smem() {
          kTcStages * (2 * kDkvStream * D * 2 + 2 * kDkvStream * 4);
 }
 
-__device__ __forceinline__ char* align1024(char* p) {
-  return p + ((1024 - (sm90::smem_addr(p) & 1023)) & 1023);
-}
-
-// Thread t of warpgroup wg: accumulator rows r0 and r0 + 8 of the
-// warpgroup's 64, columns c0, c0 + 1 of every 8 (flash_sm90.cuh).
-struct TcThread {
-  int wg, r0, c0;
-  __device__ TcThread()
-      : wg(threadIdx.x / 128),
-        r0(16 * (threadIdx.x % 128 / 32) + threadIdx.x % 32 / 4),
-        c0(2 * (threadIdx.x % 4)) {}
-};
+using sm90::align1024;
+using sm90::TcThread;
 
 // dp = do vᵀ of a warpgroup's causal diagonal tile, in the accumulator's
 // layout, on the FP32 units: each entry summed in order of d from 0 by
@@ -729,6 +718,25 @@ extern "C" int flash_hop_dkv(const void* q, const void* k, const void* v,
   if (dtype == 1 && d == 128)
     return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, h, hkv, n,
                               causal, s);
+  return -1;
+}
+
+// The CUDA runtime's attributes of the kernel flash_hop_dq (dkv = 0) or
+// flash_hop_dkv (dkv = 1) launches for d and dtype, as
+// flash_fwd_attributes gives them.
+extern "C" int flash_hop_attributes(int dkv, int d, int dtype, int* out) {
+  if (dtype == 0 && d == 64)
+    return dkv ? flash::func_attributes(flash_hop_dkv_kernel<64>, out)
+               : flash::func_attributes(flash_hop_dq_kernel<64>, out);
+  if (dtype == 0 && d == 128)
+    return dkv ? flash::func_attributes(flash_hop_dkv_kernel<128>, out)
+               : flash::func_attributes(flash_hop_dq_kernel<128>, out);
+  if (dtype == 1 && d == 64)
+    return dkv ? flash::func_attributes(flash_hop_dkv_tc<64>, out)
+               : flash::func_attributes(flash_hop_dq_tc<64>, out);
+  if (dtype == 1 && d == 128)
+    return dkv ? flash::func_attributes(flash_hop_dkv_tc<128>, out)
+               : flash::func_attributes(flash_hop_dq_tc<128>, out);
   return -1;
 }
 

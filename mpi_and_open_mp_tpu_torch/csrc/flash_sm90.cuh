@@ -38,6 +38,22 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// p moved up to the next 1024-byte boundary of shared memory, where a
+// swizzled tile must start.
+__device__ __forceinline__ char* align1024(char* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// Thread t of warpgroup wg: accumulator rows r0 and r0 + 8 of the
+// warpgroup's 64, columns c0, c0 + 1 of every 8 (fragments above).
+struct TcThread {
+  int wg, r0, c0;
+  __device__ TcThread()
+      : wg(threadIdx.x / 128),
+        r0(16 * (threadIdx.x % 128 / 32) + threadIdx.x % 32 / 4),
+        c0(2 * (threadIdx.x % 4)) {}
+};
+
 // 16 bytes from global to shared memory, asynchronously; zeros when !valid
 // (src is then not read).
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 # as c_void_p: a default ctypes int would cut a pointer to 32 bits; _L is
 # a 64-bit extent or stride; _IP is an int out-parameter): a list for the one entry point named like the
 # library, or a dict of entry point -> list where one source holds several
-# kernels.
+# entry points.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
@@ -41,10 +41,14 @@ SIGNATURES = {
     "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
     "stencil_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "flash_fwd": {
+        "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "flash_fwd_attributes": [_I, _I, _IP],
+    },
     "flash_hop_bwd": {
         "flash_hop_dq": [_P] * 7 + [_I] * 6 + [_P],
         "flash_hop_dkv": [_P] * 8 + [_I] * 6 + [_P],
+        "flash_hop_attributes": [_I, _I, _I, _IP],
     },
     "halo_edge_pair": [_P] * 5 + [_I, _L, _I, _I] + [_L] * 6 + [_I, _P],
 }

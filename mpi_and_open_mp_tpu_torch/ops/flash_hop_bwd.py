@@ -49,7 +49,7 @@ import torch
 
 from mpi_and_open_mp_tpu_torch.ops import _build
 from mpi_and_open_mp_tpu_torch.ops.native_flash import (
-    DTYPE_CODES, check_kernel_operands, check_operands)
+    DTYPE_CODES, check_aligned, check_kernel_operands, check_operands)
 
 BLOCK = 64       # the float32 kernels' tile rows (csrc/flash_common.cuh)
 OWN_ROWS = 128   # rows a bf16 block owns: two warpgroups of 64
@@ -84,9 +84,7 @@ def _launch(name: str, q, do, L, D, kb, vb, outs, causal: bool) -> None:
     check_kernel_operands(name, q, do, kb, vb)
     if L.dtype != torch.float32 or D.dtype != torch.float32:
         raise ValueError(f"{name}: L and D must be float32")
-    if any(x.data_ptr() % 16 for x in (q, do, kb, vb)):
-        raise ValueError(f"{name}: q, do, k and v must start on 16 bytes "
-                         "(the kernels load rows in 16-byte pieces)")
+    check_aligned(name, q, do, kb, vb)
     h, n, d = q.shape
     lib = _build.load("flash_hop_bwd")
     args = [x.data_ptr() for x in (q, kb, vb, do, L, D)]

@@ -15,7 +15,9 @@ engine (two float32 engines summing in their own orders); the hop
 gradients 2e-4, as the JAX package's own kernel test; 1e-6 for the
 online-softmax merge. bfloat16 operands: 0.1 against the float32 oracle.
 The bf16 hop kernels' split arithmetic, emulated here: 5e-4 absolute plus
-5e-4 relative, the limit chip_smoke.py holds the kernels to on the card.
+5e-4 relative, the limit chip_smoke.py holds the kernels to on the card;
+the bf16 forward's, its bf16 rule for o (two bf16 spacings of the value +
+1e-3 of the row's largest + 1e-6 of the tensor's) and 2e-4 for L.
 """
 
 import math
@@ -301,6 +303,77 @@ def test_split_products_within_the_gate(causal, d):
     assert not all(within(_split_products(*operands, causal, split=False)))
 
 
+def _fwd_products(q, k, v, causal, split=True):
+    """The bf16 forward kernel's arithmetic (csrc/flash_fwd.cu:
+    flash_fwd_tc), emulated in float32 on bf16-valued operands: s = q kᵀ
+    with a float32 sum, x = s·(scale·log2 e), 64-key tiles folded by the
+    online softmax in log2 units (running max from -1e30, corr and p by
+    exp2, l the float32 sum of the unsplit p), p split into a bf16 hi + lo
+    pair and o += p_hi v + p_lo v, o rounded to bf16 and L = m·ln 2 +
+    log l in float32. ``split=False`` drops lo: p rounded once to bf16, as
+    the JAX kernel and SDPA feed it to their second product."""
+    h, n, d = q.shape
+    k, v = (x.repeat_interleave(h // k.shape[0], 0) for x in (k, v))
+    sl2 = (torch.tensor(1.0 / math.sqrt(d))
+           * torch.tensor(1.4426950408889634))  # float32, as the kernel
+    x = torch.einsum("hqd,hkd->hqk", q, k) * sl2
+    if causal:
+        x = torch.where(torch.ones(n, n, dtype=torch.bool).tril(), x,
+                        -math.inf)
+    m = torch.full((h, n, 1), -1e30)
+    l = torch.zeros((h, n, 1))
+    acc = torch.zeros((h, n, d))
+    for k0 in range(0, n, 64):
+        xt, vt = x[..., k0:k0 + 64], v[:, k0:k0 + 64]
+        m_new = torch.maximum(m, xt.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(xt - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float() * split
+        acc = acc * corr + hi @ vt + lo @ vt
+        m = m_new
+    o = (acc / l).bfloat16()
+    L = m * math.log(2.0) + torch.log(l.clamp_min(1e-37))
+    return o, L[..., 0]
+
+
+def _within_bf16_rule(got, want):
+    """chip_smoke.py's rule for a bf16 result: |got - want| <= 2·2^-7
+    |want| + 1e-3 of the row's largest |want| + 1e-6 of the tensor's."""
+    a = np.abs(want)
+    limit = (2 * 2.0 ** -7 * a + 1e-3 * a.max(-1, keepdims=True)
+             + 1e-6 * a.max())
+    return bool((np.abs(got.float().numpy() - want) <= limit).all())
+
+
+@pytest.mark.parametrize("d,hkv", [(64, 2), (128, 2), (128, 1)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_fwd_split_products_within_the_gate(causal, d, hkv):
+    """The bf16 forward's split of p keeps o within the bf16 rule that
+    chip_smoke.py holds the kernel to on the card, and L within its 2e-4
+    absolute plus 2e-4 relative, of the JAX package's float32
+    attention_reference and _flash_forward on bf16-valued operands at
+    n = 2048 (hkv = 1: GQA, two query heads on one K/V head); p rounded
+    once instead misses the rule."""
+    h, n = 2, 2048
+    q, k, v = (torch.from_numpy(x).bfloat16().float().numpy()
+               for x in _qkv(h, hkv, n, d, seed=31 + d + hkv))
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    ref = np.asarray(J.attention_reference(
+        jq, *J._repeat_heads(jk, jv, h // hkv), causal=causal))
+    jo, jL = jax.jit(J._flash_forward, static_argnums=0)(causal, jq, jk, jv)
+    jL = np.asarray(J._unfold_groups(jL[:, : n * (h // hkv)], hkv,
+                                     h // hkv))
+    operands = _t(q, k, v)
+    o, L = _fwd_products(*operands, causal)
+    assert o.dtype == torch.bfloat16 and L.shape == (h, n)
+    assert _within_bf16_rule(o, ref) and _within_bf16_rule(o, np.asarray(jo))
+    assert bool((np.abs(L.numpy() - jL) <= 2e-4 + 2e-4 * np.abs(jL)).all())
+    o1, _ = _fwd_products(*operands, causal, split=False)
+    assert not _within_bf16_rule(o1, ref)
+
+
 def test_engine_stamps(monkeypatch):
     """The engine stamps of the CPU, and the kernel's (what the card
     reports), built from the kernels' tile and the group count."""
@@ -320,14 +393,16 @@ def test_kernel_tiles_fit_a_block():
     227 KB a block may take (ops/bitlife.py:SMEM_BYTES)."""
     from mpi_and_open_mp_tpu_torch.ops.bitlife import SMEM_BYTES
 
-    assert nf.smem_bytes(128) == 115_712
+    assert nf.smem_bytes(128, torch.float32) == 115_712
+    assert nf.smem_bytes(128, torch.bfloat16) == 164_864
+    assert nf.smem_bytes(64, torch.bfloat16) == 82_944
     assert fb.smem_bytes(128, torch.float32) == {"dq": 148_736,
                                                  "dkv": 165_888}
     assert fb.smem_bytes(128, torch.bfloat16) == {"dq": 132_096,
                                                   "dkv": 133_120}
     for d in nf.HEAD_DIMS:
-        assert nf.smem_bytes(d) <= SMEM_BYTES
         for dtype in nf.DTYPE_CODES:
+            assert nf.smem_bytes(d, dtype) <= SMEM_BYTES
             assert max(fb.smem_bytes(d, dtype).values()) <= SMEM_BYTES
 
 
@@ -345,6 +420,22 @@ def test_kernel_wrappers_refuse_bad_shapes(shapes):
         L = torch.zeros(q.shape[:2])
         with pytest.raises(ValueError, match="hop_block_grads"):
             fb.hop_block_grads(q, q, L, L, k, v, causal=True)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 8])
+def test_kernel_alignment_check(offset):
+    """The tensor-core kernels' wrappers refuse operands that do not start
+    on 16 bytes (nf.check_aligned, called by flash_fwd for bf16 and by the
+    hop kernels' launches) before anything reaches the card."""
+    base = torch.zeros(2 * 64 * 64 + 16, dtype=torch.bfloat16)
+    q = base[offset:offset + 2 * 64 * 64].view(2, 64, 64)
+    aligned = torch.zeros(2, 64, 64, dtype=torch.bfloat16)
+    assert q.is_contiguous() and aligned.data_ptr() % 16 == 0
+    if q.data_ptr() % 16:
+        with pytest.raises(ValueError, match="start on 16 bytes"):
+            nf.check_aligned("flash_fwd", aligned, q, aligned)
+    else:
+        nf.check_aligned("flash_fwd", q, aligned, aligned)
 
 
 def test_merge_partials_matches_jax():
