@@ -11,7 +11,14 @@ Phases, each of which raises (exit code 1) when it fails:
    build seconds logged; for each kernel of ``flash_fwd`` and
    ``flash_hop_bwd`` its registers and spills (``-Xptxas -v``), and its
    ``HGMMA`` (``wgmma``) instructions in ``cuobjdump -sass`` of the
-   library, which must not be 0 for the bf16 (tensor-core) kernels;
+   library, which must not be 0 for the bf16 (tensor-core) kernels; for
+   each of the ten ``stencil_padded_kernel<RULE, R>`` (each rule at its
+   registered radius, 1 or lenia's 8, and its generic kernel, R = 0) its
+   registers and spills, which must be 0, and for every registered stencil spec and
+   lenia at r in {3, 55, the largest that fits} the CUDA runtime's
+   registers, local bytes and shared memory of the kernel it launches
+   (``stencil_padded_attributes``: ``cudaFuncGetAttributes``), the local
+   bytes 0 and the dynamic size equal to ``native_stencil.smem_bytes``;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
 3. ``bitlife_fused`` against its plain version (the whole extended frame
@@ -44,11 +51,18 @@ Phases, each of which raises (exit code 1) when it fails:
    side at B in {64, 128, 256, 512} x 500^2 and {8, 64, 256, 512} x 95x130
    (where each wins), their boards compared;
 7. ``stencil_padded`` against its plain version (``stencils.engine.
-   step_padded``) on the card, for every registered stencil spec, a
-   ``make_lenia(3)`` and gray_scott as one 2-channel block, at (500, 500),
-   (37, 45), (17, 23) and an extent smaller than the radius, over n in
-   {1, 8} steps for the lenia specs and {1, 8, 100} for the rest: integer
-   specs exact, float specs within ``parity_tol_for("offset")``;
+   step_padded``) on the card, every case bit for bit (max abs error 0.0,
+   equal bits): every registered stencil spec, a ``make_lenia(3)`` and
+   gray_scott as one 2-channel block, at (500, 500), (37, 45), (17, 23)
+   and an extent smaller than the radius, over n in {1, 8} steps for the
+   lenia specs and {1, 8, 100} for the rest; at interior widths 1, a
+   strip - 1 and + 1 and a tile - 1 and + 1 (one step); a stack whose base
+   is one board past a ``torus_pad`` result (an odd byte for uint8); life
+   and wireworld on 64 x 500^2 stacks at n in {1, 8}, more boards than one
+   wave of blocks holds, so each block steps several boards through the
+   two staging buffers; and every kernel of the build: the rules
+   registered at r = 1 at r = 2 and 8 (their generic kernels),
+   ``make_lenia(1)``, and lenia at the largest radius that fits;
 8. the stencil main paths, counts set to 0 just before each:
    ``run_padded_native_batch`` on 64 x 500^2 stacks - wireworld and heat for
    10 000 steps (every board against ``run_roll_batch`` on the card, board
@@ -59,8 +73,13 @@ Phases, each of which raises (exit code 1) when it fails:
    ``ActiveTileEngine`` on a mostly-dead 2048^2 Life board, each against
    the NumPy oracle;
 9. stencil times at 64 x 500^2 (gray_scott: one 500^2 board): the
-   kernel per launch, the runner's us/step differenced over two step
-   counts, the plain version per step, the bound, and for heat and lenia
+   kernel per launch (CUDA events, and device time from a profiler
+   trace; the earlier kernel's CUDA-event time from PERF.md in the log
+   line only),
+   the runner's us/step differenced over two
+   step counts with its halo gather, the plain version per step, the
+   bound, the float rules' FP32 issue bound (each multiply and add one
+   instruction: no FMA may fuse them), and for heat and lenia
    ``torch.nn.functional.conv2d`` computing the aggregate alone (float32,
    TF32 off) as the library's yardstick; then a ``torch.profiler`` trace of
    10 runner steps for heat, lenia and gray_scott: device kernels and
@@ -176,6 +195,7 @@ and prints no result.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -219,6 +239,19 @@ BF16_SPACING = 2.0 ** -7
 # channels for gray_scott).
 # Indexed by the kernel's rule id: life, heat, gray_scott, wireworld, lenia.
 STENCIL_RULE_OPS = (5, 4, 19, 12, 10)
+STENCIL_RULE_NAMES = ("life", "heat", "gray_scott", "wireworld", "lenia")
+# FP32 instruction issue rate: 132 SMs x 128 lanes x 1.98 GHz. A float
+# stencil's multiply and add may not fuse into an FMA (the plain version
+# rounds each), so each issues on its own: its issue bound counts each
+# operation as one instruction at this rate, half the data sheet's 67 TFLOP/s.
+FP32_ISSUE_PER_S = N_SMS * 128 * 1.98e9
+# The stencil kernel's times per launch before its redesign, as PERF.md's
+# kernel table records them (row 7: CUDA-event times at 64 x 500^2; row 6:
+# the device time of the Life rule on shards), printed in the log beside
+# this run's and never in the kernels line.
+STENCIL_BEFORE_MS = {"heat": 0.0892, "wireworld": 0.1086, "life": 0.0880,
+                  "lenia": 1.344, "gray_scott": 0.0375}
+LIFE_SHARDS_BEFORE_MS = 0.0029
 
 
 def log(msg: str) -> None:
@@ -263,15 +296,21 @@ def diff_count(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a != b).sum())
 
 
+def stencil_ops(spec, rule: int, offsets, cells: int) -> int:
+    """Operations of one stencil step: the aggregate (an add per tap past
+    the first, a multiply per non-unit weight, per channel) plus the
+    rule's."""
+    taps = len(offsets)
+    per_cell = spec.channels * (taps - 1 + sum(w != 1 for _, _, w in offsets))
+    return cells * (per_cell + STENCIL_RULE_OPS[rule])
+
+
 def stencil_bound_ms(spec, rule: int, offsets, cells: int, in_bytes: int,
                      out_bytes: int) -> tuple[float, str]:
     """The least time for one stencil step: the padded input read once and
-    the interior written once over HBM, against the aggregate (an add per
-    tap past the first, a multiply per non-unit weight, per channel) plus
-    the rule's operations over the peak of the cell type (FP32 or INT32)."""
-    taps = len(offsets)
-    per_cell = spec.channels * (taps - 1 + sum(w != 1 for _, _, w in offsets))
-    ops = cells * (per_cell + STENCIL_RULE_OPS[rule])
+    the interior written once over HBM, against :func:`stencil_ops` over
+    the peak of the cell type (FP32 or INT32)."""
+    ops = stencil_ops(spec, rule, offsets, cells)
     rate = FP32_FLOPS_PER_S if spec.is_float else INT32_OPS_PER_S
     t_ops = ops / rate * 1e3
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
@@ -315,26 +354,45 @@ def attention_err(got, want, tol, what) -> tuple[float, float]:
     return err, share
 
 
-def device_ms(fn, reps: int, kernel_name: str | None = None) -> float:
-    """Mean device milliseconds per call of ``fn()`` over ``reps`` calls,
-    from a ``torch.profiler`` trace: the time of the device kernels named
-    like ``kernel_name``, or of every device kernel when it is None, without
-    the host's launch gaps that CUDA events around fast kernels take in.
-    Raises when the trace shows no such kernel."""
+def device_ms(fn, reps: int, kernel_name: str | None = None,
+              tries: int = 3) -> float:
+    """Device milliseconds per call of ``fn()`` from ``torch.profiler``
+    traces of ``reps`` calls, without the host's launch gaps that CUDA
+    events around fast kernels take in. The tracer on the card's machine
+    can lose kernel records (from a few to nearly all of a trace's), so
+    for ``kernel_name`` (a kernel that each call launches once) this is
+    the mean duration of the records kept, pooled over traces until at
+    least half of one trace's ``reps`` are kept or ``tries`` traces are
+    taken (each shortfall logged; raises when none is kept). With no
+    name it is the total device time of one trace over ``reps``, which
+    reads low by whatever the tracer lost."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    kept = []
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-    us = [ev.time_range.elapsed_us() for ev in prof.events()
-          if ev.device_type == torch.autograd.DeviceType.CUDA
-          and (kernel_name is None or kernel_name in ev.name)]
-    if not us:
-        raise RuntimeError(f"the profiler saw no device kernel "
-                           f"{kernel_name or ''} in {reps} calls")
-    return sum(us) / reps / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.elapsed_us() for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and (kernel_name is None or kernel_name in ev.name)]
+        if kernel_name is None:
+            if us:
+                return sum(us) / reps / 1e3
+        else:
+            kept += us
+            if len(us) < reps:
+                log(f"  device_ms: trace {attempt} kept {len(us)} of {reps} "
+                    f"{kernel_name} kernel records")
+            if 2 * len(kept) >= reps:
+                return sum(kept) / len(kept) / 1e3
+    if kept:
+        return sum(kept) / len(kept) / 1e3
+    raise RuntimeError(f"the profiler kept no device kernel "
+                       f"{kernel_name or ''} in {tries} traces of {reps} "
+                       "calls")
 
 
 def grad_step_kernels(fn) -> dict[str, float]:
@@ -366,6 +424,9 @@ def run_counted(wrappers, fn):
 
 
 FLASH_KERNEL = re.compile(r"\d+(flash_\w+?)ILi(\d+)E")
+# stencil_padded_kernel<RULE, R>: the rule id and the fixed radius (0 for
+# the generic kernel).
+STENCIL_KERNEL = re.compile(r"stencil_padded_kernelILi(\d)ELi(\d+)E")
 
 
 def flash_kernel_key(m) -> tuple[str, int, torch.dtype]:
@@ -376,14 +437,19 @@ def flash_kernel_key(m) -> tuple[str, int, torch.dtype]:
             torch.bfloat16 if m[1].endswith("_tc") else torch.float32)
 
 
-def ptxas_kernels(text: str) -> dict[tuple, dict[str, int]]:
-    """Registers and spilled bytes of each flash kernel from a source's
-    ``-Xptxas -v`` log, keyed by :func:`flash_kernel_key`."""
+def ptxas_kernels(text: str, pattern=None,
+                  kernel_key=None) -> dict[tuple, dict[str, int]]:
+    """Registers and spilled bytes of each kernel whose mangled name matches
+    ``pattern`` (by default the flash kernels, :data:`FLASH_KERNEL`) from a
+    source's ``-Xptxas -v`` log, keyed by ``kernel_key`` of the match (by
+    default :func:`flash_kernel_key`)."""
+    pattern = pattern or FLASH_KERNEL
+    kernel_key = kernel_key or flash_kernel_key
     out, key = {}, None
     for line in text.splitlines():
-        m = FLASH_KERNEL.search(line)
+        m = pattern.search(line)
         if "Compiling entry function" in line and m:
-            key = flash_kernel_key(m)
+            key = kernel_key(m)
             out[key] = {}
         elif key and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
@@ -455,7 +521,7 @@ def main() -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (set-up)")
     for name, text in logs.items():
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
-        if name in ("flash_fwd", "flash_hop_bwd"):
+        if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded"):
             continue  # per kernel below
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -482,6 +548,48 @@ def main() -> int:
     if tc_built != [f"{k}_tc<{d}, bfloat16>" for k in (
             "flash_fwd", "flash_hop_dkv", "flash_hop_dq") for d in (128, 64)]:
         raise AssertionError(f"tensor-core kernels built: {tc_built}")
+    # The stencil kernels one by one: registers and spills from the build
+    # log (none may spill), then the CUDA runtime's registers, local bytes
+    # and shared memory, and the dynamic shared memory a launch asks for,
+    # which must be the wrapper's smem_bytes (the layout it documents).
+    stencil_build = {}
+    for (rule_id, fixed), props in ptxas_kernels(
+            logs["stencil_padded"], STENCIL_KERNEL,
+            lambda m: (int(m[1]), int(m[2]))).items():
+        label = (f"stencil_padded_kernel<{STENCIL_RULE_NAMES[rule_id]}, "
+                 f"{fixed}>")
+        stencil_build[label] = props
+        log(f"  stencil_padded {label}: {props['registers']} registers, "
+            f"{props['spill_stores']} + {props['spill_loads']} bytes "
+            "spilled")
+        if props["spill_stores"] or props["spill_loads"]:
+            raise AssertionError(f"{label} spills registers")
+    want_built = {f"stencil_padded_kernel<{n}, {r}>"
+                  for n in STENCIL_RULE_NAMES
+                  for r in (0, 8 if n == "lenia" else 1)}
+    if set(stencil_build) != want_built:
+        raise AssertionError(f"stencil kernels built: {sorted(stencil_build)}")
+    stencil_r_max = max(r for r in range(1, 128)
+                        if ns.fits_shared_memory(stencils.make_lenia(r)))
+    stencil_lib, attrs = _build.load("stencil_padded"), (ctypes.c_int * 4)()
+    stencil_attrs = {}
+    for spec in [stencils.get(n) for n in stencils.names()] + [
+            stencils.make_lenia(r) for r in (3, 55, stencil_r_max)]:
+        rc = stencil_lib.stencil_padded_attributes(
+            ns.kernel_rule(spec).rule, spec.radius, attrs)
+        _build.check(stencil_lib, "stencil_padded", rc)
+        regs, local, static, dynamic = attrs
+        stencil_attrs[spec.name] = {"registers": regs, "local_bytes": local,
+                                    "smem_bytes": static + dynamic}
+        log(f"  stencil_padded {spec.name} (r = {spec.radius}, CUDA "
+            f"runtime): {regs} registers, {local} local bytes, {static} + "
+            f"{dynamic} bytes shared memory (static + dynamic), tile "
+            f"{ns.TILE_ROWS} x {ns.layout(spec)['tile_w']}")
+        if local or dynamic != ns.smem_bytes(spec):
+            raise AssertionError(
+                f"stencil_padded {spec.name}: {local} local bytes, {dynamic} "
+                f"bytes of dynamic shared memory, smem_bytes says "
+                f"{ns.smem_bytes(spec)}")
 
     # ------------------------------------------------ 2. vmem against plain
     t0 = time.perf_counter()
@@ -893,25 +1001,113 @@ def main() -> int:
             raise AssertionError(f"{what}: max abs error {err}")
         return err
 
+    def stencil_exact(spec, got, want, what):
+        """The kernel's max abs error against the plain version, logged;
+        raises unless the two agree bit for bit."""
+        err = stencil_err(spec, got, want, what)
+        same = (torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+                if spec.is_float else torch.equal(got, want))
+        if err != 0.0 or not same:
+            raise AssertionError(f"{what}: max abs error {err}, not equal "
+                                 "bit for bit")
+        log(f"  stencil {what}: max abs error {err}")
+        return err
+
+    def radius_variant(base, r):
+        """``base``'s rule (update, pre, dtype, channels, init) over radius
+        ``r``: all-ones integer weights, or make_lenia(r)'s table."""
+        side = 2 * r + 1
+        weights = (stencils.make_lenia(r).weights if base.is_float else
+                   tuple(tuple(int((i, j) != (r, r)) for j in range(side))
+                         for i in range(side)))
+        return dataclasses.replace(base, name=f"{base.name}_r{r}", radius=r,
+                                   weights=weights, oracle_step=None)
+
     stencil_err_max = 0.0
+    stencil_cases = 0
     stencil_specs = [stencils.get(n) for n in stencils.names()]
     stencil_specs.append(stencils.make_lenia(3))
     for spec in stencil_specs:
         r = spec.radius
         lenia = ns.kernel_rule(spec).rule == 4
         small = (max(1, r - 3), max(2, r - 2))
-        for shape in [(500, 500), (37, 45), (17, 23), small]:
+        lay = ns.layout(spec)
+        # Interior widths around a strip and a tile: the last strip of a
+        # row, and the last tile, run past the interior's right edge.
+        widths = sorted({1, lay["strip"] - 1, lay["strip"] + 1,
+                         lay["tile_w"] - 1, lay["tile_w"] + 1})
+        shapes = [(500, 500), (37, 45), (17, 23), small]
+        shapes += [(37, wd) for wd in widths]
+        for shape in shapes:
             count = None if spec.channels > 1 else 3
             board = stencil_board(spec, shape, seed, count)
             seed += 1
-            for n in ((1, 8) if lenia else (1, 8, 100)):
+            steps = (1, 8) if lenia else (1, 8, 100)
+            for n in steps if shape in shapes[:4] else (1,):
                 got = padded_steps(spec, board, n, ns.stencil_step_padded)
                 want = padded_steps(spec, board, n, se.step_padded)
-                err = stencil_err(spec, got, want,
-                                  f"stencil_padded {spec.name} {shape} n={n}")
+                err = stencil_exact(spec, got, want,
+                                    f"{spec.name} {tuple(board.shape)} n={n}")
                 stencil_err_max = max(stencil_err_max, err)
-                log(f"  stencil {spec.name} {tuple(board.shape)} n={n}: "
-                    f"max abs error {err}")
+                stencil_cases += 1
+        # A stack whose base lies one board past a torus_pad result's: an
+        # odd byte offset for uint8 (39 x 47 cells a plane at r = 1).
+        stack = stencil_board(spec, (37, 45), seed,
+                              2 if spec.channels > 1 else 4)
+        seed += 1
+        padded = se.torus_pad(stack, r)[1:].contiguous()
+        if not spec.is_float and padded.data_ptr() % 2 == 0:
+            raise AssertionError("the offset stack starts on an even byte")
+        err = stencil_exact(
+            spec, ns.stencil_step_padded(spec, padded),
+            ns.step_padded_plain(spec, padded),
+            f"{spec.name} {tuple(padded.shape)} one board past a torus_pad "
+            f"result (base at byte {padded.data_ptr() % 16} of 16)")
+        stencil_err_max = max(stencil_err_max, err)
+        stencil_cases += 1
+    # Life and wireworld at r = 1 launch one wave of blocks that each step
+    # several boards, staging the next into a second buffer meanwhile: a
+    # 64-board stack at 500^2 (128 blocks a board) needs more blocks than
+    # all SMs could hold at once (2048 threads each), so that path runs.
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name in ("life", "wireworld"):
+        spec = stencils.get(name)
+        lay = ns.layout(spec)
+        blocks = -(-ny // ns.TILE_ROWS) * -(-nx // lay["tile_w"])
+        if 64 * blocks <= n_sms * 2048 // 256:
+            raise AssertionError(f"{name}: 64 boards fit one wave")
+        board = stencil_board(spec, (ny, nx), seed, 64)
+        seed += 1
+        for n in (1, 8):
+            got = padded_steps(spec, board, n, ns.stencil_step_padded)
+            want = padded_steps(spec, board, n, se.step_padded)
+            err = stencil_exact(spec, got, want,
+                                f"{spec.name} {tuple(board.shape)} n={n}, "
+                                "several boards a block")
+            stencil_err_max = max(stencil_err_max, err)
+            stencil_cases += 1
+        del board, got, want
+    # Every kernel the build holds: each rule at its registered radius
+    # above, the generic kernels of the rules registered at 1 at r = 2 and
+    # 8 and of lenia at 1, and lenia at the largest radius that fits a
+    # block's shared memory.
+    variants = [stencils.make_lenia(1), stencils.make_lenia(stencil_r_max)]
+    variants += [radius_variant(stencils.get(n), r)
+                 for n in ("life", "heat", "gray_scott", "wireworld")
+                 for r in (2, 8)]
+    for spec in variants:
+        shape = (40, 70) if spec.radius == stencil_r_max else (37, 45)
+        board = stencil_board(spec, shape, seed,
+                              None if spec.channels > 1 else 2)
+        seed += 1
+        for n in (1, 8) if spec.radius < stencil_r_max else (1,):
+            got = padded_steps(spec, board, n, ns.stencil_step_padded)
+            want = padded_steps(spec, board, n, se.step_padded)
+            err = stencil_exact(spec, got, want,
+                                f"{spec.name} {tuple(board.shape)} n={n}")
+            stencil_err_max = max(stencil_err_max, err)
+            stencil_cases += 1
+    log(f"  {stencil_cases} stencil cases, each bit for bit")
     torch.cuda.synchronize()
     log(f"phase 7 stencil kernel vs plain: ok "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -1027,6 +1223,8 @@ def main() -> int:
         ns.stencil_step_padded(spec, padded)  # warm-ups
         se.step_padded(spec, padded)
         k_ms = cuda_ms(lambda: ns.stencil_step_padded(spec, padded), reps=20)
+        k_dev = device_ms(lambda: ns.stencil_step_padded(spec, padded), 20,
+                          "stencil_padded")
         p_ms = cuda_ms(lambda: se.step_padded(spec, padded), reps=3)
         lo, hi = (20, 120) if name == "lenia" else (200, 1200)
         se.run_padded_native_batch(spec, stack, 2)  # warm-up
@@ -1041,6 +1239,10 @@ def main() -> int:
         bound, by = stencil_bound_ms(
             spec, rule, offs, cells, padded.numel() * padded.element_size(),
             stack.numel() * stack.element_size())
+        # The float rules' FP32 issue bound: each multiply and add one
+        # instruction (no FMA), at 132 x 128 lanes x 1.98 GHz.
+        issue = (stencil_ops(spec, rule, offs, cells) / FP32_ISSUE_PER_S
+                 * 1e3 if spec.is_float else None)
         lib_ms = None
         if name in ("heat", "lenia"):
             wt = torch.tensor(spec.weights, dtype=torch.float32,
@@ -1055,12 +1257,20 @@ def main() -> int:
                 raise AssertionError(f"conv2d aggregate disagrees for {name}")
         stencil_rec[name] = {
             "shape": "x".join(str(d) for d in padded.shape),
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": lib_ms, "us_per_step": us_step,
-            "gather_ms": gather_ms, "kernel_launches_per_step": per_step}
+            "ms": k_ms, "device_ms": k_dev, "plain_ms": p_ms,
+            "bound_ms": bound, "bound_by": by, "fp32_issue_bound_ms": issue,
+            "library_ms": lib_ms,
+            "us_per_step": us_step, "gather_ms": gather_ms,
+            "kernel_launches_per_step": per_step}
         log(f"  stencil {name} padded {tuple(padded.shape)}: kernel "
-            f"{k_ms:.4f} ms per launch, bound {bound:.4f} ms ({by}, "
-            f"{bound / k_ms * 100:.1f} %), plain {p_ms:.4f} ms; runner "
+            f"{k_ms:.4f} ms per launch (device time {k_dev:.4f} ms; before "
+            f"the redesign, CUDA events, from PERF.md: "
+            f"{STENCIL_BEFORE_MS[name]} ms), bound {bound:.4f} ms ({by}, "
+            f"{bound / k_ms * 100:.1f} %)"
+            + (f", FP32 issue bound {issue:.4f} ms (no FMA; "
+               f"{issue / k_dev * 100:.1f} % of the device time)"
+               if issue is not None else "")
+            + f", plain {p_ms:.4f} ms; runner "
             f"{us_step:.4f} us/step differenced {hi}-{lo} steps "
             f"({per_step:.3f} kernel launches per step, halo gather "
             f"{gather_ms:.4f} ms)"
@@ -1660,7 +1870,8 @@ def main() -> int:
         f"CUDA events around back-to-back calls: kernel "
         f"{lp_events['kernel']:.4f}, plain {lp_events['plain']:.4f}, "
         f"library {lp_events['library']:.4f} ms; bound {lp_bound:.5f} ms "
-        f"({lp_by}) [{card}]")
+        f"({lp_by}); the kernel before the redesign, device time, from "
+        f"PERF.md: {LIFE_SHARDS_BEFORE_MS} ms [{card}]")
 
     # The sharded runners: us/step from the difference of two step counts,
     # then a profiler trace of one advance for the device time by kernel
@@ -2139,7 +2350,13 @@ def main() -> int:
                    "step per launch; library_ms is conv2d computing the "
                    "aggregate alone"),
          "launches_by_workload": stencil_launches,
-         "per_spec": stencil_rec},
+         "per_spec": stencil_rec,
+         "note": ("ms: CUDA events around 20 back-to-back launches; "
+                  "device_ms: the same launches' device time from a "
+                  "torch.profiler trace; fp32_issue_bound_ms: each "
+                  "multiply and add one FP32 instruction (no FMA)"),
+         "exact_cases": stencil_cases,
+         "build": {"ptxas": stencil_build, "cuda_runtime": stencil_attrs}},
     ]
     kernels += [
         {"name": "bitlife_window", "route": "cuda",

@@ -40,7 +40,10 @@ SIGNATURES = {
     "bitlife_window": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
-    "stencil_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "stencil_padded": {
+        "stencil_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "stencil_padded_attributes": [_I, _I, _IP],
+    },
     "flash_fwd": {
         "flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "flash_fwd_attributes": [_I, _I, _IP],

@@ -12,15 +12,19 @@ The kernel implements five rules, picked by the spec's ``update`` (and
 ``pre``) functions rather than its name, so every ``make_lenia(r)`` maps
 to lenia (:func:`kernel_rule`). A spec whose rule the kernel lacks raises
 on the card. The JAX package's 4 MB VMEM gate has no counterpart: the
-kernel tiles a board over thread blocks (32 x 32 outputs each plus the
-r-wide halo in shared memory), so any extent runs; only the radius is
-bounded, by a block's shared memory, which holds the tile and the offset
-table (:func:`fits_shared_memory`: up to r = 55 for a full lenia table).
+kernel tiles a board over thread blocks of :data:`TILE_ROWS` rows, a
+thread a strip of 4, 8 or 16 cells in one row (:func:`strip_cells`) with
+the taps blocked in registers, so any extent runs. Each rule has a kernel
+of its own at its registered radius (:func:`fixed_radius`) and a generic
+one for any other. Only the radius is
+bounded, by a block's shared memory, which holds the tile and its r-wide
+halo in the cells' own type, the offset table as a dense weight grid, and
+one kind per chunk of taps (:func:`layout`, :func:`fits_shared_memory`: up
+to r = 61 for a float32 lenia).
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -30,10 +34,27 @@ from mpi_and_open_mp_tpu_torch.ops import _build
 from mpi_and_open_mp_tpu_torch.ops.bitlife import SMEM_BYTES
 from mpi_and_open_mp_tpu_torch.stencils import engine, spec as spec_lib
 
-# The kernel's output tile and the bytes of one offset-table entry (its
-# csrc/stencil_padded.cu:kTileH, kTileW and sizeof(Tap)).
-TILE = 32
-_TAP_BYTES = 12
+# A tile's rows and the thread strips across it (csrc/stencil_padded.cu:
+# kThreadsY, kThreadsX).
+TILE_ROWS = 32
+STRIPS_ACROSS = 8
+LENIA_RULE = 4
+
+
+def fixed_radius(rule: int, radius: int) -> int:
+    """The radius fixed at compile time in the kernel that runs ``rule``
+    at ``radius`` (csrc/stencil_padded.cu: fixed_radius): the rule's
+    registered radius (8 for lenia, 1 for the others), whose tap rows are
+    one chunk, else 0 for the generic kernel."""
+    return radius if radius == (8 if rule == LENIA_RULE else 1) else 0
+
+
+def strip_cells(fixed: int, channels: int) -> int:
+    """Cells of a thread's strip (csrc/stencil_padded.cu: strip_cells): 4
+    for two channels, 8 in a kernel fixed at r = 1, else 16."""
+    if channels > 1:
+        return 4
+    return 8 if fixed == 1 else 16
 
 
 @dataclass(frozen=True)
@@ -52,7 +73,7 @@ RULES = {
     (spec_lib._gray_scott_update, None): KernelRule(2, "float32", 2),
     (spec_lib._wireworld_update, spec_lib._wireworld_pre):
         KernelRule(3, "uint8", 1),
-    (spec_lib._lenia_update, None): KernelRule(4, "float32", 1),
+    (spec_lib._lenia_update, None): KernelRule(LENIA_RULE, "float32", 1),
 }
 
 
@@ -77,19 +98,55 @@ def kernel_rule(spec: spec_lib.StencilSpec) -> KernelRule:
     return rule
 
 
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def layout(spec: spec_lib.StencilSpec) -> dict[str, int]:
+    """The kernel's tiling and shared memory for ``spec`` (csrc/
+    stencil_padded.cu: layout): taps in chunks of ``chunk`` (a whole tap
+    row, 2r + 1, at the rule's registered radius, else 8: :func:
+    `fixed_radius`); a thread's strip of ``strip`` cells
+    (:func:`strip_cells`); a tile of
+    :data:`TILE_ROWS` x ``tile_w`` outputs; each tap row of the dense
+    weight grid ``wp`` wide (2r + 1 rounded up to a chunk); ``channels``
+    planes of 32 + 2r staged rows of ``row_bytes`` (tile_w + wp cells of
+    the spec's dtype, rounded up to 16 bytes, then to 16 past a multiple of
+    128), in two ``buffers`` for uint8 at r = 1 (the next board is staged
+    while this one is computed), else one; the grid's 4-byte weights; one
+    4-byte kind per chunk. ``total`` is what a block asks for. Raises
+    ValueError for a spec the kernel has no rule for (:func:`kernel_rule`).
+    """
+    r = spec.radius
+    fixed = fixed_radius(kernel_rule(spec).rule, r)
+    chunk = 2 * fixed + 1 if fixed else 8
+    strip = strip_cells(fixed, spec.channels)
+    tile_w = strip * STRIPS_ACROSS
+    wp = -(-(2 * r + 1) // chunk) * chunk
+    itemsize = spec.np_dtype.itemsize
+    row = _round16((tile_w + wp) * itemsize)
+    row_bytes = row + (16 - row % 128) % 128
+    out = {"chunk": chunk, "strip": strip, "tile_w": tile_w, "wp": wp,
+           "row_bytes": row_bytes,
+           "tile_bytes": spec.channels * (TILE_ROWS + 2 * r) * row_bytes,
+           "buffers": 2 if fixed == 1 and itemsize == 1 else 1,
+           "weight_bytes": _round16((2 * r + 1) * wp * 4),
+           "kind_bytes": _round16((2 * r + 1) * (wp // chunk) * 4)}
+    out["total"] = (out["buffers"] * out["tile_bytes"]
+                    + out["weight_bytes"] + out["kind_bytes"])
+    return out
+
+
 def smem_bytes(spec: spec_lib.StencilSpec) -> int:
-    """Shared memory one block of the kernel uses for ``spec``: the
-    offset table plus every channel's (32 + 2r)^2 tile of 4-byte cells."""
-    side = TILE + 2 * spec.radius
-    return (_TAP_BYTES * len(engine.offsets(spec))
-            + 4 * spec.channels * side * side)
+    """Dynamic shared memory one block of the kernel asks for on ``spec``:
+    :func:`layout`'s total."""
+    return layout(spec)["total"]
 
 
 def fits_shared_memory(spec: spec_lib.StencilSpec) -> bool:
     return smem_bytes(spec) <= SMEM_BYTES
 
 
-@functools.lru_cache(maxsize=None)
 def _offset_table(spec: spec_lib.StencilSpec,
                   device: torch.device) -> torch.Tensor:
     """(n_off, 3) int32 on ``device``: dy, dx and the float32 bits of the
@@ -141,30 +198,49 @@ def stencil_step_padded(spec: spec_lib.StencilSpec,
     return out
 
 
+# What a launch needs of a spec, found once per spec object and device:
+# kernel_rule and the shared-memory check read the spec, and hashing a wide
+# weight table for a cache (lenia's 289 weights) takes longer than a
+# radius-1 kernel runs.
+_PLANS: dict = {}
+
+
+def _launch_plan(spec: spec_lib.StencilSpec, device: torch.device) -> tuple:
+    """``(spec, kernel_rule(spec), its offset table on device)``; raises
+    ValueError for a spec the kernel cannot take."""
+    key = (id(spec), device)
+    plan = _PLANS.get(key)
+    if plan is None or plan[0] is not spec:
+        rule = kernel_rule(spec)
+        if not fits_shared_memory(spec):
+            raise ValueError(
+                f"stencil_step_padded: radius {spec.radius} needs "
+                f"{smem_bytes(spec)} bytes of shared memory per block, past "
+                f"{SMEM_BYTES}")
+        if len(_PLANS) >= 256:
+            _PLANS.clear()
+        plan = _PLANS[key] = (spec, rule, _offset_table(spec, device))
+    return plan
+
+
 def _launch(spec: spec_lib.StencilSpec, padded: torch.Tensor) -> torch.Tensor:
     """One launch of the kernel over ``padded`` on the card (checked by
     the caller, which counts the launch)."""
     if padded.device.type != "cuda":
         raise ValueError(f"stencil_step_padded: expected a CUDA or CPU "
                          f"tensor, got {padded.device}")
-    rule = kernel_rule(spec)
+    _, rule, table = _launch_plan(spec, padded.device)
     if padded.dtype != spec.torch_dtype:
         raise ValueError(f"stencil_step_padded: {spec.name!r} takes "
                          f"{spec.dtype} cells, got {padded.dtype}")
-    if not fits_shared_memory(spec):
-        raise ValueError(
-            f"stencil_step_padded: radius {spec.radius} needs "
-            f"{smem_bytes(spec)} bytes of shared memory per block, past "
-            f"{SMEM_BYTES}")
     padded = padded.contiguous()
     r = spec.radius
     H, W = padded.shape[-2:]
     out = torch.empty((*padded.shape[:-2], H - 2 * r, W - 2 * r),
                       dtype=padded.dtype, device=padded.device)
-    groups = padded[..., 0, 0].numel() // spec.channels
+    groups = padded.numel() // (H * W * spec.channels)
     if groups == 0:
         return out
-    table = _offset_table(spec, padded.device)
     lib = _build.load("stencil_padded")
     with torch.cuda.device(padded.device):
         rc = lib.stencil_padded(

@@ -311,7 +311,10 @@ def test_kernel_rule_lookup():
     for r in RADII:
         assert ns.kernel_rule(TS.make_lenia(r)).rule == 4
         assert ns.fits_shared_memory(TS.make_lenia(r))
-    assert not ns.fits_shared_memory(TS.make_lenia(60))
+    # The kernel's block holds lenia's tile and weights up to r = 61.
+    assert ns.fits_shared_memory(TS.make_lenia(55))
+    assert ns.fits_shared_memory(TS.make_lenia(61))
+    assert not ns.fits_shared_memory(TS.make_lenia(62))
 
     def majority(center, agg, xp):
         return TS.cast(agg >= 5, center)
