@@ -19,6 +19,13 @@ Phases, each of which raises (exit code 1) when it fails:
    registers, local bytes and shared memory of the kernel it launches
    (``stencil_padded_attributes``: ``cudaFuncGetAttributes``), the local
    bytes 0 and the dynamic size equal to ``native_stencil.smem_bytes``;
+   for each of the nine ``bitlife_window_kernel<RT>`` its registers and
+   spills, which must be 0, and for each shard window of phase 13 the
+   geometry ``window_launch_geometry`` chooses at k = k_max with what the
+   CUDA runtime reports for it (``bitlife_window_attributes``: registers,
+   local bytes, shared memory, and the clusters the card holds at once,
+   ``cudaOccupancyMaxActiveClusters``), the local bytes 0 and the dynamic
+   size equal to the geometry's ``smem_bytes``;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
 3. ``bitlife_fused`` against its plain version (the whole extended frame
@@ -118,7 +125,10 @@ Phases, each of which raises (exit code 1) when it fails:
 13. ``bitlife_window`` against its plain version on the card, packed words
    bit-exact, on stacked random windows at the shard shapes of phase 14
    (p46gun_big on row 8, col 8 and cart 4x2; the 1024^2 row-2 overlap
-   split's interior and edges) for k in {1, 7, k_max}; the Life rule of
+   split's interior and edges) and at ``WINDOW_EDGE_CASES`` for k in {1,
+   7, k_max}, each under the geometry ``window_launch_geometry`` chooses,
+   which must spread each main-path window over more than one block at
+   k_max; a geometry with no compiled kernel must raise; the Life rule of
    ``stencil_padded`` (``life_step_padded_native``) against
    ``life_ops.life_step_padded`` on 1-padded shard stacks, uint8 and int32;
 14. the sharded main paths through ``LifeSim`` on meshes of virtual shards
@@ -135,7 +145,8 @@ Phases, each of which raises (exit code 1) when it fails:
    and the CLI once (``--layout cart --mesh 4,2 --virtual-devices 8``);
 15. sharded times: ``bitlife_window`` per launch at each phase-13 shape
    (k = k_max) beside its plain version and its bound (the interior's
-   words, for the card and for the SMs its blocks occupy), the Life rule
+   words, for the card and for the SMs its blocks occupy), with its
+   geometry, the Life rule
    of ``stencil_padded`` at the native path's shard stack beside its plain
    version and ``conv2d`` of the aggregate, all by device time from a
    profiler trace (CUDA events beside them); each sharded runner's us/step
@@ -429,6 +440,46 @@ FLASH_KERNEL = re.compile(r"\d+(flash_\w+?)ILi(\d+)E")
 STENCIL_KERNEL = re.compile(r"stencil_padded_kernelILi(\d)ELi(\d+)E")
 
 
+# bitlife_window_kernel<RT>: the rows a thread holds.
+WINDOW_KERNEL = re.compile(r"bitlife_window_kernelILi(\d+)E")
+
+
+def window_shapes(tb) -> list[tuple[str, int, int, int, int, int]]:
+    """(what, shards, nw, W, h, hx) of the shard windows that the bitfused
+    main paths hand ``bitlife_window``: p46gun_big on row 8, col 8 and cart
+    4x2 (8 windows each), and the interior and edge windows of the 1024^2
+    row-2 overlap split (2 each), from ``tb.plan_sharded_bits``."""
+    out = []
+    for what, args in (("row 8", (8, 1, True, False)),
+                       ("col 8", (1, 8, False, True)),
+                       ("cart 4x2", (4, 2, True, True))):
+        p = tb.plan_sharded_bits((500, 500), *args)
+        out.append((f"p46gun_big {what}", p.py * p.px, p.nw_s, p.W, p.h,
+                    p.hx))
+    p = tb.plan_sharded_bits((1024, 1024), 2, 1, True, False)
+    out.append(("1024^2 row 2 interior", 2, p.nw_s - 2 * p.h, p.W, p.h, 0))
+    out.append(("1024^2 row 2 edge", 2, p.h, p.W, p.h, 0))
+    return out
+
+
+# Further windows phase 13 holds the window kernel to, (what, shards, nw,
+# W, h, hx): a width not a multiple of the strip, narrower than a
+# cluster, a single shard, hx > 0 and hx == 0, rows split over many
+# threads, and a window so tall that only 32 rows a thread and a cluster
+# refreshing every step fit a block (tests/test_torch_window_cluster.py
+# replays the same).
+WINDOW_EDGE_CASES = [
+    ("C = 47, not a multiple of the strip", 1, 3, 37, 2, 5),
+    ("C = 10, below 16 strips", 3, 2, 10, 1, 0),
+    ("one shard, C = 8", 1, 1, 8, 1, 0),
+    ("hx = 17 > 0", 2, 5, 61, 3, 17),
+    ("hx = 0, k = 32 h", 2, 4, 200, 2, 0),
+    ("R = 48, rows over 12 threads", 1, 40, 30, 4, 6),
+    ("R = 72, rows over 9 threads", 2, 70, 9, 1, 4),
+    ("R = 300, 32 rows a thread", 1, 292, 82, 4, 41),
+]
+
+
 def flash_kernel_key(m) -> tuple[str, int, torch.dtype]:
     """(name, head width, dtype) of a flash_fwd or flash_hop_bwd kernel
     from a match of its mangled name against FLASH_KERNEL: the ``_tc``
@@ -521,7 +572,8 @@ def main() -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (set-up)")
     for name, text in logs.items():
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
-        if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded"):
+        if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded",
+                    "bitlife_window"):
             continue  # per kernel below
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -590,6 +642,46 @@ def main() -> int:
                 f"stencil_padded {spec.name}: {local} local bytes, {dynamic} "
                 f"bytes of dynamic shared memory, smem_bytes says "
                 f"{ns.smem_bytes(spec)}")
+
+    # The window kernels one by one (bitlife_window_kernel<RT>, RT rows a
+    # thread): registers and spills from the build log, none may spill;
+    # then for each shard window of the main paths the geometry that
+    # window_launch_geometry chooses at k = k_max and what the CUDA runtime
+    # reports for it: registers, local bytes, shared memory (the dynamic
+    # size must be the geometry's smem_bytes) and the clusters the card
+    # can hold at once (cudaOccupancyMaxActiveClusters; 0 and the entry
+    # refuses the launch).
+    window_build = {}
+    for (rt,), props in ptxas_kernels(logs["bitlife_window"], WINDOW_KERNEL,
+                                      lambda m: (int(m[1]),)).items():
+        window_build[f"bitlife_window_kernel<{rt}>"] = props
+        log(f"  bitlife_window bitlife_window_kernel<{rt}>: "
+            f"{props['registers']} registers, {props['spill_stores']} + "
+            f"{props['spill_loads']} bytes spilled")
+        if props["spill_stores"] or props["spill_loads"]:
+            raise AssertionError(f"bitlife_window_kernel<{rt}> spills")
+    if set(window_build) != {f"bitlife_window_kernel<{rt}>"
+                             for rt in tb.WINDOW_ROWS_PER_THREAD}:
+        raise AssertionError(f"window kernels built: {sorted(window_build)}")
+    window_geo = {}
+    for what, shards, nw_w, W_w, h_w, hx_w in window_shapes(tb):
+        R_w, C_w = nw_w + 2 * h_w, W_w + 2 * hx_w
+        k_w = tb.window_max_steps(h_w, hx_w)
+        geo = tb.window_launch_geometry(shards, R_w, C_w, k_w)
+        at = tb.window_attributes(shards, R_w, C_w, h_w, hx_w, k_w, geo)
+        window_geo[what] = {"geometry": dataclasses.asdict(geo), **at}
+        one_wave = at["max_active_clusters"] * geo.cluster >= (
+            shards * geo.strips)
+        log(f"  bitlife_window {what} {shards}x{R_w}x{C_w} k={k_w}: "
+            f"(strips, cluster, g, rt, tau) = {geo.args()}, "
+            f"{geo.threads} threads, {at['registers']} registers, "
+            f"{at['local_bytes']} local bytes, {at['static_smem_bytes']} + "
+            f"{at['dynamic_smem_bytes']} bytes shared memory; the card "
+            f"holds {at['max_active_clusters']} such clusters at once "
+            f"({'one wave' if one_wave else 'more than one wave'}; "
+            f"{geo.reason})")
+        if at["local_bytes"] or at["dynamic_smem_bytes"] != geo.smem_bytes:
+            raise AssertionError(f"bitlife_window {what}: {at}")
 
     # ------------------------------------------------ 2. vmem against plain
     t0 = time.perf_counter()
@@ -1538,7 +1630,15 @@ def main() -> int:
             f"attention_32k{tag}_grad_sec": grad_sec,
             f"attention_32k{tag}_grad_tflops": 3.5 * flops / grad_sec / 1e12})
         if not tag:
-            step_kernels = grad_step_kernels(lambda: grad_chain(1))
+            # The card's tracer can lose a kernel's record (see device_ms):
+            # trace again, up to three times, until the step's three
+            # attention kernels all show; the check below is unchanged.
+            for attempt in range(1, 4):
+                step_kernels = grad_step_kernels(lambda: grad_chain(1))
+                if sum("flash_" in name for name in step_kernels) >= 3:
+                    break
+                log(f"  profiler: trace {attempt} of the grad step kept "
+                    f"{sorted(n for n in step_kernels if 'flash_' in n)}")
         del q, k, v
     log("  attention " + json.dumps(attn_line) + f" [{card}]")
     log("  profiler, one 32k grad step, kv 8, device ms by kernel: "
@@ -1663,36 +1763,47 @@ def main() -> int:
         return LifeSim(c, layout=layout, impl=impl, mesh=mesh,
                        initial_board=board, **kw)
 
-    # The shard windows of phase 14's bitfused runs: p46gun_big on row 8,
-    # col 8 and cart 4x2, and the overlap split's interior and edges.
-    win_cases = []
-    for layout, mshape in (("row", (8,)), ("col", (8,)), ("cart", (4, 2))):
-        splan = sharded_sim(layout, mshape, "bitfused")._plan
-        win_cases.append((f"p46gun_big {layout} {'x'.join(map(str, mshape))}",
-                          splan.py * splan.px, splan.nw_s, splan.W, splan.h,
-                          splan.hx))
-    ovl_plan = tb.plan_sharded_bits((1024, 1024), 2, 1, True, False)
-    h_o = ovl_plan.h
-    win_cases.append(("1024^2 row 2 interior", 2, ovl_plan.nw_s - 2 * h_o,
-                      ovl_plan.W, h_o, 0))
-    win_cases.append(("1024^2 row 2 edge", 2, h_o, ovl_plan.W, h_o, 0))
+    # The shard windows of phase 14's bitfused runs (p46gun_big on row 8,
+    # col 8 and cart 4x2, and the overlap split's interior and edges), then
+    # the further windows of WINDOW_EDGE_CASES, for k in {1, 7, k_max},
+    # each under the geometry window_launch_geometry chooses. At the main
+    # paths' windows the chosen geometry must spread a window over more
+    # than one block (a strip each).
+    win_cases = window_shapes(tb)
     window_err = 0
+    window_cases = 0
     gen = torch.Generator(device="cuda").manual_seed(500)
-    for what, shards, nw_w, W_w, h_w, hx_w in win_cases:
+    for what, shards, nw_w, W_w, h_w, hx_w in win_cases + WINDOW_EDGE_CASES:
         ext = torch.randint(-2 ** 31, 2 ** 31 - 1,
                             (shards, nw_w + 2 * h_w, W_w + 2 * hx_w),
                             generator=gen, device="cuda", dtype=torch.int32)
         k_max = tb.window_max_steps(h_w, hx_w)
-        for k in sorted({1, 7, k_max}):
+        for k in sorted({1, min(7, k_max), k_max}):
+            geo = tb.window_launch_geometry(shards, *ext.shape[-2:], k)
             got = tb.window_steps(ext, k, h_w, hx_w)
             want = tb._window_steps_plain(ext, k, h_w, hx_w)
             torch.cuda.synchronize()
             bad = diff_count(got, want)
             window_err = max(window_err, min(bad, 1))
+            window_cases += 1
             log(f"  window {what}: {tuple(ext.shape)} h={h_w} hx={hx_w} "
-                f"k={k}: differing words {bad}")
+                f"k={k} (strips, cluster, g, rt, tau) = {geo.args()}: "
+                f"differing words {bad}")
             if bad:
                 raise AssertionError(f"bitlife_window disagrees: {what} k={k}")
+            if (what, shards, nw_w, W_w, h_w, hx_w) in win_cases and (
+                    k == k_max and geo.strips < 2):
+                raise AssertionError(f"bitlife_window {what}: one block a "
+                                     f"window ({geo})")
+    # An illegal geometry (rows per thread with no compiled kernel) must
+    # raise, not fall back.
+    bad_geo = dataclasses.replace(geo, rows_per_thread=3)
+    try:
+        tb.window_steps(ext, 1, h_w, hx_w, geometry=bad_geo)
+    except RuntimeError as e:
+        log(f"  illegal geometry refused: {e}")
+    else:
+        raise AssertionError("bitlife_window took an illegal geometry")
     life_padded_err = 0
     for shape, dtype in (((8, 127, 252), torch.uint8),
                          ((4, 127, 502), torch.uint8),
@@ -1809,6 +1920,7 @@ def main() -> int:
                             (shards, nw_w + 2 * h_w, W_w + 2 * hx_w),
                             generator=gen, device="cuda", dtype=torch.int32)
         k = tb.window_max_steps(h_w, hx_w)
+        geo = tb.window_launch_geometry(shards, *ext.shape[-2:], k)
 
         def kernel():
             return tb.window_steps(ext, k, h_w, hx_w)
@@ -1821,21 +1933,27 @@ def main() -> int:
         p_ms = device_ms(plain, 1)
         k_events, p_events = cuda_ms(kernel, reps=50), cuda_ms(plain)
         # The work is the interior's: each output word, k steps (as phase
-        # 6 bounds the fused kernel). The halo words a window recomputes
-        # are the design's redundancy, not work the function needs.
+        # 6 bounds the fused kernel). The ghost columns a strip recomputes
+        # are the design's redundancy, not work the function needs. The
+        # second bound is for the SMs the launch's blocks occupy (one
+        # block an SM at most).
         out_words = shards * nw_w * W_w
         ops = OPS_PER_WORD_STEP * out_words * k
         bound, by = bound_ms(ops, 4 * (ext.numel() + out_words))
-        sm_bound = ops / (INT32_OPS_PER_S * shards / N_SMS) * 1e3
+        sms = min(N_SMS, shards * geo.strips)
+        sm_bound = ops / (INT32_OPS_PER_S * sms / N_SMS) * 1e3
         log(f"  window {what} {tuple(ext.shape)} k={k}: device time per "
             f"launch {k_ms:.4f} ms, plain {p_ms:.3f} ms (CUDA events around "
             f"back-to-back calls: {k_events:.4f}, plain {p_events:.3f}); "
             f"bound {bound:.6f} ms ({by}, the card) / {sm_bound:.5f} ms (the "
-            f"{shards} SMs it occupies) [{card}]")
+            f"{sms} SMs of its {shards * geo.strips} blocks); (strips, "
+            f"cluster, g, rt, tau) = {geo.args()} [{card}]")
         return {"what": what, "shape": "x".join(map(str, ext.shape)),
                 "k": k, "ms": k_ms, "plain_ms": p_ms, "events_ms": k_events,
                 "plain_events_ms": p_events, "bound_ms": bound,
-                "bound_by": by, "bound_ms_occupied_sms": sm_bound}
+                "bound_by": by, "bound_ms_occupied_sms": sm_bound,
+                "blocks": shards * geo.strips,
+                "geometry": dataclasses.asdict(geo)}
 
     window_rec = [window_record(*c) for c in win_cases]
 
@@ -2371,7 +2489,13 @@ def main() -> int:
                    f"windows, k={window_rec[0]['k']} per launch"),
          "note": ("ms and plain_ms: device time per call from a "
                   "torch.profiler trace; bound_ms counts the interior's "
-                  "words"),
+                  "words; build: registers and spills of each "
+                  "bitlife_window_kernel<RT> from ptxas, and for each "
+                  "main-path window the chosen geometry with the CUDA "
+                  "runtime's registers, local bytes, static and dynamic "
+                  "shared bytes and max active clusters"),
+         "exact_cases": window_cases,
+         "build": {"ptxas": window_build, "cuda_runtime": window_geo},
          "launches_by_run": {k: c["window"]
                              for k, c in sharded_launches.items()},
          "per_shape": window_rec, "runners": runner_rec,

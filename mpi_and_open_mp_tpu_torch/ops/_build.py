@@ -37,7 +37,10 @@ _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "bitlife_vmem": [_P, _P, _I, _I, _I, _I, _P],
     "bitlife_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "bitlife_window": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "bitlife_window": {
+        "bitlife_window": [_P, _P] + [_I] * 11 + [_P],
+        "bitlife_window_attributes": [_I] * 11 + [_IP],
+    },
     "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
     "stencil_padded": {

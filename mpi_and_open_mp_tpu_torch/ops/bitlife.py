@@ -35,10 +35,11 @@ The sharded layouts (``models.life``, ``bitfused``) plan a board over a
 mesh with :func:`plan_sharded_bits` and step the halo-extended shards of
 one device with a third kernel, or with :func:`fused_steps` per shard:
 
-* :func:`window_steps` - every shard's whole window (the shard plus the
-  exchanged halo words and columns) resident in one block's shared
-  memory for ``k <= min(32 h, hx or 128)`` steps, one block per shard,
-  interiors written back (``"window"``), replacing
+* :func:`window_steps` - ``k <= min(32 h, hx or 128)`` steps of every
+  shard's whole window (the shard plus the exchanged halo words and
+  columns), each window spread over the column strips of a thread-block
+  cluster under :func:`window_launch_geometry`, a column's words held in
+  registers, interiors written back (``"window"``), replacing
   ``make_window_stepper``'s kernel; :func:`make_plan_stepper` and
   :func:`make_overlap_steppers` build the per-round calls.
 
@@ -433,9 +434,10 @@ def plan_sharded_bits(
       the window width, so it has no lane pitch and no wrap-patched rolls
       (the JAX package's ``nx_exact``).
     * ``mode="window"`` when the whole halo-extended shard window, double
-      buffered, fits one block's shared memory (:func:`window_steps`, one
-      block per shard), else ``"tiled"``: each shard through the fused
-      kernel, tile split by :func:`_tile_cost`.
+      buffered, fits one block's shared memory and is at most
+      :data:`WINDOW_MAX_ROWS` word rows tall (:func:`window_steps`), else
+      ``"tiled"``: each shard through the fused kernel, tile split by
+      :func:`_tile_cost`.
 
     A plan with neither axis sharded is the serial frame runner's
     (``life_run_frame_bits``): always ``"tiled"``, a full-width or 2-D
@@ -461,7 +463,8 @@ def plan_sharded_bits(
     if h < 1:
         return None
     k_max = min(32 * h, hx or FUSE_MAX_STEPS)
-    if sharded and (nw_s + 2 * h) * (W + 2 * hx) * BYTES_PER_WORD <= budget:
+    if (sharded and nw_s + 2 * h <= WINDOW_MAX_ROWS
+            and (nw_s + 2 * h) * (W + 2 * hx) * BYTES_PER_WORD <= budget):
         mode, tr, cx = "window", nw_s, W
     else:
         mode = "tiled"
@@ -551,13 +554,197 @@ def _window_steps_plain(ext: torch.Tensor, k: int, h: int, hx: int):
     return w[..., h : R - h, hx : C - hx]
 
 
-def window_steps(ext: torch.Tensor, k: int, h: int, hx: int = 0
-                 ) -> torch.Tensor:
+# Rows per thread that csrc/bitlife_window.cu compiles a kernel for
+# (kernel_for), its block-size cap, and the largest cluster it takes (above
+# 8 with cudaFuncAttributeNonPortableClusterSizeAllowed).
+WINDOW_ROWS_PER_THREAD = (4, 6, 8, 10, 12, 16, 20, 24, 32)
+WINDOW_MAX_THREADS = 512
+WINDOW_MAX_CLUSTER = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowGeometry:
+    """How one ``bitlife_window`` launch spreads a stack of ``(R, C)``
+    windows: each window over ``strips`` blocks, a column strip each (widths
+    ``floor`` or ``ceil`` of ``C / strips``), with ``ghost`` columns per
+    side; ghosts come from the neighbouring strips every ``ghost`` steps
+    through distributed shared memory when ``exchange`` (``ghost < k``; the
+    window's strips are then one cluster), else once from device memory
+    (overlapping ghost-zone strips, ``cluster`` 1). A thread holds
+    ``rows_per_thread`` words of a column (``segments`` threads a column);
+    a row of a strip takes ``warps`` warps. When more than one, a warp owns
+    ``32 - 2 warp_ghost`` columns and its ``warp_ghost`` lanes on each side
+    copy the neighbouring warps' columns, refreshed every ``warp_ghost``
+    steps, so the warps of one segment run that long without a barrier.
+    ``reason`` says why the chooser took it."""
+
+    strips: int
+    cluster: int
+    ghost: int
+    rows_per_thread: int
+    warp_ghost: int
+    segments: int
+    warps: int
+    threads: int
+    exchange: bool
+    smem_bytes: int
+    reason: str = ""
+
+    def strip_bounds(self, C: int) -> list[tuple[int, int]]:
+        """Each strip's columns ``[c0, c1)`` of a ``C``-column window."""
+        return [(r * C // self.strips, (r + 1) * C // self.strips)
+                for r in range(self.strips)]
+
+    def args(self) -> tuple[int, int, int, int, int]:
+        """The C entry's geometry arguments (strips, cluster, g, rt, tau)."""
+        return (self.strips, self.cluster, self.ghost, self.rows_per_thread,
+                self.warp_ghost)
+
+
+def window_geometry(R: int, C: int, k: int, strips: int, ghost: int,
+                    rows_per_thread: int, warp_ghost: int = 1,
+                    reason: str = "") -> WindowGeometry:
+    """The launch geometry of ``strips`` strips with ``ghost`` columns per
+    side, ``rows_per_thread`` words a thread and ``warp_ghost`` copied
+    lanes per warp side, for ``k`` steps over ``(R, C)`` windows; derives
+    and checks it as ``csrc/bitlife_window.cu:layout`` does and raises
+    ``ValueError`` where the entry would refuse it."""
+    if rows_per_thread not in WINDOW_ROWS_PER_THREAD:
+        raise ValueError(f"window geometry: {rows_per_thread} rows per "
+                         f"thread not in {WINDOW_ROWS_PER_THREAD}")
+    if not 1 <= strips <= C or ghost < 1 or not 1 <= warp_ghost <= 15:
+        raise ValueError(f"window geometry: strips={strips} outside [1, "
+                         f"{C}], ghost={ghost} < 1 or warp_ghost="
+                         f"{warp_ghost} outside [1, 15]")
+    exchange = ghost < k
+    if exchange and ghost % warp_ghost:
+        raise ValueError(f"window geometry: exchanged ghost {ghost} not a "
+                         f"multiple of warp_ghost {warp_ghost}")
+    cluster = strips if exchange else 1
+    if exchange and C // strips < ghost:
+        raise ValueError(f"window geometry: exchanged ghost {ghost} wider "
+                         f"than the narrowest strip {C // strips}")
+    if cluster > WINDOW_MAX_CLUSTER:
+        raise ValueError(f"window geometry: cluster {cluster} above "
+                         f"{WINDOW_MAX_CLUSTER}")
+    segments = -(-R // rows_per_thread)
+    lmax = -(-C // strips) + 2 * ghost
+    warps = 1 if lmax <= 32 else -(-lmax // (32 - 2 * warp_ghost))
+    threads = segments * 32 * warps
+    if threads > WINDOW_MAX_THREADS:
+        raise ValueError(f"window geometry: {threads} threads a block, "
+                         f"above {WINDOW_MAX_THREADS}")
+    words = ((2 * segments * 32 * warps * 2 if segments > 1 else 0)
+             + (2 * 2 * segments * warps * warp_ghost * rows_per_thread
+                if warps > 1 else 0)
+             + (2 * 2 * ghost * segments * rows_per_thread if exchange
+                else 0))
+    if 4 * words > SMEM_BYTES:
+        raise ValueError(f"window geometry: {4 * words} bytes of shared "
+                         "memory")
+    return WindowGeometry(strips, cluster, ghost, rows_per_thread,
+                          warp_ghost, segments, warps, threads, exchange,
+                          4 * words, reason)
+
+
+# Windows taller than this many word rows have no geometry (and
+# plan_sharded_bits tiles them): a block holds at most 512 threads, so a
+# column splits into at most 16 segments of at most 32 words.
+WINDOW_MAX_ROWS = 16 * max(WINDOW_ROWS_PER_THREAD)
+
+
+def _rows_per_thread(R: int, words: int) -> int:
+    """The compiled rows-per-thread that splits ``R`` rows into segments of
+    about ``words`` words (at least one segment of at most 32)."""
+    P = max(-(-R // max(WINDOW_ROWS_PER_THREAD)), -(-R // words))
+    return min(r for r in WINDOW_ROWS_PER_THREAD if r * P >= R)
+
+
+# The launch-time model window_launch_geometry minimises, in microseconds,
+# fitted to window_times.py --sweep on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6): a launch's fixed cost, a step's cost (a floor, plus the
+# warps that share an SM), and a strip refresh through the cluster.
+_WINDOW_US_LAUNCH = 2.0
+_WINDOW_US_STEP = 0.19
+_WINDOW_US_STEP_PER_WARP = 0.026
+_WINDOW_US_REFRESH = 1.2
+
+
+def _window_time_model_us(shards: int, k: int, geo: WindowGeometry) -> float:
+    """The modelled device time of a ``bitlife_window`` launch (see the
+    constants above); blocks beyond one per SM share SMs."""
+    per_sm = -(-shards * geo.strips // N_SMS)
+    warps = geo.threads // 32 * per_sm
+    refreshes = (k - 1) // geo.ghost if geo.exchange else 0
+    return (_WINDOW_US_LAUNCH
+            + k * (_WINDOW_US_STEP + _WINDOW_US_STEP_PER_WARP * warps)
+            + refreshes * _WINDOW_US_REFRESH)
+
+
+@functools.lru_cache(maxsize=256)
+def window_launch_geometry(shards: int, R: int, C: int, k: int
+                           ) -> WindowGeometry:
+    """The geometry :func:`window_steps` launches ``k`` steps of ``shards``
+    ``(R, C)`` windows with: a plain function of the shapes, so that the
+    same inputs always give the same launch (cached: the sharded runners
+    ask once a round). About 4 words a thread (more threads a column hide
+    more latency); then, of ghost-zone strips (16 a window, ``ghost = k``,
+    cluster 1; only for ``k <= 32``, where a strip of ghosts is cheap) and
+    clusters of 8 or 16 strips exchanging every 4, 8 or 16 steps with 1, 2
+    or 4 copied lanes a warp side, the legal one of least
+    :func:`_window_time_model_us` (the first on a tie).
+
+    A window where none of those is legal takes the first legal one of
+    more strips, more words a thread and shallower ghosts; one taller than
+    :data:`WINDOW_MAX_ROWS` raises ``ValueError``."""
+    if R > WINDOW_MAX_ROWS:
+        raise ValueError(f"window_launch_geometry: {R} word rows, above "
+                         f"{WINDOW_MAX_ROWS}")
+    rt = _rows_per_thread(R, 4)
+    best = None
+    tries = []
+    if k <= 32:
+        tries.append((min(16, max(1, C // 16)), max(k, 1), "ghost zones"))
+    tries += [(n, g, f"cluster of {n}, refresh every {g} steps")
+              for n in (8, 16) for g in (16, 8, 4) if g < k]
+    for strips, ghost, why in tries:
+        for tau in (4, 2, 1):
+            try:
+                geo = window_geometry(R, C, k, strips, ghost, rt, tau, why)
+            except ValueError:
+                continue
+            t = _window_time_model_us(shards, k, geo)
+            if best is None or t < best[0]:
+                best = (t, geo)
+    if best is not None:
+        return dataclasses.replace(
+            best[1], reason=f"{best[1].reason}, model {best[0]:.1f} us")
+    # Shapes the choices above do not fit (narrow, tall or very wide
+    # windows): ghost zones over more strips, then clusters refreshing
+    # every step, with more words a thread.
+    for words in (4, 8, 16, 32):
+        r = _rows_per_thread(R, words)
+        tries = [(min(n, C), max(k, 1), "ghost zones (fallback)")
+                 for n in (16, 64, 256, 1024)]
+        tries += [(min(n, C), 1, "cluster, refresh every step (fallback)")
+                  for n in (16, 8, 4, 2, 1)]
+        for strips, ghost, why in tries:
+            try:
+                return window_geometry(R, C, k, strips, ghost, r, 1, why)
+            except ValueError:
+                pass
+    raise ValueError(f"window_launch_geometry: no geometry for {shards} "
+                     f"windows of {R} x {C}, k={k}")
+
+
+def window_steps(ext: torch.Tensor, k: int, h: int, hx: int = 0,
+                 geometry: WindowGeometry | None = None) -> torch.Tensor:
     """``k`` fused packed steps of every halo-extended shard window in the
     stack ``ext`` of shape ``(*S, nw + 2h, W + 2hx)``; returns the ``(*S,
-    nw, W)`` interiors. The ``bitlife_window`` kernel on the card (one
-    block per window, resident in shared memory for all ``k`` steps), the
-    plain version on the CPU. ``k`` is at most :func:`window_max_steps`."""
+    nw, W)`` interiors. The ``bitlife_window`` kernel on the card (each
+    window over the column strips of a thread-block cluster, laid out by
+    :func:`window_launch_geometry` unless ``geometry`` is given), the plain
+    version on the CPU. ``k`` is at most :func:`window_max_steps`."""
     R, C = ext.shape[-2:]
     if R <= 2 * h or C <= 2 * hx or h < 1 or hx < 0:
         raise ValueError(f"window_steps: window {tuple(ext.shape)} with "
@@ -578,17 +765,34 @@ def window_steps(ext: torch.Tensor, k: int, h: int, hx: int = 0
     s = out[..., 0, 0].numel()
     if s == 0:
         return out
+    geo = geometry or window_launch_geometry(s, R, C, int(k))
     lib = _build.load("bitlife_window")
     with torch.cuda.device(ext.device):
         rc = lib.bitlife_window(
             ext.data_ptr(), out.data_ptr(), s, R - 2 * h, C - 2 * hx, h, hx,
-            int(k), torch.cuda.current_stream().cuda_stream)
+            int(k), *geo.args(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "bitlife_window", rc)
     window_steps.launches += 1
     return out
 
 
 window_steps.launches = 0
+
+
+def window_attributes(shards: int, R: int, C: int, h: int, hx: int, k: int,
+                      geometry: WindowGeometry) -> dict[str, int]:
+    """What the CUDA runtime reports for the ``bitlife_window`` launch of
+    this geometry (``bitlife_window_attributes``): registers and local
+    (spilled) bytes a thread, static and dynamic shared bytes and threads a
+    block, and the clusters the card can hold at once. Needs the card."""
+    lib = _build.load("bitlife_window")
+    vals = (ctypes.c_int * 6)()
+    rc = lib.bitlife_window_attributes(shards, R - 2 * h, C - 2 * hx, h, hx,
+                                       int(k), *geometry.args(), vals)
+    _build.check(lib, "bitlife_window", rc)
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes", "max_active_clusters", "threads"),
+                    vals))
 
 
 # ----------------------------------------------- frame helpers (host side)
