@@ -25,9 +25,17 @@ Phases, each of which raises (exit code 1) when it fails:
    CUDA runtime reports for it (``bitlife_window_attributes``: registers,
    local bytes, shared memory, and the clusters the card holds at once,
    ``cudaOccupancyMaxActiveClusters``), the local bytes 0 and the dynamic
-   size equal to the geometry's ``smem_bytes``;
+   size equal to the geometry's ``smem_bytes``; the same for each
+   ``bitlife_vmem_cluster_kernel<RT, FULL>`` and the one-block
+   ``bitlife_vmem_kernel``, and for p46gun_big's and a tall board's
+   geometry (``vmem_launch_geometry``, ``bitlife_vmem_attributes``), which
+   the card must place at least once;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
-   words bit-exact, on random soups at four shapes and n in {0, 1, 129, 1000};
+   words bit-exact, ghost and junk bits included, under the geometry
+   ``vmem_launch_geometry`` chooses (each case logs it), at n in {0, 1, 7,
+   g, g + 1, 129, 1000}: random soups at four shapes, and random words at
+   ``VMEM_SHAPES`` (ny % 32 in {30, 31}, one word a column, the glider's
+   board, one column, a board that takes the one-block geometry);
 3. ``bitlife_fused`` against its plain version (the whole extended frame
    stepped as one window) on the card, boards bit-exact: aligned 4096^2 and
    16384^2 at n in {1, 128, 300}, the padded frame at 10000^2 and 1000^2 at
@@ -38,8 +46,9 @@ Phases, each of which raises (exit code 1) when it fails:
    1000}; the bitsliced kernel also at the degenerate extents 1x8, 8x1, 2x2;
 5. the main paths through ``LifeSim``, the CLI and the batcher, with every
    launch count set to 0 just before each and read just after:
-   p46gun_big (``configs/gun_big_500x500.cfg``, all 10 000 steps, the
-   resident kernel) against the NumPy oracle (population 7288), then a
+   p46gun_big (``configs/gun_big_500x500.cfg``, all 10 000 steps, one
+   launch of the resident kernel) against the NumPy oracle (population
+   7288), then a
    10000^2 soup for 300 steps (the fused kernel on the padded frame)
    against the plain version's board from phase 3 and against 300 unpacked
    ``life_step_roll`` steps on the card, which share no code with the
@@ -52,7 +61,9 @@ Phases, each of which raises (exit code 1) when it fails:
    the batcher on 40 p46gun_big-size soups at two step counts, each result
    against ``bitlife_vmem``;
 6. times from CUDA events after a warm-up: each kernel at the main path's
-   shapes beside its plain version and its bound, per-step rates from the
+   shapes beside its plain version and its bound (the resident kernel also
+   by profiler device time, with its geometry and the bound for the SMs
+   its blocks occupy), per-step rates from the
    difference of two step counts, the batched path's split into pack,
    kernel, unpack and the copy to the host, and both batched kernels side by
    side at B in {64, 128, 256, 512} x 500^2 and {8, 64, 256, 512} x 95x130
@@ -409,13 +420,20 @@ def device_ms(fn, reps: int, kernel_name: str | None = None,
 def grad_step_kernels(fn) -> dict[str, float]:
     """Device milliseconds of each kernel that ``fn()`` runs, by short
     name (no namespace, return type or arguments), from one
-    ``torch.profiler`` trace, largest first."""
-    from torch.profiler import ProfilerActivity, profile
+    ``torch.profiler`` trace of a second call, largest first. The first
+    call is traced and discarded (the profiler's warm-up step): the card's
+    tracer has lost the records of a trace's first milliseconds, the whole
+    forward kernel of a grad step, in every trace of a run."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     ms: dict[str, float] = {}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -442,6 +460,10 @@ STENCIL_KERNEL = re.compile(r"stencil_padded_kernelILi(\d)ELi(\d+)E")
 
 # bitlife_window_kernel<RT>: the rows a thread holds.
 WINDOW_KERNEL = re.compile(r"bitlife_window_kernelILi(\d+)E")
+# bitlife_vmem_cluster_kernel<RT, FULL> (the rows a thread holds, and
+# whether every segment holds RT) and the one-block bitlife_vmem_kernel.
+VMEM_KERNEL = re.compile(
+    r"bitlife_vmem_(?:cluster_kernelILi(\d+)ELb([01])E|kernel)")
 
 
 def window_shapes(tb) -> list[tuple[str, int, int, int, int, int]]:
@@ -460,6 +482,16 @@ def window_shapes(tb) -> list[tuple[str, int, int, int, int, int]]:
     out.append(("1024^2 row 2 interior", 2, p.nw_s - 2 * p.h, p.W, p.h, 0))
     out.append(("1024^2 row 2 edge", 2, p.h, p.W, p.h, 0))
     return out
+
+
+# Further boards phase 2 holds the resident kernel to (ny, nx), as random
+# words: ny % 32 == 30 (position ny + 1 is bit 31 of the last word, which
+# the first segment reads as its word above) and 31 (positions ny and
+# ny + 1 in two words), one word a column, the glider's board (one strip),
+# one column, and a board too tall for a cluster (the one-block geometry)
+# (tests/test_torch_vmem_cluster.py replays the same).
+VMEM_SHAPES = [(254, 300), (255, 300), (30, 8), (10, 10), (40, 1),
+               (16400, 24)]
 
 
 # Further windows phase 13 holds the window kernel to, (what, shards, nw,
@@ -573,7 +605,7 @@ def main() -> int:
     for name, text in logs.items():
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
         if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded",
-                    "bitlife_window"):
+                    "bitlife_window", "bitlife_vmem"):
             continue  # per kernel below
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -683,21 +715,73 @@ def main() -> int:
         if at["local_bytes"] or at["dynamic_smem_bytes"] != geo.smem_bytes:
             raise AssertionError(f"bitlife_window {what}: {at}")
 
+    # The resident-board kernels one by one (bitlife_vmem_cluster_kernel<RT,
+    # FULL> and the one-block bitlife_vmem_kernel): registers and spills from
+    # the build log, none may spill; then p46gun_big's and a tall board's
+    # geometry and what the CUDA runtime reports for it: registers, local
+    # bytes, shared memory (the dynamic size must be the geometry's
+    # smem_bytes) and the clusters the card can hold at once.
+    vmem_build = {}
+    for (rt, full), props in ptxas_kernels(
+            logs["bitlife_vmem"], VMEM_KERNEL,
+            lambda m: (int(m[1] or 0), m[2] == "1")).items():
+        label = (f"bitlife_vmem_cluster_kernel<{rt}, "
+                 f"{'full' if full else 'ragged'}>" if rt else
+                 "bitlife_vmem_kernel (one block)")
+        vmem_build[label] = props
+        log(f"  bitlife_vmem {label}: {props['registers']} registers, "
+            f"{props['spill_stores']} + {props['spill_loads']} bytes spilled")
+        if props["spill_stores"] or props["spill_loads"]:
+            raise AssertionError(f"{label} spills")
+    if len(vmem_build) != 2 * len(tb.WINDOW_ROWS_PER_THREAD) + 1:
+        raise AssertionError(f"vmem kernels built: {sorted(vmem_build)}")
+    vmem_geo = {}
+    for ny_v, nx_v in ((500, 500), (16400, 24)):
+        geo = tb.vmem_launch_geometry(ny_v, nx_v)
+        at = tb.vmem_attributes(ny_v, nx_v, geo)
+        vmem_geo[f"{ny_v}x{nx_v}"] = {"geometry": dataclasses.asdict(geo),
+                                      **at}
+        log(f"  bitlife_vmem ({ny_v}, {nx_v}): (strips, cluster, g, rt, tau) "
+            f"= {geo.args()}, {geo.threads} threads, {at['registers']} "
+            f"registers, {at['local_bytes']} local bytes, "
+            f"{at['static_smem_bytes']} + {at['dynamic_smem_bytes']} bytes "
+            f"shared memory; the card holds {at['max_active_clusters']} such "
+            f"clusters at once ({geo.reason})")
+        if (at["local_bytes"] or at["dynamic_smem_bytes"] != geo.smem_bytes
+                or at["max_active_clusters"] < 1):
+            raise AssertionError(f"bitlife_vmem ({ny_v}, {nx_v}): {at}")
+
     # ------------------------------------------------ 2. vmem against plain
     t0 = time.perf_counter()
     vmem_err = 0
+    vmem_cases = []
     seed = 100
-    for shape in [(500, 500), (37, 45), (62, 1000), (95, 130)]:
+    gen_v = torch.Generator(device="cuda").manual_seed(12)
+    for shape in [(500, 500), (37, 45), (62, 1000), (95, 130)] + VMEM_SHAPES:
         ny = shape[0]
-        packed = tb.pack_board(soup(shape, seed))
-        seed += 1
-        for n in (0, 1, 129, 1000):
+        if shape in VMEM_SHAPES:
+            # Random words: ghost and junk bits random too.
+            packed = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                   (tb.n_words(ny), shape[1]), generator=gen_v,
+                                   device="cuda", dtype=torch.int32)
+        else:
+            packed = tb.pack_board(soup(shape, seed))
+            seed += 1
+        geo = tb.vmem_launch_geometry(*shape)
+        log(f"  vmem {shape}: (strips, cluster, g, rt, tau) = {geo.args()}, "
+            f"{geo.threads} threads ({geo.reason})")
+        want, done = packed, 0
+        for n in sorted({0, 1, 7, geo.ghost, geo.ghost + 1, 129, 1000}):
             got = tb.vmem_steps(packed, ny, n)
-            want = tb._vmem_steps_plain(packed, ny, n)
+            want = tb._vmem_steps_plain(want, ny, n - done)
+            done = n
             bad = diff_count(got, want)
             cells = diff_count(tb.unpack_board(got, ny),
                                tb.unpack_board(want, ny))
             vmem_err = max(vmem_err, min(cells, 1))
+            vmem_cases.append({"shape": list(shape), "n": n,
+                               "geometry": list(geo.args()),
+                               "differing_words": bad})
             log(f"  vmem {shape} n={n}: differing words {bad}")
             if bad:
                 raise AssertionError(f"bitlife_vmem disagrees at {shape} n={n}")
@@ -788,8 +872,9 @@ def main() -> int:
     final, launches_gun = run_counted(wrappers, sim.run)
     log(f"  main path p46gun_big: impl={sim.impl} path={sim.native_path} "
         f"steps={sim.step_count} launches={launches_gun}")
-    if sim.native_path != "vmem" or launches_gun["vmem"] < 1:
-        raise AssertionError("p46gun_big did not run through bitlife_vmem")
+    if sim.native_path != "vmem" or launches_gun["vmem"] != 1:
+        raise AssertionError("p46gun_big did not run through one "
+                             "bitlife_vmem launch")
     oracle = cfg.board()
     for _ in range(cfg.steps):
         oracle = life_ops.life_step_numpy(oracle)
@@ -926,9 +1011,15 @@ def main() -> int:
     t_a = cuda_ms(lambda: tb.vmem_steps(gun_packed, ny, 2000))
     t_b = cuda_ms(lambda: tb.vmem_steps(gun_packed, ny, 12000))
     vmem_us_step = (t_b - t_a) / 10000 * 1e3
-    log(f"  vmem p46gun_big {n_main} steps: {vmem_ms:.4f} ms per call, "
-        f"plain {plain_vmem_ms:.2f} ms, bound {vmem_bound:.4f} ms "
-        f"(card) / {vmem_bound * N_SMS:.4f} ms (one SM); "
+    vmem_dev = device_ms(lambda: tb.vmem_steps(gun_packed, ny, n_main), 5,
+                         "bitlife_vmem")
+    gun_geo = tb.vmem_launch_geometry(ny, nx)
+    vmem_bound_occupied = vmem_bound * N_SMS / gun_geo.strips
+    log(f"  vmem p46gun_big {n_main} steps: {vmem_ms:.4f} ms per call "
+        f"(device {vmem_dev:.4f} ms), plain {plain_vmem_ms:.2f} ms, bound "
+        f"{vmem_bound:.4f} ms (card) / {vmem_bound_occupied:.4f} ms (the "
+        f"{gun_geo.strips} SMs of its blocks); (strips, cluster, g, rt, tau) "
+        f"= {gun_geo.args()}, {gun_geo.threads} threads; "
         f"{vmem_us_step:.4f} us/step, "
         f"{ny * nx / vmem_us_step / 1e3:.3f} Gcups (differenced) [{card}]")
 
@@ -1630,10 +1721,11 @@ def main() -> int:
             f"attention_32k{tag}_grad_sec": grad_sec,
             f"attention_32k{tag}_grad_tflops": 3.5 * flops / grad_sec / 1e12})
         if not tag:
-            # The card's tracer can lose a kernel's record (see device_ms):
-            # trace again, up to three times, until the step's three
-            # attention kernels all show; the check below is unchanged.
-            for attempt in range(1, 4):
+            # The card's tracer can lose a kernel's record (see device_ms;
+            # three traces in a row once lost the forward's): trace again,
+            # up to six times, until the step's three attention kernels all
+            # show; the check below is unchanged.
+            for attempt in range(1, 7):
                 step_kernels = grad_step_kernels(lambda: grad_chain(1))
                 if sum("flash_" in name for name in step_kernels) >= 3:
                     break
@@ -2425,7 +2517,18 @@ def main() -> int:
          "ms": vmem_ms, "plain_ms": plain_vmem_ms, "bound_ms": vmem_bound,
          "bound_by": vmem_by, "library_ms": None,
          "shape": "p46gun_big 500x500, 10000 steps per call",
-         "us_per_step": vmem_us_step},
+         "us_per_step": vmem_us_step, "device_ms": vmem_dev,
+         "geometry": dataclasses.asdict(gun_geo),
+         "bound_ms_occupied": vmem_bound_occupied,
+         "note": ("ms: CUDA events around 3 calls; device_ms: a "
+                  "torch.profiler trace of 5; bound_ms_occupied: the bound "
+                  "for the SMs of the launch's blocks; build: registers and "
+                  "spills of each kernel from ptxas, and for p46gun_big and "
+                  "a tall board the chosen geometry with the CUDA runtime's "
+                  "registers, local bytes, static and dynamic shared bytes "
+                  "and max active clusters"),
+         "exact_cases": vmem_cases,
+         "build": {"ptxas": vmem_build, "cuda_runtime": vmem_geo}},
         {"name": "bitlife_fused", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_fused.cu",
          "replaces": "mpi_and_open_mp_tpu/ops/bitlife.py:333",

@@ -35,7 +35,10 @@ NVCC_FLAGS = [
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
-    "bitlife_vmem": [_P, _P, _I, _I, _I, _I, _P],
+    "bitlife_vmem": {
+        "bitlife_vmem": [_P, _P] + [_I] * 9 + [_P],
+        "bitlife_vmem_attributes": [_I] * 8 + [_IP],
+    },
     "bitlife_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "bitlife_window": {
         "bitlife_window": [_P, _P] + [_I] * 11 + [_P],

@@ -23,9 +23,10 @@ package's words.
 Two hand-written Hopper kernels carry the single-board engines on the card
 (see ``csrc/``), each with a plain PyTorch version beside it:
 
-* :func:`vmem_steps` - the whole packed board resident in one thread
-  block's shared memory for the entire step loop (``"vmem"``), replacing
-  ``_vmem_bits_kernel``;
+* :func:`vmem_steps` - the whole packed board resident on the card for
+  the entire step loop, spread over the column strips of one thread-block
+  cluster under :func:`vmem_launch_geometry`, a column's words in
+  registers (``"vmem"``), replacing ``_vmem_bits_kernel``;
 * :func:`fused_steps` - one tile plus a 128-row (4-word) y halo, and on
   column-tiled plans a ``k``-column x halo, per block, ``k <= 128`` steps in
   shared memory, interior written back (``"fused"`` and ``"frame"``),
@@ -310,10 +311,13 @@ def _vmem_steps_plain(packed: torch.Tensor, ny: int, steps: int):
     return packed
 
 
-def vmem_steps(packed: torch.Tensor, ny: int, steps: int) -> torch.Tensor:
+def vmem_steps(packed: torch.Tensor, ny: int, steps: int,
+               geometry: VmemGeometry | None = None) -> torch.Tensor:
     """Advance an offset-ghost packed board ``steps`` steps: the
-    ``bitlife_vmem`` kernel (one block, board resident in shared memory for
-    the whole loop) on the card, :func:`bit_step` looped on the CPU."""
+    ``bitlife_vmem`` kernel on the card (the board spread over the column
+    strips of one thread-block cluster, a column's words in registers, for
+    the whole loop, laid out by :func:`vmem_launch_geometry` unless
+    ``geometry`` is given), :func:`bit_step` looped on the CPU."""
     if packed.device.type == "cpu":
         return _vmem_steps_plain(packed, ny, steps)
     _check_card_words(packed, "vmem_steps")
@@ -322,12 +326,13 @@ def vmem_steps(packed: torch.Tensor, ny: int, steps: int) -> torch.Tensor:
         raise ValueError(
             f"vmem_steps: packed {tuple(packed.shape)} for ny={ny} does not "
             f"fit the resident kernel (gate fits_vmem_packed)")
+    geo = geometry or vmem_launch_geometry(ny, nx)
     out = torch.empty_like(packed)
     lib = _build.load("bitlife_vmem")
     with torch.cuda.device(packed.device):
         rc = lib.bitlife_vmem(
             packed.data_ptr(), out.data_ptr(), nw, nx, ny, int(steps),
-            torch.cuda.current_stream().cuda_stream)
+            *geo.args(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "bitlife_vmem", rc)
     vmem_steps.launches += 1
     return out
@@ -790,6 +795,188 @@ def window_attributes(shards: int, R: int, C: int, h: int, hx: int, k: int,
     rc = lib.bitlife_window_attributes(shards, R - 2 * h, C - 2 * hx, h, hx,
                                        int(k), *geometry.args(), vals)
     _build.check(lib, "bitlife_window", rc)
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes", "max_active_clusters", "threads"),
+                    vals))
+
+
+# ------------------------------ kernel 1's geometry: one cluster per board
+
+
+@dataclasses.dataclass(frozen=True)
+class VmemGeometry:
+    """How one ``bitlife_vmem`` launch spreads an ``(nw, nx)`` packed
+    board: over ``strips`` column strips (widths ``floor`` or ``ceil`` of
+    ``nx / strips``), one block each, all one cluster (``cluster ==
+    strips``) that forms a ring over the torus, with ``ghost`` columns per
+    side refreshed from the neighbouring strips every ``ghost`` steps. A
+    thread holds ``rows_per_thread`` words of a column (``segments``
+    threads a column); a row of a strip takes ``warps`` warps, each with
+    ``warp_ghost`` copied lanes per side when more than one (as
+    :class:`WindowGeometry`). ``rows_per_thread == 0`` is the one-block
+    geometry: one block of 1024 threads with the whole board
+    double-buffered in shared memory (``strips == cluster == 1``, ``ghost
+    == warp_ghost == 0``). ``reason`` says why the chooser took it."""
+
+    strips: int
+    cluster: int
+    ghost: int
+    rows_per_thread: int
+    warp_ghost: int
+    segments: int
+    warps: int
+    threads: int
+    smem_bytes: int
+    reason: str = ""
+
+    @property
+    def one_block(self) -> bool:
+        return self.rows_per_thread == 0
+
+    def strip_bounds(self, C: int) -> list[tuple[int, int]]:
+        """Each strip's columns ``[c0, c1)`` of a ``C``-column board."""
+        return [(r * C // self.strips, (r + 1) * C // self.strips)
+                for r in range(self.strips)]
+
+    def args(self) -> tuple[int, int, int, int, int]:
+        """The C entry's geometry arguments (strips, cluster, g, rt, tau)."""
+        return (self.strips, self.cluster, self.ghost, self.rows_per_thread,
+                self.warp_ghost)
+
+
+VMEM_ONE_BLOCK_THREADS = 1024
+
+
+def vmem_geometry(ny: int, nx: int, strips: int, ghost: int,
+                  rows_per_thread: int, warp_ghost: int = 1,
+                  reason: str = "") -> VmemGeometry:
+    """The launch geometry of ``strips`` strips with ``ghost`` columns per
+    side, ``rows_per_thread`` words a thread and ``warp_ghost`` copied
+    lanes per warp side for an ``(ny, nx)`` board (``rows_per_thread ==
+    0``: the one-block geometry, with ``strips == 1`` and ``ghost ==
+    warp_ghost == 0``); derives and checks it as
+    ``csrc/bitlife_vmem.cu:layout`` does and raises ``ValueError`` where
+    the entry would refuse it. The strips' checks are
+    :func:`window_geometry`'s for a window that exchanges its ghosts."""
+    nw = n_words(ny)
+    if rows_per_thread == 0:
+        if (strips, ghost, warp_ghost) != (1, 0, 0):
+            raise ValueError(f"vmem geometry: the one-block geometry takes "
+                             f"strips=1, ghost=0, warp_ghost=0, got "
+                             f"{strips}, {ghost}, {warp_ghost}")
+        smem = BYTES_PER_WORD * nw * nx
+        if smem > SMEM_BYTES:
+            raise ValueError(f"vmem geometry: {smem} bytes of shared memory")
+        return VmemGeometry(1, 1, 0, 0, 0, 1, VMEM_ONE_BLOCK_THREADS // 32,
+                            VMEM_ONE_BLOCK_THREADS, smem, reason)
+    try:
+        w = window_geometry(nw, nx, ghost + 1, strips, ghost,
+                            rows_per_thread, warp_ghost, reason)
+    except ValueError as e:
+        raise ValueError(str(e).replace("window geometry",
+                                        "vmem geometry")) from None
+    # Beside the window kernel's arrays: the word holding position ny,
+    # published every step (two buffers x 32 columns a warp).
+    smem = w.smem_bytes + (4 * 2 * 32 * w.warps if w.segments > 1 else 0)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"vmem geometry: {smem} bytes of shared memory")
+    return VmemGeometry(w.strips, w.cluster, w.ghost, w.rows_per_thread,
+                        w.warp_ghost, w.segments, w.warps, w.threads, smem,
+                        reason)
+
+
+# The per-step model vmem_launch_geometry minimises, in microseconds: a
+# step's floor, its cost per warp of a segment's row and per word a
+# thread, the block barrier that segments trade through, a strip refresh
+# (every ghost steps) and a warp refresh (every warp_ghost steps);
+# fitted by least squares to the 2034 geometries of vmem_times.py --sweep
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6; rms 0.092 us).
+_VMEM_US_STEP = 0.0276
+_VMEM_US_PER_WARP = 0.0517
+_VMEM_US_PER_WORD = 0.0305
+_VMEM_US_SEGMENTS = 0.2116
+_VMEM_US_REFRESH = 0.7479
+_VMEM_US_WARP_REFRESH = 0.1007
+
+
+def _vmem_step_model_us(nw: int, geo: VmemGeometry) -> float:
+    """The modelled device time of one step of a ``bitlife_vmem`` launch
+    (see the constants above)."""
+    rows = -(-nw // geo.segments)
+    return (_VMEM_US_STEP + _VMEM_US_PER_WARP * geo.warps
+            + _VMEM_US_PER_WORD * rows
+            + (_VMEM_US_SEGMENTS if geo.segments > 1 else 0.0)
+            + _VMEM_US_REFRESH / geo.ghost
+            + (_VMEM_US_WARP_REFRESH / geo.warp_ghost if geo.warps > 1
+               else 0.0))
+
+
+def vmem_candidates(ny: int, nx: int) -> list[VmemGeometry]:
+    """Every cluster geometry :func:`vmem_launch_geometry` weighs for an
+    ``(ny, nx)`` board, in the order it weighs them: each compiled
+    rows-per-thread that splits a column into a different number of
+    segments, 16 down to 1 strips, ghosts of 16, 8, 4, 2 and 1 columns, 4,
+    2 and 1 copied lanes a warp side; the illegal ones left out."""
+    nw = n_words(ny)
+    rts = sorted({min(r for r in WINDOW_ROWS_PER_THREAD if r * P >= nw)
+                  for P in range(1, WINDOW_MAX_THREADS // 32 + 1)
+                  if max(WINDOW_ROWS_PER_THREAD) * P >= nw})
+    out = []
+    for rt in rts:
+        for strips in range(min(WINDOW_MAX_CLUSTER, nx), 0, -1):
+            for ghost in (16, 8, 4, 2, 1):
+                for tau in (4, 2, 1):
+                    if ghost > nx // strips or ghost % tau:
+                        continue
+                    try:
+                        out.append(vmem_geometry(ny, nx, strips, ghost, rt,
+                                                 tau))
+                    except ValueError:
+                        pass
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def vmem_launch_geometry(ny: int, nx: int) -> VmemGeometry:
+    """The geometry :func:`vmem_steps` launches an ``(ny, nx)`` board with:
+    a plain function of the shape (cached), so that the same board always
+    gets the same launch. Of :func:`vmem_candidates`, the one of least
+    :func:`_vmem_step_model_us` (the first on a tie). A board with no
+    cluster geometry (more than :data:`WINDOW_MAX_ROWS` word rows, or so
+    wide that 16 strips of 16 warps do not hold it) takes the one-block
+    geometry. Raises ``ValueError`` for a board the gate
+    :func:`fits_vmem_packed` refuses."""
+    if ny < 0 or nx < 1 or not fits_vmem_packed((ny, nx)):
+        raise ValueError(f"vmem_launch_geometry: ({ny}, {nx}) does not fit "
+                         "the resident kernel (gate fits_vmem_packed)")
+    nw = n_words(ny)
+    best = None
+    for geo in vmem_candidates(ny, nx):
+        t = _vmem_step_model_us(nw, geo)
+        if best is None or t < best[0]:
+            best = (t, geo)
+    if best is None:
+        return vmem_geometry(
+            ny, nx, 1, 0, 0, 0,
+            f"one block: no cluster geometry holds {nw} word rows x {nx} "
+            "columns")
+    t, geo = best
+    return dataclasses.replace(
+        geo, reason=(f"cluster of {geo.strips}, refresh every {geo.ghost} "
+                     f"steps, model {t:.3f} us a step"))
+
+
+def vmem_attributes(ny: int, nx: int,
+                    geometry: VmemGeometry) -> dict[str, int]:
+    """What the CUDA runtime reports for the ``bitlife_vmem`` launch of
+    this geometry (``bitlife_vmem_attributes``): registers and local
+    (spilled) bytes a thread, static and dynamic shared bytes and threads a
+    block, and the clusters the card can hold at once. Needs the card."""
+    lib = _build.load("bitlife_vmem")
+    vals = (ctypes.c_int * 6)()
+    rc = lib.bitlife_vmem_attributes(n_words(ny), nx, ny, *geometry.args(),
+                                     vals)
+    _build.check(lib, "bitlife_vmem", rc)
     return dict(zip(("registers", "local_bytes", "static_smem_bytes",
                      "dynamic_smem_bytes", "max_active_clusters", "threads"),
                     vals))
