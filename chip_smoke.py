@@ -29,7 +29,10 @@ Phases, each of which raises (exit code 1) when it fails:
    ``bitlife_vmem_cluster_kernel<RT, FULL>`` and the one-block
    ``bitlife_vmem_kernel``, and for p46gun_big's and a tall board's
    geometry (``vmem_launch_geometry``, ``bitlife_vmem_attributes``), which
-   the card must place at least once;
+   the card must place at least once; the same for each
+   ``bitlife_bitsliced_kernel<RT, CT, FULL>``, and for the geometry
+   ``plan_bitsliced`` chooses for 64 and 512 boards of 500^2
+   (``bitlife_bitsliced_attributes``);
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, ghost and junk bits included, under the geometry
    ``vmem_launch_geometry`` chooses (each case logs it), at n in {0, 1, 7,
@@ -43,7 +46,9 @@ Phases, each of which raises (exit code 1) when it fails:
 4. ``bitlife_vmem_batch`` (B in {1, 3, 4, 64}) and ``bitlife_bitsliced`` (B in
    {8, 33, 64, 256}) against their plain versions on the card, packed words
    bit-exact, at (500, 500), (37, 45) and (95, 130) and n in {0, 1, 13,
-   1000}; the bitsliced kernel also at the degenerate extents 1x8, 8x1, 2x2;
+   1000}; the bitsliced kernel also at the degenerate extents 1x8, 8x1, 2x2,
+   at B = 512 at 500^2, and at its geometry's g, g + 1, halo and halo + 1
+   steps (each case logs the geometry ``plan_bitsliced`` chooses);
 5. the main paths through ``LifeSim``, the CLI and the batcher, with every
    launch count set to 0 just before each and read just after:
    p46gun_big (``configs/gun_big_500x500.cfg``, all 10 000 steps, one
@@ -63,7 +68,8 @@ Phases, each of which raises (exit code 1) when it fails:
 6. times from CUDA events after a warm-up: each kernel at the main path's
    shapes beside its plain version and its bound (the resident kernel also
    by profiler device time, with its geometry and the bound for the SMs
-   its blocks occupy), per-step rates from the
+   its blocks occupy, and so the board-sliced kernel, with the words it
+   steps over the useful words), per-step rates from the
    difference of two step counts, the batched path's split into pack,
    kernel, unpack and the copy to the host, and both batched kernels side by
    side at B in {64, 128, 256, 512} x 500^2 and {8, 64, 256, 512} x 95x130
@@ -417,6 +423,40 @@ def device_ms(fn, reps: int, kernel_name: str | None = None,
                        "calls")
 
 
+def device_span_ms(fn, reps: int, kernel_name: str,
+                   launches: int) -> tuple[float, int]:
+    """Device milliseconds per call of ``fn()`` that launches
+    ``kernel_name`` ``launches`` times, whose launches may overlap
+    (programmatic dependent launch): the union of the kernel records'
+    intervals in one ``torch.profiler`` trace of ``reps`` calls, over
+    ``reps``, scaled by the records the calls made over those the tracer
+    kept (a lost record leaves a gap). Returns the time and the records
+    kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = sorted((ev.time_range.start, ev.time_range.end)
+                   for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and kernel_name in ev.name)
+    if not spans:
+        raise RuntimeError(f"the profiler kept no device kernel "
+                           f"{kernel_name} in a trace of {reps} calls")
+    total, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            total += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    total += hi - lo
+    return total / reps / 1e3 * (reps * launches / len(spans)), len(spans)
+
+
 def grad_step_kernels(fn) -> dict[str, float]:
     """Device milliseconds of each kernel that ``fn()`` runs, by short
     name (no namespace, return type or arguments), from one
@@ -464,6 +504,9 @@ WINDOW_KERNEL = re.compile(r"bitlife_window_kernelILi(\d+)E")
 # whether every segment holds RT) and the one-block bitlife_vmem_kernel.
 VMEM_KERNEL = re.compile(
     r"bitlife_vmem_(?:cluster_kernelILi(\d+)ELb([01])E|kernel)")
+# bitlife_bitsliced_kernel<RT, CT, FULL>: the rows and columns a thread
+# holds, and whether every segment holds RT.
+SLICED_KERNEL = re.compile(r"bitlife_bitsliced_kernelILi(\d+)ELi(\d+)ELb([01])E")
 
 
 def window_shapes(tb) -> list[tuple[str, int, int, int, int, int]]:
@@ -605,7 +648,7 @@ def main() -> int:
     for name, text in logs.items():
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
         if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded",
-                    "bitlife_window", "bitlife_vmem"):
+                    "bitlife_window", "bitlife_vmem", "bitlife_bitsliced"):
             continue  # per kernel below
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -751,6 +794,45 @@ def main() -> int:
                 or at["max_active_clusters"] < 1):
             raise AssertionError(f"bitlife_vmem ({ny_v}, {nx_v}): {at}")
 
+    # The board-sliced kernels one by one (bitlife_bitsliced_kernel<RT, CT,
+    # FULL>): registers and spills from the build log, none may spill; then
+    # the batched main path's geometry (64 boards of 500^2, 2 planes) and
+    # B = 512's, with what the CUDA runtime reports for each: registers,
+    # local bytes (0), shared memory (the dynamic size must be the
+    # geometry's smem_bytes) and the clusters the card can hold at once.
+    sliced_build = {}
+    for (rt, ct, full), props in ptxas_kernels(
+            logs["bitlife_bitsliced"], SLICED_KERNEL,
+            lambda m: (int(m[1]), int(m[2]), m[3] == "1")).items():
+        label = (f"bitlife_bitsliced_kernel<{rt}, {ct}, "
+                 f"{'full' if full else 'ragged'}>")
+        sliced_build[label] = props
+        log(f"  bitlife_bitsliced {label}: {props['registers']} registers, "
+            f"{props['spill_stores']} + {props['spill_loads']} bytes spilled")
+        if props["spill_stores"] or props["spill_loads"]:
+            raise AssertionError(f"{label} spills")
+    want_sliced = len(tb.SLICED_KERNELS) + sum(
+        ct <= tb.SLICED_RAGGED_MAX_COLS for _, ct in tb.SLICED_KERNELS)
+    if len(sliced_build) != want_sliced:
+        raise AssertionError(f"bitsliced kernels built: {sorted(sliced_build)}")
+    sliced_geo = {}
+    for shape_s in ((2, 500, 500), (16, 500, 500)):
+        geo = tb.plan_bitsliced(shape_s)
+        at = tb.bitsliced_attributes(shape_s, geo)
+        sliced_geo["x".join(map(str, shape_s))] = {
+            "geometry": dataclasses.asdict(geo), **at,
+            "waves_modelled": tb.sliced_waves(shape_s[0], geo)}
+        log(f"  bitlife_bitsliced {shape_s}: (bands, halo, strips, cluster, "
+            f"g, rt, ct, tau) = {geo.args()}, {geo.threads} threads, "
+            f"{at['registers']} registers, {at['local_bytes']} local bytes, "
+            f"{at['static_smem_bytes']} + {at['dynamic_smem_bytes']} bytes "
+            f"shared memory; the card holds {at['max_active_clusters']} such "
+            f"clusters at once, {shape_s[0] * geo.bands * geo.strips // geo.cluster} "
+            f"in the launch ({geo.reason})")
+        if (at["local_bytes"] or at["dynamic_smem_bytes"] != geo.smem_bytes
+                or at["max_active_clusters"] < 1):
+            raise AssertionError(f"bitlife_bitsliced {shape_s}: {at}")
+
     # ------------------------------------------------ 2. vmem against plain
     t0 = time.perf_counter()
     vmem_err = 0
@@ -845,22 +927,36 @@ def main() -> int:
                 if bad:
                     raise AssertionError(
                         f"bitlife_vmem_batch disagrees at B={b} {shape} n={n}")
-    for b in (8, 33, 64, 256):
-        for shape in shapes + [(1, 8), (8, 1), (2, 2)]:
-            planes = tb.pack_batch_bits(soup((b, *shape), seed))
-            seed += 1
-            plan = tb.plan_bitsliced(tuple(planes.shape))
-            for n in (0, 1, 13, 1000):
-                got = tb.bitsliced_steps(planes, n)
-                want = tb._bitsliced_steps_plain(planes, n)
-                bad = diff_count(got, want)
-                batch_err["bitsliced"] = max(batch_err["bitsliced"],
-                                             min(bad, 1))
-                log(f"  bitsliced B={b} {shape} tile {plan.tr}x{plan.tc} "
-                    f"n={n}: differing words {bad}")
-                if bad:
-                    raise AssertionError(
-                        f"bitlife_bitsliced disagrees at B={b} {shape} n={n}")
+    # The board-sliced kernel at n in {0, 1, 13, 1000} and at its
+    # geometry's edges: g and g + 1 (the first strip refresh), k and k + 1
+    # (one launch of the halo's depth, then a second launch).
+    sliced_cases = []
+    sliced_stacks = [(b, shape) for b in (8, 33, 64, 256)
+                     for shape in shapes + [(1, 8), (8, 1), (2, 2)]]
+    for b, shape in sliced_stacks + [(512, (500, 500))]:
+        planes = tb.pack_batch_bits(soup((b, *shape), seed))
+        seed += 1
+        geo = tb.plan_bitsliced(tuple(planes.shape))
+        edges = {geo.ghost, geo.ghost + 1}
+        if geo.halo:
+            edges |= {geo.halo, geo.halo + 1}
+        log(f"  bitsliced B={b} {shape}: (bands, halo, strips, cluster, g, "
+            f"rt, ct, tau) = {geo.args()}, {geo.threads} threads "
+            f"({geo.reason})")
+        want, done = planes, 0
+        for n in sorted({0, 1, 13, 1000} | edges):
+            got = tb.bitsliced_steps(planes, n)
+            want = tb._bitsliced_steps_plain(want, n - done)
+            done = n
+            bad = diff_count(got, want)
+            batch_err["bitsliced"] = max(batch_err["bitsliced"], min(bad, 1))
+            sliced_cases.append({"boards": b, "shape": list(shape), "n": n,
+                                 "geometry": list(geo.args()),
+                                 "differing_words": bad})
+            log(f"  bitsliced B={b} {shape} n={n}: differing words {bad}")
+            if bad:
+                raise AssertionError(
+                    f"bitlife_bitsliced disagrees at B={b} {shape} n={n}")
     del packed, planes, got, want
     log(f"phase 4 batched kernels vs plain: ok "
         f"({time.perf_counter() - t0:.2f} s)")
@@ -913,7 +1009,7 @@ def main() -> int:
     del big_sim, frame_plain_10k, roll
     torch.cuda.empty_cache()
 
-    def cli_run(*extra, population):
+    def cli_run(*extra, population, before=""):
         env = dict(os.environ, PYTHONPATH=ROOT)
         cli = subprocess.run(
             [sys.executable, "-m", "mpi_and_open_mp_tpu_torch.apps.life",
@@ -927,7 +1023,8 @@ def main() -> int:
                 or cli.stderr.strip().splitlines()[-1] != str(population)):
             raise AssertionError(f"CLI output: {cli.stdout!r} {cli.stderr!r}")
         log(f"  CLI p46gun_big{''.join(' ' + e for e in extra)}: "
-            f"{float(lines[0]):.6f} s elapsed line, population {population}")
+            f"{float(lines[0]):.6f} s elapsed line, population {population}"
+            + (f" ({before})" if before else ""))
 
     cli_run(population=7288)
 
@@ -971,7 +1068,9 @@ def main() -> int:
     log("  4-board vmem-grid stack matches")
     del bsim, gsim, gfinal
 
-    cli_run("--batch", "64", population=64 * 7288)
+    cli_run("--batch", "64", population=64 * 7288,
+            before=("0.041-0.043 s before the board-sliced kernel's "
+                    "redesign, PERF.md section 5"))
 
     requests = [(soup((ny, nx), 300 + i).cpu().numpy(), 1000 if i % 5 else 2500)
                 for i in range(40)]
@@ -1093,15 +1192,22 @@ def main() -> int:
     t_a = cuda_ms(lambda: tb.bitsliced_steps(planes, 2000))
     t_b = cuda_ms(lambda: tb.bitsliced_steps(planes, 12000))
     bs_us_step = (t_b - t_a) / 10000 * 1e3
-    rounds = -(-n_main // plan.k)
-    window = (plan.tr + 2 * plan.k) * (plan.tc + 2 * plan.k)
-    blocks = (planes.shape[0] * -(-ny // plan.tr) * -(-nx // plan.tc))
-    halo = blocks * window / bs_words
+    rounds = plan.launches(n_main)
+    bs_dev, bs_kept = device_span_ms(
+        lambda: tb.bitsliced_steps(planes, n_main), 3, "bitlife_bitsliced",
+        rounds)
+    blocks = planes.shape[0] * plan.bands * plan.strips
+    bs_stepped = blocks * plan.window_rows * (-(-nx // plan.strips)
+                                              + 2 * plan.ghost)
+    bs_bound_occupied = bs_bound * N_SMS / min(blocks, N_SMS)
     log(f"  bitsliced {nb} x {ny}x{nx} {n_main} steps: {bs_ms:.4f} ms per "
-        f"call ({rounds} launches of k={plan.k}, tile {plan.tr}x{plan.tc}, "
-        f"{blocks} blocks, {halo:.3f}x the useful words stepped), plain "
-        f"{plain_bs_ms:.2f} ms, bound {bs_bound:.4f} ms; "
-        f"{bs_us_step:.4f} us/step, "
+        f"call (device {bs_dev:.4f} ms, {bs_kept} of {3 * rounds} kernel "
+        f"records kept; {rounds} launches; (bands, halo, "
+        f"strips, cluster, g, rt, ct, tau) = {plan.args()}, {blocks} blocks, "
+        f"{bs_stepped / bs_words:.3f}x the useful words stepped), plain "
+        f"{plain_bs_ms:.2f} ms, bound {bs_bound:.4f} ms (card) / "
+        f"{bs_bound_occupied:.4f} ms (the {min(blocks, N_SMS)} SMs of its "
+        f"blocks); {bs_us_step:.4f} us/step, "
         f"{nb * ny * nx / bs_us_step / 1e3:.3f} Gcups (differenced) [{card}]")
     # Where the batched main path's device time goes: LifeSim.step packs
     # the stack, runs the kernel and unpacks; collect() copies to the host.
@@ -1143,6 +1249,7 @@ def main() -> int:
         if bad:
             raise AssertionError(f"batched kernels disagree at B={b} {shape}: "
                                  f"{bad} cells")
+        geo_s = tb.plan_bitsliced(tuple(planes.shape))
         winner = "vmem-grid" if grid_us < sliced_us else "bitsliced"
         ratio = max(grid_us, sliced_us) / min(grid_us, sliced_us)
         cells_per_step = b * shape[0] * shape[1]
@@ -1150,8 +1257,8 @@ def main() -> int:
             f"{grid_us:.4f} us/step "
             f"({cells_per_step / grid_us / 1e3:.1f} Gcups), bitsliced "
             f"{sliced_us:.4f} us/step "
-            f"({cells_per_step / sliced_us / 1e3:.1f} Gcups); {winner} "
-            f"faster by {ratio:.3f}x, boards equal [{card}]")
+            f"({cells_per_step / sliced_us / 1e3:.1f} Gcups; {geo_s.args()}); "
+            f"{winner} faster by {ratio:.3f}x, boards equal [{card}]")
         del cells, packed, planes, grid_board, sliced_board
     torch.cuda.empty_cache()
     log(f"phase 6 timings: {time.perf_counter() - t0:.2f} s")
@@ -2555,8 +2662,23 @@ def main() -> int:
          "ms": bs_ms, "plain_ms": plain_bs_ms, "bound_ms": bs_bound,
          "bound_by": bs_by, "library_ms": None,
          "shape": (f"{nb} x 500x500 (2 planes), 10000 steps per call in "
-                   f"{rounds} launches, tile {plan.tr}x{plan.tc}"),
-         "us_per_step": bs_us_step},
+                   f"{rounds} launches of {plan.bands} bands x "
+                   f"{plan.strips} strips a plane"),
+         "us_per_step": bs_us_step, "device_ms": bs_dev,
+         "geometry": dataclasses.asdict(plan),
+         "bound_ms_occupied": bs_bound_occupied,
+         "stepped_over_useful": bs_stepped / bs_words,
+         "note": ("ms: CUDA events around 3 calls; device_ms: the union "
+                  "of the kernel records' intervals in a torch.profiler "
+                  "trace of 3 calls (launches overlap), over 3; "
+                  "bound_ms_occupied: the bound for "
+                  "the SMs of the launch's blocks; build: registers and "
+                  "spills of each kernel from ptxas, and for 64 and 512 "
+                  "boards of 500^2 the chosen geometry with the CUDA "
+                  "runtime's registers, local bytes, static and dynamic "
+                  "shared bytes and max active clusters"),
+         "exact_cases": sliced_cases,
+         "build": {"ptxas": sliced_build, "cuda_runtime": sliced_geo}},
         {"name": "stencil_padded", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/stencil_padded.cu",
          "replaces": "mpi_and_open_mp_tpu/ops/pallas_life.py:373",

@@ -1,18 +1,19 @@
 // Shared device code of the bit-packed Life kernels (bitlife_vmem.cu,
-// bitlife_vmem_batch.cu, bitlife_fused.cu, bitlife_bitsliced.cu): one Life
-// step over a window of 32-bit words held in shared memory, and the
-// resident step loop of one cell-packed board.
+// bitlife_vmem_batch.cu, bitlife_fused.cu; bitlife_window.cu and
+// bitlife_bitsliced.cu take count_rule alone): one Life step over a window
+// of 32-bit words held in shared memory, and the resident step loop of one
+// cell-packed board.
 //
 // Two layouts put 32 cells in a word. Cell-packed: 32 board rows per word
 // along y, so a word's y neighbours are its own bits shifted by one, with
-// a carry from the word row above or below (PackedRule). Board-sliced: bit
+// a carry from the word row above or below (life_word). Board-sliced: bit
 // b of every word belongs to board b, so a word's eight neighbours are the
-// eight words around it and no shift is needed (SlicedRule). A window is R
-// word rows by C columns, row-major. Both axes wrap at the window's edge:
-// on a whole board (the resident kernels) that is the torus; on a halo
-// window (the fused and bitsliced kernels) the wrap feeds junk in at the
-// edges, one word row or bit row and one column per step, which never
-// reaches the valid interior within the halo's depth.
+// eight words around it and no shift is needed (bitlife_bitsliced.cu). A
+// window is R word rows by C columns, row-major. Both axes wrap at the
+// window's edge: on a whole board (the resident kernels) that is the
+// torus; on a halo window (the fused kernel) the wrap feeds junk in at the
+// edges, one bit row and one column per step, which never reaches the
+// valid interior within the halo's depth.
 //
 // The rule is the carry-save adder form of mpi_and_open_mp_tpu/ops/
 // bitlife.py:_carry_save_rule: 2-bit column sums, a mod-8 neighbour count
@@ -69,46 +70,15 @@ __device__ __forceinline__ uint32_t life_word(
   return count_rule(l0, l1, r0, r1, cs0, cs1, mC);
 }
 
-// One board-sliced word of the next state (32 boards at one cell), from
-// the 3x3 block of words around it, named as in life_word.
-__device__ __forceinline__ uint32_t sliced_word(
-    uint32_t aL, uint32_t aC, uint32_t aR,
-    uint32_t mL, uint32_t mC, uint32_t mR,
-    uint32_t bL, uint32_t bC, uint32_t bR) {
-  const uint32_t cs0 = aC ^ bC, cs1 = aC & bC;
-  const uint32_t lx = aL ^ bL;
-  const uint32_t l0 = lx ^ mL, l1 = (aL & bL) | (lx & mL);
-  const uint32_t rx = aR ^ bR;
-  const uint32_t r0 = rx ^ mR, r1 = (aR & bR) | (rx & mR);
-  return count_rule(l0, l1, r0, r1, cs0, cs1, mC);
-}
-
-struct PackedRule {
-  __device__ __forceinline__ uint32_t operator()(
-      uint32_t aL, uint32_t aC, uint32_t aR, uint32_t mL, uint32_t mC,
-      uint32_t mR, uint32_t bL, uint32_t bC, uint32_t bR) const {
-    return life_word(aL, aC, aR, mL, mC, mR, bL, bC, bR);
-  }
-};
-
-struct SlicedRule {
-  __device__ __forceinline__ uint32_t operator()(
-      uint32_t aL, uint32_t aC, uint32_t aR, uint32_t mL, uint32_t mC,
-      uint32_t mR, uint32_t bL, uint32_t bC, uint32_t bR) const {
-    return sliced_word(aL, aC, aR, mL, mC, mR, bL, bC, bR);
-  }
-};
-
-// One step of the R x C window src into dst (both in shared memory) under
-// `rule`. The block's threads split the window into vertical strips: a
+// One step of the R x C cell-packed window src into dst (both in shared
+// memory). The block's threads split the window into vertical strips: a
 // thread owns one column and a run of rows, and slides a 3x3 register
 // window down it, so each word costs three shared-memory loads. When the
 // window is narrower than the block, the rows split into segments so that
 // every thread works.
-template <class Rule = PackedRule>
 __device__ __forceinline__ void window_step(
     const uint32_t* __restrict__ src, uint32_t* __restrict__ dst,
-    int R, int C, Rule rule = Rule()) {
+    int R, int C) {
   const int T = blockDim.x, t = threadIdx.x;
   int nseg = T / C;
   nseg = nseg < 1 ? 1 : (nseg > R ? R : nseg);
@@ -134,7 +104,7 @@ __device__ __forceinline__ void window_step(
     for (int r = r0; r < r1; ++r) {
       const uint32_t* rb = src + (r == R - 1 ? 0 : r + 1) * C;
       const uint32_t bL = rb[cl], bC = rb[c], bR = rb[cr];
-      dst[r * C + c] = rule(aL, aC, aR, mL, mC, mR, bL, bC, bR);
+      dst[r * C + c] = life_word(aL, aC, aR, mL, mC, mR, bL, bC, bR);
       aL = mL; aC = mC; aR = mR;
       mL = bL; mC = bC; mR = bR;
     }

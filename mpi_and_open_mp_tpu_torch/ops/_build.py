@@ -45,7 +45,10 @@ SIGNATURES = {
         "bitlife_window_attributes": [_I] * 11 + [_IP],
     },
     "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
-    "bitlife_bitsliced": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _IP],
+    "bitlife_bitsliced": {
+        "bitlife_bitsliced": [_P, _P, _P] + [_I] * 12 + [_P, _IP],
+        "bitlife_bitsliced_attributes": [_I] * 11 + [_IP],
+    },
     "stencil_padded": {
         "stencil_padded": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "stencil_padded_attributes": [_I, _I, _IP],

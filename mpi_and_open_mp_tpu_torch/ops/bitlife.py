@@ -54,8 +54,10 @@ Stacks of B boards come in two layouts, each with its kernel:
 * board-sliced, ``(n_planes, ny, nx)`` words (:func:`pack_batch_bits`):
   bit ``b % 32`` of plane ``b // 32`` holds board ``b``, so one word
   operation advances 32 boards and a word's neighbours are whole words.
-  :func:`bitsliced_steps` runs rounds of up to 16 steps over halo tiles
-  (``"bitsliced"``), replacing ``_bitsliced_kernel``. Ragged B zero-pads
+  :func:`bitsliced_steps` spreads each plane's row bands over the column
+  strips of thread-block clusters under :func:`plan_bitsliced`, a
+  column's words in registers (``"bitsliced"``), replacing
+  ``_bitsliced_kernel``. Ragged B zero-pads
   the high bits: an all-dead board stays dead under the rule.
 
 A wrapper takes the plain version only for a tensor on the CPU; for a CUDA
@@ -1264,11 +1266,6 @@ def life_run_frame_bits_batch(
 
 # -------------------------------------------- board-sliced stacks (batched)
 
-# Steps per bitsliced launch, which is also the halo depth, in words, on
-# each side of a tile (junk from the window's edge walks one word a step).
-SLICE_HALO = 16
-
-
 def n_planes(b: int) -> int:
     """Board-sliced planes for a B-board stack: ``ceil(B / 32)``."""
     return -(-b // 32)
@@ -1304,39 +1301,285 @@ def bitsliced_step(planes: torch.Tensor) -> torch.Tensor:
     return _carry_save_rule(planes, up, dn, *_X_ROLLS)
 
 
+# ------------------------------ kernel 5's geometry: row bands over clusters
+
+# (rows, columns) a thread that csrc/bitlife_bitsliced.cu compiles a kernel
+# for (kernel_for), each with every segment full; those of at most
+# SLICED_RAGGED_MAX_COLS columns also in a ragged form, for the one-band
+# window of ny rows. Its block-size cap, and the largest cluster it takes
+# (above 8 with cudaFuncAttributeNonPortableClusterSizeAllowed).
+SLICED_KERNELS = tuple(
+    (rt, ct) for ct, rts in ((1, (2, 4, 6, 8, 10, 12, 16)),
+                             (2, (2, 4, 6, 8, 10, 12, 16)), (4, (2, 4, 6)))
+    for rt in rts)
+SLICED_RAGGED_MAX_COLS = 2
+SLICED_MAX_THREADS = 512
+SLICED_MAX_CLUSTER = 16
+
+
 @dataclasses.dataclass(frozen=True)
-class SlicePlan:
-    """How a plane stack runs through the bitsliced kernel: the tile, and
-    the steps per round (the halo depth). Produced by
-    :func:`plan_bitsliced`."""
+class SlicedGeometry:
+    """How one ``bitlife_bitsliced`` call spreads an ``(n_planes, ny, nx)``
+    stack. Each plane is cut into ``bands`` row bands (heights ``floor`` or
+    ``ceil`` of ``ny / bands``); a band's window is its rows plus ``halo``
+    rows a side, read modulo ny (``window_rows`` in all), and a launch
+    steps at most ``halo`` steps. With one band and no halo the window is
+    the plane and one launch runs every step. Each band is cut into
+    ``strips`` column strips (widths ``floor`` or ``ceil`` of ``nx /
+    strips``), one block each, with ``ghost`` columns per side. With
+    ``exchange`` (``ghost < halo``, or no halo) the strips are one cluster
+    (``cluster == strips``) forming a ring over the torus, and push their
+    ghosts to each other every ``ghost`` steps; else (ghost zones, ``ghost
+    >= halo``) each reads its ghosts once a launch and needs no cluster
+    (``cluster == 1``). A thread holds ``rows_per_thread`` words of each
+    of ``cols_per_thread`` adjacent columns (``segments`` threads a
+    column); a row of a strip takes ``warps`` warps, each with
+    ``warp_ghost`` copied lanes a side when more than one, refreshed every
+    ``warp_ghost * cols_per_thread`` steps. ``reason`` says why the
+    chooser took it."""
 
-    tr: int  # tile rows (the last row tile may be shorter)
-    tc: int  # tile columns (the last column tile may be shorter)
-    k: int   # steps per launch = halo words per side
+    bands: int
+    halo: int
+    strips: int
+    cluster: int
+    ghost: int
+    rows_per_thread: int
+    cols_per_thread: int
+    warp_ghost: int
+    window_rows: int
+    segments: int
+    warps: int
+    threads: int
+    exchange: bool
+    smem_bytes: int
+    reason: str = ""
+
+    def band_bounds(self, ny: int) -> list[tuple[int, int]]:
+        """Each band's rows ``[r0, r1)`` of a ``ny``-row plane."""
+        return [(b * ny // self.bands, (b + 1) * ny // self.bands)
+                for b in range(self.bands)]
+
+    def strip_bounds(self, nx: int) -> list[tuple[int, int]]:
+        """Each strip's columns ``[c0, c1)`` of an ``nx``-column plane."""
+        return [(r * nx // self.strips, (r + 1) * nx // self.strips)
+                for r in range(self.strips)]
+
+    def launches(self, steps: int) -> int:
+        """Kernel launches of a call of ``steps`` steps."""
+        if steps <= 0:
+            return 0
+        return 1 if self.halo == 0 else -(-steps // self.halo)
+
+    def args(self) -> tuple[int, ...]:
+        """The C entry's geometry arguments (bands, halo, strips, cluster,
+        g, rt, ct, tau)."""
+        return (self.bands, self.halo, self.strips, self.cluster, self.ghost,
+                self.rows_per_thread, self.cols_per_thread, self.warp_ghost)
 
 
-def _tile_sizes(n: int) -> list[int]:
-    return sorted({min(n, s) for s in (8, 16, 32, 64, 128)})
+def sliced_geometry(ny: int, nx: int, bands: int, halo: int, strips: int,
+                    ghost: int, rows_per_thread: int,
+                    cols_per_thread: int = 1, warp_ghost: int = 1,
+                    reason: str = "") -> SlicedGeometry:
+    """The launch geometry of ``bands`` bands with ``halo`` rows a side,
+    ``strips`` strips with ``ghost`` columns a side, ``rows_per_thread``
+    words of ``cols_per_thread`` columns a thread and ``warp_ghost`` copied
+    lanes a warp side, for ``(ny, nx)`` planes; derives and checks it as
+    ``csrc/bitlife_bitsliced.cu:layout`` does and raises ``ValueError``
+    where the entry would refuse it."""
+    rt, ct, tau = rows_per_thread, cols_per_thread, warp_ghost
+    if ny < 1 or nx < 1:
+        raise ValueError(f"sliced geometry: plane ({ny}, {nx}) is empty")
+    if not 1 <= bands <= ny or halo < 0 or (halo == 0 and bands != 1):
+        raise ValueError(f"sliced geometry: bands={bands} outside [1, {ny}], "
+                         f"or halo={halo} (0 takes one band)")
+    if not 1 <= strips <= min(nx, SLICED_MAX_CLUSTER):
+        raise ValueError(f"sliced geometry: strips={strips} outside [1, "
+                         f"{min(nx, SLICED_MAX_CLUSTER)}]")
+    if ghost < 1 or not 1 <= tau <= 15:
+        raise ValueError(f"sliced geometry: ghost={ghost} < 1 or "
+                         f"warp_ghost={tau} outside [1, 15]")
+    rows = -(-ny // bands) + 2 * halo if halo else ny
+    segments = -(-rows // rt) if rt >= 1 else 0
+    window_rows = segments * rt if halo else ny
+    full = window_rows == segments * rt
+    if (rt, ct) not in SLICED_KERNELS or (
+            not full and ct > SLICED_RAGGED_MAX_COLS):
+        raise ValueError(f"sliced geometry: ({rt}, {ct}) rows and columns a "
+                         f"thread not compiled{'' if full else ' ragged'} "
+                         f"(of {SLICED_KERNELS})")
+    exchange = halo == 0 or ghost < halo
+    if exchange and ghost > nx // strips:
+        raise ValueError(f"sliced geometry: exchanged ghost {ghost} wider "
+                         f"than the narrowest strip {nx // strips}")
+    lmax = -(-nx // strips) + 2 * ghost
+    units = -(-lmax // ct)
+    warps = 1 if units <= 32 else -(-units // (32 - 2 * tau))
+    if warps > 1 and exchange and ghost % (tau * ct):
+        raise ValueError(f"sliced geometry: exchanged ghost {ghost} not a "
+                         f"multiple of warp_ghost x cols_per_thread "
+                         f"{tau * ct}")
+    threads = segments * 32 * warps
+    if threads > SLICED_MAX_THREADS:
+        raise ValueError(f"sliced geometry: {threads} threads a block, above "
+                         f"{SLICED_MAX_THREADS}")
+    words = ((2 * segments * 32 * warps * ct * 2 if segments > 1 else 0)
+             + (2 * 2 * segments * warps * tau * ct * rt if warps > 1 else 0)
+             + (2 * 2 * ghost * segments * rt if exchange else 0))
+    if 4 * words > SMEM_BYTES:
+        raise ValueError(f"sliced geometry: {4 * words} bytes of shared "
+                         "memory")
+    return SlicedGeometry(bands, halo, strips, strips if exchange else 1,
+                          ghost, rt, ct, tau, window_rows, segments, warps,
+                          threads, exchange, 4 * words, reason)
 
 
-@functools.lru_cache(maxsize=64)
-def plan_bitsliced(shape: tuple[int, int, int]) -> SlicePlan:
-    """The tile of the bitsliced kernel for an (n_planes, ny, nx) stack: of
-    tiles up to 128 x 128 words (a window of 160 x 160 words, double-
-    buffered, is 200 KB, within a block's 227 KB), the one that minimises
-    the estimated time of a round - waves of blocks over the 132 SMs times
-    the window words each block steps - and then the words stepped in all."""
+# Clusters of c = 1..16 blocks the card places at once at one block of
+# 512 threads a SM (cudaOccupancyMaxActiveClusters, as sliced_times.py
+# prints it; NVIDIA H100 80GB HBM3): a cluster's blocks share a GPC, so
+# this is not 132 // c.
+_SLICED_CLUSTERS_AT_ONCE = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7,
+                            7, 7)
+
+
+def sliced_waves(npl: int, geo: SlicedGeometry) -> int:
+    """Waves of clusters (of blocks, without a cluster) a launch of ``npl``
+    planes takes, at one block a SM."""
+    groups = npl * geo.bands * (geo.strips // geo.cluster)
+    return -(-groups // _SLICED_CLUSTERS_AT_ONCE[geo.cluster - 1])
+
+
+# The per-step model plan_bitsliced minimises, in microseconds: a launch
+# (amortised over the halo's steps it runs; its window's load and store
+# and the launch gap), then per wave of clusters a step's floor (the
+# segments' block barrier with it), its issue cost per warp-word of a
+# block, a strip refresh through the cluster (every ghost steps) and a warp
+# refresh (every warp_ghost x cols_per_thread steps). Fitted by least
+# squares of the relative error to the 4137 geometries of sliced_times.py
+# --sweep on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md §6; median
+# error 7 %).
+_SLICED_US_LAUNCH = 3.2350
+_SLICED_US_STEP = 0.0656
+_SLICED_US_WARP_WORD = 0.0068
+_SLICED_US_REFRESH = 0.6766
+_SLICED_US_WARP_REFRESH = 0.1257
+
+
+def _sliced_features(npl: int, geo: SlicedGeometry) -> list[float]:
+    """The terms of :func:`_sliced_step_model_us`, in the order of its
+    constants."""
+    waves = sliced_waves(npl, geo)
+    h = geo.halo
+    # Refreshes a step: (k - 1) // period in a launch of k = h steps.
+    per = (lambda period: ((h - 1) // period) / h) if h else (
+        lambda period: 1.0 / period)
+    return [1.0 / h if h else 0.0, waves,
+            waves * geo.segments * geo.warps * geo.rows_per_thread
+            * geo.cols_per_thread,
+            waves * (per(geo.ghost) if geo.exchange else 0.0),
+            waves * (per(geo.warp_ghost * geo.cols_per_thread)
+                     if geo.warps > 1 else 0.0)]
+
+
+def _sliced_step_model_us(npl: int, geo: SlicedGeometry) -> float:
+    """The modelled device time of one step of a ``bitlife_bitsliced`` call
+    on ``npl`` planes (see the constants above)."""
+    coef = (_SLICED_US_LAUNCH, _SLICED_US_STEP, _SLICED_US_WARP_WORD,
+            _SLICED_US_REFRESH, _SLICED_US_WARP_REFRESH)
+    return sum(c * f for c, f in zip(coef, _sliced_features(npl, geo)))
+
+
+_SLICED_HALOS = (8, 16, 32)
+
+
+def _sliced_tries(shape, halos, ghosts_of):
+    """The legal geometries of each strip count, halo (and 0, one band),
+    ghost (``ghosts_of(wmin, halo)``, plus ghost zones of ``halo``),
+    columns and copied lanes a thread: of band counts, the fewest that fit
+    a block and those that put one and two blocks on every SM, each with
+    the fewest rows a thread that fit."""
     npl, ny, nx = shape
-    k = SLICE_HALO
+    out = []
+    for strips in range(1, min(SLICED_MAX_CLUSTER, nx) + 1):
+        wmin, wmax = nx // strips, -(-nx // strips)
+        for halo in halos:
+            ghosts = [g for g in ghosts_of(wmin, halo)
+                      if halo == 0 or g < halo]
+            if halo:
+                ghosts.append(halo)
+            for ghost in ghosts:
+                for ct in (1, 2, 4):
+                    units = -(-(wmax + 2 * ghost) // ct)
+                    for tau in ((1,) if units <= 32 else (1, 2)):
+                        warps = 1 if units <= 32 else -(-units // (32 - 2 * tau))
+                        pmax = SLICED_MAX_THREADS // (32 * warps)
+                        rts = [rt for rt, c in SLICED_KERNELS if c == ct]
+                        if halo == 0:
+                            band_opts = [1]
+                        else:
+                            rows_max = pmax * max(rts) - 2 * halo
+                            if rows_max < 1:
+                                continue
+                            fewest = -(-ny // rows_max)
+                            band_opts = sorted({min(ny, max(fewest, -(-n // (npl * strips))))
+                                                for n in (1, N_SMS, 2 * N_SMS)})
+                        for bands in band_opts:
+                            rows = ny if halo == 0 else -(-ny // bands) + 2 * halo
+                            for rt in rts:
+                                if -(-rows // rt) > pmax:
+                                    continue
+                                try:
+                                    out.append(sliced_geometry(
+                                        ny, nx, bands, halo, strips, ghost,
+                                        rt, ct, tau))
+                                except ValueError:
+                                    continue
+                                break
+    return out
+
+
+def sliced_candidates(shape: tuple[int, int, int]) -> list[SlicedGeometry]:
+    """Every geometry :func:`plan_bitsliced` weighs for an ``(n_planes, ny,
+    nx)`` stack, in the order it weighs them: 1 to 16 strips; one band
+    without a halo, then halos of 8, 16 and 32 rows; ghosts of 4 and 8
+    columns (or of 2 and 1 on narrow strips) refreshed through the ring,
+    and ghost zones as deep as the halo; 1, 2 and 4 columns and 1 or 2
+    copied lanes a thread; the fewest bands that fit a block and those that
+    fill the card once and twice; the fewest rows a thread that fit. A
+    stack where none of those is legal (a plane too wide for 16 strips of
+    a block each) takes the legal ones of halos of 4, 2 and 1 rows."""
+    def ghosts(wmin, halo):
+        return [g for g in (4, 8) if g <= wmin] or [g for g in (2, 1)
+                                                   if g <= wmin][:1]
+    out = _sliced_tries(shape, (0,) + _SLICED_HALOS, ghosts)
+    if not out:
+        out = _sliced_tries(shape, (4, 2, 1),
+                            lambda wmin, halo: [1] if wmin else [])
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def plan_bitsliced(shape: tuple[int, int, int]) -> SlicedGeometry:
+    """The geometry :func:`bitsliced_steps` runs an ``(n_planes, ny, nx)``
+    stack with: a plain function of the shape (cached), so that the same
+    stack always gets the same launches. Of :func:`sliced_candidates`, the
+    one of least :func:`_sliced_step_model_us` (the first on a tie)."""
+    npl, ny, nx = (int(v) for v in shape)
+    if npl < 1 or ny < 1 or nx < 1:
+        raise ValueError(f"plan_bitsliced: empty stack {shape}")
     best = None
-    for tr in _tile_sizes(ny):
-        for tc in _tile_sizes(nx):
-            words = (tr + 2 * k) * (tc + 2 * k)
-            blocks = npl * math.ceil(ny / tr) * math.ceil(nx / tc)
-            cost = (math.ceil(blocks / N_SMS) * words, blocks * words)
-            if best is None or cost < best[0]:
-                best = (cost, tr, tc)
-    return SlicePlan(tr=best[1], tc=best[2], k=k)
+    for geo in sliced_candidates((npl, ny, nx)):
+        t = _sliced_step_model_us(npl, geo)
+        if best is None or t < best[0]:
+            best = (t, geo)
+    if best is None:
+        raise ValueError(f"plan_bitsliced: no geometry for {shape}")
+    t, geo = best
+    kind = (f"a cluster of {geo.strips}, refresh every {geo.ghost} steps"
+            if geo.exchange else f"{geo.strips} ghost-zone strips")
+    return dataclasses.replace(
+        geo, reason=(f"{geo.bands} bands of halo {geo.halo}, {kind}, model "
+                     f"{t:.3f} us a step"))
 
 
 def _bitsliced_steps_plain(planes: torch.Tensor, steps: int) -> torch.Tensor:
@@ -1345,11 +1588,14 @@ def _bitsliced_steps_plain(planes: torch.Tensor, steps: int) -> torch.Tensor:
     return planes
 
 
-def bitsliced_steps(planes: torch.Tensor, steps: int) -> torch.Tensor:
+def bitsliced_steps(planes: torch.Tensor, steps: int,
+                    geometry: SlicedGeometry | None = None) -> torch.Tensor:
     """Advance a (n_planes, ny, nx) board-sliced stack ``steps`` steps: the
-    ``bitlife_bitsliced`` kernel on the card - ``ceil(steps / 16)``
-    launches, one round of halo tiles each, counted as the C entry point
-    reports them - :func:`bitsliced_step` looped on the CPU."""
+    ``bitlife_bitsliced`` kernel on the card - each plane's row bands over
+    the column strips of thread-block clusters, a column's words in
+    registers, laid out by :func:`plan_bitsliced` unless ``geometry`` is
+    given, in ``geometry.launches(steps)`` launches, counted as the C entry
+    point reports them - :func:`bitsliced_step` looped on the CPU."""
     if planes.device.type == "cpu":
         return _bitsliced_steps_plain(planes, steps)
     _check_card_words(planes, "bitsliced_steps", ndim=3)
@@ -1357,7 +1603,7 @@ def bitsliced_steps(planes: torch.Tensor, steps: int) -> torch.Tensor:
     if steps == 0:
         return planes.clone()
     npl, ny, nx = planes.shape
-    plan = plan_bitsliced((npl, ny, nx))
+    geo = geometry or plan_bitsliced((npl, ny, nx))
     out = torch.empty_like(planes)
     scratch = torch.empty_like(planes)
     launched = ctypes.c_int(0)
@@ -1365,14 +1611,31 @@ def bitsliced_steps(planes: torch.Tensor, steps: int) -> torch.Tensor:
     with torch.cuda.device(planes.device):
         rc = lib.bitlife_bitsliced(
             planes.data_ptr(), out.data_ptr(), scratch.data_ptr(), npl, ny,
-            nx, plan.tr, plan.tc, plan.k, steps,
-            torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
+            nx, *geo.args(), steps, torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(launched))
     bitsliced_steps.launches += launched.value
     _build.check(lib, "bitlife_bitsliced", rc)
     return out
 
 
 bitsliced_steps.launches = 0
+
+
+def bitsliced_attributes(shape: tuple[int, int, int],
+                         geometry: SlicedGeometry) -> dict[str, int]:
+    """What the CUDA runtime reports for the ``bitlife_bitsliced`` launch of
+    this geometry on an ``(n_planes, ny, nx)`` stack
+    (``bitlife_bitsliced_attributes``): registers and local (spilled) bytes
+    a thread, static and dynamic shared bytes and threads a block, and the
+    clusters the card can hold at once. Needs the card."""
+    lib = _build.load("bitlife_bitsliced")
+    vals = (ctypes.c_int * 6)()
+    rc = lib.bitlife_bitsliced_attributes(*(int(v) for v in shape),
+                                          *geometry.args(), vals)
+    _build.check(lib, "bitlife_bitsliced", rc)
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes", "max_active_clusters", "threads"),
+                    vals))
 
 
 def life_run_bitsliced_batch(boards: torch.Tensor, n: int) -> torch.Tensor:

@@ -188,17 +188,27 @@ def test_bitsliced_keeps_dtype_and_cpu_launch_count():
             tb.vmem_batch_steps.launches) == before
 
 
-@pytest.mark.parametrize("shape,tile", [
-    ((2, 500, 500), (64, 64)), ((8, 500, 500), (128, 128)),
-    ((1, 1, 8), (1, 8)), ((2, 37, 45), (8, 8)),
+@pytest.mark.parametrize("shape,min_blocks", [
+    ((2, 500, 500), 66), ((8, 500, 500), 132), ((1, 1, 8), 1),
+    ((2, 37, 45), 2),
 ])
-def test_plan_bitsliced(shape, tile):
-    """Tiles fit a block's shared memory with their halo, and the planner
-    fills the SMs (B = 64 at 500^2: 2 planes x 8 x 8 tiles = 128 blocks)."""
-    plan = tb.plan_bitsliced(shape)
-    assert (plan.tr, plan.tc) == tile and plan.k == tb.SLICE_HALO
-    window = (plan.tr + 2 * plan.k) * (plan.tc + 2 * plan.k)
-    assert window * tb.BYTES_PER_WORD <= tb.SMEM_BYTES
+def test_plan_bitsliced(shape, min_blocks):
+    """The plan's bands and strips cover each plane once, its blocks fit
+    the card (threads, shared memory, a cluster of at most 16), a launch
+    steps at most the halo, and the planner spreads the stack over at
+    least ``min_blocks`` blocks (B = 64 at 500^2: half the SMs or more)."""
+    npl, ny, nx = shape
+    geo = tb.plan_bitsliced(shape)
+    assert [r for a, b in geo.band_bounds(ny) for r in range(a, b)] == list(
+        range(ny))
+    assert [c for a, b in geo.strip_bounds(nx) for c in range(a, b)] == list(
+        range(nx))
+    assert geo.threads <= tb.SLICED_MAX_THREADS
+    assert geo.smem_bytes <= tb.SMEM_BYTES
+    assert geo.cluster in (1, geo.strips) and geo.strips <= 16
+    assert geo.launches(1000) == (1 if geo.halo == 0
+                                  else -(-1000 // geo.halo))
+    assert npl * geo.bands * geo.strips >= min_blocks
 
 
 # --------------------------------------------------------------- dispatch

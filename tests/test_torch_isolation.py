@@ -19,7 +19,8 @@ def _port_sources():
     out = [os.path.join(ROOT, f) for f in ("chip_smoke.py",
                                           "stencil_times.py",
                                           "window_times.py",
-                                          "vmem_times.py")]
+                                          "vmem_times.py",
+                                          "sliced_times.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
