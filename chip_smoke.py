@@ -29,7 +29,11 @@ Phases, each of which raises (exit code 1) when it fails:
    ``bitlife_vmem_cluster_kernel<RT, FULL>`` and the one-block
    ``bitlife_vmem_kernel``, and for p46gun_big's and a tall board's
    geometry (``vmem_launch_geometry``, ``bitlife_vmem_attributes``), which
-   the card must place at least once; the same for each
+   the card must place at least once; the same for the same cluster
+   kernels and the one-block ``bitlife_vmem_batch_kernel`` of
+   ``bitlife_vmem_batch``, and for the geometry
+   ``vmem_batch_launch_geometry`` chooses for 4 and 64 boards of 500^2
+   (``bitlife_vmem_batch_attributes``); the same for each
    ``bitlife_bitsliced_kernel<RT, CT, FULL>``, and for the geometry
    ``plan_bitsliced`` chooses for 64 and 512 boards of 500^2
    (``bitlife_bitsliced_attributes``);
@@ -43,12 +47,18 @@ Phases, each of which raises (exit code 1) when it fails:
    stepped as one window) on the card, boards bit-exact: aligned 4096^2 and
    16384^2 at n in {1, 128, 300}, the padded frame at 10000^2 and 1000^2 at
    n = 300;
-4. ``bitlife_vmem_batch`` (B in {1, 3, 4, 64}) and ``bitlife_bitsliced`` (B in
-   {8, 33, 64, 256}) against their plain versions on the card, packed words
-   bit-exact, at (500, 500), (37, 45) and (95, 130) and n in {0, 1, 13,
-   1000}; the bitsliced kernel also at the degenerate extents 1x8, 8x1, 2x2,
-   at B = 512 at 500^2, and at its geometry's g, g + 1, halo and halo + 1
-   steps (each case logs the geometry ``plan_bitsliced`` chooses);
+4. ``bitlife_vmem_batch`` (B in {1, 3, 4, 7, 8, 16, 64}) and
+   ``bitlife_bitsliced`` (B in {8, 33, 64, 256}) against their plain
+   versions on the card, packed words bit-exact, at (500, 500), (37, 45)
+   and (95, 130) and n in {0, 1, 13, 1000} and at each geometry's g and
+   g + 1 steps (each case logs the geometry ``vmem_batch_launch_geometry``
+   or ``plan_bitsliced`` chooses); the cell-packed kernel also under each
+   geometry family forced at B = 4 (a cluster of 16, a cluster of 2, one
+   block), on random words at a board that takes the one-block form
+   (``VMEM_SHAPES``' 16400 x 24) and on a stack past the grid's y extent
+   (70 000 boards of 1 x 8); the bitsliced kernel also at the degenerate
+   extents 1x8, 8x1, 2x2, at B = 512 at 500^2, and at its halo and
+   halo + 1 steps;
 5. the main paths through ``LifeSim``, the CLI and the batcher, with every
    launch count set to 0 just before each and read just after:
    p46gun_big (``configs/gun_big_500x500.cfg``, all 10 000 steps, one
@@ -62,18 +72,22 @@ Phases, each of which raises (exit code 1) when it fails:
    steps through ``"bitsliced"``, board 0 against the oracle and every
    board against the single-board ``bitlife_vmem`` kernel (a layout that
    shares no code with the board-sliced one); its first 4 boards through
-   ``"vmem-grid"``; the CLI with ``--batch 64`` (population 466 432); and
+   ``"vmem-grid"`` (its geometry logged), against the oracle and the
+   bitsliced stack's first 4 boards; the CLI with ``--batch 64``
+   (population 466 432); and
    the batcher on 40 p46gun_big-size soups at two step counts, each result
    against ``bitlife_vmem``;
 6. times from CUDA events after a warm-up: each kernel at the main path's
    shapes beside its plain version and its bound (the resident kernel also
    by profiler device time, with its geometry and the bound for the SMs
    its blocks occupy, and so the board-sliced kernel, with the words it
-   steps over the useful words), per-step rates from the
-   difference of two step counts, the batched path's split into pack,
-   kernel, unpack and the copy to the host, and both batched kernels side by
-   side at B in {64, 128, 256, 512} x 500^2 and {8, 64, 256, 512} x 95x130
-   (where each wins), their boards compared;
+   steps over the useful words, and the cell-packed stack kernel at the
+   main path's 4 x 500^2 and at 64 x 500^2, with its geometry), per-step
+   rates from the difference of two step counts, the batched path's split
+   into pack, kernel, unpack and the copy to the host, and both batched
+   kernels side by side at B in {1, 2, 4, 7, 8, 16, 32, 64, 128, 256, 512}
+   x 500^2 and {1, 2, 4, 7, 8, 16, 32, 64, 256, 512} x 95x130 (where each
+   wins), their boards compared;
 7. ``stencil_padded`` against its plain version (``stencils.engine.
    step_padded``) on the card, every case bit for bit (max abs error 0.0,
    equal bits): every registered stencil spec, a ``make_lenia(3)`` and
@@ -501,9 +515,13 @@ STENCIL_KERNEL = re.compile(r"stencil_padded_kernelILi(\d)ELi(\d+)E")
 # bitlife_window_kernel<RT>: the rows a thread holds.
 WINDOW_KERNEL = re.compile(r"bitlife_window_kernelILi(\d+)E")
 # bitlife_vmem_cluster_kernel<RT, FULL> (the rows a thread holds, and
-# whether every segment holds RT) and the one-block bitlife_vmem_kernel.
+# whether every segment holds RT) and the one-block bitlife_vmem_kernel;
+# in bitlife_vmem_batch the same cluster kernels and the one-block
+# bitlife_vmem_batch_kernel.
 VMEM_KERNEL = re.compile(
     r"bitlife_vmem_(?:cluster_kernelILi(\d+)ELb([01])E|kernel)")
+VMEM_BATCH_KERNEL = re.compile(
+    r"bitlife_vmem_(?:cluster_kernelILi(\d+)ELb([01])E|batch_kernel)")
 # bitlife_bitsliced_kernel<RT, CT, FULL>: the rows and columns a thread
 # holds, and whether every segment holds RT.
 SLICED_KERNEL = re.compile(r"bitlife_bitsliced_kernelILi(\d+)ELi(\d+)ELb([01])E")
@@ -648,7 +666,8 @@ def main() -> int:
     for name, text in logs.items():
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
         if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded",
-                    "bitlife_window", "bitlife_vmem", "bitlife_bitsliced"):
+                    "bitlife_window", "bitlife_vmem", "bitlife_vmem_batch",
+                    "bitlife_bitsliced"):
             continue  # per kernel below
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
@@ -794,6 +813,42 @@ def main() -> int:
                 or at["max_active_clusters"] < 1):
             raise AssertionError(f"bitlife_vmem ({ny_v}, {nx_v}): {at}")
 
+    # The cell-packed stack kernel's: the same cluster kernels and its
+    # one-block form, registers and spills from its own build log (none may
+    # spill); then the geometry of the main path's 4-board stack and of 64
+    # boards of 500^2, with what the CUDA runtime reports for it.
+    vmem_batch_build = {}
+    for (rt, full), props in ptxas_kernels(
+            logs["bitlife_vmem_batch"], VMEM_BATCH_KERNEL,
+            lambda m: (int(m[1] or 0), m[2] == "1")).items():
+        label = (f"bitlife_vmem_cluster_kernel<{rt}, "
+                 f"{'full' if full else 'ragged'}>" if rt else
+                 "bitlife_vmem_batch_kernel (one block)")
+        vmem_batch_build[label] = props
+        log(f"  bitlife_vmem_batch {label}: {props['registers']} registers, "
+            f"{props['spill_stores']} + {props['spill_loads']} bytes spilled")
+        if props["spill_stores"] or props["spill_loads"]:
+            raise AssertionError(f"bitlife_vmem_batch {label} spills")
+    if len(vmem_batch_build) != 2 * len(tb.WINDOW_ROWS_PER_THREAD) + 1:
+        raise AssertionError(
+            f"vmem_batch kernels built: {sorted(vmem_batch_build)}")
+    vmem_batch_geo = {}
+    for b_v in (4, 64):
+        geo = tb.vmem_batch_launch_geometry(b_v, 500, 500)
+        at = tb.vmem_batch_attributes(b_v, 500, 500, geo)
+        vmem_batch_geo[f"{b_v}x500x500"] = {
+            "geometry": dataclasses.asdict(geo), **at,
+            "waves_modelled": tb.vmem_batch_waves(b_v, geo)}
+        log(f"  bitlife_vmem_batch {b_v} x (500, 500): (strips, cluster, g, "
+            f"rt, tau) = {geo.args()}, {geo.threads} threads, "
+            f"{at['registers']} registers, {at['local_bytes']} local bytes, "
+            f"{at['static_smem_bytes']} + {at['dynamic_smem_bytes']} bytes "
+            f"shared memory; the card holds {at['max_active_clusters']} such "
+            f"clusters at once, {b_v} in the launch ({geo.reason})")
+        if (at["local_bytes"] or at["dynamic_smem_bytes"] != geo.smem_bytes
+                or at["max_active_clusters"] < 1):
+            raise AssertionError(f"bitlife_vmem_batch {b_v} x 500^2: {at}")
+
     # The board-sliced kernels one by one (bitlife_bitsliced_kernel<RT, CT,
     # FULL>): registers and spills from the build log, none may spill; then
     # the batched main path's geometry (64 boards of 500^2, 2 planes) and
@@ -912,21 +967,61 @@ def main() -> int:
     t0 = time.perf_counter()
     batch_err = {"vmem_batch": 0, "bitsliced": 0}
     shapes = [(500, 500), (37, 45), (95, 130)]
-    for b in (1, 3, 4, 64):
+    vmem_batch_cases = []
+
+    def vmem_batch_case(what, packed, ny, geo, forced, ns):
+        """``bitlife_vmem_batch`` at each n of ``ns`` under ``geo`` (given
+        through ``geometry=`` when ``forced``) against the plain version,
+        advanced from the last n."""
+        log(f"  vmem_batch {what}: (strips, cluster, g, rt, tau) = "
+            f"{geo.args()}, {geo.threads} threads, grid "
+            f"{tb.vmem_batch_grid(packed.shape[0], geo)} "
+            f"({'forced' if forced else geo.reason})")
+        want, done = packed, 0
+        for n in sorted(ns):
+            got = tb.vmem_batch_steps(packed, ny, n,
+                                      geometry=geo if forced else None)
+            want = tb._vmem_batch_steps_plain(want, ny, n - done)
+            done = n
+            bad = diff_count(got, want)
+            batch_err["vmem_batch"] = max(batch_err["vmem_batch"],
+                                          min(bad, 1))
+            vmem_batch_cases.append({"case": what, "n": n,
+                                     "geometry": list(geo.args()),
+                                     "differing_words": bad})
+            log(f"  vmem_batch {what} n={n}: differing words {bad}")
+            if bad:
+                raise AssertionError(
+                    f"bitlife_vmem_batch disagrees at {what} n={n}")
+
+    for b in (1, 3, 4, 7, 8, 16, 64):
         for shape in shapes:
             ny = shape[0]
             packed = tb.pack_boards(soup((b, *shape), seed))
             seed += 1
-            for n in (0, 1, 13, 1000):
-                got = tb.vmem_batch_steps(packed, ny, n)
-                want = tb._vmem_batch_steps_plain(packed, ny, n)
-                bad = diff_count(got, want)
-                batch_err["vmem_batch"] = max(batch_err["vmem_batch"],
-                                              min(bad, 1))
-                log(f"  vmem_batch B={b} {shape} n={n}: differing words {bad}")
-                if bad:
-                    raise AssertionError(
-                        f"bitlife_vmem_batch disagrees at B={b} {shape} n={n}")
+            geo = tb.vmem_batch_launch_geometry(b, *shape)
+            vmem_batch_case(f"B={b} {shape}", packed, ny, geo, False,
+                            {0, 1, 13, 1000, geo.ghost, geo.ghost + 1})
+    # Each geometry family forced at B = 4, at 500^2 and 95x130; a board
+    # no cluster holds (the one-block form, random words, ghost and junk
+    # bits too); a stack past the grid's y extent (65 535 boards).
+    for shape in ((500, 500), (95, 130)):
+        packed = tb.pack_boards(soup((4, *shape), seed))
+        seed += 1
+        for family, args in (("a cluster of 16", (16, 8, 4, 4)),
+                             ("a cluster of 2", (2, 8, 16, 1)),
+                             ("one block", (1, 0, 0, 0))):
+            geo = tb.vmem_geometry(*shape, *args)
+            vmem_batch_case(f"B=4 {shape} {family}", packed, shape[0], geo,
+                            True, {1, 13, geo.ghost, geo.ghost + 1, 200})
+    for b, shape in ((2, VMEM_SHAPES[-1]), (70000, (1, 8))):
+        ny = shape[0]
+        packed = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                               (b, tb.n_words(ny), shape[1]), generator=gen_v,
+                               device="cuda", dtype=torch.int32)
+        geo = tb.vmem_batch_launch_geometry(b, *shape)
+        vmem_batch_case(f"B={b} {shape} random words", packed, ny, geo,
+                        False, {1, 13, geo.ghost + 1})
     # The board-sliced kernel at n in {0, 1, 13, 1000} and at its
     # geometry's edges: g and g + 1 (the first strip refresh), k and k + 1
     # (one launch of the halo's depth, then a second launch).
@@ -1056,16 +1151,22 @@ def main() -> int:
 
     gsim = LifeSim(cfg, layout="serial", impl="auto", initial_board=stack[:4])
     gfinal, launches_grid = run_counted(wrappers, gsim.run)
+    grid_geo = tb.vmem_batch_launch_geometry(4, ny, nx)
     log(f"  main path 4-board stack: path={gsim.native_path} "
-        f"launches={launches_grid}")
+        f"launches={launches_grid}; (strips, cluster, g, rt, tau) = "
+        f"{grid_geo.args()}, {grid_geo.threads} threads ({grid_geo.reason})")
     if (gsim.native_path != "batch:vmem-grid"
             or launches_grid["vmem_batch"] < 1):
         raise AssertionError("the 4-board stack did not run through "
                              "bitlife_vmem_batch")
+    if not np.array_equal(gfinal[0], oracle):
+        raise AssertionError("the 4-board vmem-grid stack's board 0 differs "
+                             "from the oracle")
     if not np.array_equal(gfinal, bfinal[:4]):
         raise AssertionError("the 4-board vmem-grid stack differs from the "
                              "bitsliced stack's first 4 boards")
-    log("  4-board vmem-grid stack matches")
+    log("  4-board vmem-grid stack matches the oracle (board 0) and the "
+        "bitsliced stack's first 4 boards")
     del bsim, gsim, gfinal
 
     cli_run("--batch", "64", population=64 * 7288,
@@ -1159,27 +1260,55 @@ def main() -> int:
         del board, frame, q, e
         torch.cuda.empty_cache()
 
-    # The batched kernels at the main path's shape: 64 boards of 500^2.
+    # The batched kernels at the main paths' stacks: the cell-packed one at
+    # the "vmem-grid" stack of 4 boards of 500^2 and at 64, the board-sliced
+    # one at 64 (board 0 p46gun_big, the rest soups).
     nb = 64
     cells = soup((nb, ny, nx), 31)
     cells[0] = torch.from_numpy(cfg.board()).cuda()
-    stack_packed = tb.pack_boards(cells)
-    tb.vmem_batch_steps(stack_packed, ny, 100)  # warm-up
-    vb_ms = cuda_ms(lambda: tb.vmem_batch_steps(stack_packed, ny, n_main),
-                    reps=3)
-    plain_vb_ms = cuda_ms(
-        lambda: tb._vmem_batch_steps_plain(stack_packed, ny, n_main))
-    vb_words = stack_packed.numel()
-    vb_bound, vb_by = bound_ms(OPS_PER_WORD_STEP * vb_words * n_main,
-                               2 * 4 * vb_words)
-    t_a = cuda_ms(lambda: tb.vmem_batch_steps(stack_packed, ny, 2000))
-    t_b = cuda_ms(lambda: tb.vmem_batch_steps(stack_packed, ny, 12000))
-    vb_us_step = (t_b - t_a) / 10000 * 1e3
-    log(f"  vmem_batch {nb} x {ny}x{nx} {n_main} steps: {vb_ms:.4f} ms per "
-        f"call, plain {plain_vb_ms:.2f} ms, bound {vb_bound:.4f} ms (card) / "
-        f"{vb_bound * N_SMS / nb:.4f} ms (the {nb} SMs it uses); "
-        f"{vb_us_step:.4f} us/step, "
-        f"{nb * ny * nx / vb_us_step / 1e3:.3f} Gcups (differenced) [{card}]")
+    vb_rec = {}
+    for nb_v in (4, nb):
+        stack_packed = tb.pack_boards(cells[:nb_v])
+        geo_v = tb.vmem_batch_launch_geometry(nb_v, ny, nx)
+
+        def vb_call(n=n_main):
+            return tb.vmem_batch_steps(stack_packed, ny, n)
+
+        vb_call(100)  # warm-up
+        vb_ms = cuda_ms(vb_call, reps=3)
+        try:
+            vb_dev = device_ms(vb_call, 5, "bitlife_vmem")
+        except RuntimeError as e:  # the tracer kept no record
+            log(f"  vmem_batch {nb_v} x {ny}x{nx}: device time not measured "
+                f"({e})")
+            vb_dev = None
+        plain_vb_ms = cuda_ms(
+            lambda: tb._vmem_batch_steps_plain(stack_packed, ny, n_main))
+        vb_words = stack_packed.numel()
+        vb_bound, vb_by = bound_ms(OPS_PER_WORD_STEP * vb_words * n_main,
+                                   2 * 4 * vb_words)
+        vb_sms = min(N_SMS, nb_v * geo_v.strips)
+        t_a = cuda_ms(lambda: vb_call(2000))
+        t_b = cuda_ms(lambda: vb_call(12000))
+        vb_us_step = (t_b - t_a) / 10000 * 1e3
+        vb_rec[nb_v] = {
+            "ms": vb_ms, "device_ms": vb_dev, "plain_ms": plain_vb_ms,
+            "bound_ms": vb_bound, "bound_by": vb_by,
+            "bound_ms_occupied": vb_bound * N_SMS / vb_sms,
+            "us_per_step": vb_us_step, "geometry": dataclasses.asdict(geo_v),
+            "waves_modelled": tb.vmem_batch_waves(nb_v, geo_v),
+            "shape": f"{nb_v} x {ny}x{nx}, {n_main} steps per call"}
+        dev_text = "not measured" if vb_dev is None else f"{vb_dev:.4f} ms"
+        log(f"  vmem_batch {nb_v} x {ny}x{nx} {n_main} steps: {vb_ms:.4f} ms "
+            f"per call (device {dev_text}), plain {plain_vb_ms:.2f} ms, "
+            f"bound {vb_bound:.4f} ms (card) / "
+            f"{vb_bound * N_SMS / vb_sms:.4f} ms (the {vb_sms} SMs of its "
+            f"blocks); (strips, cluster, g, rt, tau) = {geo_v.args()}, "
+            f"{geo_v.threads} threads, {nb_v * geo_v.strips} blocks "
+            f"({geo_v.reason}); {vb_us_step:.4f} us/step, "
+            f"{nb_v * ny * nx / vb_us_step / 1e3:.3f} Gcups (differenced) "
+            f"[{card}]")
+        del stack_packed
 
     planes = tb.pack_batch_bits(cells)
     plan = tb.plan_bitsliced(tuple(planes.shape))
@@ -1221,19 +1350,23 @@ def main() -> int:
     log("  bitsliced path split, ms: "
         + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
         + f" [{card}]")
-    del cells, stack_packed, planes, stepped, final_cells
+    del cells, planes, stepped, final_cells
     torch.cuda.empty_cache()
 
     # Both batched kernels on the same stacks: which one a stack size
-    # favours. Per-step times from the difference of 1200 and 200 steps.
+    # favours. Per-step times from the difference of 1200 and 200 steps,
+    # each the least of three calls (a stall of the host in one call once
+    # made a difference negative).
     def per_step_us(fn):
         fn(200)  # warm-up
-        t_a = cuda_ms(lambda: fn(200))
-        t_b = cuda_ms(lambda: fn(1200))
+        t_a = min(cuda_ms(lambda: fn(200)) for _ in range(3))
+        t_b = min(cuda_ms(lambda: fn(1200)) for _ in range(3))
         return (t_b - t_a) / 1000 * 1e3
 
-    sweep = [((500, 500), b) for b in (64, 128, 256, 512)]
-    sweep += [((95, 130), b) for b in (8, 64, 256, 512)]
+    sweep = [((500, 500), b) for b in (1, 2, 4, 7, 8, 16, 32, 64, 128, 256,
+                                       512)]
+    sweep += [((95, 130), b) for b in (1, 2, 4, 7, 8, 16, 32, 64, 256, 512)]
+    side_by_side = []
     for shape, b in sweep:
         ny_s = shape[0]
         cells = soup((b, *shape), 41 + b)
@@ -1250,13 +1383,19 @@ def main() -> int:
             raise AssertionError(f"batched kernels disagree at B={b} {shape}: "
                                  f"{bad} cells")
         geo_s = tb.plan_bitsliced(tuple(planes.shape))
+        geo_g = tb.vmem_batch_launch_geometry(b, *shape)
         winner = "vmem-grid" if grid_us < sliced_us else "bitsliced"
         ratio = max(grid_us, sliced_us) / min(grid_us, sliced_us)
         cells_per_step = b * shape[0] * shape[1]
+        side_by_side.append({"boards": b, "shape": list(shape),
+                             "vmem_grid_us_per_step": grid_us,
+                             "bitsliced_us_per_step": sliced_us,
+                             "vmem_grid_geometry": list(geo_g.args()),
+                             "winner": winner})
         log(f"  batched B={b} {shape[0]}x{shape[1]}: vmem-grid "
             f"{grid_us:.4f} us/step "
-            f"({cells_per_step / grid_us / 1e3:.1f} Gcups), bitsliced "
-            f"{sliced_us:.4f} us/step "
+            f"({cells_per_step / grid_us / 1e3:.1f} Gcups; {geo_g.args()}), "
+            f"bitsliced {sliced_us:.4f} us/step "
             f"({cells_per_step / sliced_us / 1e3:.1f} Gcups; {geo_s.args()}); "
             f"{winner} faster by {ratio:.3f}x, boards equal [{card}]")
         del cells, packed, planes, grid_board, sliced_board
@@ -2650,10 +2789,26 @@ def main() -> int:
          "replaces": "mpi_and_open_mp_tpu/ops/bitlife.py:1084",
          "launches": launches_grid["vmem_batch"],
          "max_abs_err": float(batch_err["vmem_batch"]),
-         "ms": vb_ms, "plain_ms": plain_vb_ms, "bound_ms": vb_bound,
-         "bound_by": vb_by, "library_ms": None,
-         "shape": f"{nb} x 500x500, 10000 steps per call",
-         "us_per_step": vb_us_step},
+         "ms": vb_rec[4]["ms"], "plain_ms": vb_rec[4]["plain_ms"],
+         "bound_ms": vb_rec[4]["bound_ms"], "bound_by": vb_rec[4]["bound_by"],
+         "library_ms": None, "shape": vb_rec[4]["shape"],
+         "us_per_step": vb_rec[4]["us_per_step"],
+         "device_ms": vb_rec[4]["device_ms"],
+         "geometry": vb_rec[4]["geometry"],
+         "bound_ms_occupied": vb_rec[4]["bound_ms_occupied"],
+         "stack_64x500x500": vb_rec[nb],
+         "note": ("the main path's 4 x 500^2 stack; ms: CUDA events around "
+                  "3 calls; device_ms: a torch.profiler trace of 5; "
+                  "bound_ms_occupied: the bound for the SMs of the launch's "
+                  "blocks; side_by_side: us a step of this kernel and "
+                  "bitlife_bitsliced on the same stacks (phase 6); build: "
+                  "registers and spills of each kernel from ptxas, and for 4 "
+                  "and 64 boards of 500^2 the chosen geometry with the CUDA "
+                  "runtime's registers, local bytes, static and dynamic "
+                  "shared bytes and max active clusters"),
+         "side_by_side": side_by_side,
+         "exact_cases": vmem_batch_cases,
+         "build": {"ptxas": vmem_batch_build, "cuda_runtime": vmem_batch_geo}},
         {"name": "bitlife_bitsliced", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_bitsliced.cu",
          "replaces": "mpi_and_open_mp_tpu/ops/bitlife.py:1383",

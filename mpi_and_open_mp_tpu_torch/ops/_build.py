@@ -44,7 +44,10 @@ SIGNATURES = {
         "bitlife_window": [_P, _P] + [_I] * 11 + [_P],
         "bitlife_window_attributes": [_I] * 11 + [_IP],
     },
-    "bitlife_vmem_batch": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "bitlife_vmem_batch": {
+        "bitlife_vmem_batch": [_P, _P] + [_I] * 10 + [_P],
+        "bitlife_vmem_batch_attributes": [_I] * 9 + [_IP],
+    },
     "bitlife_bitsliced": {
         "bitlife_bitsliced": [_P, _P, _P] + [_I] * 12 + [_P, _IP],
         "bitlife_bitsliced_attributes": [_I] * 11 + [_IP],

@@ -47,10 +47,12 @@ one device with a third kernel, or with :func:`fused_steps` per shard:
 Stacks of B boards come in two layouts, each with its kernel:
 
 * cell-packed, ``(B, nw, nx)`` words (:func:`pack_boards`): the board
-  layout above with a leading batch axis. :func:`vmem_batch_steps` runs one
-  block per board, each resident for the whole loop (``"vmem-grid"``),
-  replacing ``_vmem_bits_batch_kernel``; big boards loop through
-  :func:`fused_steps` one board at a time.
+  layout above with a leading batch axis. :func:`vmem_batch_steps` runs
+  each board over the column strips of a thread-block cluster of its own
+  (or one block a board) under :func:`vmem_batch_launch_geometry`, every
+  board resident for the whole loop (``"vmem-grid"``), replacing
+  ``_vmem_bits_batch_kernel``; big boards loop through :func:`fused_steps`
+  one board at a time.
 * board-sliced, ``(n_planes, ny, nx)`` words (:func:`pack_batch_bits`):
   bit ``b % 32`` of plane ``b // 32`` holds board ``b``, so one word
   operation advances 32 boards and a word's neighbours are whole words.
@@ -93,6 +95,11 @@ SMEM_BYTES = 232_448
 BYTES_PER_WORD = 8
 # Streaming multiprocessors of an H100 SXM: the tile planner's wave size.
 N_SMS = 132
+# Clusters of c = 1..16 blocks the card places at once at one block a SM
+# (cudaOccupancyMaxActiveClusters of 512-thread blocks, as sliced_times.py
+# prints it; NVIDIA H100 80GB HBM3): a cluster's blocks share a GPC, so
+# this is not 132 // c.
+CLUSTERS_AT_ONCE = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
 
 # Halo word rows on each side of a fused tile: 4 words = 128 bit rows, so
 # up to 128 steps run on one window before the junk that enters at its
@@ -1187,10 +1194,9 @@ def unpack_boards(packed: torch.Tensor, ny: int) -> torch.Tensor:
 
 def fits_vmem_packed_batch(shape: tuple[int, int, int]) -> bool:
     """Whether the batched resident kernel takes a (B, ny, nx) stack. On
-    Hopper a block is the unit of residency and each board gets its own,
-    so the gate is per board (:func:`fits_vmem_packed`) whatever B; the
-    TPU's whole-stack gate (B times the board within one core's VMEM) has
-    no counterpart."""
+    Hopper each board gets blocks of its own, so the gate is per board
+    (:func:`fits_vmem_packed`) whatever B; the TPU's whole-stack gate (B
+    times the board within one core's VMEM) has no counterpart."""
     return fits_vmem_packed((int(shape[1]), int(shape[2])))
 
 
@@ -1200,11 +1206,113 @@ def _vmem_batch_steps_plain(packed: torch.Tensor, ny: int, steps: int):
     return packed
 
 
-def vmem_batch_steps(packed: torch.Tensor, ny: int, steps: int) -> torch.Tensor:
+# ----------------------------- kernel 4's geometry: one cluster per board
+
+# Boards past the grid's y extent go to its z axis
+# (csrc/bitlife_vmem_cluster.cuh:configure).
+VMEM_BATCH_MAX_GRID_Y = 65535
+
+
+def vmem_batch_waves(b: int, geo: VmemGeometry) -> int:
+    """Waves of clusters a launch of ``b`` boards under ``geo`` takes, at
+    one block an SM: :data:`CLUSTERS_AT_ONCE` of its cluster size at a
+    time (132 boards for the one-block form). The card places more
+    clusters of small blocks at once (k times as many where an SM holds k
+    blocks), but blocks that share an SM slow each other: at 16 and 64
+    boards of 500^2 on an H100 a stack took 0.4-1.0 of the extra waves'
+    time (PERF.md §6), and 1.0 where an SM holds one block."""
+    return -(-b // CLUSTERS_AT_ONCE[geo.cluster - 1])
+
+
+def vmem_batch_grid(b: int, geo: VmemGeometry) -> tuple[int, int, int]:
+    """The launch grid of ``b`` boards: (strips, boards along y, along z),
+    as ``csrc/bitlife_vmem_cluster.cuh:configure`` sets it."""
+    gy = min(b, VMEM_BATCH_MAX_GRID_Y)
+    return geo.strips, gy, -(-b // gy)
+
+
+def vmem_batch_candidates(ny: int, nx: int) -> list[VmemGeometry]:
+    """Every geometry :func:`vmem_batch_launch_geometry` weighs for a stack
+    of ``(ny, nx)`` boards, in the order it weighs them: the cluster
+    geometries of :func:`vmem_candidates`, then the one-block form."""
+    return vmem_candidates(ny, nx) + [vmem_geometry(ny, nx, 1, 0, 0, 0)]
+
+
+# The per-step model vmem_batch_launch_geometry minimises, in microseconds:
+# per wave (vmem_batch_waves), for a cluster geometry the terms of
+# _vmem_step_model_us (a floor, a warp of a segment's row, a word a thread,
+# the segments' barrier, a strip refresh every ghost steps, a warp refresh
+# every warp_ghost steps) and a warp refresh's cost per warp of the row;
+# for the one-block form a floor and a word a thread. Fitted by least
+# squares of the relative error to the geometries of vmem_batch_times.py
+# --sweep that run in one wave, on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6).
+_VMEM_BATCH_US = (0.0114, 0.0436, 0.0295, 0.2704, 0.7610, -0.0352, 0.0525,
+                  0.5885, 0.2932)
+
+
+def _vmem_batch_features(b: int, ny: int, nx: int,
+                         geo: VmemGeometry) -> list[float]:
+    """The terms of :func:`_vmem_batch_step_model_us`, in the order of its
+    constants."""
+    nw = n_words(ny)
+    waves = vmem_batch_waves(b, geo)
+    if geo.one_block:
+        words = -(-nw * nx // VMEM_ONE_BLOCK_THREADS)
+        return [0.0] * 7 + [waves, waves * words]
+    rows = -(-nw // geo.segments)
+    warp_refresh = 1 / geo.warp_ghost if geo.warps > 1 else 0.0
+    return [waves * f for f in (1.0, geo.warps, rows, geo.segments > 1,
+                                1 / geo.ghost, warp_refresh,
+                                geo.warps * warp_refresh)] + [0.0, 0.0]
+
+
+def _vmem_batch_step_model_us(b: int, ny: int, nx: int,
+                              geo: VmemGeometry) -> float:
+    """The modelled device time of one step of a ``bitlife_vmem_batch``
+    launch of ``b`` boards (see the constants above)."""
+    return sum(c * f for c, f in zip(_VMEM_BATCH_US,
+                                     _vmem_batch_features(b, ny, nx, geo)))
+
+
+@functools.lru_cache(maxsize=256)
+def vmem_batch_launch_geometry(b: int, ny: int, nx: int) -> VmemGeometry:
+    """The geometry :func:`vmem_batch_steps` launches a stack of ``b``
+    ``(ny, nx)`` boards with, one cluster (or one block) a board: a plain
+    function of the shape (cached), so that the same stack always gets the
+    same launch. Of :func:`vmem_batch_candidates`, the one of least
+    :func:`_vmem_batch_step_model_us` (the first on a tie): wide clusters
+    step fast but the card places few at once, narrow ones put more boards
+    in a wave. Raises ``ValueError`` for a stack the gate
+    :func:`fits_vmem_packed_batch` refuses."""
+    b, ny, nx = int(b), int(ny), int(nx)
+    if b < 1 or ny < 0 or nx < 1 or not fits_vmem_packed_batch((b, ny, nx)):
+        raise ValueError(f"vmem_batch_launch_geometry: ({b}, {ny}, {nx}) does "
+                         "not fit the resident kernel (gate "
+                         "fits_vmem_packed_batch)")
+    best = None
+    for geo in vmem_batch_candidates(ny, nx):
+        t = _vmem_batch_step_model_us(b, ny, nx, geo)
+        if best is None or t < best[0]:
+            best = (t, geo)
+    t, geo = best
+    waves = vmem_batch_waves(b, geo)
+    kind = ("one block a board" if geo.one_block else
+            f"a cluster of {geo.strips} a board, refresh every {geo.ghost} "
+            "steps")
+    return dataclasses.replace(
+        geo, reason=(f"{kind}, {waves} wave{'s' if waves > 1 else ''}, "
+                     f"model {t:.3f} us a step"))
+
+
+def vmem_batch_steps(packed: torch.Tensor, ny: int, steps: int,
+                     geometry: VmemGeometry | None = None) -> torch.Tensor:
     """Advance a ``(B, nw, nx)`` offset-ghost packed stack ``steps`` steps:
-    the ``bitlife_vmem_batch`` kernel (one block per board, each resident in
-    its block's shared memory for the whole loop) on the card,
-    :func:`bit_step_b` looped on the CPU."""
+    the ``bitlife_vmem_batch`` kernel on the card (each board over the
+    column strips of a thread-block cluster of its own, or one block a
+    board, laid out by :func:`vmem_batch_launch_geometry` unless
+    ``geometry`` is given, in one launch), :func:`bit_step_b` looped on the
+    CPU."""
     if packed.device.type == "cpu":
         return _vmem_batch_steps_plain(packed, ny, steps)
     _check_card_words(packed, "vmem_batch_steps", ndim=3)
@@ -1213,18 +1321,36 @@ def vmem_batch_steps(packed: torch.Tensor, ny: int, steps: int) -> torch.Tensor:
         raise ValueError(
             f"vmem_batch_steps: packed {tuple(packed.shape)} for ny={ny} does "
             f"not fit the resident kernel (gate fits_vmem_packed_batch)")
+    geo = geometry or vmem_batch_launch_geometry(b, ny, nx)
     out = torch.empty_like(packed)
     lib = _build.load("bitlife_vmem_batch")
     with torch.cuda.device(packed.device):
         rc = lib.bitlife_vmem_batch(
             packed.data_ptr(), out.data_ptr(), b, nw, nx, ny, int(steps),
-            torch.cuda.current_stream().cuda_stream)
+            *geo.args(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "bitlife_vmem_batch", rc)
     vmem_batch_steps.launches += 1
     return out
 
 
 vmem_batch_steps.launches = 0
+
+
+def vmem_batch_attributes(b: int, ny: int, nx: int,
+                          geometry: VmemGeometry) -> dict[str, int]:
+    """What the CUDA runtime reports for the ``bitlife_vmem_batch`` launch
+    of this geometry on ``b`` boards (``bitlife_vmem_batch_attributes``):
+    registers and local (spilled) bytes a thread, static and dynamic shared
+    bytes and threads a block, and the clusters the card can hold at once.
+    Needs the card."""
+    lib = _build.load("bitlife_vmem_batch")
+    vals = (ctypes.c_int * 6)()
+    rc = lib.bitlife_vmem_batch_attributes(b, n_words(ny), nx, ny,
+                                           *geometry.args(), vals)
+    _build.check(lib, "bitlife_vmem_batch", rc)
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes", "max_active_clusters", "threads"),
+                    vals))
 
 
 def life_run_vmem_bits_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
@@ -1434,19 +1560,11 @@ def sliced_geometry(ny: int, nx: int, bands: int, halo: int, strips: int,
                           threads, exchange, 4 * words, reason)
 
 
-# Clusters of c = 1..16 blocks the card places at once at one block of
-# 512 threads a SM (cudaOccupancyMaxActiveClusters, as sliced_times.py
-# prints it; NVIDIA H100 80GB HBM3): a cluster's blocks share a GPC, so
-# this is not 132 // c.
-_SLICED_CLUSTERS_AT_ONCE = (132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7,
-                            7, 7)
-
-
 def sliced_waves(npl: int, geo: SlicedGeometry) -> int:
     """Waves of clusters (of blocks, without a cluster) a launch of ``npl``
-    planes takes, at one block a SM."""
+    planes takes, at one block a SM (:data:`CLUSTERS_AT_ONCE`)."""
     groups = npl * geo.bands * (geo.strips // geo.cluster)
-    return -(-groups // _SLICED_CLUSTERS_AT_ONCE[geo.cluster - 1])
+    return -(-groups // CLUSTERS_AT_ONCE[geo.cluster - 1])
 
 
 # The per-step model plan_bitsliced minimises, in microseconds: a launch

@@ -49,10 +49,11 @@ _BITSLICE = os.environ.get("MOMP_BITSLICE", "1") != "0"
 
 # Below this batch a plane is more than 75 % padding, and the cell-packed
 # ladder (whose work scales with B, not ceil(B / 32)) takes the stack. The
-# JAX package's figure, kept until the tuning port. On an H100 no stack
-# measured so far favours "bitsliced": "vmem-grid" is faster at B in {64,
-# 128, 256, 512} x 500^2 and {8, 64, 256, 512} x 95x130, by 1.03-1.84x
-# (PERF.md, chip_smoke.py phase 6).
+# JAX package's figure, kept until the tuning port. On an H100 the measured
+# line has moved with each kernel's redesign (chip_smoke.py phase 6,
+# PERF.md): "bitsliced" was the faster at every stack of 8 to 512 boards
+# measured after its own, and "vmem-grid", one cluster a board, is the
+# faster at every stack of 1 to 512 boards measured after its own.
 BITSLICE_MIN_BATCH = 8
 
 

@@ -107,7 +107,7 @@ def main() -> int:
     out, fit_rows = {}, []
     if clusters:
         # The clusters of 1..16 blocks the card places at once, one block
-        # of 512 threads a SM (the chooser's _SLICED_CLUSTERS_AT_ONCE).
+        # of 512 threads a SM (the choosers' CLUSTERS_AT_ONCE).
         at_once = [tb.bitsliced_attributes(
             (1, 256, 30 * c), tb.sliced_geometry(256, 30 * c, 1, 0, c, 1, 16)
         )["max_active_clusters"] for c in range(1, 17)]
