@@ -36,7 +36,11 @@ Phases, each of which raises (exit code 1) when it fails:
    (``bitlife_vmem_batch_attributes``); the same for each
    ``bitlife_bitsliced_kernel<RT, CT, FULL>``, and for the geometry
    ``plan_bitsliced`` chooses for 64 and 512 boards of 500^2
-   (``bitlife_bitsliced_attributes``);
+   (``bitlife_bitsliced_attributes``); the same for each
+   ``bitlife_fused_kernel<RT>``, and for the geometry
+   ``fused_launch_geometry`` chooses at k_max for each frame of phase 3
+   (``bitlife_fused_attributes``), with its waves and the words it steps
+   over the useful ones;
 2. ``bitlife_vmem`` against its plain PyTorch version on the card, packed
    words bit-exact, ghost and junk bits included, under the geometry
    ``vmem_launch_geometry`` chooses (each case logs it), at n in {0, 1, 7,
@@ -44,9 +48,12 @@ Phases, each of which raises (exit code 1) when it fails:
    ``VMEM_SHAPES`` (ny % 32 in {30, 31}, one word a column, the glider's
    board, one column, a board that takes the one-block geometry);
 3. ``bitlife_fused`` against its plain version (the whole extended frame
-   stepped as one window) on the card, boards bit-exact: aligned 4096^2 and
-   16384^2 at n in {1, 128, 300}, the padded frame at 10000^2 and 1000^2 at
-   n = 300;
+   stepped as one window) on the card, packed words bit-exact, under every
+   geometry family (``fused_families``: the chosen one, one tile, 2-D
+   tiles, ghost zones, several segments, a strip of one, copied lanes):
+   the runner at aligned 4096^2 and 16384^2 and the padded frames of
+   10000^2 and 1000^2 at n in {1, g, g + 1, 128, 300}, and one launch over
+   random words of a cart 2x2 shard of 10000^2 at k in {1, g, g + 1, 128};
 4. ``bitlife_vmem_batch`` (B in {1, 3, 4, 7, 8, 16, 64}) and
    ``bitlife_bitsliced`` (B in {8, 33, 64, 256}) against their plain
    versions on the card, packed words bit-exact, at (500, 500), (37, 45)
@@ -82,7 +89,10 @@ Phases, each of which raises (exit code 1) when it fails:
    by profiler device time, with its geometry and the bound for the SMs
    its blocks occupy, and so the board-sliced kernel, with the words it
    steps over the useful words, and the cell-packed stack kernel at the
-   main path's 4 x 500^2 and at 64 x 500^2, with its geometry), per-step
+   main path's 4 x 500^2 and at 64 x 500^2, with its geometry; the fused
+   kernel by device time alone at the 10000^2 frame, 16384^2, 4096^2 and
+   a cart 2x2 shard of 10000^2, with its geometry and the runner's us a
+   step, the cart shard's the sharded LifeSim's), per-step
    rates from the difference of two step counts, the batched path's split
    into pack, kernel, unpack and the copy to the host, and both batched
    kernels side by side at B in {1, 2, 4, 7, 8, 16, 32, 64, 128, 256, 512}
@@ -525,6 +535,8 @@ VMEM_BATCH_KERNEL = re.compile(
 # bitlife_bitsliced_kernel<RT, CT, FULL>: the rows and columns a thread
 # holds, and whether every segment holds RT.
 SLICED_KERNEL = re.compile(r"bitlife_bitsliced_kernelILi(\d+)ELi(\d+)ELb([01])E")
+# bitlife_fused_kernel<RT>: the rows a thread holds.
+FUSED_KERNEL = re.compile(r"bitlife_fused_kernelILi(\d+)E")
 
 
 def window_shapes(tb) -> list[tuple[str, int, int, int, int, int]]:
@@ -542,6 +554,54 @@ def window_shapes(tb) -> list[tuple[str, int, int, int, int, int]]:
     p = tb.plan_sharded_bits((1024, 1024), 2, 1, True, False)
     out.append(("1024^2 row 2 interior", 2, p.nw_s - 2 * p.h, p.W, p.h, 0))
     out.append(("1024^2 row 2 edge", 2, p.h, p.W, p.h, 0))
+    return out
+
+
+def fused_shapes(tb) -> list[tuple[str, object]]:
+    """(what, plan) of the frames the main paths hand ``bitlife_fused``:
+    the 10000^2 padded frame (``frame``, phase 5), 16384^2 and 4096^2
+    aligned (``fused``), and one shard of 10000^2 on cart 2x2 (``tiled``,
+    phase 14), from ``tb.plan_sharded_bits``."""
+    return [("10000^2 frame", tb.plan_sharded_bits((10000, 10000))),
+            ("16384^2", tb.plan_sharded_bits((16384, 16384))),
+            ("4096^2", tb.plan_sharded_bits((4096, 4096))),
+            ("10000^2 cart 2x2 shard",
+             tb.plan_sharded_bits((10000, 10000), 2, 2, True, True))]
+
+
+def fused_check_frames(tb) -> list[tuple[str, object]]:
+    """The frames phase 3 holds ``bitlife_fused`` to: those of
+    :func:`fused_shapes` and the 1000^2 padded frame."""
+    return fused_shapes(tb) + [("1000^2 frame",
+                                tb.plan_sharded_bits((1000, 1000)))]
+
+
+def fused_families(tb, plan) -> dict[str, object]:
+    """The geometry of each family ``bitlife_fused`` can launch over the
+    plan's frame at k = k_max: the one ``fused_launch_geometry`` chooses,
+    then of ``fused_candidates`` the best by the chooser's model that is
+    one tile (the frame's width on one ring), 2-D tiles on rings, ghost
+    zones (no cluster), several segments a column, a strip of one (a ring
+    with itself), and several warps a row with 2 or more copied lanes; a
+    family the frame admits no geometry of, or whose best is one already
+    listed, is left out."""
+    nw, W, h, hx, k = plan.nw_s, plan.W, plan.h, plan.hx, plan.k_max
+    ranked = sorted(tb.fused_candidates(nw, W, h, hx, k),
+                    key=lambda g: tb._fused_time_model_us(k, g))
+    families = {
+        "one tile": lambda g: g.tiles == 1 and g.exchange,
+        "2-D tiles": lambda g: g.tiles > 1 and g.exchange,
+        "ghost zones": lambda g: not g.exchange,
+        "segments": lambda g: g.segments > 1,
+        "strip of one": lambda g: g.strips == 1 and g.exchange,
+        "copied lanes": lambda g: g.warps > 1 and g.warp_ghost > 1,
+    }
+    out = {"chosen": tb.fused_launch_geometry(nw, W, h, hx, k)}
+    for name, member in families.items():
+        geo = next((g for g in ranked if member(g)), None)
+        if geo is not None and all(geo.args() != g.args()
+                                   for g in out.values()):
+            out[name] = geo
     return out
 
 
@@ -667,6 +727,7 @@ def main() -> int:
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
         if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded",
                     "bitlife_window", "bitlife_vmem", "bitlife_vmem_batch",
+                    "bitlife_fused",
                     "bitlife_bitsliced"):
             continue  # per kernel below
         for line in text.splitlines():
@@ -776,6 +837,48 @@ def main() -> int:
             f"{geo.reason})")
         if at["local_bytes"] or at["dynamic_smem_bytes"] != geo.smem_bytes:
             raise AssertionError(f"bitlife_window {what}: {at}")
+
+    # The big-board fused kernels one by one (bitlife_fused_kernel<RT>, RT
+    # rows a thread): registers and spills from the build log, none may
+    # spill; then for each frame of phase 3 the geometry that
+    # fused_launch_geometry chooses at k = k_max and what the CUDA runtime
+    # reports for it: registers, local bytes (0), shared memory (the
+    # geometry's smem_bytes) and the clusters the card holds at once (at
+    # least 1).
+    fused_build = {}
+    for (rt,), props in ptxas_kernels(logs["bitlife_fused"], FUSED_KERNEL,
+                                      lambda m: (int(m[1]),)).items():
+        fused_build[f"bitlife_fused_kernel<{rt}>"] = props
+        log(f"  bitlife_fused bitlife_fused_kernel<{rt}>: "
+            f"{props['registers']} registers, {props['spill_stores']} + "
+            f"{props['spill_loads']} bytes spilled")
+        if props["spill_stores"] or props["spill_loads"]:
+            raise AssertionError(f"bitlife_fused_kernel<{rt}> spills")
+    if set(fused_build) != {f"bitlife_fused_kernel<{rt}>"
+                            for rt in tb.FUSED_ROWS_PER_THREAD}:
+        raise AssertionError(f"fused kernels built: {sorted(fused_build)}")
+    fused_geo = {}
+    for what, plan in fused_check_frames(tb):
+        nw_f, W_f, k_f = plan.nw_s, plan.W, plan.k_max
+        geo = tb.fused_launch_geometry(nw_f, W_f, plan.h, plan.hx, k_f)
+        at = tb.fused_attributes(plan, k_f, geo)
+        ratio = tb.fused_stepped_words(nw_f, W_f, geo) / (nw_f * W_f)
+        fused_geo[what] = {"geometry": dataclasses.asdict(geo),
+                           "waves": tb.fused_waves(geo),
+                           "stepped_over_useful": ratio, **at}
+        log(f"  bitlife_fused {what} frame {nw_f + 2 * plan.h}x"
+            f"{W_f + 2 * plan.hx} k={k_f}: (bands, tiles, wall, strips, "
+            f"cluster, g, rt, tau) = {geo.args()}, {geo.segments} segments "
+            f"x {geo.warps} warps = {geo.threads} threads, "
+            f"{at['registers']} registers, {at['local_bytes']} local bytes, "
+            f"{at['static_smem_bytes']} + {at['dynamic_smem_bytes']} bytes "
+            f"shared memory; the card holds {at['max_active_clusters']} "
+            f"such clusters at once; {tb.fused_waves(geo)} waves at one "
+            f"block an SM, {ratio:.3f}x the useful words stepped "
+            f"({geo.reason})")
+        if (at["local_bytes"] or at["dynamic_smem_bytes"] != geo.smem_bytes
+                or at["max_active_clusters"] < 1):
+            raise AssertionError(f"bitlife_fused {what}: {at}")
 
     # The resident-board kernels one by one (bitlife_vmem_cluster_kernel<RT,
     # FULL> and the one-block bitlife_vmem_kernel): registers and spills from
@@ -925,41 +1028,74 @@ def main() -> int:
     log(f"phase 2 vmem vs plain: ok ({time.perf_counter() - t0:.2f} s)")
 
     # ----------------------------------------------- 3. fused against plain
+    # Each frame of fused_check_frames under every geometry family
+    # (fused_families, each rebuilt for the k of each round), packed words
+    # bit for bit against the plain version: the boards through the runner
+    # (_run_plan) at n in {1, g, g + 1, 128, 300}, g the chosen geometry's
+    # ghost; the cart 2x2 shard (whose rounds need the mesh's exchange,
+    # phase 14) as one launch over random words at k in {1, g, g + 1, 128}.
     def plain_steps(ext, k, plan):
         return tb._fused_steps_plain(ext, k, plan)
 
-    def run_both(board, n, exact):
-        ny, nx = board.shape
-        plan = tb.plan_sharded_bits((ny, nx))
-        if exact:
-            q = tb.pack_board_exact(board)
-        else:
-            frame = torch.zeros(plan.frame, dtype=torch.uint8, device="cuda")
-            frame[:ny] = board
-            q = tb.pack_board_exact(frame)
-        got = tb.unpack_board_exact(tb._run_plan(q, n, plan))[:ny]
-        want = tb.unpack_board_exact(tb._run_plan(q, n, plan, plain_steps))[:ny]
-        return plan, got, want
+    def forced(geo):
+        def steps(ext, k, plan):
+            g = tb.fused_geometry(plan.nw_s, plan.W, plan.h, plan.hx, k,
+                                  *geo.args()[:4], *geo.args()[5:])
+            return tb.fused_steps(ext, k, plan, geometry=g)
+        return steps
 
     t0 = time.perf_counter()
     fused_err = 0
+    fused_cases = []
     frame_plain_10k = None
-    cases = [((4096, 4096), n, True) for n in (1, 128, 300)]
-    cases += [((16384, 16384), n, True) for n in (1, 128, 300)]
-    cases += [((10000, 10000), 300, False), ((1000, 1000), 300, False)]
-    for shape, n, exact in cases:
-        board = soup(shape, 7 if shape == (10000, 10000) else seed)
+    for what, plan in fused_check_frames(tb):
+        ny, nx = plan.shape
+        fams = fused_families(tb, plan)
+        g_c = fams["chosen"].ghost
+        shard = plan.y_sharded or plan.x_sharded
+        if shard:
+            ext = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                (plan.nw_s + 2 * plan.h,
+                                 plan.W + 2 * plan.hx), generator=torch.
+                                Generator(device="cuda").manual_seed(seed),
+                                device="cuda", dtype=torch.int32)
+            n_steps = sorted({1, g_c, g_c + 1, plan.k_max})
+        else:
+            board = soup((ny, nx), 7 if what == "10000^2 frame" else seed)
+            frame = torch.zeros(plan.frame, dtype=torch.uint8, device="cuda")
+            frame[:ny] = board
+            q = tb.pack_board_exact(frame)
+            del board, frame
+            n_steps = sorted({1, g_c, g_c + 1, 128, 300})
         seed += 1
-        plan, got, want = run_both(board, n, exact)
-        bad = diff_count(got, want)
-        fused_err = max(fused_err, min(bad, 1))
-        log(f"  fused {shape} n={n} plan tr={plan.tr} cx={plan.cx} "
-            f"hx={plan.hx} pad_y={plan.pad_y}: differing cells {bad}")
-        if bad:
-            raise AssertionError(f"bitlife_fused disagrees at {shape} n={n}")
-        if shape == (10000, 10000):
-            frame_plain_10k = want
-        del board, got, want
+        for n in n_steps:
+            if shard:
+                want = plain_steps(ext, n, plan)
+            else:
+                want = tb._run_plan(q, n, plan, plain_steps)
+            for fam, geo in fams.items():
+                if shard:
+                    got = (tb.fused_steps(ext, n, plan) if fam == "chosen"
+                           else forced(geo)(ext, n, plan))
+                else:
+                    got = tb._run_plan(q, n, plan, None if fam == "chosen"
+                                       else forced(geo))
+                bad = diff_count(got, want)
+                fused_err = max(fused_err, min(bad, 1))
+                fused_cases.append({"frame": what, "n": n, "family": fam,
+                                    "geometry": list(geo.args()),
+                                    "differing_words": bad})
+                if bad:
+                    raise AssertionError(
+                        f"bitlife_fused disagrees at {what} n={n} under "
+                        f"{fam} {geo.args()}: {bad} words")
+            if what == "10000^2 frame" and n == 300:
+                frame_plain_10k = tb.unpack_board_exact(want)[:ny]
+            del want, got
+        log(f"  fused {what} (plan hx={plan.hx} pad_y={plan.pad_y}) n in "
+            f"{n_steps}: equal words under "
+            + ", ".join(f"{fam} {geo.args()}" for fam, geo in fams.items()))
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     log(f"phase 3 fused vs plain: ok ({time.perf_counter() - t0:.2f} s)")
 
@@ -1223,41 +1359,80 @@ def main() -> int:
         f"{vmem_us_step:.4f} us/step, "
         f"{ny * nx / vmem_us_step / 1e3:.3f} Gcups (differenced) [{card}]")
 
+    # bitlife_fused at the main paths' frames (fused_shapes): device time
+    # per launch from a profiler trace (the mean of the kernel records
+    # kept), CUDA events around 10 launches, the plain version, the bound
+    # on the words written, and the runner's us a step differenced over
+    # 640 - 128 steps (the serial runners; the cart 2x2 shard's, the
+    # bitfused LifeSim on cart 2x2, four shard launches a round).
     rates = {}
     fused_rec = None
-    for shape, exact in [((10000, 10000), False), ((16384, 16384), True),
-                         ((4096, 4096), True)]:
-        board = soup(shape, 11)
-        plan = tb.plan_sharded_bits(shape)
-        frame = board
-        if not exact:
-            frame = torch.zeros(plan.frame, dtype=torch.uint8, device="cuda")
-            frame[: shape[0]] = board
-        q = tb.pack_board_exact(frame)
-        e = tb.local_wrap_y(plan, q)
-        if plan.hx:
-            e = torch.cat([e[:, -plan.hx:], e, e[:, : plan.hx]], dim=1)
+    fused_per_shape = {}
+    for what, plan in fused_shapes(tb):
+        ny_f, nx_f = plan.shape
         k = plan.k_max
-        tb.fused_steps(e, k, plan)  # warm-up
-        launch_ms = cuda_ms(lambda: tb.fused_steps(e, k, plan), reps=5)
+        board = soup((ny_f, nx_f), 11)
+        if plan.y_sharded or plan.x_sharded:
+            e = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                              (plan.nw_s + 2 * plan.h, plan.W + 2 * plan.hx),
+                              generator=torch.Generator(
+                                  device="cuda").manual_seed(12),
+                              device="cuda", dtype=torch.int32)
+            c = LifeConfig(steps=640, save_steps=0, nx=nx_f, ny=ny_f,
+                           cells=np.zeros((0, 2), np.int64))
+            ssim = LifeSim(c, layout="cart", impl="bitfused",
+                           mesh=pm.make_mesh_2d(plan.py, plan.px),
+                           initial_board=board.cpu().numpy())
+            if ssim.plan_note != "tiled":
+                raise AssertionError(f"{what}: plan {ssim.plan_note}")
+
+            def run_n(n, ssim=ssim):
+                return ssim._advance(ssim.board, n)
+        else:
+            frame = torch.zeros(plan.frame, dtype=torch.uint8, device="cuda")
+            frame[:ny_f] = board
+            e = tb.local_wrap_y(plan, tb.pack_board_exact(frame))
+            if plan.hx:
+                e = torch.cat([e[:, -plan.hx:], e, e[:, : plan.hx]], dim=1)
+            del frame
+            runner = (tb.life_run_frame_bits if plan.pad_y
+                      else tb.life_run_fused_bits)
+
+            def run_n(n, runner=runner, board=board):
+                return runner(board, n)
+
+        def launch(e=e, k=k, plan=plan):
+            return tb.fused_steps(e, k, plan)
+
+        launch()  # warm-up
+        dev = device_ms(launch, 10, "bitlife_fused")
+        events = cuda_ms(launch, reps=10)
         plain_ms = cuda_ms(lambda: plain_steps(e, k, plan))
-        out_words = plan.nw * plan.frame[1]
+        out_words = plan.nw_s * plan.W
         fb, fby = bound_ms(OPS_PER_WORD_STEP * out_words * k,
                            4 * (e.numel() + out_words))
-        runner = tb.life_run_frame_bits if not exact else tb.life_run_fused_bits
-        runner(board, k)  # warm-up
-        t_a = cuda_ms(lambda: runner(board, 128))
-        t_b = cuda_ms(lambda: runner(board, 640))
+        run_n(k)  # warm-up
+        t_a = cuda_ms(lambda: run_n(128))
+        t_b = cuda_ms(lambda: run_n(640))
         us_step = (t_b - t_a) / 512 * 1e3
-        rates[f"{shape[0]}x{shape[1]}"] = us_step
-        log(f"  fused {shape} k={k} tr={plan.tr} cx={plan.cx} hx={plan.hx}: "
-            f"{launch_ms:.4f} ms per launch, plain {plain_ms:.2f} ms, "
-            f"bound {fb:.4f} ms ({fby}); runner {us_step:.4f} us/step, "
-            f"{shape[0] * shape[1] / us_step / 1e3:.3f} Gcups "
-            f"(differenced 640-128 steps) [{card}]")
-        if shape == (10000, 10000):
-            fused_rec = (launch_ms, plain_ms, fb, fby)
-        del board, frame, q, e
+        rates[what] = us_step
+        geo = tb.fused_launch_geometry(plan.nw_s, plan.W, plan.h, plan.hx, k)
+        fused_per_shape[what] = {
+            "frame": list(e.shape), "k": k, "device_ms": dev,
+            "events_ms": events, "plain_ms": plain_ms, "bound_ms": fb,
+            "bound_by": fby, "runner_us_per_step": us_step,
+            "geometry": list(geo.args()),
+            "stepped_over_useful": tb.fused_stepped_words(
+                plan.nw_s, plan.W, geo) / out_words}
+        log(f"  fused {what} frame {e.shape[0]}x{e.shape[1]} k={k}: device "
+            f"{dev:.4f} ms per launch (events {events:.4f}), plain "
+            f"{plain_ms:.2f} ms, bound {fb:.4f} ms ({fby}, "
+            f"{fb / dev:.3f} of it reached); geometry {geo.args()}; runner "
+            f"{us_step:.4f} us/step, {ny_f * nx_f / us_step / 1e3:.3f} "
+            f"Gcups (differenced 640-128 steps) [{card}]")
+        if what == "10000^2 frame":
+            fused_rec = (dev, plain_ms, fb, fby)
+        del board, e
         torch.cuda.empty_cache()
 
     # The batched kernels at the main paths' stacks: the cell-packed one at
@@ -2778,12 +2953,27 @@ def main() -> int:
         {"name": "bitlife_fused", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_fused.cu",
          "replaces": "mpi_and_open_mp_tpu/ops/bitlife.py:333",
-         "launches": launches_big["fused"], "max_abs_err": float(fused_err),
+         "launches": launches_big["fused"] + sum(
+             c["fused"] for c in sharded_launches.values()),
+         "max_abs_err": float(fused_err),
          "ms": fused_rec[0], "plain_ms": fused_rec[1],
          "bound_ms": fused_rec[2], "bound_by": fused_rec[3],
          "library_ms": None,
          "shape": "10000x10000 padded frame, 128 steps per launch",
-         "us_per_step": rates},
+         "note": ("ms: device time per launch from a torch.profiler trace "
+                  "of 10 (the mean of the kernel records kept); plain_ms: "
+                  "CUDA events around one call; launches: the 10000^2 "
+                  "frame run of phase 5 and the sharded runs of phase 14; "
+                  "build: registers and spills of each kernel from ptxas, "
+                  "and for each frame of phase 3 the chosen geometry with "
+                  "the CUDA runtime's registers, local bytes, static and "
+                  "dynamic shared bytes and max active clusters"),
+         "launches_by_run": {"frame 10000^2": launches_big["fused"],
+                             **{k: c["fused"]
+                                for k, c in sharded_launches.items()}},
+         "us_per_step": rates, "per_shape": fused_per_shape,
+         "exact_cases": fused_cases,
+         "build": {"ptxas": fused_build, "cuda_runtime": fused_geo}},
         {"name": "bitlife_vmem_batch", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem_batch.cu",
          "replaces": "mpi_and_open_mp_tpu/ops/bitlife.py:1084",

@@ -39,7 +39,10 @@ SIGNATURES = {
         "bitlife_vmem": [_P, _P] + [_I] * 9 + [_P],
         "bitlife_vmem_attributes": [_I] * 8 + [_IP],
     },
-    "bitlife_fused": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "bitlife_fused": {
+        "bitlife_fused": [_P, _P] + [_I] * 13 + [_P],
+        "bitlife_fused_attributes": [_I] * 13 + [_IP],
+    },
     "bitlife_window": {
         "bitlife_window": [_P, _P] + [_I] * 11 + [_P],
         "bitlife_window_attributes": [_I] * 11 + [_IP],

@@ -27,10 +27,13 @@ Two hand-written Hopper kernels carry the single-board engines on the card
   the entire step loop, spread over the column strips of one thread-block
   cluster under :func:`vmem_launch_geometry`, a column's words in
   registers (``"vmem"``), replacing ``_vmem_bits_kernel``;
-* :func:`fused_steps` - one tile plus a 128-row (4-word) y halo, and on
-  column-tiled plans a ``k``-column x halo, per block, ``k <= 128`` steps in
-  shared memory, interior written back (``"fused"`` and ``"frame"``),
-  replacing ``_fused_tiles_kernel``.
+* :func:`fused_steps` - ``k <= 128`` steps of a halo-extended frame (a
+  128-row, 4-word y halo and, on column-tiled plans, ``hx`` wall
+  columns), cut into row bands of column strips on thread-block clusters
+  (2-D tiles where one cluster cannot hold the width) under
+  :func:`fused_launch_geometry`, a column's words in registers, interior
+  written back (``"fused"`` and ``"frame"``), replacing
+  ``_fused_tiles_kernel``.
 
 The sharded layouts (``models.life``, ``bitfused``) plan a board over a
 mesh with :func:`plan_sharded_bits` and step the halo-extended shards of
@@ -519,11 +522,262 @@ def _fused_steps_plain(ext, k, plan):
     return w[h : h + nw, hx : hx + nx]
 
 
-def fused_steps(ext: torch.Tensor, k: int, plan: BitPlan) -> torch.Tensor:
+# Rows per thread that csrc/bitlife_fused.cu compiles a kernel for
+# (kernel_for). Its block size and cluster caps are the window kernel's.
+FUSED_ROWS_PER_THREAD = (4, 8, 12, 16, 20, 24, 32, 40, 48)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedGeometry:
+    """How one ``bitlife_fused`` launch cuts the ``(nw + 2h, W + 2hx)``
+    frame of an ``(nw, W)`` interior: ``bands`` row bands (each band's
+    window its rows plus ``h`` halo words a side, ``segments *
+    rows_per_thread`` rows), each band ``tiles`` tiles of ``W / tiles``
+    interior columns with ``wall`` columns a side (one tile: the frame's
+    whole width, ``wall == hx``), each tile ``strips`` column strips, one
+    block each, with ``ghost`` columns a side refreshed from the ring
+    neighbours every ``ghost`` steps when ``exchange`` (``ghost < k``; the
+    tile's strips are then one cluster), else read once (ghost zones,
+    ``cluster`` 1). A thread holds ``rows_per_thread`` words of a column; a
+    segment's row of a strip takes ``warps`` warps, each with
+    ``warp_ghost`` copied lanes a side when more than one (as
+    :class:`WindowGeometry`). ``reason`` says why the chooser took it."""
+
+    bands: int
+    tiles: int
+    wall: int
+    strips: int
+    cluster: int
+    ghost: int
+    rows_per_thread: int
+    warp_ghost: int
+    segments: int
+    warps: int
+    threads: int
+    exchange: bool
+    smem_bytes: int
+    reason: str = ""
+
+    @property
+    def rows(self) -> int:
+        """Word rows of every band's window."""
+        return self.segments * self.rows_per_thread
+
+    @property
+    def blocks(self) -> int:
+        return self.bands * self.tiles * self.strips
+
+    def band_bounds(self, nw: int) -> list[tuple[int, int]]:
+        """Each band's interior word rows ``[b0, b1)``."""
+        return [(b * nw // self.bands, (b + 1) * nw // self.bands)
+                for b in range(self.bands)]
+
+    def tile_bounds(self, W: int) -> list[tuple[int, int]]:
+        """Each tile's interior columns ``[t0, t1)``."""
+        return [(t * W // self.tiles, (t + 1) * W // self.tiles)
+                for t in range(self.tiles)]
+
+    def strip_bounds(self, C: int) -> list[tuple[int, int]]:
+        """Each strip's columns ``[c0, c1)`` of a ``C``-column tile
+        window."""
+        return [(r * C // self.strips, (r + 1) * C // self.strips)
+                for r in range(self.strips)]
+
+    def args(self) -> tuple[int, ...]:
+        """The C entry's geometry arguments (bands, tiles, wall, strips,
+        cluster, g, rt, tau)."""
+        return (self.bands, self.tiles, self.wall, self.strips, self.cluster,
+                self.ghost, self.rows_per_thread, self.warp_ghost)
+
+
+def fused_geometry(nw: int, W: int, h: int, hx: int, k: int, bands: int,
+                   tiles: int, wall: int, strips: int, ghost: int,
+                   rows_per_thread: int, warp_ghost: int = 1,
+                   reason: str = "") -> FusedGeometry:
+    """The launch geometry of ``bands`` bands of ``tiles`` tiles (``wall``
+    columns a side) of ``strips`` strips (``ghost`` columns a side),
+    ``rows_per_thread`` words a thread and ``warp_ghost`` copied lanes a
+    warp side, for ``k`` steps of the frame of an ``(nw, W)`` interior
+    with halo ``h`` and ``hx``; derives and checks it as
+    ``csrc/bitlife_fused.cu:layout`` does and raises ``ValueError`` where
+    the entry would refuse it."""
+    if rows_per_thread not in FUSED_ROWS_PER_THREAD:
+        raise ValueError(f"fused geometry: {rows_per_thread} rows per "
+                         f"thread not in {FUSED_ROWS_PER_THREAD}")
+    if (not 1 <= bands <= nw or not 1 <= tiles <= W
+            or not 1 <= strips <= WINDOW_MAX_CLUSTER or ghost < 1
+            or not 1 <= warp_ghost <= 15):
+        raise ValueError(f"fused geometry: bands={bands} outside [1, {nw}], "
+                         f"tiles={tiles} outside [1, {W}], strips={strips} "
+                         f"outside [1, {WINDOW_MAX_CLUSTER}], ghost={ghost} "
+                         f"< 1 or warp_ghost={warp_ghost} outside [1, 15]")
+    if tiles == 1 and wall != hx:
+        raise ValueError(f"fused geometry: one tile takes the frame's wall "
+                         f"hx={hx}, got wall={wall}")
+    if tiles > 1 and wall < k:
+        raise ValueError(f"fused geometry: 2-D tiles need a wall of at "
+                         f"least k={k} columns, got {wall}")
+    cmin, cmax = W // tiles + 2 * wall, -(-W // tiles) + 2 * wall
+    if strips > cmin:
+        raise ValueError(f"fused geometry: {strips} strips over a tile "
+                         f"window of {cmin} columns")
+    exchange = ghost < k
+    if exchange and ghost % warp_ghost:
+        raise ValueError(f"fused geometry: exchanged ghost {ghost} not a "
+                         f"multiple of warp_ghost {warp_ghost}")
+    if exchange and cmin // strips < ghost:
+        raise ValueError(f"fused geometry: exchanged ghost {ghost} wider "
+                         f"than the narrowest strip {cmin // strips}")
+    segments = -(-(-(-nw // bands) + 2 * h) // rows_per_thread)
+    lmax = -(-cmax // strips) + 2 * ghost
+    warps = 1 if lmax <= 32 else -(-lmax // (32 - 2 * warp_ghost))
+    threads = segments * 32 * warps
+    if threads > WINDOW_MAX_THREADS:
+        raise ValueError(f"fused geometry: {threads} threads a block, "
+                         f"above {WINDOW_MAX_THREADS}")
+    words = ((2 * segments * 32 * warps * 2 if segments > 1 else 0)
+             + (2 * 2 * segments * warps * warp_ghost * rows_per_thread
+                if warps > 1 else 0)
+             + (2 * 2 * ghost * segments * rows_per_thread if exchange
+                else 0))
+    if 4 * words > SMEM_BYTES:
+        raise ValueError(f"fused geometry: {4 * words} bytes of shared "
+                         "memory")
+    return FusedGeometry(bands, tiles, wall, strips,
+                         strips if exchange else 1, ghost, rows_per_thread,
+                         warp_ghost, segments, warps, threads, exchange,
+                         4 * words, reason)
+
+
+def fused_stepped_words(nw: int, W: int, geo: FusedGeometry) -> int:
+    """The words a launch steps each step: every block's window rows times
+    its local columns (its strip plus the ghosts), over the useful ``nw *
+    W`` the ratio of redundant work."""
+    cols = sum(c1 - c0 + 2 * geo.ghost
+               for t0, t1 in geo.tile_bounds(W)
+               for c0, c1 in geo.strip_bounds(t1 - t0 + 2 * geo.wall))
+    return geo.bands * geo.rows * cols
+
+
+def fused_waves(geo: FusedGeometry) -> int:
+    """Waves of a launch at one block an SM: its clusters over those the
+    card places at once (:data:`CLUSTERS_AT_ONCE`)."""
+    clusters = geo.blocks // geo.cluster
+    return -(-clusters // CLUSTERS_AT_ONCE[geo.cluster - 1])
+
+
+def _fused_features(k: int, geo: FusedGeometry) -> list[float]:
+    """The terms of :func:`_fused_time_model_us`: a launch, then per wave
+    each step's floor, its warp-words on an SM (the issue rate), its rows
+    a thread (the dependent chain), the block barrier that segments trade
+    through, the strip refreshes and the warp refreshes."""
+    waves = fused_waves(geo)
+    refreshes = (k - 1) // geo.ghost if geo.exchange else 0
+    warp_refreshes = (k - 1) // geo.warp_ghost if geo.warps > 1 else 0
+    return [1.0, waves * k,
+            waves * k * geo.segments * geo.warps * geo.rows_per_thread,
+            waves * k * geo.rows_per_thread,
+            waves * k if geo.segments > 1 else 0.0,
+            waves * refreshes, waves * warp_refreshes]
+
+
+# The launch-time model fused_launch_geometry minimises, in microseconds, a
+# coefficient per term of _fused_features, fitted by least squares of the
+# relative error to fused_times.py --sweep (160 geometries at the four
+# frames of chip_smoke.py:fused_shapes, median error 5 %) on an NVIDIA H100
+# 80GB HBM3 at 700 W (PERF.md §6). The launch term is a fit's, not
+# a launch's cost; the negative step floor offsets the rows-a-thread term.
+_FUSED_US = (48.03, -0.3101, 0.005530, 0.02111, 0.1076, 0.6620, 0.2621)
+
+
+def _fused_time_model_us(k: int, geo: FusedGeometry) -> float:
+    return sum(c * f for c, f in zip(_FUSED_US, _fused_features(k, geo)))
+
+
+def fused_candidates(nw: int, W: int, h: int, hx: int, k: int
+                     ) -> list[FusedGeometry]:
+    """Every geometry :func:`fused_launch_geometry` weighs for ``k`` steps
+    of an ``(nw, W)`` interior's frame, in the order it weighs them: for
+    each compiled rows-per-thread and each count of segments, the bands
+    whose windows that fills; 16 down to 1 strips; ghosts of 32, 16, 8 and
+    4 columns refreshed through the ring, or ``k`` (ghost zones); 1, 2 and
+    4 copied lanes a warp side; one tile where a cluster holds the frame's
+    width, else the fewest 2-D tiles of ``wall = k`` that it holds."""
+    out = []
+    E = W + 2 * hx
+    for rt in FUSED_ROWS_PER_THREAD:
+        seen = set()
+        for P in range(1, WINDOW_MAX_THREADS // 32 + 1):
+            band_rows = P * rt - 2 * h
+            if band_rows < 1:
+                continue
+            bands = min(nw, -(-nw // band_rows))
+            if bands in seen:
+                continue
+            seen.add(bands)
+            nq_max = WINDOW_MAX_THREADS // (32 * P)
+            for strips in range(WINDOW_MAX_CLUSTER, 0, -1):
+                for ghost in sorted({32, 16, 8, 4, max(k, 1)}, reverse=True):
+                    for tau in (1, 2, 4):
+                        if ghost < k and ghost % tau:
+                            continue
+                        # The widest tile window a cluster of this strip
+                        # count holds (each strip nq_max warps).
+                        lmax = max(32, nq_max * (32 - 2 * tau))
+                        cap = strips * (lmax - 2 * ghost)
+                        if cap < strips:
+                            continue
+                        if E <= cap:
+                            tiles, wall = 1, hx
+                        elif cap > 2 * k:
+                            tiles, wall = -(-W // (cap - 2 * k)), k
+                        else:
+                            continue
+                        if tiles > W:
+                            continue
+                        try:
+                            out.append(fused_geometry(
+                                nw, W, h, hx, k, bands, tiles, wall, strips,
+                                ghost, rt, tau))
+                        except ValueError:
+                            pass
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def fused_launch_geometry(nw: int, W: int, h: int, hx: int, k: int
+                          ) -> FusedGeometry:
+    """The geometry :func:`fused_steps` launches ``k`` steps of the frame
+    of an ``(nw, W)`` interior (halo ``h`` words and ``hx`` columns a side)
+    with: a plain function of the shapes (cached), so that the same frame
+    always gets the same launch. Of :func:`fused_candidates`, the one of
+    least :func:`_fused_time_model_us` (the first on a tie). Raises
+    ``ValueError`` where none is legal."""
+    best = None
+    for geo in fused_candidates(nw, W, h, hx, k):
+        t = _fused_time_model_us(k, geo)
+        if best is None or t < best[0]:
+            best = (t, geo)
+    if best is None:
+        raise ValueError(f"fused_launch_geometry: no geometry for an "
+                         f"({nw}, {W}) interior, h={h}, hx={hx}, k={k}")
+    t, geo = best
+    return dataclasses.replace(
+        geo, reason=(f"{geo.bands} bands x {geo.tiles} tiles x "
+                     f"{geo.strips} strips, "
+                     + (f"refresh every {geo.ghost} steps"
+                        if geo.exchange else "ghost zones")
+                     + f", {fused_waves(geo)} waves, model {t:.1f} us"))
+
+
+def fused_steps(ext: torch.Tensor, k: int, plan: BitPlan,
+                geometry: FusedGeometry | None = None) -> torch.Tensor:
     """``k <= plan.k_max`` fused steps over the halo-extended packed frame
     (or one shard of it) ``ext`` of shape ``(nw_s + 2h, W + 2hx)``;
     returns the ``(nw_s, W)`` interior. The ``bitlife_fused`` kernel on
-    the card (one block per tile), the plain version on the CPU."""
+    the card (row bands of column strips on thread-block clusters, a
+    column's words in registers, laid out by :func:`fused_launch_geometry`
+    unless ``geometry`` is given), the plain version on the CPU."""
     nw, nx = plan.nw_s, plan.W
     if tuple(ext.shape) != (nw + 2 * plan.h, nx + 2 * plan.hx):
         raise ValueError(f"fused_steps: ext {tuple(ext.shape)} does not "
@@ -534,17 +788,35 @@ def fused_steps(ext: torch.Tensor, k: int, plan: BitPlan) -> torch.Tensor:
         return _fused_steps_plain(ext, k, plan)
     _check_card_words(ext, "fused_steps")
     out = torch.empty((nw, nx), dtype=torch.int32, device=ext.device)
+    geo = geometry or fused_launch_geometry(nw, nx, plan.h, plan.hx, int(k))
     lib = _build.load("bitlife_fused")
     with torch.cuda.device(ext.device):
         rc = lib.bitlife_fused(
-            ext.data_ptr(), out.data_ptr(), nw, nx, plan.h, plan.hx,
-            plan.tr, plan.cx, int(k), torch.cuda.current_stream().cuda_stream)
+            ext.data_ptr(), out.data_ptr(), nw, nx, plan.h, plan.hx, int(k),
+            *geo.args(), torch.cuda.current_stream().cuda_stream)
     _build.check(lib, "bitlife_fused", rc)
     fused_steps.launches += 1
     return out
 
 
 fused_steps.launches = 0
+
+
+def fused_attributes(plan: BitPlan, k: int,
+                     geometry: FusedGeometry) -> dict[str, int]:
+    """What the CUDA runtime reports for the ``bitlife_fused`` launch of
+    this geometry over the plan's frame (``bitlife_fused_attributes``):
+    registers and local (spilled) bytes a thread, static and dynamic
+    shared bytes and threads a block, and the clusters the card can hold
+    at once. Needs the card."""
+    lib = _build.load("bitlife_fused")
+    vals = (ctypes.c_int * 6)()
+    rc = lib.bitlife_fused_attributes(plan.nw_s, plan.W, plan.h, plan.hx,
+                                      int(k), *geometry.args(), vals)
+    _build.check(lib, "bitlife_fused", rc)
+    return dict(zip(("registers", "local_bytes", "static_smem_bytes",
+                     "dynamic_smem_bytes", "max_active_clusters", "threads"),
+                    vals))
 
 
 # ------------------------------------------ kernel 3: resident shard windows

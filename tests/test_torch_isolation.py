@@ -21,7 +21,8 @@ def _port_sources():
                                           "window_times.py",
                                           "vmem_times.py",
                                           "sliced_times.py",
-                                          "vmem_batch_times.py")]
+                                          "vmem_batch_times.py",
+                                          "fused_times.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -45,6 +45,19 @@ from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
 from mpi_and_open_mp_tpu_torch.ops import native_life as tnl
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The replay is many small torch operations: beside the other test
+    processes of a parallel run, torch's thread pool spins on each of
+    them (the fused replay beside five busy processes took over 900 s on
+    the default pool, about 2 minutes on one thread), so this module runs
+    on one thread and hands the pool back after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _words(shape, seed) -> torch.Tensor:
     """Random words: every bit a live cell of some board."""
     w = np.random.default_rng(seed).integers(0, 2 ** 32, shape,

@@ -34,6 +34,20 @@ import jax.numpy as jnp
 from mpi_and_open_mp_tpu.ops import bitlife as jbits
 from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The replay is many small torch operations: beside the other test
+    processes of a parallel run, torch's thread pool spins on each of
+    them (the fused replay beside five busy processes took over 900 s on
+    the default pool, about 2 minutes on one thread), so this module runs
+    on one thread and hands the pool back after."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # (shards, nw, W, h, hx): the five windows of chip_smoke.py phase 13 at
 # their true sizes: p46gun_big on row 8, col 8 and cart 4x2, and the
 # 1024^2 row-2 overlap split's interior and edges.
