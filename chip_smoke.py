@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the nine sources (ten kernels) of
+1. build the ten sources (eleven kernels) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel, each one's
    build seconds logged; for each kernel of ``flash_fwd`` and
    ``flash_hop_bwd`` its registers and spills (``-Xptxas -v``), and its
@@ -199,28 +199,37 @@ Phases, each of which raises (exit code 1) when it fails:
    plain version, two ring ``ppermute`` copies, on the card, bit-exact:
    uint8, int32, float32 and 2-channel float32 blocks, y and x edges, axis
    sizes 1, 2, 4 and 8 with the other axis 1 or 2, depths 1, 3 and 32;
-   then at the shapes and strides that one round of each run of phase 17
-   hands it (recorded);
+   ``halo_frame`` (the rung's frame kernel) against its plain version,
+   ``padded_round_block``, as raw bytes: the same dtypes on row, col and
+   cart over 8x1, 1x8, 4x2 and 2x4 meshes at depths 1, 3 and a shard's
+   extent (one past it refused), and strided blocks of 1-, 2-, 4- and
+   8-byte elements (merged channel axes, padded rows, offsets 0-3, a
+   column-strided block); then both at the shapes and strides that one
+   round of each run of phase 17 hands them (recorded);
 17. the RDMA rung on the main paths under ``MOMP_HALO_RDMA=1``, counts set
    to 0 just before each run and read just after: p46gun_big with
    ``native`` on row 4 and cart 4x2 (10 000 steps) and ``halo`` on cart 4x2
    (1 000 steps), each stamped ``overlap:rdma``, equal to the oracle, to
    phase 5's serial board and to phase 14's ``overlap:deferred`` board, its
-   ``halo_edge_pair`` launches equal to the rounds times the exchanges a
-   round of its plan makes (two on cart: the corner exchange); heat (100
-   steps) and lenia (r = 8, 8 steps) through ``run_sharded`` on a 500^2
-   board on cart 4x2, coupled and ``:pb1``, bit-equal to the deferred
-   schedule and within ``parity_tol_for("offset")`` of the oracle; and the
-   1024^2 ``bitfused`` row-2 run under the flag, still stamped
-   ``window+overlap:packed`` with no edge-pair launch;
-18. the rung's times: ``halo_edge_pair`` per launch at the main path's edges
-   and at a float32 (4, 2, 4096, 8192) stack, depth 32, y and x, beside
-   its plain version and its bound (each edge byte read and written once),
-   by profiler device time with CUDA events beside them; each rung geometry
-   of phase 17 against ``overlap:deferred`` and ``seq:halo`` in the order
-   rdma, deferred, seq, seq, deferred, rdma (us/step differenced, boards
-   equal), and a profiler trace of each: the edge-pair kernel, the Life
-   rule and the other copies per step, device kernels per step, idle share.
+   ``halo_frame`` and ``halo_edge_pair`` launches equal to the rounds times
+   what a round of its plan makes (one frame a coupled round, one edge
+   pair a partitioned sub-round); heat (100 steps) and lenia (r = 8, 8
+   steps) through ``run_sharded`` on a 500^2 board on cart 4x2, coupled
+   and ``:pb1``, bit-equal to the deferred schedule and within
+   ``parity_tol_for("offset")`` of the oracle; the totals
+   (``RUNG_LAUNCHES``); and the 1024^2 ``bitfused`` row-2 run under the
+   flag, still stamped ``window+overlap:packed`` with no launch of either;
+18. the rung's times: ``halo_frame`` per launch at the main paths' blocks
+   and at a float32 (4, 2, 4096, 8192) stack, depth 32, against its bound
+   (the block read once, the frame written once); ``halo_edge_pair`` at the
+   partitioned runs' edges and at the float32 stack's y and x edges,
+   against its bound (each edge byte read and written once); each beside
+   its plain version, by profiler device time with CUDA events beside
+   them; each rung geometry of phase 17 against ``overlap:deferred`` and
+   ``seq:halo`` in the order rdma, deferred, seq, seq, deferred, rdma
+   (us/step differenced, boards equal), and a profiler trace of each: the
+   frame and edge-pair kernels, the Life rule and the other copies per
+   step, device kernels per step, idle share.
 
 Tolerances of phases 10-11 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -304,6 +313,11 @@ FP32_ISSUE_PER_S = N_SMS * 128 * 1.98e9
 STENCIL_BEFORE_MS = {"heat": 0.0892, "wireworld": 0.1086, "life": 0.0880,
                   "lenia": 1.344, "gray_scott": 0.0375}
 LIFE_SHARDS_BEFORE_MS = 0.0029
+# Launches of the RDMA rung's two kernels over phase 17's runs: a frame a
+# coupled round (native row 4 and cart 4x2 10 000 rounds each, halo cart
+# 4x2 1 000, heat 50, lenia 4), an edge pair a partitioned sub-round (heat
+# 100, lenia 8).
+RUNG_LAUNCHES = {"halo_frame": 21054, "edge_pair": 108}
 
 
 def log(msg: str) -> None:
@@ -711,7 +725,7 @@ def main() -> int:
                 "stencil": ns.stencil_step_padded,
                 "flash_fwd": nf.flash_fwd, "flash_hop_dq": fhb.flash_hop_dq,
                 "flash_hop_dkv": fhb.flash_hop_dkv,
-                "edge_pair": nh.edge_pair}
+                "edge_pair": nh.edge_pair, "halo_frame": nh.halo_frame}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -2622,33 +2636,38 @@ def main() -> int:
 
     # ------------------------------------------------ the RDMA rung (16-18)
     def rung_exchanges(plan):
-        """Edge-pair launches one round of ``plan`` makes on the rung: one
-        per sub-round of a partitioned boundary, else one per axis
-        exchange (two on cart with a sharded x axis: the corner exchange)."""
+        """``(frame, edge pair)`` launches one round of ``plan`` makes on
+        the rung: one edge pair per sub-round of a partitioned boundary,
+        else one frame (both rings and the corners in one launch)."""
         if not plan.engine.startswith("overlap:rdma"):
-            return 0
+            return 0, 0
         if plan.boundary_steps != plan.fuse_steps:
-            return plan.fuse_steps // plan.boundary_steps
-        return 2 if plan.layout == "cart" and plan.mesh_axes[1] > 1 else 1
+            return 0, plan.fuse_steps // plan.boundary_steps
+        return 1, 0
 
-    def record_edges(fn):
-        """``fn()``, returning the (shape, strides, dtype, axis) of every
-        edge pair the rung hands its transport."""
-        seen = {}
-        transport = hp._rdma_edge_pair
+    def record_transport(fn):
+        """``fn()``, returning what the rung hands its transport: the
+        (shape, strides, dtype, axis) of every edge pair and the (shape,
+        strides, dtype, depth, layout) of every frame."""
+        pairs, frames = {}, {}
+        pair, frame = hp._rdma_edge_pair, hp._rdma_frame
 
-        def recorder(fwd, bwd, axis_name, p, *, collective_id):
-            seen[(tuple(fwd.shape), fwd.stride(), bwd.stride(), fwd.dtype,
-                  axis_name)] = None
-            return transport(fwd, bwd, axis_name, p,
-                             collective_id=collective_id)
+        def pair_recorder(fwd, bwd, axis_name, p, *, collective_id):
+            pairs[(tuple(fwd.shape), fwd.stride(), bwd.stride(), fwd.dtype,
+                   axis_name)] = None
+            return pair(fwd, bwd, axis_name, p, collective_id=collective_id)
 
-        hp._rdma_edge_pair = recorder
+        def frame_recorder(block, plan, *, collective_ids):
+            frames[(tuple(block.shape), block.stride(), block.dtype,
+                    plan.depth, plan.layout)] = None
+            return frame(block, plan, collective_ids=collective_ids)
+
+        hp._rdma_edge_pair, hp._rdma_frame = pair_recorder, frame_recorder
         try:
             fn()
         finally:
-            hp._rdma_edge_pair = transport
-        return list(seen)
+            hp._rdma_edge_pair, hp._rdma_frame = pair, frame
+        return list(pairs), list(frames)
 
     def rung_sim(*args, **kw):
         return with_env("MOMP_HALO_RDMA", "1",
@@ -2669,10 +2688,12 @@ def main() -> int:
                             mesh=rung_mesh, layout="cart", fuse_steps=2,
                             boundary_steps=boundary))
 
-    # ------------------------- 16. halo_edge_pair against its plain version
+    # ------------- 16. halo_edge_pair and halo_frame against their plain versions
     t0 = time.perf_counter()
     edge_err = 0
     edge_checks = 0
+    frame_err = 0
+    frame_checks = 0
     gen_e = torch.Generator(device="cuda").manual_seed(700)
 
     def edge_case(fwd, bwd, axis, what):
@@ -2686,6 +2707,21 @@ def main() -> int:
         if bad:
             edge_err = 1
             raise AssertionError(f"halo_edge_pair disagrees: {what}: {bad}")
+
+    def frame_case(block, depth, layout, what):
+        """The frame kernel against its plain version, compared as raw
+        bytes (random bytes may hold NaN patterns)."""
+        nonlocal frame_err, frame_checks
+        got = nh.halo_frame(block, depth, layout)
+        want = nh.halo_frame_plain(block, depth, layout).contiguous()
+        torch.cuda.synchronize()
+        bad = int(got.shape != want.shape or not got.is_contiguous())
+        if not bad:
+            bad = diff_count(got.view(torch.uint8), want.view(torch.uint8))
+        frame_checks += 1
+        if bad:
+            frame_err = 1
+            raise AssertionError(f"halo_frame disagrees: {what}: {bad}")
 
     def random_block(shape, dtype):
         if dtype.is_floating_point:
@@ -2715,18 +2751,79 @@ def main() -> int:
     log(f"  halo_edge_pair: {edge_checks} grid cases bit-equal to the plain "
         "version (uint8, int32, float32, 2-channel float32; y and x edges; "
         "axis sizes 1, 2, 4, 8; depths 1, 3, 32)")
-    # The edges the rung's runs below pass it: one round of each, recorded.
+    # The frame over the same dtypes, the three layouts on four meshes of 8
+    # shards, depths 1, 3 and a shard's extent (past it: refused).
+    for dtype, channels in ((torch.uint8, 1), (torch.int32, 1),
+                            (torch.float32, 1), (torch.float32, 2)):
+        for layout in ("row", "col", "cart"):
+            for py, px in ((8, 1), (1, 8), (4, 2), (2, 4)):
+                lead = (py, px) + ((channels,) if channels > 1 else ())
+                block = random_block(lead + (24, 40), dtype)
+                for depth in (1, 3, 24):
+                    frame_case(block, depth, layout, f"{dtype} C={channels} "
+                               f"{layout} {py}x{px} depth {depth}")
+                try:
+                    nh.halo_frame(block, 25, layout)
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError("halo_frame took a depth past the "
+                                         "shard's extent")
+    grid_frames = frame_checks
+
+    def strided_block(dtype, shape, *, pitch, gap, offset, col_step=1):
+        """Random bytes viewed as a (py, px, *C, h, w) block with rows
+        ``w * col_step + pitch`` elements apart, ``gap`` elements between
+        channel planes and between shards, ``offset`` elements into the
+        buffer: the runs start at every alignment."""
+        py, px, *chans, h, w = shape
+        strides = [0] * len(shape)
+        strides[-1], strides[-2] = col_step, w * col_step + pitch
+        inner = h * strides[-2] + gap
+        for i in range(len(chans) - 1, -1, -1):
+            strides[2 + i] = inner
+            inner *= chans[i]
+        inner += gap
+        strides[0], strides[1] = inner * px, inner
+        span = offset + inner * py * px + 8
+        elem = torch.empty((), dtype=dtype).element_size()
+        buf = torch.randint(0, 256, (span * elem,), generator=gen_e,
+                            device="cuda", dtype=torch.int32).to(torch.uint8)
+        return buf.view(dtype).as_strided(shape, strides, offset)
+
+    for dtype in (torch.uint8, torch.int16, torch.int32, torch.float32,
+                  torch.float64):
+        for layout, mesh_shape in (("row", (4, 1)), ("col", (1, 4)),
+                                   ("cart", (4, 2))):
+            for offset in range(4):
+                block = strided_block(dtype, (*mesh_shape, 2, 3, 9, 137),
+                                      pitch=offset + 1, gap=5, offset=offset)
+                for depth in (1, 3, 5):
+                    frame_case(block, depth, layout,
+                               f"{dtype} {layout} strided, offset {offset}, "
+                               f"depth {depth}")
+            block = strided_block(dtype, (*mesh_shape, 2, 6, 10), pitch=1,
+                                  gap=3, offset=3, col_step=2)
+            frame_case(block, 2, layout, f"{dtype} {layout} column-strided")
+    log(f"  halo_frame: {grid_frames} grid cases (uint8, int32, float32, "
+        "2-channel float32; row, col, cart on 8x1, 1x8, 4x2, 2x4; depths 1, "
+        f"3, 24; 25 refused) and {frame_checks - grid_frames} strided cases "
+        "(1-, 2-, 4- and 8-byte elements; merged channel axes, padded rows, "
+        "offsets 0-3; column-strided) bit-equal to the plain version")
+    # What the rung's runs below hand their transport: one round of each,
+    # recorded.
     rung_runs = [("native row 4", ("row", (4,), "native"), {}),
                  ("native cart 4x2", ("cart", (4, 2), "native"), {}),
                  ("halo cart 4x2", ("cart", (4, 2), "halo"), {})]
-    main_edges = {}
+    main_pairs, main_frames = {}, {}
     for name, args, kw in rung_runs:
         probe = rung_sim(*args, **kw)
-        main_edges[name] = record_edges(
+        main_pairs[name], main_frames[name] = record_transport(
             lambda: probe._advance(probe.board, 1))
     for workload in rung_stencils:
         for boundary in (None, 1):
-            main_edges[f"{workload} cart 4x2 b={boundary}"] = record_edges(
+            name = f"{workload} cart 4x2 b={boundary}"
+            main_pairs[name], main_frames[name] = record_transport(
                 lambda: rung_stencil_run(workload, 2, boundary, True))
 
     def strided_pair(shape, f_stride, b_stride, dtype):
@@ -2738,28 +2835,42 @@ def main() -> int:
         return (buf.as_strided(shape, f_stride, 0),
                 buf.as_strided(shape, b_stride, span))
 
-    for name, edges in main_edges.items():
+    def rung_block(shape, stride, dtype):
+        """A random block of ``shape`` with the given strides."""
+        span = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+        return random_block((span,), dtype).as_strided(shape, stride, 0)
+
+    for name, edges in main_pairs.items():
         for shape, f_stride, b_stride, dtype, axis in edges:
             f, b = strided_pair(shape, f_stride, b_stride, dtype)
             edge_case(f, b, axis, f"{name}: {shape} strides {f_stride}")
             log(f"  halo_edge_pair at {name}'s edges {shape} {dtype} axis "
                 f"{axis}, strides {f_stride} / {b_stride}: bit-equal")
-    log(f"phase 16 halo_edge_pair vs plain: ok, {edge_checks} cases "
+    for name, frames in main_frames.items():
+        for shape, stride, dtype, depth, layout in frames:
+            frame_case(rung_block(shape, stride, dtype), depth, layout,
+                       f"{name}: {shape} strides {stride}")
+            log(f"  halo_frame at {name}'s block {shape} {dtype} {layout} "
+                f"depth {depth}, strides {stride}: bit-equal")
+    log(f"phase 16 halo_edge_pair and halo_frame vs plain: ok, "
+        f"{edge_checks} and {frame_checks} cases "
         f"({time.perf_counter() - t0:.2f} s)")
 
     # ----------------------------------- 17. the RDMA rung on the main path
     t0 = time.perf_counter()
     rung_launches = {}
 
-    def expect_launches(what, plan_of, steps, k, got):
+    def expect_launches(what, plan_of, steps, k, counts):
+        """The frame and edge-pair launches of a run against the rounds
+        times what a round of its plan makes."""
         rounds, rem = divmod(steps, k)
-        want = rounds * rung_exchanges(plan_of(k))
+        want = [rounds * n for n in rung_exchanges(plan_of(k))]
         if rem:
-            want += rung_exchanges(plan_of(rem))
+            want = [a + b for a, b in zip(want, rung_exchanges(plan_of(rem)))]
+        got = [counts["halo_frame"], counts["edge_pair"]]
         if got != want:
-            raise AssertionError(f"{what}: {got} edge_pair launches, the "
-                                 f"plan implies {want}")
-        return want
+            raise AssertionError(f"{what}: {got} (halo_frame, edge_pair) "
+                                 f"launches, the plan implies {want}")
 
     for name, args, kw in rung_runs:
         rsim = rung_sim(*args, steps=(1000 if args[2] == "halo" else None),
@@ -2774,7 +2885,7 @@ def main() -> int:
                     deferred_boards[name])
         with_env("MOMP_HALO_RDMA", "1", lambda: expect_launches(
             f"rdma {name}", rsim._halo_plan, rsim.step_count,
-            rsim.fuse_steps, counts["edge_pair"]))
+            rsim.fuse_steps, counts))
         log(f"  rdma {name}: plan={rsim.plan_note} steps={rsim.step_count} "
             f"launches={counts}; board equal to the oracle, phase 5's "
             "serial board and phase 14's overlap:deferred board")
@@ -2803,18 +2914,27 @@ def main() -> int:
                                       **stencils.parity_tol_for("offset")):
                 raise AssertionError(f"{name}: outside parity_tol_for "
                                      "of the oracle")
-            expect_launches(name, lambda k: rplan, n, 2, counts["edge_pair"])
+            expect_launches(name, lambda k: rplan, n, 2, counts)
             err = float(np.abs(got.cpu().numpy() - oracle_f).max())
             log(f"  rdma {name}, {n} steps: plan={rplan.engine} "
                 f"launches={counts}; bit-equal to {dplan.engine}, max abs "
                 f"error against the oracle {err:.3g}")
+    rung_totals = {k: sum(c[k] for c in rung_launches.values())
+                   for k in ("halo_frame", "edge_pair")}
+    if rung_totals != RUNG_LAUNCHES:
+        raise AssertionError(f"the rung's runs launched {rung_totals}, not "
+                             f"{RUNG_LAUNCHES}")
+    log(f"  the rung's runs: {rung_totals['halo_frame']} halo_frame and "
+        f"{rung_totals['edge_pair']} halo_edge_pair launches")
 
     psim = rung_sim("row", (2,), "bitfused", board=ovl_board, steps=1000)
     pfinal, counts = run_counted(wrappers, psim.run)
     rung_launches["bitfused row 2 1024^2 (flag set)"] = counts
-    if psim.plan_note != "window+overlap:packed" or counts["edge_pair"]:
+    if (psim.plan_note != "window+overlap:packed" or counts["edge_pair"]
+            or counts["halo_frame"]):
         raise AssertionError(f"packed plan under the flag: {psim.plan_note}, "
-                             f"{counts['edge_pair']} edge_pair launches")
+                             f"{counts['edge_pair']} edge_pair and "
+                             f"{counts['halo_frame']} halo_frame launches")
     check_board("1024^2 row 2 under the flag vs the serial kernel", pfinal,
                 serial_1k)
     log(f"  bitfused 1024^2 row 2 under MOMP_HALO_RDMA=1: plan="
@@ -2826,38 +2946,64 @@ def main() -> int:
     # ----------------------------------------------- 18. the rung's times
     t0 = time.perf_counter()
 
-    def edge_bound(fwd):
-        # Each edge element read once and written once, both directions.
-        return bound_ms(0, 2 * 2 * fwd.numel() * fwd.element_size())
-
-    def edge_record(what, fwd, bwd, axis):
-        def kernel():
-            return nh.edge_pair(fwd, bwd, axis)
-
-        def plain():
-            return nh.edge_pair_plain(fwd, bwd, axis)
-
+    def transport_record(what, kernel_name, kernel, plain, nbytes_moved,
+                         **extra):
+        """Device ms a call of ``kernel`` (by its kernel records) and of
+        ``plain`` (all its device time) from profiler traces of 50 calls,
+        CUDA events around 50 back-to-back calls beside them, and the
+        byte bound."""
         kernel(), plain()  # warm-up
-        k_ms = device_ms(kernel, 50, "halo_edge_pair")
+        k_ms = device_ms(kernel, 50, kernel_name)
         p_ms = device_ms(plain, 50)
         k_events, p_events = cuda_ms(kernel, reps=50), cuda_ms(plain, reps=50)
-        bound, by = edge_bound(fwd)
-        log(f"  halo_edge_pair {what} {tuple(fwd.shape)} {fwd.dtype} axis "
-            f"{axis}: device time per launch {k_ms:.5f} ms, plain {p_ms:.5f} "
-            f"ms (CUDA events around back-to-back calls: {k_events:.5f}, "
-            f"plain {p_events:.5f}); bound {bound:.6f} ms ({by}) [{card}]")
-        return {"what": what, "shape": "x".join(map(str, fwd.shape)),
-                "dtype": str(fwd.dtype).replace("torch.", ""), "axis": axis,
-                "ms": k_ms, "plain_ms": p_ms, "events_ms": k_events,
-                "plain_events_ms": p_events, "bound_ms": bound,
-                "bound_by": by}
+        bound, by = bound_ms(0, nbytes_moved)
+        log(f"  {kernel_name} {what}: device time per launch {k_ms:.5f} ms, "
+            f"plain {p_ms:.5f} ms (CUDA events around back-to-back calls: "
+            f"{k_events:.5f}, plain {p_events:.5f}); bound {bound:.6f} ms "
+            f"({by}), {bound / k_ms:.3f} of it reached [{card}]")
+        return {"what": what, **extra, "ms": k_ms, "plain_ms": p_ms,
+                "events_ms": k_events, "plain_events_ms": p_events,
+                "bound_ms": bound, "bound_by": by,
+                "bound_share": bound / k_ms}
 
+    def edge_record(what, fwd, bwd, axis):
+        # Each edge element read once and written once, both directions.
+        return transport_record(
+            f"{what} {tuple(fwd.shape)} {fwd.dtype} axis {axis}",
+            "halo_edge_pair", lambda: nh.edge_pair(fwd, bwd, axis),
+            lambda: nh.edge_pair_plain(fwd, bwd, axis),
+            2 * 2 * fwd.numel() * fwd.element_size(),
+            shape="x".join(map(str, fwd.shape)),
+            dtype=str(fwd.dtype).replace("torch.", ""), axis=axis)
+
+    def frame_record(what, block, depth, layout):
+        # Each block element read once and each frame element written once.
+        frame_bytes = (block.numel() // (block.shape[-2] * block.shape[-1])
+                       * (block.shape[-2] + 2 * depth)
+                       * (block.shape[-1] + 2 * depth) * block.element_size())
+        return transport_record(
+            f"{what} {tuple(block.shape)} {block.dtype} {layout} depth "
+            f"{depth}", "halo_frame",
+            lambda: nh.halo_frame(block, depth, layout),
+            lambda: nh.halo_frame_plain(block, depth, layout),
+            nbytes(block) + frame_bytes,
+            shape="x".join(map(str, block.shape)),
+            dtype=str(block.dtype).replace("torch.", ""), layout=layout,
+            depth=depth)
+
+    frame_rec = []
+    for name in ("native cart 4x2", "native row 4", "heat cart 4x2 b=None",
+                 "lenia cart 4x2 b=None"):
+        for shape, stride, dtype, depth, layout in main_frames[name]:
+            frame_rec.append(frame_record(
+                name, rung_block(shape, stride, dtype), depth, layout))
+    big = torch.rand((4, 2, 4096, 8192), generator=gen_e, device="cuda")
+    frame_rec.append(frame_record("float32 stack", big, 32, "cart"))
     edge_rec = []
-    for name in ("native cart 4x2", "native row 4"):
-        for shape, f_stride, b_stride, dtype, axis in main_edges[name]:
+    for name in ("heat cart 4x2 b=1", "lenia cart 4x2 b=1"):
+        for shape, f_stride, b_stride, dtype, axis in main_pairs[name]:
             edge_rec.append(edge_record(
                 name, *strided_pair(shape, f_stride, b_stride, dtype), axis))
-    big = torch.rand((4, 2, 4096, 8192), generator=gen_e, device="cuda")
     for axis, (f, b) in (("y", (big[..., -32:, :], big[..., :32, :])),
                          ("x", (big[..., -32:], big[..., :32]))):
         edge_rec.append(edge_record("float32 (4, 2, 4096, 8192) depth 32",
@@ -2866,17 +3012,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     def rung_record(name, sim_, lo):
-        """A profiler trace of ``lo`` steps: the edge-pair kernel, the Life
-        rule kernel and the rest (the rolls, slices and concatenations of
-        the exchange) per step, device kernels per step and the idle
-        share."""
+        """A profiler trace of ``lo`` steps: the frame and edge-pair
+        kernels, the Life rule kernel and the rest (the rolls, slices and
+        concatenations of the exchange) per step, device kernels per step
+        and the idle share."""
         rec = {"plan_note": sim_.plan_note}
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t_wall = time.perf_counter()
             sim_._advance(sim_.board, lo)
             torch.cuda.synchronize()
             t_wall = time.perf_counter() - t_wall
-        split = {"halo_edge_pair": 0.0, "stencil_padded": 0.0, "other": 0.0}
+        split = {"halo_frame": 0.0, "halo_edge_pair": 0.0,
+                 "stencil_padded": 0.0, "other": 0.0}
         count = 0
         for ev in prof.events():
             if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -2886,11 +3033,13 @@ def main() -> int:
         if not count:
             raise RuntimeError(f"{name}: the profiler saw no device kernel")
         busy = sum(split.values())
-        rec.update(edge_pair_us_per_step=split["halo_edge_pair"] / lo,
+        exchange = (split["halo_frame"] + split["halo_edge_pair"]
+                    + split["other"])
+        rec.update(frame_us_per_step=split["halo_frame"] / lo,
+                   edge_pair_us_per_step=split["halo_edge_pair"] / lo,
                    rule_us_per_step=split["stencil_padded"] / lo,
                    other_us_per_step=split["other"] / lo,
-                   exchange_us_per_step=(split["halo_edge_pair"]
-                                         + split["other"]) / lo,
+                   exchange_us_per_step=exchange / lo,
                    device_kernels_per_step=count / lo,
                    idle_share=1 - busy / (t_wall * 1e6))
         return rec
@@ -2921,8 +3070,9 @@ def main() -> int:
                         + ", ".join(f"{t:.4f}" for t in times[m])
                         for m in sims) + f" [{card}]")
         for m, tr in traces.items():
-            log(f"    {notes[m]} profiler over 200 steps: edge pair "
-                f"{tr['edge_pair_us_per_step']:.4f} us/step, Life rule "
+            log(f"    {notes[m]} profiler over 200 steps: frame "
+                f"{tr['frame_us_per_step']:.4f} us/step, edge pair "
+                f"{tr['edge_pair_us_per_step']:.4f}, Life rule "
                 f"{tr['rule_us_per_step']:.4f}, other copies "
                 f"{tr['other_us_per_step']:.4f} (exchange "
                 f"{tr['exchange_us_per_step']:.4f}), "
@@ -3125,24 +3275,46 @@ def main() -> int:
                        + build_note)
     kernels[-1]["attention_32k"] = attn_line
     kernels[-1]["grad_step_kernels_ms"] = step_kernels
+    main_frame = frame_rec[0]
+    kernels.append({
+        "name": "halo_frame", "route": "cuda",
+        "source": "mpi_and_open_mp_tpu_torch/csrc/halo_frame.cu",
+        "replaces": "mpi_and_open_mp_tpu/parallel/haloplan.py:286",
+        "launches": rung_totals["halo_frame"],
+        "max_abs_err": float(frame_err), "ms": main_frame["ms"],
+        "plain_ms": main_frame["plain_ms"],
+        "bound_ms": main_frame["bound_ms"],
+        "bound_by": main_frame["bound_by"], "library_ms": None,
+        "shape": (f"{main_frame['what']}: {main_frame['shape']} "
+                  f"{main_frame['dtype']} block, {main_frame['layout']} "
+                  f"frame of depth {main_frame['depth']}, one launch a "
+                  "coupled round"),
+        "note": ("ms and plain_ms: device time per call from a "
+                 "torch.profiler trace of 50 calls; bound_ms: the block read "
+                 "once and the frame written once; no single PyTorch call "
+                 "computes the frame"),
+        "exact_cases": frame_checks,
+        "launches_by_run": {k: c["halo_frame"]
+                            for k, c in rung_launches.items()},
+        "per_shape": frame_rec, "rung_vs_deferred_vs_seq": rung_rec})
     main_edge = edge_rec[0]
     kernels.append({
         "name": "halo_edge_pair", "route": "cuda",
         "source": "mpi_and_open_mp_tpu_torch/csrc/halo_edge_pair.cu",
         "replaces": "mpi_and_open_mp_tpu/parallel/haloplan.py:286",
-        "launches": sum(c["edge_pair"] for c in rung_launches.values()),
+        "launches": rung_totals["edge_pair"],
         "max_abs_err": float(edge_err), "ms": main_edge["ms"],
         "plain_ms": main_edge["plain_ms"], "bound_ms": main_edge["bound_ms"],
         "bound_by": main_edge["bound_by"], "library_ms": None,
-        "shape": (f"{main_edge['what']}: {main_edge['shape']} "
-                  f"{main_edge['dtype']} edges over axis "
-                  f"{main_edge['axis']}, both directions per launch"),
+        "shape": (f"{main_edge['what']}: both directions per launch, one "
+                  "launch a partitioned sub-round"),
         "note": ("ms and plain_ms: device time per call from a "
                  "torch.profiler trace of 50 calls; no single PyTorch call "
                  "computes the pair"),
+        "exact_cases": edge_checks,
         "launches_by_run": {k: c["edge_pair"]
                             for k, c in rung_launches.items()},
-        "per_shape": edge_rec, "rung_vs_deferred_vs_seq": rung_rec})
+        "per_shape": edge_rec})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -69,6 +69,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _check_devices(args, mesh_shape: tuple[int, ...]) -> None:
+    """Refuse a mesh of more shards than ``--virtual-devices N``, with the
+    JAX package's text (its mesh of N simulated devices raises so)."""
+    n = args.virtual_devices
+    if n and int(np.prod(mesh_shape)) > n:
+        raise ValueError(f"Number of devices {n} must be >= the product of "
+                         f"mesh_shape {mesh_shape}")
+
+
 def make_mesh(args):
     """The mesh the flags ask for, or None for LifeSim's default (one
     shard per device)."""
@@ -78,12 +87,16 @@ def make_mesh(args):
     kw = dict(device=args.device, virtual=virtual)
     if args.mesh:
         py, px = (int(v) for v in args.mesh.split(","))
+        _check_devices(args, (py, px))
         return mesh_lib.make_mesh_2d(py, px, **kw)
     n = args.devices or args.virtual_devices
     if not n:
         return None
     if args.layout == "cart":
-        return mesh_lib.make_mesh_2d(*mesh_lib.dims_create(n, 2), **kw)
+        shape = mesh_lib.dims_create(n, 2)
+        _check_devices(args, shape)
+        return mesh_lib.make_mesh_2d(*shape, **kw)
+    _check_devices(args, (n,))
     axis = "x" if args.layout == "col" else "y"
     return mesh_lib.make_mesh_1d(n, axis=axis, **kw)
 

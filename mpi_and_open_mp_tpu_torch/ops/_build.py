@@ -69,6 +69,7 @@ SIGNATURES = {
         "flash_hop_attributes": [_I, _I, _I, _IP],
     },
     "halo_edge_pair": [_P] * 5 + [_I, _L, _I, _I] + [_L] * 6 + [_I, _P],
+    "halo_frame": [_P] * 3 + [_I] * 5 + [_L] * 3 + [_I, _P],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

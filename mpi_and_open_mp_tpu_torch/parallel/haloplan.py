@@ -30,13 +30,14 @@ Engine stamps, as the JAX package's:
   ``torch.roll`` copies a pair), every device;
 * ``overlap:rdma`` - ``MOMP_HALO_RDMA=1`` on shards that live on a CUDA
   device (:func:`on_card`, the counterpart of the JAX package's
-  ``jax.default_backend() == "tpu"``): each ghost pair moves through one
-  launch of the hand-written ``csrc/halo_edge_pair.cu``
-  (:func:`_rdma_edge_pair`); row and col exchange their edge pair over
-  the 1-D ring, cart runs the two-phase corner exchange, y edges first,
-  then the x edges of the y-padded block carrying the corner words. Off
-  the card the flag gives ``overlap:deferred``, as the JAX package off a
-  TPU;
+  ``jax.default_backend() == "tpu"``): a coupled round's ghosts come as
+  one launch of the hand-written ``csrc/halo_frame.cu``
+  (:func:`_rdma_frame`), every shard's ghost-padded frame with the
+  diagonal corners read from the diagonal shard, and the round's three
+  partitions are slices of it; a partitioned sub-round moves each edge
+  pair through one launch of ``csrc/halo_edge_pair.cu``
+  (:func:`_rdma_edge_pair`). Off the card the flag gives
+  ``overlap:deferred``, as the JAX package off a TPU;
 * ``...:pb{b}`` - suffix on either stamp when the boundary is partitioned
   at ``boundary_steps = b < fuse_steps``;
 * ``overlap:packed`` - the bit-packed twin
@@ -108,8 +109,8 @@ class HaloPlan:
 def _overlap_axis(layout: str) -> str:
     """The axis whose exchange the plan overlaps: y for ``row`` and
     ``cart`` (cart's x exchange stays sequential on the deferred path: its
-    ghosts feed the y ghosts' corners; the RDMA rung folds it into phase 2
-    of the corner exchange), x for ``col``."""
+    ghosts feed the y ghosts' corners; the RDMA rung's frame carries both),
+    x for ``col``."""
     return "x" if layout == "col" else "y"
 
 
@@ -222,8 +223,9 @@ def _rdma_edge_pair(fwd_edge: torch.Tensor, bwd_edge: torch.Tensor,
     ``(from_prev, from_next)``, the predecessor's ``fwd_edge`` and the
     successor's ``bwd_edge`` (``ops.native_halo.edge_pair``: one launch of
     ``halo_edge_pair`` on the card). ``collective_id`` is the JAX package's
-    ring id, checked; on one card it carries no meaning. Transport only:
-    the ``_rdma_ghosts_*`` wrappers orient the ghosts."""
+    ring id, checked; on one card it carries no meaning. The partitioned
+    sub-rounds take it: their ghosts come from fresh strips, not from a
+    block."""
     if collective_id != COLLECTIVE_IDS.get(axis_name):
         raise ValueError(f"collective_id {collective_id} is not the "
                          f"{axis_name!r} ring's ({COLLECTIVE_IDS})")
@@ -234,41 +236,25 @@ def _rdma_edge_pair(fwd_edge: torch.Tensor, bwd_edge: torch.Tensor,
     return native_halo.edge_pair(fwd_edge, bwd_edge, axis_name)
 
 
-def _rdma_ghosts_y(block: torch.Tensor, depth: int, axis_name: str,
-                   p: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`ghosts_y` by the RDMA transport: bottom edge forward, top
-    edge backward over the y ring (row and cart layouts)."""
-    return _rdma_edge_pair(block[..., -depth:, :], block[..., :depth, :],
-                           axis_name, p, collective_id=COLLECTIVE_IDS["y"])
-
-
-def _rdma_ghosts_x(block: torch.Tensor, depth: int, axis_name: str,
-                   p: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """:func:`ghosts_x` by the RDMA transport, for the col layout: right
-    edge forward, left edge backward over the x ring."""
-    return _rdma_edge_pair(block[..., -depth:], block[..., :depth],
-                           axis_name, p, collective_id=COLLECTIVE_IDS["x"])
-
-
-def _rdma_ghosts_cart(block: torch.Tensor, depth: int,
-                      mesh_axes: tuple[int, int]
-                      ) -> tuple[torch.Tensor, torch.Tensor,
-                                 torch.Tensor, torch.Tensor]:
-    """The two-phase cart corner exchange: phase 1 moves the raw y edge
-    pair over the y ring; phase 2 moves the x edge pair of the y-padded
-    block over the x ring, so each ``(h + 2d, d)`` column strip carries
-    phase 1's ghosts in its first and last ``d`` rows and the diagonal
-    corners ride the x exchange. Returns ``(top, bot, left, right)``:
-    ``top``/``bot`` of shape ``(..., d, w)``, ``left``/``right`` of shape
-    ``(..., h + 2d, d)``, corners included."""
-    d = depth
-    py, px = mesh_axes
-    top, bot = _rdma_edge_pair(block[..., -d:, :], block[..., :d, :], "y",
-                               py, collective_id=COLLECTIVE_IDS["y"])
-    pady = torch.cat([top, block, bot], dim=-2)
-    left, right = _rdma_edge_pair(pady[..., -d:], pady[..., :d], "x", px,
-                                  collective_id=COLLECTIVE_IDS["x"])
-    return top, bot, left, right
+def _rdma_frame(block: torch.Tensor, plan: HaloPlan, *,
+                collective_ids: tuple[int, ...]) -> torch.Tensor:
+    """A coupled round's ghost-padded shards by the RDMA transport
+    (``ops.native_halo.halo_frame``: one launch of ``halo_frame`` on the
+    card), equal to :func:`padded_round_block`: the y ring's ghosts on
+    row, the x ring's on col, both and the diagonal corners on cart.
+    ``collective_ids`` are the JAX package's ids of the rings it carries
+    (``COLLECTIVE_IDS``, y before x), checked; on one card they carry no
+    meaning. The frame takes the place of the JAX package's ghost pairs
+    and the concatenations around them."""
+    want = tuple(COLLECTIVE_IDS[a]
+                 for a in native_halo.FRAME_RINGS[plan.layout])
+    if tuple(collective_ids) != want:
+        raise ValueError(f"collective_ids {tuple(collective_ids)} are not "
+                         f"the {plan.layout!r} rings' {want}")
+    if tuple(block.shape[:2]) != plan.mesh_axes:
+        raise ValueError(f"the plan's mesh is {plan.mesh_axes}, but the "
+                         f"block holds {tuple(block.shape[:2])} shards")
+    return native_halo.halo_frame(block, plan.depth, plan.layout)
 
 
 # --------------------------------------------------------- fused schedules
@@ -300,47 +286,45 @@ def overlap_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
     if plan.boundary_steps != plan.fuse_steps:
         return _partitioned_fused_step(plan, step_fn, block)
     k, d = plan.fuse_steps, plan.depth
-    rdma = plan.engine.startswith("overlap:rdma")
+    if plan.engine.startswith("overlap:rdma"):
+        return _rdma_fused_step(plan, step_fn, block)
     if plan.layout == "col":
         # x-mirror of the row schedule: the unsharded y axis wraps itself.
-        if rdma:
-            left, right = _rdma_ghosts_x(block, d, "x", plan.mesh_axes[1])
-        else:
-            left, right = ghosts_x(block, d)
+        left, right = ghosts_x(block, d)
         interior = _steps(step_fn, _wrap_y(block, d), k)
         lead = torch.cat([left, block[..., : 2 * d]], dim=-1)
         tail = torch.cat([block[..., -2 * d:], right], dim=-1)
         lead = _steps(step_fn, _wrap_y(lead, d), k)
         tail = _steps(step_fn, _wrap_y(tail, d), k)
         return torch.cat([lead, interior, tail], dim=-1)
-    if plan.layout == "cart" and rdma and plan.mesh_axes[1] > 1:
-        # The two-phase corner exchange: both axes' ghosts come before the
-        # interior (the deferred cart path below completes the x exchange
-        # first, on its own).
-        top2, bot2, left, right = _rdma_ghosts_cart(block, d, plan.mesh_axes)
-        base = torch.cat([left[..., d:-d, :], block, right[..., d:-d, :]],
-                         dim=-1)
-        top = torch.cat([left[..., :d, :], top2, right[..., :d, :]], dim=-1)
-        bot = torch.cat([left[..., -d:, :], bot2, right[..., -d:, :]], dim=-1)
-        interior = _steps(step_fn, base, k)
-        lead = _steps(step_fn, torch.cat([top, base[..., : 2 * d, :]], dim=-2),
-                      k)
-        tail = _steps(step_fn, torch.cat([base[..., -2 * d:, :], bot], dim=-2),
-                      k)
-        return torch.cat([lead, interior, tail], dim=-2)
     # row / cart: overlap the y exchange. Cart first completes the x
     # exchange (its ghost columns feed the y ghosts' corners); row wraps x
     # locally. Either way `base` carries d ghost columns.
     base = (halo.halo_pad_x(block, "x", d) if plan.layout == "cart"
             else _wrap_x(block, d))
-    if rdma:
-        top, bot = _rdma_ghosts_y(base, d, "y", plan.mesh_axes[0])
-    else:
-        top, bot = ghosts_y(base, d)
+    top, bot = ghosts_y(base, d)
     interior = _steps(step_fn, base, k)
     lead = _steps(step_fn, torch.cat([top, base[..., : 2 * d, :]], dim=-2), k)
     tail = _steps(step_fn, torch.cat([base[..., -2 * d:, :], bot], dim=-2), k)
     return torch.cat([lead, interior, tail], dim=-2)
+
+
+def _rdma_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
+                     ) -> torch.Tensor:
+    """The RDMA rung's coupled round: every ring's ghosts first, as one
+    frame (:func:`_rdma_frame`); the interior and the two edge strips the
+    deferred schedule builds by concatenation are slices of it, along y
+    (row, cart) or x (col). Each strip is the deferred schedule's input,
+    so the round equals it bit for bit."""
+    k, d = plan.fuse_steps, plan.depth
+    frame = _rdma_frame(block, plan, collective_ids=tuple(
+        COLLECTIVE_IDS[a] for a in native_halo.FRAME_RINGS[plan.layout]))
+    dim = -1 if plan.layout == "col" else -2
+    n = block.shape[dim]
+    interior = _steps(step_fn, frame.narrow(dim, d, n), k)
+    lead = _steps(step_fn, frame.narrow(dim, 0, 3 * d), k)
+    tail = _steps(step_fn, frame.narrow(dim, n - d, 3 * d), k)
+    return torch.cat([lead, interior, tail], dim=dim)
 
 
 def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
@@ -410,13 +394,9 @@ def padded_round_block(layout: str, block: torch.Tensor,
                        depth: int) -> torch.Tensor:
     """One round's halo-padded shards, exchanged as the sequential
     schedule pads them: the unsharded axis wraps locally, sharded axes
-    exchange (x before y on ``cart``, for the corners)."""
-    d = depth
-    if layout == "row":
-        return halo.halo_pad_y(_wrap_x(block, d), "y", d)
-    if layout == "col":
-        return halo.halo_pad_x(_wrap_y(block, d), "x", d)
-    return halo.halo_pad_2d(block, "y", "x", d)
+    exchange (x before y on ``cart``, for the corners). The frame
+    kernel's plain version (``ops.native_halo.halo_frame_plain``)."""
+    return native_halo.halo_frame_plain(block, depth, layout)
 
 
 def padded_round_block_local(layout: str, block: torch.Tensor,

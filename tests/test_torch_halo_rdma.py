@@ -63,8 +63,12 @@ def _soup(shape, seed, density=0.35):
 
 def _arm(monkeypatch, calls=None):
     """Arm the rung in both packages: the flag on, the JAX backend and the
-    port's card faked, and each transport wrapped to record ``(axis,
-    collective_id)`` per call (JAX records calls as it traces a round)."""
+    port's card faked, and each transport wrapped to record its calls (JAX
+    records calls as it traces a round). JAX's entries are ``(axis,
+    collective_id)``, one per ghost pair; the port's are ``(kind,
+    ((axis, collective_id), ...))``, one per transport call: ``"pair"``
+    for an edge pair, ``"frame"`` for a coupled round's frame, which
+    carries every ring of its layout."""
     calls = {"jax": [], "port": []} if calls is None else calls
 
     def jax_pair(fwd, bwd, axis_name, p, *, collective_id):
@@ -73,19 +77,31 @@ def _arm(monkeypatch, calls=None):
                 lax.ppermute(bwd, axis_name, jhalo.ring_perm(p, -1)))
 
     port_pair = haloplan._rdma_edge_pair
+    port_frame = haloplan._rdma_frame
 
-    def counted(fwd, bwd, axis_name, p, *, collective_id):
-        calls["port"].append((axis_name, collective_id))
+    def counted_pair(fwd, bwd, axis_name, p, *, collective_id):
+        calls["port"].append(("pair", ((axis_name, collective_id),)))
         return port_pair(fwd, bwd, axis_name, p, collective_id=collective_id)
+
+    def counted_frame(block, plan, *, collective_ids):
+        rings = native_halo.FRAME_RINGS[plan.layout]
+        calls["port"].append(("frame", tuple(zip(rings, collective_ids))))
+        return port_frame(block, plan, collective_ids=collective_ids)
 
     monkeypatch.setenv(jhp.ENV_RDMA, "1")
     monkeypatch.setattr(jhp.jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(jhp, "_rdma_edge_pair", jax_pair)
     monkeypatch.setattr(haloplan, "on_card", lambda device: True)
-    monkeypatch.setattr(haloplan, "_rdma_edge_pair", counted)
+    monkeypatch.setattr(haloplan, "_rdma_edge_pair", counted_pair)
+    monkeypatch.setattr(haloplan, "_rdma_frame", counted_frame)
     jhp._plan.cache_clear()
     haloplan._plan.cache_clear()
     return calls
+
+
+def _rings(port_calls):
+    """Every (axis, collective_id) the port's transport calls carried."""
+    return [ring for _, rings in port_calls for ring in rings]
 
 
 # ------------------------------------------------ the transport, per shard
@@ -274,9 +290,12 @@ def _runs(spec_name, board, steps, layout, boundary, mesh_shape=(4, 2)):
 @pytest.mark.parametrize("layout", ["row", "col", "cart"])
 def test_rdma_schedule_matches_jax(monkeypatch, layout, boundary):
     """Life on 48^2, a 4x2 mesh, fuse_steps=2, 6 steps (3 rounds): boards
-    bit-equal to JAX's armed run, stamps equal, the same transport calls
-    per round (JAX traces its round once; the port calls per round) with
-    collective ids 13 for y and 14 for x."""
+    bit-equal to JAX's armed run, stamps equal, collective ids 13 for y
+    and 14 for x. The transport calls per round: JAX traces its round
+    once, with one pair call per exchange (two on coupled cart: the
+    corner exchange); the port calls per round. A partitioned round
+    makes JAX's pair calls; a coupled round one frame call carrying the
+    rings of JAX's pair calls."""
     calls = _arm(monkeypatch)
     board = _soup((48, 48), 48)
     got, want, plan, jplan = _runs("life", board, 6, layout, boundary)
@@ -284,10 +303,15 @@ def test_rdma_schedule_matches_jax(monkeypatch, layout, boundary):
         "overlap:rdma" + (":pb1" if boundary else ""))
     assert np.array_equal(got, want)
     assert np.array_equal(got, oracle_n(board, 6))
-    assert calls["jax"] and calls["port"] == calls["jax"] * 3
-    for axis, cid in calls["port"]:
+    assert calls["jax"]
+    if boundary:
+        assert _rings(calls["port"]) == calls["jax"] * 3
+        assert {kind for kind, _ in calls["port"]} == {"pair"}
+    else:
+        assert calls["port"] == [("frame", tuple(calls["jax"]))] * 3
+    for axis, cid in _rings(calls["port"]):
         assert cid == {"y": 13, "x": 14}[axis]
-    exchanges = {("row", None): 1, ("col", None): 1, ("cart", None): 2,
+    exchanges = {("row", None): 1, ("col", None): 1, ("cart", None): 1,
                  ("row", 1): 2, ("col", 1): 2, ("cart", 1): 2}
     assert len(calls["port"]) == 3 * exchanges[layout, boundary]
 
@@ -327,8 +351,9 @@ def _corner_glider_board(edge=64):
 @pytest.mark.parametrize("boundary", [None, 1], ids=["coupled", "pb1"])
 def test_cart_corner_glider_on_the_rung(monkeypatch, boundary):
     """The glider crosses the y edge, the x edge and the diagonal corner
-    words that phase 2 forwards; both packages' armed runs equal the
-    oracle at 7 steps (a remainder round) and 24."""
+    words (JAX's second phase forwards them; the port's coupled frame
+    reads them from the diagonal shard); both packages' armed runs equal
+    the oracle at 7 steps (a remainder round) and 24."""
     calls = _arm(monkeypatch)
     board = _corner_glider_board()
     for steps in (7, 24):
@@ -338,7 +363,8 @@ def test_cart_corner_glider_on_the_rung(monkeypatch, boundary):
         assert plan.engine.startswith("overlap:rdma")
         assert np.array_equal(got, oracle_n(board, steps)), steps
         assert np.array_equal(want, oracle_n(board, steps)), steps
-    assert ("x", 14) in calls["port"] and ("y", 13) in calls["port"]
+    assert ("x", 14) in _rings(calls["port"])
+    assert ("y", 13) in _rings(calls["port"])
 
 
 @pytest.mark.parametrize("fuse", [1, 3])
@@ -347,7 +373,8 @@ def test_lifesim_halo_on_the_rung_matches_jax(monkeypatch, layout, mshape,
                                               fuse):
     """``LifeSim(impl="halo")`` under the armed rung: the board and
     ``plan_note`` equal JAX's armed ``LifeSim``; the port's transport runs
-    once a round per exchange (two on cart 4x2, one on row 8)."""
+    once a round, one frame (JAX's: two pairs on cart 4x2, one on row 8),
+    carrying the rings of JAX's round."""
     calls = _arm(monkeypatch)
     board = _soup((64, 64), 70 + fuse)
     steps = 30
@@ -367,5 +394,6 @@ def test_lifesim_halo_on_the_rung_matches_jax(monkeypatch, layout, mshape,
     assert sim.plan_note == jsim.plan_note == "overlap:rdma"
     assert np.array_equal(got, np.asarray(jsim.run()))
     assert np.array_equal(got, oracle_n(board, steps))
-    per_round = 2 if layout == "cart" else 1
-    assert len(calls["port"]) == (steps // fuse) * per_round
+    jax_round = [("y", 13), ("x", 14)] if layout == "cart" else [("y", 13)]
+    assert set(calls["jax"]) == set(jax_round)
+    assert calls["port"] == [("frame", tuple(jax_round))] * (steps // fuse)

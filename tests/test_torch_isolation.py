@@ -22,7 +22,8 @@ def _port_sources():
                                           "vmem_times.py",
                                           "sliced_times.py",
                                           "vmem_batch_times.py",
-                                          "fused_times.py")]
+                                          "fused_times.py",
+                                          "rung_times.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -44,6 +45,7 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.parallel import mesh, halo, haloplan\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_halo\n"
         "assert haloplan._rdma_edge_pair and native_halo.edge_pair\n"
+        "assert haloplan._rdma_frame and native_halo.halo_frame\n"
         "from mpi_and_open_mp_tpu_torch.models import life as model\n"
         "assert model.state_from_jax_sim and model.LAYOUTS\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
