@@ -229,7 +229,28 @@ Phases, each of which raises (exit code 1) when it fails:
    ``seq:halo`` in the order rdma, deferred, seq, seq, deferred, rdma
    (us/step differenced, boards equal), and a profiler trace of each: the
    frame and edge-pair kernels, the Life rule and the other copies per
-   step, device kernels per step, idle share.
+   step, device kernels per step, idle share;
+19. checkpoints, resume and preemption on the main paths, counts set to
+   0 just before each run and read just after (the files go under
+   ``build/chip_smoke_checkpoints``, removed after): the recovery log
+   empty after phases 1-18; p46gun_big serial ``native`` with
+   ``checkpoint_every=2500`` (four ``bitlife_vmem`` launches, the files
+   of steps 0, 2500, 5000 and 7500, the final board phase 5's, the step
+   5000 file a straight 5000-step run's board), that file resumed with
+   ``from_checkpoint`` on cart 4x2 ``bitfused`` (``bitlife_window``) and
+   on row 4 ``native`` under ``MOMP_HALO_RDMA=1`` (``halo_frame`` and the
+   Life rule), both ending on phase 5's board; the 10000^2 soup on the
+   ``frame`` path (``bitlife_fused``), ``checkpoint_every=256``, 1280
+   steps, a real SIGTERM sent by a wrapped ``step`` after its third
+   segment (``Preempted.signum`` SIGTERM, the step 768 file flushed), the
+   resume equal to a straight run; the CLI in a subprocess under
+   ``MOMP_CHAOS="preempt=5000;noguard"`` (exit 75) and its ``--resume``
+   (exit 0, population 7288); ``MOMP_GUARD=1`` on native cart 4x2 on the
+   rung for 1000 steps (no recovery, the oracle's board); under
+   ``halo=corrupt`` the guard's recovery (``life_step:native:recovered``,
+   the oracle's board) and under ``halo=drop;noguard`` a board that
+   differs from the oracle; the save and restore times of a 500^2 and a
+   10000^2 board.
 
 Tolerances of phases 10-11 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -3080,6 +3101,236 @@ def main() -> int:
                 f"step, idle share {tr['idle_share']:.3f} [{card}]")
     log(f"phase 18 rdma rung timings: {time.perf_counter() - t0:.2f} s")
 
+    # ------------------------- 19. checkpoints, resume and preemption
+    t0 = time.perf_counter()
+    import shutil
+    import signal
+
+    from mpi_and_open_mp_tpu_torch.robust import chaos, guards, preempt
+    from mpi_and_open_mp_tpu_torch.utils import checkpoint as ckl
+
+    if guards.recovery_log() or chaos.active_plan() is not None:
+        raise AssertionError(f"phases 1-18 ran with a chaos plan or recorded "
+                             f"recoveries: {guards.recovery_log()}")
+    ck_root = os.path.join(ROOT, "build", "chip_smoke_checkpoints")
+    shutil.rmtree(ck_root, ignore_errors=True)
+    ckpt_launches = {}
+    gun_cfg = load_config(GUN_BIG)
+
+    def files_of(d):
+        return sorted(os.listdir(d))
+
+    def names(*steps):
+        return [ckl.checkpoint_name(n) for n in steps]
+
+    def expect_launched(what, counts, *kernels_):
+        ckpt_launches[what] = counts
+        idle = [k for k in kernels_ if counts[k] < 1]
+        if idle:
+            raise AssertionError(f"{what}: no launch of {idle} ({counts})")
+
+    gun_dir = os.path.join(ck_root, "gun")
+    csim = LifeSim(gun_cfg, layout="serial", impl="native",
+                   checkpoint_dir=gun_dir, checkpoint_every=2500)
+    csim.warmup()
+    cfinal, counts = run_counted(wrappers, csim.run)
+    what = "p46gun_big serial native, checkpoint_every 2500"
+    expect_launched(what, counts, "vmem")
+    if counts["vmem"] != 4 or files_of(gun_dir) != names(0, 2500, 5000,
+                                                           7500):
+        raise AssertionError(f"{what}: {counts['vmem']} bitlife_vmem "
+                             f"launches, files {files_of(gun_dir)}")
+    check_board(f"{what} vs phase 5's serial board", cfinal, gun_serial)
+    half_cfg = LifeConfig(steps=5000, save_steps=0, nx=gun_cfg.nx,
+                          ny=gun_cfg.ny, cells=gun_cfg.cells)
+    half = LifeSim(half_cfg, layout="serial", impl="native").run()
+    at_5000 = os.path.join(gun_dir, ckl.checkpoint_name(5000))
+    board_5000, step_5000 = ckl.restore(at_5000)
+    if step_5000 != 5000:
+        raise AssertionError(f"{at_5000} holds step {step_5000}")
+    check_board("the step 5000 checkpoint vs a straight 5000-step run",
+                board_5000, half)
+    log(f"  {what}: launches={counts}, files {files_of(gun_dir)}; board "
+        "equal to phase 5's, step 5000 file equal to a straight run")
+
+    for label, make in (
+            ("bitfused cart 4x2", lambda: LifeSim.from_checkpoint(
+                at_5000, gun_cfg, layout="cart", impl="bitfused",
+                mesh=pm.make_mesh_2d(4, 2))),
+            ("native row 4 rdma", lambda: with_env(
+                "MOMP_HALO_RDMA", "1", lambda: LifeSim.from_checkpoint(
+                    at_5000, gun_cfg, layout="row", impl="native",
+                    mesh=pm.make_mesh_1d(4))))):
+        rsim = make()
+        rfinal, counts = run_counted(wrappers, rsim.run)
+        what = f"step 5000 resumed on {label}"
+        if label.startswith("bitfused"):
+            expect_launched(what, counts, "window")
+        else:
+            expect_launched(what, counts, "halo_frame", "life_padded")
+            if rsim.plan_note != "overlap:rdma":
+                raise AssertionError(f"{what}: stamped {rsim.plan_note}")
+        check_board(f"{what} vs phase 5's serial board", rfinal, gun_serial)
+        log(f"  {what}: plan={rsim.plan_note} steps {rsim._initial_step}-"
+            f"{rsim.step_count} launches={counts}; board equal to phase 5's")
+    del csim, rsim
+
+    soup_big = soup((10000, 10000), 7).cpu().numpy()
+    big_cfg = LifeConfig(steps=1280, save_steps=0, nx=10000, ny=10000,
+                         cells=np.zeros((0, 2), np.int64))
+    frame_dir = os.path.join(ck_root, "frame")
+    fsim = LifeSim(big_cfg, layout="serial", impl="auto",
+                   initial_board=soup_big, checkpoint_dir=frame_dir,
+                   checkpoint_every=256)
+    inner_step, segments = fsim.step, []
+
+    def step_then_sigterm(n=1):
+        inner_step(n)
+        segments.append(n)
+        if len(segments) == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    def until_preempted(sim_):
+        try:
+            sim_.run()
+        except preempt.Preempted as e:
+            return e
+        raise AssertionError("the run ended without its preemption")
+
+    fsim.step = step_then_sigterm
+    # A late SIGTERM must meet a no-op, not the default (process death).
+    prev_term = signal.signal(signal.SIGTERM, lambda *a: None)
+    try:
+        stop, counts = run_counted(wrappers, lambda: until_preempted(fsim))
+    finally:
+        signal.signal(signal.SIGTERM, prev_term)
+    what = "10000^2 frame path, checkpoint_every 256, SIGTERM"
+    expect_launched(what, counts, "fused")
+    if (fsim.native_path != "frame" or stop.signum != signal.SIGTERM
+            or stop.step != 768 or files_of(frame_dir) != names(256, 512, 768)
+            or stop.checkpoint != os.path.join(frame_dir,
+                                               ckl.checkpoint_name(768))):
+        raise AssertionError(f"{what}: path {fsim.native_path}, {stop!r}, "
+                             f"signum {stop.signum}, files "
+                             f"{files_of(frame_dir)}")
+    rsim = LifeSim.from_checkpoint(stop.checkpoint, big_cfg,
+                                   layout="serial", impl="auto")
+    rfinal, counts2 = run_counted(wrappers, rsim.run)
+    expect_launched("10000^2 frame path resumed at step 768", counts2,
+                    "fused")
+    straight = LifeSim(big_cfg, layout="serial", impl="auto",
+                       initial_board=soup_big).run()
+    check_board("the 10000^2 resume vs a straight 1280-step run", rfinal,
+                straight)
+    log(f"  {what}: {stop}; segments {segments}, launches={counts}, then "
+        f"{counts2} resumed; files {files_of(frame_dir)}; the resume equals "
+        "a straight run")
+    del fsim, rsim, rfinal, straight
+
+    cli_dir = os.path.join(ck_root, "cli")
+    cli_env = dict(os.environ, PYTHONPATH=ROOT,
+                   MOMP_CHAOS="preempt=5000;noguard")
+    cli_cmd = [sys.executable, "-m", "mpi_and_open_mp_tpu_torch.apps.life",
+               GUN_BIG, "--layout", "serial", "--checkpoint-dir", cli_dir,
+               "--checkpoint-every", "2500", "--print-final-population"]
+    first = subprocess.run(cli_cmd, cwd=ROOT, env=cli_env,
+                           capture_output=True, text=True, timeout=300)
+    again = subprocess.run(cli_cmd + ["--resume"], cwd=ROOT, env=cli_env,
+                           capture_output=True, text=True, timeout=300)
+    first_err = first.stderr.strip().splitlines() or [""]
+    again_err = again.stderr.strip().splitlines() or [""]
+    resumed = [ln for ln in again_err if ln.startswith('{"resumed"')]
+    if (first.returncode != 75 or first.stdout.strip()
+            or not first_err[-1].startswith("preempted at step 5000 by chaos "
+                                            "plan")
+            or again.returncode != 0 or again_err[-1] != "7288"
+            or resumed != ['{"resumed": "step_005000.state", "step": 5000}']):
+        raise AssertionError(f"CLI preempt and resume: rc {first.returncode}"
+                             f" {first.stderr[-1500:]!r}, then rc "
+                             f"{again.returncode} {again.stderr[-1500:]!r}")
+    log(f"  CLI under MOMP_CHAOS=preempt=5000;noguard: exit 75, "
+        f"{first_err[-1]!r}; --resume: exit 0, {resumed[0]}, "
+        f"population 7288, files {files_of(cli_dir)}")
+    if guards.recovery_log():
+        raise AssertionError(f"recoveries with no plan active: "
+                             f"{guards.recovery_log()}")
+
+    def rung_chaos_run(spec, guard="0"):
+        """Native cart 4x2 on the rung for 1000 steps under ``spec``."""
+        def run():
+            chaos.reset()
+            try:
+                sim_ = rung_sim("cart", (4, 2), "native", steps=1000)
+                out, counts_ = run_counted(wrappers, sim_.run)
+            finally:
+                chaos.reset()
+            return sim_, out, counts_
+
+        if not spec:
+            return with_env("MOMP_GUARD", guard, run)
+        return with_env("MOMP_CHAOS", spec,
+                        lambda: with_env("MOMP_GUARD", guard, run))
+
+    gsim, gfinal, counts = rung_chaos_run("", guard="1")
+    what = "native cart 4x2 rung, MOMP_GUARD=1, no plan"
+    expect_launched(what, counts, "halo_frame", "life_padded")
+    check_board(f"{what} vs the oracle", gfinal, oracle_1k)
+    if gsim.recoveries or guards.recovery_log():
+        raise AssertionError(f"{what}: recovered {gsim.recoveries} with no "
+                             "fault")
+    log(f"  {what}: launches={counts}; no recovery, the oracle's board")
+    csim, cfinal, counts = rung_chaos_run("halo=corrupt")
+    what = "native cart 4x2 rung under halo=corrupt"
+    expect_launched(what, counts, "halo_frame", "life_padded")
+    check_board(f"{what} vs the oracle", cfinal, oracle_1k)
+    stamps = guards.recovery_log()
+    if (csim.plan_note != "overlap:rdma"
+            or stamps != ["life_step:native:recovered"]
+            or not csim.recoveries[0].startswith(stamps[0])):
+        raise AssertionError(f"{what}: plan {csim.plan_note}, log {stamps}, "
+                             f"recoveries {csim.recoveries}")
+    log(f"  {what}: launches={counts}; {csim.recoveries[0]}; the oracle's "
+        "board")
+    guards.reset_recovery_log()
+    dsim, dfinal, counts = rung_chaos_run("halo=drop;noguard")
+    what = "native cart 4x2 rung under halo=drop;noguard"
+    expect_launched(what, counts, "halo_frame", "life_padded")
+    dropped = int((dfinal != oracle_1k).sum())
+    if not dropped or dsim.recoveries or guards.recovery_log():
+        raise AssertionError(f"{what}: {dropped} cells off the oracle, "
+                             f"recoveries {dsim.recoveries}")
+    log(f"  {what}: launches={counts}; {dropped} cells differ from the "
+        "oracle (the fault reached the frame), no recovery")
+    del gsim, csim, dsim
+
+    for label, board in (("500^2", gun_serial), ("10000^2", soup_big)):
+        path = os.path.join(ck_root, f"times_{label}.state")
+        on_card = torch.from_numpy(board).cuda()
+        save_s, restore_s = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ckl.save(path, on_card, 1)
+            save_s.append(time.perf_counter() - t1)
+            t1 = time.perf_counter()
+            back = torch.from_numpy(ckl.restore(path)[0]).cuda()
+            torch.cuda.synchronize()
+            restore_s.append(time.perf_counter() - t1)
+        if not torch.equal(back, on_card):
+            raise AssertionError(f"{label}: the restored board differs")
+        mb = board.nbytes / 1e6
+        log(f"  checkpoint {label} ({mb:.2f} MB board, "
+            f"{os.path.getsize(path)} file bytes): save "
+            f"{', '.join(f'{t * 1e3:.3f}' for t in save_s)} ms (card to "
+            f"file, fsynced), restore "
+            f"{', '.join(f'{t * 1e3:.3f}' for t in restore_s)} ms (file to "
+            f"card) [{card}]")
+    del soup_big, on_card, back
+    shutil.rmtree(ck_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 19 checkpoints, resume and preemption: ok "
+        f"({time.perf_counter() - t0:.2f} s)")
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -3315,6 +3566,16 @@ def main() -> int:
         "launches_by_run": {k: c["edge_pair"]
                             for k, c in rung_launches.items()},
         "per_shape": edge_rec})
+    # Phase 19's runs of each kernel of its paths, beside the main path's.
+    phase19_keys = {"bitlife_vmem": "vmem", "bitlife_fused": "fused",
+                    "bitlife_window": "window",
+                    "stencil_padded:life": "life_padded",
+                    "halo_frame": "halo_frame"}
+    for row in kernels:
+        key = phase19_keys.get(row["name"])
+        if key:
+            row["launches_checkpoint_runs"] = {
+                run: c[key] for run, c in ckpt_launches.items() if c[key]}
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

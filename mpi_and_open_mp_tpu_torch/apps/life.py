@@ -16,11 +16,27 @@ The sharded layouts run on a mesh of shards that all live on one device
 package's "simulate N devices"), ``--mesh PY,PX`` for a 2-D mesh,
 ``--devices N`` for N shards on a 1-D mesh. Without these the mesh has one
 shard per device of ``--device``'s type: one on one card or on the CPU.
+
+Checkpoint, stop and resume (the JAX package's contract)::
+
+    python -m mpi_and_open_mp_tpu_torch.apps.life configs/gun_big_500x500.cfg --layout serial --checkpoint-dir ck --checkpoint-every 2500
+    python -m mpi_and_open_mp_tpu_torch.apps.life configs/gun_big_500x500.cfg --layout serial --checkpoint-dir ck --resume
+
+``--checkpoint-dir`` writes ``step_NNNNNN.state`` at every save point and,
+with ``--checkpoint-every N``, every N steps. SIGTERM or SIGINT flushes a
+checkpoint at the next segment boundary, and the run exits 75 with
+``-- requeue with --resume`` on stderr; so does a ``MOMP_CHAOS=preempt=<k>``
+plan. ``--resume`` continues from the newest state, checkpoint or
+``--outdir`` snapshot, and refuses a JAX Orbax checkpoint newer than both.
+``--impl pallas`` is the JAX package's name of ``native``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import re
 import sys
 import time
 
@@ -28,6 +44,7 @@ import numpy as np
 
 from mpi_and_open_mp_tpu_torch.models.life import IMPLS, LAYOUTS, LifeSim
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
+from mpi_and_open_mp_tpu_torch.robust.preempt import EXIT_PREEMPTED, Preempted
 from mpi_and_open_mp_tpu_torch.utils.config import load_config
 from mpi_and_open_mp_tpu_torch.utils.timing import append_times_txt
 
@@ -39,10 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("cfg", help="board config file (steps/save_steps/nx ny/cells)")
     p.add_argument("--layout", choices=LAYOUTS, default="row")
-    p.add_argument("--impl", choices=IMPLS, default="auto",
-                   help="native = the hand-written kernels (the JAX "
-                        "package's pallas); auto = native (serial) or "
-                        "bitfused (sharded) on the card")
+    p.add_argument("--impl", choices=IMPLS + ("pallas",), default="auto",
+                   help="native = the hand-written kernels (pallas, the "
+                        "JAX package's name, is accepted for it); auto = "
+                        "native (serial) or bitfused (sharded) on the card")
     p.add_argument("--fuse-steps", type=int, default=1, metavar="K",
                    help="halo depth: exchange once per K local steps")
     p.add_argument("--mesh", metavar="PY,PX",
@@ -55,14 +72,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch", type=int, default=0, metavar="B",
                    help="throughput mode: advance B stacked copies of the "
                         "cfg board together (batched LifeSim; excludes "
-                        "--outdir). The elapsed line then covers B boards' "
-                        "worth of updates, and the final population is the "
-                        "sum over the stack")
+                        "--outdir, --checkpoint-dir and --resume). The "
+                        "elapsed line then covers B boards' worth of "
+                        "updates, and the final population is the sum over "
+                        "the stack")
     p.add_argument("--outdir", default=None,
                    help="write VTK snapshots here (default: no saves)")
     p.add_argument("--times-file", default=None,
                    help="append elapsed seconds to this file (times.txt contract)")
     p.add_argument("--print-final-population", action="store_true")
+    p.add_argument("--resume", action="store_true",
+                   help="restart from the newest state: the latest "
+                        "checkpoint in --checkpoint-dir or the latest VTK "
+                        "snapshot in --outdir")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="write a checkpoint (step_NNNNNN.state) at every "
+                        "save point")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="also checkpoint every N steps, whatever the save "
+                        "cadence (SIGTERM flushes one and exits 75)")
     p.add_argument("--debug-check", action="store_true",
                    help="assert one step matches the oracle before and "
                         "after the run")
@@ -76,6 +104,73 @@ def _check_devices(args, mesh_shape: tuple[int, ...]) -> None:
     if n and int(np.prod(mesh_shape)) > n:
         raise ValueError(f"Number of devices {n} must be >= the product of "
                          f"mesh_shape {mesh_shape}")
+
+
+def _find_latest(directory: str | None, pattern: str
+                 ) -> tuple[str, int] | None:
+    """The highest-step entry of ``directory`` whose name matches
+    ``pattern`` in full (one numeric group, the step)."""
+    if not directory or not os.path.isdir(directory):
+        return None
+    best = None
+    for name in os.listdir(directory):
+        m = re.fullmatch(pattern, name)
+        if m:
+            step = int(m.group(1))
+            if best is None or step > best[1]:
+                best = (os.path.join(directory, name), step)
+    return best
+
+
+def find_latest_snapshot(outdir: str | None) -> tuple[str, int] | None:
+    """Latest ``life_NNNNNN.vtk`` in ``outdir`` and its step index."""
+    return _find_latest(outdir, r"life_(\d{6,})\.vtk")
+
+
+def find_latest_checkpoint(ckpt_dir: str | None) -> tuple[str, int] | None:
+    """Latest ``step_NNNNNN.state`` checkpoint in ``ckpt_dir``."""
+    return _find_latest(ckpt_dir, r"step_(\d{6,})\.state")
+
+
+def find_latest_orbax(ckpt_dir: str | None) -> tuple[str, int] | None:
+    """Latest JAX Orbax checkpoint tree ``step_NNNNNN/`` in ``ckpt_dir``,
+    which this package cannot read."""
+    found = _find_latest(ckpt_dir, r"step_(\d{6,})")
+    return found if found is not None and os.path.isdir(found[0]) else None
+
+
+def _resume(args, cfg, kwargs):
+    """The sim ``--resume`` continues, from the newest state (a stale
+    checkpoint must not roll back past newer snapshots), or None with the
+    reason on stderr."""
+    ckpt = find_latest_checkpoint(args.checkpoint_dir)
+    snap = find_latest_snapshot(args.outdir)
+    orbax = find_latest_orbax(args.checkpoint_dir)
+    ours = max((s for _, s in filter(None, (ckpt, snap))), default=None)
+    if orbax is not None and (ours is None or orbax[1] > ours):
+        print(f"--resume: {orbax[0]} is a JAX Orbax checkpoint (step "
+              f"{orbax[1]}), newer than every state this package reads; "
+              "resume it with mpi_and_open_mp_tpu.apps.life (refusing to "
+              "roll back past it)", file=sys.stderr)
+        return None
+    if ckpt is not None and (snap is None or ckpt[1] >= snap[1]):
+        path, step = ckpt
+        print(f"resuming from checkpoint {path} (step {step})",
+              file=sys.stderr)
+        sim = LifeSim.from_checkpoint(path, cfg, **kwargs)
+    elif snap is not None:
+        path, step = snap
+        print(f"resuming from {path} (step {step})", file=sys.stderr)
+        sim = LifeSim.from_snapshot(cfg, path, step, **kwargs)
+    else:
+        sources = [f"no snapshots in {args.outdir!r}"]
+        if args.checkpoint_dir is not None:
+            sources.insert(0, f"no checkpoints in {args.checkpoint_dir!r}")
+        print(f"--resume: {' and '.join(sources)}", file=sys.stderr)
+        return None
+    print(json.dumps({"resumed": os.path.basename(path), "step": step}),
+          file=sys.stderr)
+    return sim
 
 
 def make_mesh(args):
@@ -109,23 +204,42 @@ def main(argv=None) -> int:
     if args.batch and args.layout != "serial":
         parser.error("--batch needs --layout serial "
                      "(a batch is one single-program dispatch)")
-    if args.batch and args.outdir:
-        parser.error("--batch is a throughput mode: drop --outdir")
+    if args.batch and (args.outdir or args.checkpoint_dir or args.resume):
+        parser.error("--batch is a throughput mode: drop --outdir/"
+                     "--checkpoint-dir/--resume")
     cfg = load_config(args.cfg)
-    # B stacked copies of the cfg board: the work does not depend on the
-    # boards' content, so copies time what B distinct requests would.
-    stack = np.stack([cfg.board()] * args.batch) if args.batch else None
-    sim = LifeSim(cfg, layout=args.layout, impl=args.impl,
+    kwargs = dict(layout=args.layout,
+                  impl="native" if args.impl == "pallas" else args.impl,
                   mesh=make_mesh(args), fuse_steps=args.fuse_steps,
-                  device=args.device, outdir=args.outdir, initial_board=stack)
+                  device=args.device, outdir=args.outdir,
+                  checkpoint_dir=args.checkpoint_dir,
+                  checkpoint_every=args.checkpoint_every)
+    if args.resume:
+        sim = _resume(args, cfg, kwargs)
+        if sim is None:
+            return 2
+    else:
+        # B stacked copies of the cfg board: the work does not depend on
+        # the boards' content, so copies time what B distinct requests
+        # would.
+        stack = np.stack([cfg.board()] * args.batch) if args.batch else None
+        sim = LifeSim(cfg, initial_board=stack, **kwargs)
     sim.warmup()
     if args.debug_check:
         sim.debug_check()
     t0 = time.perf_counter()
-    final = sim.run()  # collect() at the end waits for the device
+    try:
+        final = sim.run()  # collect() at the end waits for the device
+    except Preempted as e:
+        # EX_TEMPFAIL: a queue keeps the job; --resume continues from the
+        # flushed checkpoint.
+        print(f"{e} -- requeue with --resume", file=sys.stderr)
+        return EXIT_PREEMPTED
     elapsed = time.perf_counter() - t0
     if args.debug_check:
         sim.debug_check()
+    for stamp in sim.recoveries:
+        print(f"recovered: {stamp}", file=sys.stderr)
     print(f"{elapsed:.6f}")
     if args.times_file:
         append_times_txt(args.times_file, elapsed)

@@ -64,11 +64,29 @@ engines (``bitfused``, serial ``native``, batched mode) are Life only.
 The run loop keeps the reference's order (``3-life/life_mpi.c:51-62``): at
 step ``i``, save a snapshot when ``i % save_steps == 0`` (before stepping),
 then advance. Between snapshots the board advances in one call.
+
+Checkpoints and resume (the JAX package's, ``models/life.py:1006-1091``):
+``checkpoint_dir`` adds a restart channel beside the VTK snapshots, one
+``MOMP-STATE/1`` file ``step_NNNNNN.state`` of the logical uint8 board at
+every save point and, with ``checkpoint_every=N``, every N steps
+(``utils.checkpoint``); :meth:`LifeSim.from_checkpoint` and
+:meth:`LifeSim.from_snapshot` resume on any layout, mesh and impl. While a
+run that checkpoints is in ``run()``, SIGTERM or SIGINT flushes a
+checkpoint at the next segment boundary and raises
+``robust.preempt.Preempted`` (the CLI's exit 75). An active ``MOMP_CHAOS``
+plan may fault the ghost exchanges, delay segments or preempt at a fixed
+step; the guard (armed by the plan or ``MOMP_GUARD=1``, off by default)
+checks each segment against the oracle and re-runs it clean, stamping
+``recoveries``. With no save, no checkpoint cadence, no plan and no guard,
+``run()`` advances the whole budget in one call. Checkpoints hold Life
+boards only: the JAX package's restore casts every board to uint8, so
+other workloads and batched sims refuse ``checkpoint_dir``.
 """
 
 from __future__ import annotations
 
 import os
+import time
 
 import numpy as np
 import torch
@@ -79,6 +97,8 @@ from mpi_and_open_mp_tpu_torch.ops import (
     bitlife, life_ops, native_life, native_stencil)
 from mpi_and_open_mp_tpu_torch.parallel import halo, haloplan
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
+from mpi_and_open_mp_tpu_torch.robust import chaos, guards, preempt
+from mpi_and_open_mp_tpu_torch.utils import checkpoint as checkpoint_lib
 from mpi_and_open_mp_tpu_torch.utils import vtk as vtk_lib
 from mpi_and_open_mp_tpu_torch.utils.config import LifeConfig
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
@@ -91,11 +111,6 @@ IMPLS = ("auto", "roll", "halo", "native", "bitfused")
 # tests exercise what the card's serial dispatch bypasses); tests flip
 # this to cover the dispatch itself.
 _BITFUSED_1DEV_SERIAL_ON_CPU = False
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 def _default_mesh(layout: str, device) -> mesh_lib.Mesh | None:
@@ -133,6 +148,7 @@ class LifeSim:
         device: str | torch.device | None = None,
         outdir: str | os.PathLike | None = None,
         checkpoint_dir: str | os.PathLike | None = None,
+        checkpoint_every: int = 0,
         initial_board: np.ndarray | None = None,
         initial_step: int = 0,
         workload: str = "life",
@@ -185,8 +201,11 @@ class LifeSim:
                     "batched runs have no snapshot/checkpoint channels "
                     "(both serialise one board); drop outdir/checkpoint_dir")
             self.batch = int(np.asarray(initial_board).shape[0])
-        if checkpoint_dir is not None:
-            raise _not_ported("checkpoint_dir", "4 (checkpoint and resume)")
+        if checkpoint_dir is not None and self.workload != "life":
+            raise ValueError(
+                f"checkpoint_dir holds Life boards (uint8); workload="
+                f"{self.workload!r} would resume truncated by the JAX "
+                "package's restore, which casts every board to uint8")
         self.cfg = cfg
         self.layout = layout
         self.mesh = (None if layout == "serial" else
@@ -258,6 +277,12 @@ class LifeSim:
         self.native_path = None  # the serial kernels' path, when they run
         self.plan_note = None    # the sharded schedule (JAX's plan_note)
         self.outdir = os.fspath(outdir) if outdir is not None else None
+        self.checkpoint_dir = (os.fspath(checkpoint_dir)
+                               if checkpoint_dir is not None else None)
+        # Steps between restart points inside run() (0: only the save
+        # cadence writes them), and the guard's recovery provenance.
+        self.checkpoint_every = max(0, int(checkpoint_every))
+        self.recoveries: list[str] = []
         self.step_count = int(initial_step)
         self._initial_step = int(initial_step)
         if initial_board is not None:
@@ -479,16 +504,26 @@ class LifeSim:
 
     def _next_stop(self, i: int, save: bool) -> int:
         """First step index after ``i`` where run() pauses the advance: the
-        end of the budget or the next snapshot boundary."""
+        end of the budget, a snapshot or checkpoint boundary, or a pending
+        simulated preemption (a segment never straddles it: the flush
+        happens exactly there)."""
         cfg = self.cfg
         stops = [cfg.steps]
         if save and cfg.save_steps > 0:
             stops.append((i // cfg.save_steps + 1) * cfg.save_steps)
+        ck = self.checkpoint_every
+        if self.checkpoint_dir is not None and ck > 0:
+            stops.append((i // ck + 1) * ck)
+        plan = chaos.active_plan()
+        if plan is not None and plan.preempt_pending(i):
+            stops.append(plan.preempt_step)
         return min(s for s in stops if s > i)
 
     def _segment_lengths(self, save: bool = True) -> list[int]:
         """Distinct ``advance`` step counts a full ``run()`` will request."""
-        save = save and self.outdir is not None and self.cfg.save_steps > 0
+        save = (save and self.cfg.save_steps > 0
+                and (self.outdir is not None
+                     or self.checkpoint_dir is not None))
         i = self.step_count
         lengths = set()
         while i < self.cfg.steps:
@@ -582,27 +617,137 @@ class LifeSim:
         return path
 
     def save_state(self) -> None:
-        """Persist the current step: a VTK snapshot when ``outdir`` is set."""
+        """Persist the current step through every configured channel: a VTK
+        snapshot (``outdir``) and a checkpoint (``checkpoint_dir``)."""
         if self.outdir is not None:
             self.save_snapshot()
+        if self.checkpoint_dir is not None:
+            self._checkpoint_now()
+
+    def save_checkpoint(self, path: str | os.PathLike) -> None:
+        """A checkpoint of the live board at ``path`` (``utils.checkpoint``:
+        the logical uint8 ``(ny, nx)`` board, gathered from the shards and
+        cropped from the padded frame, and the step)."""
+        if self.batch is not None or self.workload != "life":
+            raise ValueError("a checkpoint holds one Life board; batched "
+                             "and non-Life sims have no checkpoint channel")
+        checkpoint_lib.save(path, self.collect(), self.step_count)
+
+    @classmethod
+    def from_checkpoint(cls, path: str | os.PathLike, cfg: LifeConfig,
+                        **kwargs) -> "LifeSim":
+        """A sim resumed from a checkpoint, on whatever layout, mesh and
+        impl ``kwargs`` (the constructor's) ask for."""
+        board, step = checkpoint_lib.restore(path)
+        # The port stores the logical board; the crop keeps a larger (a
+        # JAX package's padded) board resumable too.
+        board = board[: cfg.ny, : cfg.nx]
+        return cls(cfg, initial_board=board, initial_step=step, **kwargs)
+
+    @classmethod
+    def from_snapshot(cls, cfg: LifeConfig, snapshot_path: str, step: int,
+                      **kwargs) -> "LifeSim":
+        """Resume from a VTK snapshot at ``step``: ``run()`` continues with
+        the cfg's save cadence and step budget, the restart the reference
+        lacks (SURVEY section 5)."""
+        board = vtk_lib.read_vtk(snapshot_path)
+        return cls(cfg, initial_board=board, initial_step=step, **kwargs)
+
+    def _checkpoint_now(self) -> str:
+        path = os.path.join(self.checkpoint_dir,
+                            checkpoint_lib.checkpoint_name(self.step_count))
+        self.save_checkpoint(path)
+        return path
+
+    def _guarded_step(self, n: int) -> None:
+        """``step(n)`` with the consistency guard armed. On a violation,
+        re-run the segment from the board before it with injection
+        suppressed (the port's hooks act at run time, so nothing needs a
+        rebuild); if that still diverges, replay the segment on the NumPy
+        oracle as the last resort. Every recovery stamps ``recoveries``
+        and the process-wide log (``robust.guards``)."""
+        prev_board = self.board
+        prev_step = self.step_count
+        self.step(n)
+        why = self._consistency_violation()
+        if why is None:
+            return
+        with chaos.suppressed():
+            self.board = prev_board
+            self.step_count = prev_step
+            self.step(n)
+            still = self._consistency_violation()
+        if still is None:
+            stamp = f"life_step:{self.impl}:recovered"
+            self.recoveries.append(f"{stamp} ({why})")
+            guards.record_recovery(stamp)
+            return
+        board = self._global(prev_board).cpu().numpy()
+        for _ in range(n):
+            board = self._oracle_step(board)
+        self.board = self._place(board.astype(self.spec.np_dtype, copy=False))
+        self.step_count = prev_step + n
+        stamp = "life_step:numpy-oracle:recovered"
+        self.recoveries.append(f"{stamp} ({why}; then {still})")
+        guards.record_recovery(stamp)
 
     def run(self, save: bool | None = None) -> np.ndarray:
         """Run ``cfg.steps`` steps with the reference's save cadence:
-        snapshots at every step index ``i < steps`` with
+        snapshots (and checkpoints) at every step index ``i < steps`` with
         ``i % save_steps == 0``, before stepping (``3-life/life_mpi.c:51-58``).
-        Returns the final board on the host."""
+        Returns the final board on the host.
+
+        All inert on the default path: checkpoints every
+        ``checkpoint_every`` steps; SIGTERM/SIGINT flush a checkpoint at the
+        next segment boundary and raise ``robust.preempt.Preempted``; an
+        active ``MOMP_CHAOS`` plan may fault the halo exchanges (caught by
+        the guarded step), delay segments, or preempt at a fixed step; the
+        guards are armed by the plan or ``MOMP_GUARD=1``."""
         cfg = self.cfg
         if save is None:
-            save = self.outdir is not None
+            save = self.outdir is not None or self.checkpoint_dir is not None
         # save_steps <= 0 means "never save" (the reference's 999999 idiom).
         save = save and cfg.save_steps > 0
+        plan = chaos.active_plan()
+        guard = guards.guards_active()
+        checkpointing = (self.checkpoint_dir is not None
+                         and self.checkpoint_every > 0)
+        if not save and not checkpointing and plan is None and not guard:
+            # The default path: one advance over the whole budget.
+            if cfg.steps > self.step_count:
+                self.step(cfg.steps - self.step_count)
+            return self.collect()
         i = self.step_count
-        while i < cfg.steps:
-            if save and i % cfg.save_steps == 0:
-                self.save_state()
-            next_stop = self._next_stop(i, save)
-            self.step(next_stop - i)
-            i = next_stop
+        with preempt.flush_on_signal(
+                enabled=self.checkpoint_dir is not None) as sig:
+            while i < cfg.steps:
+                if sig.fired is not None:
+                    # The previous segment is enqueued; the flush collects
+                    # the board, which waits for it.
+                    path = (self._checkpoint_now()
+                            if self.checkpoint_dir is not None else None)
+                    raise preempt.Preempted(i, checkpoint=path,
+                                            signum=sig.fired)
+                if save and i % cfg.save_steps == 0:
+                    self.save_state()
+                elif (checkpointing and i > 0
+                      and i % self.checkpoint_every == 0):
+                    self._checkpoint_now()
+                if plan is not None and plan.delay_s:
+                    time.sleep(plan.delay_s)
+                next_stop = self._next_stop(i, save)
+                if guard:
+                    self._guarded_step(next_stop - i)
+                else:
+                    self.step(next_stop - i)
+                prev_i, i = i, next_stop
+                if (plan is not None and plan.preempt_step is not None
+                        and not plan.preempt_fired
+                        and prev_i < plan.preempt_step <= i):
+                    plan.preempt_fired = True
+                    path = (self._checkpoint_now()
+                            if self.checkpoint_dir is not None else None)
+                    raise preempt.SimulatedPreemption(i, checkpoint=path)
         return self.collect()
 
 

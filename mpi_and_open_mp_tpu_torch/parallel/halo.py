@@ -15,10 +15,13 @@ the per-shard branches of the JAX package (``lax.axis_index`` under
 first, then exchange the x-padded rows along y, the reference's
 two-phase trick at ``life_cart.c:257-279``.
 
-The JAX package's trace-time hooks (``_chaos_ghost``, the fault injection
-of ``robust.chaos``, and ``_note_exchange``, the ``obs.metrics`` count)
-belong to the robust and observability port (ROADMAP Queue 1 item 10)
-and are left out here.
+Every exchange passes its incoming top ghost (y) and left ghost (x)
+through :func:`_chaos_ghost`, the fault injection of ``robust.chaos``,
+where the JAX package's ``_chaos_ghost`` sits; the packed paths wrap the
+incoming block only, never the refresh of the last shard's mirror rows or
+columns, which is live board state. The JAX package's ``_note_exchange``
+(an ``obs.metrics`` count) belongs to the observability port (ROADMAP
+Queue 1 item 10) and is left out here.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from mpi_and_open_mp_tpu_torch.ops import bitlife
 from mpi_and_open_mp_tpu_torch.parallel.mesh import SHARD_DIM
+from mpi_and_open_mp_tpu_torch.robust import chaos
 
 
 def ring_perm(p: int, shift: int = 1) -> list[tuple[int, int]]:
@@ -43,6 +47,16 @@ def ppermute(x: torch.Tensor, axis_name: str, shift: int) -> torch.Tensor:
     """``lax.ppermute(x, axis_name, ring_perm(p, shift))`` on stacked
     shards: shard ``i`` receives what shard ``i - shift`` holds."""
     return torch.roll(x, shift, SHARD_DIM[axis_name])
+
+
+def _chaos_ghost(ghost: torch.Tensor) -> torch.Tensor:
+    """The chaos hook of an incoming ghost block: ``ghost`` itself (the
+    same object, nothing launched) unless a ``MOMP_CHAOS`` halo fault is
+    active, else the faulted block (``robust.chaos.corrupt_ghost``)."""
+    spec = chaos.halo_ghost_spec()
+    if spec is None:
+        return ghost
+    return chaos.corrupt_ghost(ghost, spec)
 
 
 def _with_shard(x: torch.Tensor, axis_name: str, i: int,
@@ -69,7 +83,7 @@ def halo_pad_y(block: torch.Tensor, axis_name: str = "y",
     shard's last rows on top, the next shard's first rows below. With one
     shard on the axis this is the torus self-wrap. Channel axes ride
     along; any dtype."""
-    top = ppermute(block[..., -depth:, :], axis_name, 1)
+    top = _chaos_ghost(ppermute(block[..., -depth:, :], axis_name, 1))
     bot = ppermute(block[..., :depth, :], axis_name, -1)
     return torch.cat([top, block, bot], dim=-2)
 
@@ -80,7 +94,7 @@ def halo_pad_x(block: torch.Tensor, axis_name: str = "x",
     columns from its ring neighbours: the reference's strided
     ``MPI_Type_vector`` exchange (``4-life/life_mpi.c:106-109``) as a
     slice and a roll."""
-    left = ppermute(block[..., -depth:], axis_name, 1)
+    left = _chaos_ghost(ppermute(block[..., -depth:], axis_name, 1))
     right = ppermute(block[..., :depth], axis_name, -1)
     return torch.cat([left, block, right], dim=-1)
 
@@ -110,7 +124,7 @@ def packed_halo_y(e: torch.Tensor, axis_name: str = "y", h: int = 4, *,
         return halo_pad_y(e, axis_name, h)
     p = axis_size(e, axis_name)
     s = h + 1 + pad // 32
-    up = ppermute(e[..., -s:, :], axis_name, 1)
+    up = _chaos_ghost(ppermute(e[..., -s:, :], axis_name, 1))
     dn = ppermute(e[..., :s, :], axis_name, -1)
     top = _with_shard(
         up[..., s - h:, :], axis_name, 0,
@@ -141,7 +155,7 @@ def packed_halo_x(block: torch.Tensor, axis_name: str = "x", hx: int = 128,
         return halo_pad_x(block, axis_name, hx)
     p = axis_size(block, axis_name)
     s = hx + pad
-    left = ppermute(block[..., -s:], axis_name, 1)
+    left = _chaos_ghost(ppermute(block[..., -s:], axis_name, 1))
     right = ppermute(block[..., :s], axis_name, -1)
     last = p - 1
     right_last = _shard_of(right, axis_name, last)

@@ -47,9 +47,18 @@ Engine stamps, as the JAX package's:
 
 ``MOMP_HALO_OVERLAP=0`` is the kill switch. Both flags are read when a plan
 is made and are part of the cache key, with whether the shards are on the
-card. The JAX package's trace-time hooks (``halo._chaos_ghost`` on every
-exchange, ``_note_schedule``) belong to the robust and observability port
-(ROADMAP Queue 1 item 10) and are left out here.
+card.
+
+Every ghost pair passes its top (y) or left (x) ghost through
+``halo._chaos_ghost``, where the JAX package's schedules call it. On the
+rung's frame (:func:`_rdma_frame`) the hook fills the rows and columns
+those ghosts would fill: the first ``depth`` rows of a frame that carries
+the y ring (row, cart), the first ``depth`` columns of one that carries
+the x ring (col, cart); on cart that is also where the JAX package's
+corner forwarding carries its faulted ghosts. With no halo fault active the
+hook is one check on the host and the frame is returned as it came. The
+JAX package's ``_note_schedule`` (an ``obs.metrics`` count) belongs to the
+observability port (ROADMAP Queue 1 item 10) and is left out here.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ import torch
 
 from mpi_and_open_mp_tpu_torch.ops import native_halo
 from mpi_and_open_mp_tpu_torch.parallel import halo
+from mpi_and_open_mp_tpu_torch.robust import chaos
 
 ENV_OVERLAP = "MOMP_HALO_OVERLAP"
 ENV_RDMA = "MOMP_HALO_RDMA"
@@ -187,8 +197,9 @@ def plan_halo(layout: str, mesh_axes: tuple[int, int],
 def ghosts_y(block: torch.Tensor, depth: int,
              axis_name: str = "y") -> tuple[torch.Tensor, torch.Tensor]:
     """The y ghost pair ``(top, bot)``: the slices :func:`halo.halo_pad_y`
-    concatenates, without the concatenation."""
-    top = halo.ppermute(block[..., -depth:, :], axis_name, 1)
+    concatenates, without the concatenation (chaos hook on ``top``)."""
+    top = halo._chaos_ghost(
+        halo.ppermute(block[..., -depth:, :], axis_name, 1))
     bot = halo.ppermute(block[..., :depth, :], axis_name, -1)
     return top, bot
 
@@ -196,8 +207,9 @@ def ghosts_y(block: torch.Tensor, depth: int,
 def ghosts_x(block: torch.Tensor, depth: int,
              axis_name: str = "x") -> tuple[torch.Tensor, torch.Tensor]:
     """The x ghost pair ``(left, right)``, :func:`ghosts_y` on the last
-    axis."""
-    left = halo.ppermute(block[..., -depth:], axis_name, 1)
+    axis (chaos hook on ``left``)."""
+    left = halo._chaos_ghost(
+        halo.ppermute(block[..., -depth:], axis_name, 1))
     right = halo.ppermute(block[..., :depth], axis_name, -1)
     return left, right
 
@@ -245,7 +257,8 @@ def _rdma_frame(block: torch.Tensor, plan: HaloPlan, *,
     ``collective_ids`` are the JAX package's ids of the rings it carries
     (``COLLECTIVE_IDS``, y before x), checked; on one card they carry no
     meaning. The frame takes the place of the JAX package's ghost pairs
-    and the concatenations around them."""
+    and the concatenations around them; an active ``MOMP_CHAOS`` halo
+    fault lands on it as the module docstring says."""
     want = tuple(COLLECTIVE_IDS[a]
                  for a in native_halo.FRAME_RINGS[plan.layout])
     if tuple(collective_ids) != want:
@@ -254,7 +267,19 @@ def _rdma_frame(block: torch.Tensor, plan: HaloPlan, *,
     if tuple(block.shape[:2]) != plan.mesh_axes:
         raise ValueError(f"the plan's mesh is {plan.mesh_axes}, but the "
                          f"block holds {tuple(block.shape[:2])} shards")
-    return native_halo.halo_frame(block, plan.depth, plan.layout)
+    frame = native_halo.halo_frame(block, plan.depth, plan.layout)
+    spec = chaos.halo_ghost_spec()
+    if spec is None:
+        return frame
+    # The rows and columns the JAX package's faulted ghosts fill (module
+    # docstring); the frame is this call's own tensor.
+    d, v = plan.depth, chaos.ghost_value(spec)
+    rings = native_halo.FRAME_RINGS[plan.layout]
+    if "y" in rings:
+        frame[..., :d, :] = v
+    if "x" in rings:
+        frame[..., :, :d] = v
+    return frame
 
 
 # --------------------------------------------------------- fused schedules
@@ -350,6 +375,7 @@ def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
             else:
                 left = halo.ppermute(tail[..., -e:], "x", 1)
                 right = halo.ppermute(lead[..., :e], "x", -1)
+            left = halo._chaos_ghost(left)
             lead = _steps(step_fn, torch.cat([left, lead], dim=-1), b)
             tail = _steps(step_fn, torch.cat([tail, right], dim=-1), b)
         return torch.cat([lead, interior, tail], dim=-1)
@@ -367,6 +393,7 @@ def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
         else:
             top = halo.ppermute(tail[..., -e:, :], "y", 1)
             bot = halo.ppermute(lead[..., :e, :], "y", -1)
+        top = halo._chaos_ghost(top)
         lead = _steps(step_fn, torch.cat([top, lead], dim=-2), b)
         tail = _steps(step_fn, torch.cat([tail, bot], dim=-2), b)
     return torch.cat([lead, interior, tail], dim=-2)

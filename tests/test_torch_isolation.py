@@ -48,6 +48,13 @@ def test_import_pulls_in_no_jax():
         "assert haloplan._rdma_frame and native_halo.halo_frame\n"
         "from mpi_and_open_mp_tpu_torch.models import life as model\n"
         "assert model.state_from_jax_sim and model.LAYOUTS\n"
+        "from mpi_and_open_mp_tpu_torch.utils import checkpoint\n"
+        "from mpi_and_open_mp_tpu_torch import robust\n"
+        "from mpi_and_open_mp_tpu_torch.robust import (chaos, guards, "
+        "preempt, watchdog)\n"
+        "assert checkpoint.save and model.LifeSim.from_checkpoint\n"
+        "assert chaos.FaultPlan and guards.with_fallback\n"
+        "assert preempt.EXIT_PREEMPTED == 75 and watchdog.probe_devices\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"

@@ -112,17 +112,16 @@ def test_debug_check_catches_a_wrong_stepper():
 
 @pytest.mark.parametrize("kwargs,item", [
     ({"layout": "row", "cards": 2}, "item 3"),
-    ({"checkpoint_dir": "ck"}, "item 4"),
     ({"layout": "cart", "cards": 4}, "item 3"),
     ({"workload": "heat", "layout": "row", "impl": "halo",
       "env": "MOMP_HALO_RDMA"}, "item 3"),
 ])
 def test_not_ported_options_raise(kwargs, item, monkeypatch):
     """What is still to port raises: a mesh across several cards (faked
-    here as a host of ``cards`` CUDA devices) and checkpoints. The
-    remote-copy ghost rung (``MOMP_HALO_RDMA=1``) is ported: its case runs
-    heat on row ``halo`` under the flag, stamped as the JAX package's sim
-    is (``overlap:deferred`` off the card and off a TPU)."""
+    here as a host of ``cards`` CUDA devices). The remote-copy ghost rung
+    (``MOMP_HALO_RDMA=1``) is ported: its case runs heat on row ``halo``
+    under the flag, stamped as the JAX package's sim is
+    (``overlap:deferred`` off the card and off a TPU)."""
     from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 
     kwargs = dict(kwargs)
