@@ -639,9 +639,10 @@ class LifeSim:
         """A sim resumed from a checkpoint, on whatever layout, mesh and
         impl ``kwargs`` (the constructor's) ask for."""
         board, step = checkpoint_lib.restore(path)
-        # The port stores the logical board; the crop keeps a larger (a
-        # JAX package's padded) board resumable too.
-        board = board[: cfg.ny, : cfg.nx]
+        if board.shape != cfg.shape:
+            raise ValueError(f"checkpoint {os.fspath(path)} holds a "
+                             f"{board.shape} board; the config's is "
+                             f"{cfg.shape}")
         return cls(cfg, initial_board=board, initial_step=step, **kwargs)
 
     @classmethod
@@ -660,36 +661,44 @@ class LifeSim:
         return path
 
     def _guarded_step(self, n: int) -> None:
-        """``step(n)`` with the consistency guard armed. On a violation,
-        re-run the segment from the board before it with injection
-        suppressed (the port's hooks act at run time, so nothing needs a
-        rebuild); if that still diverges, replay the segment on the NumPy
-        oracle as the last resort. Every recovery stamps ``recoveries``
-        and the process-wide log (``robust.guards``)."""
-        prev_board = self.board
-        prev_step = self.step_count
-        self.step(n)
-        why = self._consistency_violation()
-        if why is None:
-            return
-        with chaos.suppressed():
-            self.board = prev_board
-            self.step_count = prev_step
+        """``step(n)`` with the consistency guard armed, as a
+        ``guards.with_fallback`` chain: the segment; on a violation the
+        segment again from the board before it, with injection suppressed
+        (the port's hooks act at run time, so nothing needs a rebuild);
+        then, for a board on the CPU only, a replay on the NumPy oracle.
+        A board on the card that diverges on the clean re-run is a kernel
+        fault, which raises ``guards.FallbackExhausted`` naming both
+        divergences: the guard never moves the card's work to the host.
+        Every recovery stamps ``recoveries`` and the process-wide log."""
+        prev_board, prev_step = self.board, self.step_count
+
+        def segment():
+            self.board, self.step_count = prev_board, prev_step
             self.step(n)
-            still = self._consistency_violation()
-        if still is None:
-            stamp = f"life_step:{self.impl}:recovered"
-            self.recoveries.append(f"{stamp} ({why})")
+            why = self._consistency_violation()
+            if why is not None:
+                raise AssertionError(why)
+
+        def clean():
+            with chaos.suppressed():
+                segment()
+
+        def oracle():
+            board = self._global(prev_board).cpu().numpy()
+            for _ in range(n):
+                board = self._oracle_step(board)
+            self.board = self._place(board.astype(self.spec.np_dtype,
+                                                  copy=False))
+            self.step_count = prev_step + n
+
+        name = f"life_step:{self.impl}"
+        engines = [(name, segment), (name, clean)]
+        if self.device.type != "cuda":
+            engines.append(("life_step:numpy-oracle", oracle))
+        _, stamp, notes = guards.with_fallback(engines)
+        if notes:
+            self.recoveries.append(f"{stamp} ({'; then '.join(notes)})")
             guards.record_recovery(stamp)
-            return
-        board = self._global(prev_board).cpu().numpy()
-        for _ in range(n):
-            board = self._oracle_step(board)
-        self.board = self._place(board.astype(self.spec.np_dtype, copy=False))
-        self.step_count = prev_step + n
-        stamp = "life_step:numpy-oracle:recovered"
-        self.recoveries.append(f"{stamp} ({why}; then {still})")
-        guards.record_recovery(stamp)
 
     def run(self, save: bool | None = None) -> np.ndarray:
         """Run ``cfg.steps`` steps with the reference's save cadence:
@@ -713,7 +722,11 @@ class LifeSim:
         checkpointing = (self.checkpoint_dir is not None
                          and self.checkpoint_every > 0)
         if not save and not checkpointing and plan is None and not guard:
-            # The default path: one advance over the whole budget.
+            # The default path: one advance over the whole budget. The loop
+            # below would make the same single advance, but with a
+            # checkpoint_dir it arms the signal handlers, and a SIGTERM in
+            # its one segment would then be swallowed with nothing flushed;
+            # here a signal keeps its default meaning.
             if cfg.steps > self.step_count:
                 self.step(cfg.steps - self.step_count)
             return self.collect()

@@ -1,18 +1,21 @@
-"""Fault injection, guards, the device probe, preemption-safe resume.
+"""Fault injection, guards, preemption-safe resume.
 
-Counterpart of ``mpi_and_open_mp_tpu/robust``, four small modules:
+Counterpart of ``mpi_and_open_mp_tpu/robust``, three small modules:
 
 ``chaos``
     ``MOMP_CHAOS``-driven deterministic fault injection: corrupted or
-    dropped halo ghosts, a per-segment delay, a simulated preemption. When
-    the variable is unset every hook is a single ``is None`` check.
+    dropped halo ghosts, a per-segment delay, a simulated preemption. The
+    variable is read once; when it is unset every hook is an attribute
+    test.
 ``guards``
     ``with_fallback(engines, validator)``, the engine-ranked retry with
-    ``:recovered`` provenance, the validators, and the process-wide
-    recovery log.
-``watchdog``
-    A subprocess device probe with bounded exponential backoff.
+    ``:recovered`` provenance that ``LifeSim``'s guarded step runs, the
+    validators, and the process-wide recovery log.
 ``preempt``
     SIGTERM/SIGINT, then a checkpoint flush at a segment boundary, then
     exit 75, and the :class:`Preempted` contract drivers key on.
+
+The JAX package's fourth module, ``watchdog`` (the device probe with
+backoff), waits for its first caller, the serving daemon's port (ROADMAP
+Queue 1 item 9).
 """

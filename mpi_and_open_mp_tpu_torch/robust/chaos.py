@@ -37,9 +37,11 @@ The JAX package decides injection when it traces a program, so a fault
 stays in that program until a rebuild under :func:`suppressed`. The port's
 hooks run at every exchange call: inside :func:`suppressed` they inject
 nothing, so a recovery re-runs its segment clean without a rebuild, and
-the boards are the same as the JAX package's. With ``MOMP_CHAOS`` unset,
-:func:`active_plan` is ``None`` and every hook returns its input: no
-launch, no copy, no host sync.
+the boards are the same as the JAX package's. ``MOMP_CHAOS`` is read once
+per process (again after :func:`reset`), as a JAX stepper keeps the plan
+it was traced under. With it unset, :func:`active_plan` is ``None`` and
+every hook returns its input after two attribute tests: no launch, no
+copy, no host sync, no read of the environment.
 """
 
 from __future__ import annotations
@@ -66,8 +68,9 @@ AOT_CORRUPT_KINDS = ("bitflip", "skew")
 
 @dataclasses.dataclass
 class FaultPlan:
-    """A parsed ``MOMP_CHAOS`` spec and its runtime state; the fields are
-    the JAX package's."""
+    """A parsed ``MOMP_CHAOS`` spec and its one piece of runtime state, the
+    preemption latch. The parsed fields are the JAX package's; its hit
+    counters belong to hooks that are not ported, and are left out."""
 
     raw: str
     seed: int = 0
@@ -78,16 +81,12 @@ class FaultPlan:
     guard: bool = True
     preempt_fired: bool = False  # in-process refire latch
     serve_fail: int = 0
-    serve_failed: int = 0
     crash_site: str | None = None
     crash_at: int = 0
-    crash_hits: int = 0
     kill_worker_idx: int | None = None
     kill_worker_at: int = 0
-    kill_worker_hits: int = 0
     aot_corrupt_kind: str | None = None
     aot_corrupt: int = 0
-    aot_corrupted: int = 0
 
     @classmethod
     def parse(cls, raw: str) -> "FaultPlan":
@@ -161,29 +160,38 @@ class FaultPlan:
         )
 
 
-_CACHE: tuple[str | None, FaultPlan | None] = (None, None)
+_UNREAD = object()
+_PLAN = _UNREAD  # the parsed MOMP_CHAOS (or None): read once, until reset()
+_HALO: tuple[str, int] | None = None  # the plan's halo fault, read with it
 _SUPPRESS = 0
+
+
+def _read() -> FaultPlan | None:
+    global _PLAN, _HALO
+    raw = os.environ.get(ENV, "")
+    plan = FaultPlan.parse(raw) if raw else None
+    _PLAN = plan
+    _HALO = (None if plan is None or plan.halo_fault is None
+             else (plan.halo_fault, plan.seed))
+    return plan
 
 
 def active_plan() -> FaultPlan | None:
     """The live :class:`FaultPlan`, or ``None`` when ``MOMP_CHAOS`` is
-    unset or empty, or injection is :func:`suppressed`. Cached per spec
-    value, so the runtime state (the preemption latch) persists."""
-    global _CACHE
+    unset or empty, or injection is :func:`suppressed`. The variable is
+    read at the first call and again only after :func:`reset`, so the
+    runtime state (the preemption latch) persists and an idle hook reads
+    no environment."""
     if _SUPPRESS:
         return None
-    raw = os.environ.get(ENV, "")
-    if not raw:
-        return None
-    if _CACHE[0] != raw:
-        _CACHE = (raw, FaultPlan.parse(raw))
-    return _CACHE[1]
+    return _read() if _PLAN is _UNREAD else _PLAN
 
 
 def reset() -> None:
-    """Drop the cached plan (tests switch specs within a process)."""
-    global _CACHE
-    _CACHE = (None, None)
+    """Drop the cached plan: the next call reads ``MOMP_CHAOS`` again (a
+    process that changes the variable calls this after)."""
+    global _PLAN, _HALO
+    _PLAN, _HALO = _UNREAD, None
 
 
 @contextlib.contextmanager
@@ -200,11 +208,12 @@ def suppressed():
 
 def halo_ghost_spec() -> tuple[str, int] | None:
     """``(kind, seed)`` of the halo fault to apply to incoming ghosts, or
-    ``None``."""
-    plan = active_plan()
-    if plan is None or plan.halo_fault is None:
+    ``None``: once the plan is read, two module attribute tests."""
+    if _PLAN is _UNREAD:
+        _read()
+    if _HALO is None or _SUPPRESS:
         return None
-    return (plan.halo_fault, plan.seed)
+    return _HALO
 
 
 def ghost_value(spec: tuple[str, int]) -> int:

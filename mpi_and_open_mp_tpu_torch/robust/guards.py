@@ -111,7 +111,3 @@ def recovery_log() -> list[str]:
 def reset_recovery_log() -> None:
     """Empty the log."""
     _RECOVERIES.clear()
-
-
-# The JAX package's older name for the same call.
-clear_recovery_log = reset_recovery_log

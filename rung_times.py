@@ -1,12 +1,13 @@
 """Time the RDMA ghost rung (``MOMP_HALO_RDMA=1``) of one checkout on the card.
 
-    python3 rung_times.py [--root DIR] [--steps N] [--json PATH]
+    python3 rung_times.py [--root DIR] [--steps N] [--only NAME] [--json PATH]
 
 Imports ``mpi_and_open_mp_tpu_torch`` from DIR (by default this script's
 own checkout), builds its kernels there, and runs p46gun_big on the rung's
 three geometries of ``chip_smoke.py`` phases 17-18: ``native`` on cart 4x2
-and row 4, and ``halo`` on cart 4x2, each stamped ``overlap:rdma``. For
-each it reports:
+and row 4, and ``halo`` on cart 4x2, each stamped ``overlap:rdma``
+(``--only "native row 4"``, repeatable, keeps the named ones). For each it
+reports:
 
 - us a step from CUDA events around ``LifeSim._advance`` of N + 200 and
   200 steps, differenced, best of three (N = 1000 by default);
@@ -55,6 +56,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--only", action="append", default=None,
+                    choices=[r[0] for r in RUNS])
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -92,6 +95,8 @@ def main() -> int:
     n = args.steps
     out = {}
     for what, layout, shape, impl in RUNS:
+        if args.only and what not in args.only:
+            continue
         rung = sim(layout, shape, impl, True)
         deferred = sim(layout, shape, impl, False)
         if (rung.plan_note, deferred.plan_note) != ("overlap:rdma",

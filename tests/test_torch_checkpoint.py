@@ -147,6 +147,24 @@ def test_checkpoint_uneven_board(tmp_path, make_board):
                                   oracle_n(board, 10))
 
 
+@pytest.mark.parametrize("shape", [(48, 48), (64, 80)])
+def test_from_checkpoint_refuses_another_board_shape(tmp_path, make_board,
+                                                     shape):
+    """A 64x64 checkpoint resumed with a config of another board shape
+    raises, naming both shapes: no silently cropped (or padded) resume."""
+    board = make_board(64, 64)
+    sim = _sim(config_from_board(board, steps=8, save_steps=0))
+    sim.step(3)
+    ck = tmp_path / "ck.state"
+    sim.save_checkpoint(ck)
+    other = config_from_board(make_board(*shape), steps=8, save_steps=0)
+    with pytest.raises(ValueError,
+                       match=rf"\(64, 64\) board; the config's is "
+                             rf"\({shape[0]}, {shape[1]}\)"):
+        LifeSim.from_checkpoint(ck, other, layout="row", impl="halo",
+                                mesh=_mesh("row", (4,)), device="cpu")
+
+
 def test_checkpoint_restore_onto_2x4_and_single_device(tmp_path, make_board):
     board = make_board(48, 40)
     cfg = config_from_board(board, steps=100, save_steps=0)
@@ -466,8 +484,10 @@ def test_port_checkpoint_read_by_jax_and_continued(tmp_path, make_board):
 
 def test_jax_orbax_checkpoint_continued_by_port(tmp_path, make_board):
     """A JAX Orbax checkpoint of a padded row board, restored by the JAX
-    package and continued by the port (state_from_jax_sim, and
-    from_checkpoint of the same state saved as a port file)."""
+    package and continued by the port (state_from_jax_sim, which crops the
+    padding, and from_checkpoint of the logical board saved as a port
+    file; the padded board in a port file is refused, as any board of
+    another shape than the config's)."""
     board = make_board(50, 37)
     cfg = config_from_board(board, steps=40, save_steps=0)
     jsim = JaxSim(_jax_cfg(cfg), layout="row", impl="roll",
@@ -481,7 +501,11 @@ def test_jax_orbax_checkpoint_continued_by_port(tmp_path, make_board):
                               device="cpu")
     np.testing.assert_array_equal(ours.run(save=False), oracle_n(board, 40))
     checkpoint.save(tmp_path / "padded.state", jboard, jstep)
-    again = LifeSim.from_checkpoint(tmp_path / "padded.state", cfg,
+    with pytest.raises(ValueError, match=r"holds a \(56, 37\) board"):
+        LifeSim.from_checkpoint(tmp_path / "padded.state", cfg,
+                                layout="serial", impl="native", device="cpu")
+    checkpoint.save(tmp_path / "logical.state", jboard[:50, :37], jstep)
+    again = LifeSim.from_checkpoint(tmp_path / "logical.state", cfg,
                                     layout="serial", impl="native",
                                     device="cpu")
     assert again.step_count == 13

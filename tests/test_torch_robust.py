@@ -1,10 +1,10 @@
 """The port's robust layer held against the JAX package's.
 
-Mirrors the plan, guard, watchdog, Life-halo and preemption cases of
+Mirrors the plan, guard, Life-halo and preemption cases of
 ``tests/test_robust.py``: the ``MOMP_CHAOS`` parser (one string, the same
 plan and the same errors in both packages), no injection when it is unset,
-the engine-fallback ladder, the watchdog's backoff, halo faults caught by
-the guarded step, simulated and signal-driven preemption with a flushed
+the engine-fallback ladder, halo faults caught by the guarded step (which
+never hides a fault of a stepper on the card), simulated and signal-driven preemption with a flushed
 checkpoint and a bit-identical resume, and the CLI's exit 75.
 
 The JAX package injects halo faults when it traces a program, the port at
@@ -17,7 +17,6 @@ recovers". The JAX side runs on the 8 virtual CPU devices of
 """
 
 import dataclasses
-import itertools
 import os
 import signal
 
@@ -41,7 +40,7 @@ from mpi_and_open_mp_tpu_torch.apps import life as life_app
 from mpi_and_open_mp_tpu_torch.models.life import LifeSim
 from mpi_and_open_mp_tpu_torch.parallel import halo, haloplan
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
-from mpi_and_open_mp_tpu_torch.robust import chaos, guards, preempt, watchdog
+from mpi_and_open_mp_tpu_torch.robust import chaos, guards, preempt
 from mpi_and_open_mp_tpu_torch.utils import checkpoint
 from mpi_and_open_mp_tpu_torch.utils.config import (
     config_from_board, save_config)
@@ -152,10 +151,11 @@ GOOD = ["", "halo=drop", "halo=corrupt;seed=11", "halo=drop;noguard",
 @pytest.mark.parametrize("spec", GOOD)
 def test_chaos_strings_parse_alike_in_both_packages(spec):
     """One MOMP_CHAOS string, one plan: every field of the port's plan
-    equals the JAX package's."""
+    equals the JAX package's (whose hit counters of unported hooks the
+    port leaves out)."""
     ours = dataclasses.asdict(chaos.FaultPlan.parse(spec))
     theirs = dataclasses.asdict(jchaos.FaultPlan.parse(spec))
-    assert ours == theirs
+    assert ours == {k: theirs[k] for k in ours}
 
 
 def test_active_plan_is_cached_per_spec(monkeypatch):
@@ -166,6 +166,8 @@ def test_active_plan_is_cached_per_spec(monkeypatch):
     _set_chaos(monkeypatch, "preempt=11")
     assert chaos.active_plan().preempt_step == 11
     monkeypatch.setenv("MOMP_CHAOS", "")
+    assert chaos.active_plan().preempt_step == 11  # read once, until reset
+    chaos.reset()
     assert chaos.active_plan() is None
 
 
@@ -276,84 +278,8 @@ def test_recovery_log_is_capped():
         guards.record_recovery(f"s{i}")
     log = guards.recovery_log()
     assert len(log) == guards.RECOVERY_LOG_CAP and log[-1] == f"s{i}"
-    guards.clear_recovery_log()
+    guards.reset_recovery_log()
     assert guards.recovery_log() == []
-
-
-# ----------------------------------------------------------------- watchdog
-
-
-def test_watchdog_backoff_schedule_capped():
-    assert watchdog.backoff_schedule(5, base_s=2.0, cap_s=10.0) == [
-        2.0, 4.0, 8.0, 10.0, 10.0]
-    assert watchdog.backoff_schedule(0) == []
-
-
-def test_watchdog_backoff_generator_jitter_seeded_and_bounded():
-    from mpi_and_open_mp_tpu.robust import watchdog as jwatchdog
-
-    pure = [1.0, 2.0, 4.0, 8.0, 8.0, 8.0]
-    assert list(itertools.islice(watchdog.backoff(1.0, 8.0), 6)) == pure
-    a = list(itertools.islice(
-        watchdog.backoff(1.0, 8.0, jitter=0.5, seed=3), 6))
-    assert a == list(itertools.islice(
-        watchdog.backoff(1.0, 8.0, jitter=0.5, seed=3), 6))
-    assert a == list(itertools.islice(
-        jwatchdog.backoff(1.0, 8.0, jitter=0.5, seed=3), 6))
-    for got, base in zip(a, pure):
-        assert base * 0.5 <= got <= base
-    assert a != list(itertools.islice(
-        watchdog.backoff(1.0, 8.0, jitter=0.5, seed=4), 6))
-    with pytest.raises(ValueError, match="jitter"):
-        next(watchdog.backoff(jitter=1.5))
-
-
-def test_watchdog_backoff_schedule_jitter_matches_generator():
-    want = list(itertools.islice(
-        watchdog.backoff(2.0, 60.0, jitter=0.25, seed=9), 4))
-    assert watchdog.backoff_schedule(
-        4, base_s=2.0, cap_s=60.0, jitter=0.25, seed=9) == want
-
-
-def test_watchdog_probe_devices_backs_off_then_degrades():
-    probes, slept = [], []
-
-    def probe(timeout_s):
-        probes.append(timeout_s)
-        return False, "still down"
-
-    res = watchdog.probe_devices(
-        3.0, attempts=3, backoff_s=2.0, cap_s=60.0,
-        probe=probe, sleep=slept.append)
-    assert not res.ok and res.degraded
-    assert res.attempts == 3 and probes == [3.0, 3.0, 3.0]
-    assert slept == [2.0, 4.0] and res.waited_s == 6.0
-    assert res.why == "still down"
-
-
-def test_watchdog_probe_devices_succeeds_mid_backoff():
-    flips = iter([(False, "once"), (True, "")])
-    slept = []
-    res = watchdog.probe_devices(
-        1.0, attempts=4, probe=lambda t: next(flips), sleep=slept.append)
-    assert res.ok and not res.degraded and res.attempts == 2
-    assert len(slept) == 1
-
-
-def test_watchdog_probe_once_reports_this_machine():
-    """The real probe: a subprocess that starts CUDA and runs one op. It
-    succeeds exactly when this machine has a card; without one its note
-    carries the child's error."""
-    ok, why = watchdog.probe_once(120.0)
-    assert ok is torch.cuda.is_available()
-    if not ok:
-        assert why.startswith("probe exit")
-
-
-def test_watchdog_probe_once_kills_a_hung_child(monkeypatch):
-    monkeypatch.setattr(watchdog, "PROBE_CODE", "import time; time.sleep(60)")
-    ok, why = watchdog.probe_once(0.5)
-    assert not ok and why.startswith("TimeoutExpired")
 
 
 # ------------------------------------------------------- LifeSim halo guard
@@ -403,6 +329,42 @@ def test_guard_falls_back_to_the_oracle(monkeypatch, make_board):
     np.testing.assert_array_equal(sim.run(), oracle_n(board, 9))
     assert guards.recovery_log() == ["life_step:numpy-oracle:recovered"]
     assert "diverge" in sim.recoveries[0]
+
+
+def test_guard_raises_on_the_card_when_the_clean_rerun_diverges(
+        monkeypatch, make_board):
+    """On the card a stepper that diverges even with injection suppressed
+    is a kernel fault: the guard raises, naming both divergences, and
+    never replays the card's segment on the host oracle. The card is
+    faked: the sim says cuda, its tensors stay on the CPU."""
+    board = make_board(24, 24)
+    cfg = config_from_board(board, steps=9, save_steps=0)
+    monkeypatch.setenv("MOMP_GUARD", "1")
+    sim = _sim(cfg, "row", "halo", (2,))
+    sim.debug_check()  # places the probe board while the sim is on the CPU
+    monkeypatch.setattr(sim, "device", torch.device("cuda"))
+    healthy = sim._advance
+    sim._advance = lambda b, n: healthy(b, n + 1)
+    with pytest.raises(guards.FallbackExhausted) as ei:
+        sim.run()
+    assert len(ei.value.notes) == 2
+    assert all(n.startswith("life_step:halo: AssertionError: ")
+               and "diverge" in n for n in ei.value.notes)
+    assert sim.recoveries == [] and guards.recovery_log() == []
+
+
+def test_halo_fault_guard_recovers_on_the_card_without_the_oracle(
+        monkeypatch, make_board):
+    """A halo fault on the (faked) card is healed by the clean re-run
+    alone, which is all the card's guard may do."""
+    board = make_board(32, 32)
+    cfg = config_from_board(board, steps=12, save_steps=4)
+    sim = _sim(cfg, "row", "native", (2,))
+    sim.debug_check()  # before the plan: the probe board, placed clean
+    monkeypatch.setattr(sim, "device", torch.device("cuda"))
+    _set_chaos(monkeypatch, "halo=corrupt;seed=5")
+    np.testing.assert_array_equal(sim.run(save=False), oracle_n(board, 12))
+    assert guards.recovery_log() == ["life_step:native:recovered"]
 
 
 def test_guard_env_clean_run_records_nothing(monkeypatch, make_board):
