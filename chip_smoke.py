@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the ten sources (eleven kernels) of
+1. build the eleven sources (twelve kernels) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel, each one's
    build seconds logged; for each kernel of ``flash_fwd`` and
    ``flash_hop_bwd`` its registers and spills (``-Xptxas -v``), and its
@@ -250,7 +250,24 @@ Phases, each of which raises (exit code 1) when it fails:
    ``halo=corrupt`` the guard's recovery (``life_step:native:recovered``,
    the oracle's board) and under ``halo=drop;noguard`` a board that
    differs from the oracle; the save and restore times of a 500^2 and a
-   10000^2 board.
+   10000^2 board;
+20. the reference's programs C1-C4: the ``quadrature`` kernel's interior
+   loop from ``cuobjdump -sass`` (the instructions it issues on its fast
+   path, its square root's slow-path call skipped, and MUFU a point); the
+   kernel against its plain version at n in {1000, 131072, 131073,
+   999983, 10^8} on 1 and 8 shards (the value within 2e-6 relative, every
+   chunk sum within 1e-6); ``Integral`` at the reference's N = 10^12 and
+   its 32-bit truncation 3 567 587 328 on 1 and 8 virtual shards, each on
+   ``engine == "kernel:quadrature"`` within 2e-5 of pi, counts set to 0
+   just before a ``compute()`` and read just after (2 launches, nothing
+   else), with its wall seconds and points a second, and at 10^12 each
+   pass's device time, CUDA events and the bound (the larger of the
+   interior loop's MUFU at 16 a clock an SM and its instructions at 128
+   lanes a clock an SM); the plain version's time at 10^8 on 8 shards; the
+   CLIs in this process: ``apps.integral 1000000000000 --devices 8
+   --print-value`` (its launches are the kernels line's), ``apps.hello
+   --devices 8`` (``ring ok``), ``apps.pingpong --devices 1 --fit`` and
+   ``--devices 8 --fit`` (CSV rows and fit logged; on-card copies).
 
 Tolerances of phases 10-11 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -339,6 +356,26 @@ LIFE_SHARDS_BEFORE_MS = 0.0029
 # 4x2 1 000, heat 50, lenia 4), an edge pair a partitioned sub-round (heat
 # 100, lenia 8).
 RUNG_LAUNCHES = {"halo_frame": 21054, "edge_pair": 108}
+# Phase 20: the reference's programs C1-C4. The quadrature kernel's
+# realistic N: the reference launcher's 10^12 (launchers/run_integral.sh:12)
+# and what its 32-bit atoi made of it (SURVEY §3.3).
+QUAD_REAL_N = (10**12, 10**12 % (1 << 32))
+# Kernel against plain: n (one chunk, a chunk exactly, one point past it,
+# a prime, 10^8) at 1 and 8 shards.
+QUAD_CHECK_N = (1000, 131_072, 131_073, 999_983, 10**8)
+QUAD_SHARDS = (1, 8)
+# Tolerances: the kernel's value within 2e-6 relative of the plain
+# version's (the JAX package's own bound between 1 and 8 shards,
+# tests/test_integral.py:27); a chunk sum within 1e-6 relative (the CPU
+# tests hold the kernel's replayed order to JAX's chunk sums so); a
+# realistic N within 2e-5 of pi (JAX's bound at 10^8,
+# tests/test_integral.py:42).
+QUAD_REL, QUAD_CHUNK_REL, QUAD_PI_ABS = 2e-6, 1e-6, 2e-5
+# Points a trip of the chunk kernel's interior loop evaluates
+# (csrc/quadrature.cu: kSums x kGroup).
+QUAD_POINTS_PER_TRIP = 64
+# MUFU (special-function) issue rate: 132 SMs x 16 a clock x 1.98 GHz.
+MUFU_PER_S = N_SMS * 16 * 1.98e9
 
 
 def log(msg: str) -> None:
@@ -714,6 +751,304 @@ def sass_counts(cuobjdump: str, lib, opcode: str) -> dict[tuple, int]:
     return counts
 
 
+# cuobjdump -sass: "/*0120*/  FADD R4, R4, 256 ;", a branch "BRA 0x120".
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+SASS_TARGET = re.compile(r"\bBRA\s+(0x[0-9a-f]+)")
+
+
+def sass_loops(cuobjdump: str, lib, function: str) -> list[dict]:
+    """Every loop of ``function`` (a substring of its mangled name) in
+    ``cuobjdump -sass`` of the library: for each backward branch, the
+    instructions from its target to it, how many of them are MUFU
+    (special-function unit) instructions, and ``fast_path``: those a trip
+    issues when no out-of-line call runs (a forward branch over a block
+    that holds a ``CALL``, such as the square root's slow path, taken;
+    every other conditional forward branch falling through)."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    for part in sass.split("Function : ")[1:]:
+        if function in part.split()[0]:
+            break
+    else:
+        raise AssertionError(f"no function {function} in the SASS of {lib}")
+    insns = [(int(m[1], 16), m[2]) for m in SASS_LINE.finditer(part)]
+    loops = []
+    for addr, text in insns:
+        m = SASS_TARGET.search(text)
+        if not m or int(m[1], 16) >= addr:
+            continue
+        body = [(a, t) for a, t in insns if int(m[1], 16) <= a <= addr]
+        loops.append({"instructions": len(body),
+                      "fast_path": len(sass_fast_path(body)),
+                      "mufu": sum("MUFU" in t for _, t in body),
+                      "mufu_rsq": sum("MUFU.RSQ" in t for _, t in body),
+                      "from": m[1], "to": hex(addr)})
+    return loops
+
+
+def sass_fast_path(body: list[tuple[int, str]]) -> list[str]:
+    """The instructions one trip of a loop ``body`` (address, text) issues
+    on its fast path (:func:`sass_loops`), its closing branch included."""
+    index = {a: i for i, (a, _) in enumerate(body)}
+    path, i = [], 0
+    while i < len(body):
+        addr, text = body[i]
+        path.append(text)
+        m = SASS_TARGET.search(text)
+        if m and i < len(body) - 1:
+            target = int(m[1], 16)
+            if target > addr and target in index:
+                skipped = body[i + 1:index[target]]
+                if not text.startswith("@") or any(
+                        "CALL" in t for _, t in skipped):
+                    i = index[target]
+                    continue
+        i += 1
+    return path
+
+
+def quadrature_bound_ms(points: int, insns_per_point: float,
+                        mufu_per_point: float, nbytes: int
+                        ) -> tuple[float, str, dict]:
+    """The least time for ``points`` trapezoid points: the larger of their
+    MUFU instructions at 16 a clock an SM, their issued instructions at 128
+    lanes a clock an SM (counted in the kernel's interior loop), and the
+    chunk sums' bytes over HBM."""
+    terms = {"mufu_ms": points * mufu_per_point / MUFU_PER_S * 1e3,
+             "issue_ms": points * insns_per_point / FP32_ISSUE_PER_S * 1e3,
+             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+    t_ops = max(terms["mufu_ms"], terms["issue_ms"])
+    if t_ops >= terms["bytes_ms"]:
+        return t_ops, "operations", terms
+    return terms["bytes_ms"], "bytes", terms
+
+
+def quadrature_pass_ms(fn, tries: int = 2) -> dict[str, float]:
+    """Device milliseconds of the quadrature's passes in one call of
+    ``fn()``, from :func:`grad_step_kernels` (a traced warm-up call
+    discarded, then one call: a call of half a second is one record a
+    pass), each from the first of ``tries`` traces that kept it. The
+    card's tracer has lost every record of the chunk pass in three
+    traces in a row, so a pass it never keeps is missing from the result
+    (logged), and the call's time comes from CUDA events."""
+    names = ("quadrature_chunk_kernel", "quadrature_kahan_kernel")
+    got = {}
+    for attempt in range(1, tries + 1):
+        ms = grad_step_kernels(fn)
+        got.update({k: ms[k] for k in names if k in ms and k not in got})
+        if len(got) == len(names):
+            break
+        log(f"  quadrature_pass_ms: trace {attempt} kept {sorted(ms)}")
+    return got
+
+
+def run_cli(main_fn, argv) -> tuple[int, str, str]:
+    """``main_fn(argv)`` in this process: (exit code, stdout, stderr)."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main_fn(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
+    """Phase 20 (module docstring); returns the ``quadrature`` row of the
+    kernels line."""
+    import math
+
+    from mpi_and_open_mp_tpu_torch.apps import hello as hello_app
+    from mpi_and_open_mp_tpu_torch.apps import integral as integral_app
+    from mpi_and_open_mp_tpu_torch.apps import pingpong as pingpong_app
+    from mpi_and_open_mp_tpu_torch.models.integral import Integral
+    from mpi_and_open_mp_tpu_torch.ops import _build
+    from mpi_and_open_mp_tpu_torch.ops import native_quadrature as nq
+    from mpi_and_open_mp_tpu_torch.ops import quadrature as qd
+    from mpi_and_open_mp_tpu_torch.parallel import fabric, mesh as pm
+    from mpi_and_open_mp_tpu_torch.robust import chaos
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+
+    # The interior loop's instructions a point, from the SASS.
+    loops = sass_loops(cuobjdump, _build.lib_path("quadrature"),
+                       "quadrature_chunk_kernel")
+    inner = [lp for lp in loops if lp["mufu_rsq"] >= QUAD_POINTS_PER_TRIP]
+    if not inner:
+        raise AssertionError(f"no loop of {QUAD_POINTS_PER_TRIP} MUFU.RSQ in "
+                             f"quadrature_chunk_kernel's SASS: {loops}")
+    interior = min(inner, key=lambda lp: lp["fast_path"])
+    insns_per_point = interior["fast_path"] / QUAD_POINTS_PER_TRIP
+    mufu_per_point = interior["mufu"] / QUAD_POINTS_PER_TRIP
+    log(f"  quadrature_chunk_kernel loops (SASS): {loops}; interior "
+        f"{insns_per_point:.3f} instructions issued (fast path) and "
+        f"{mufu_per_point:.3f} MUFU a point")
+
+    # Kernel against plain.
+    cases, err_max = [], 0.0
+    for n in QUAD_CHECK_N:
+        want_sums = qd.chunk_sums(qd.f_circle, 0.0, 2.0, n, dev)
+        for p in QUAD_SHARDS:
+            got, sums = nq.launch(0.0, 2.0, n, p, dev)
+            want = qd.trapezoid_shard_sum(qd.f_circle, 0.0, 2.0, n, p, dev)
+            torch.cuda.synchronize()
+            got_v, want_v = float(got), float(want)
+            err = abs(got_v - want_v)
+            chunk_err = float(((sums - want_sums).abs()
+                               / want_sums.abs().clamp_min(1e-30)).max())
+            if (not math.isfinite(got_v) or err > QUAD_REL * abs(want_v)
+                    or chunk_err > QUAD_CHUNK_REL):
+                raise AssertionError(
+                    f"quadrature n={n} p={p}: kernel {got_v!r} against plain "
+                    f"{want_v!r} (rel {err / abs(want_v):.3g}), chunk sums "
+                    f"rel {chunk_err:.3g}")
+            err_max = max(err_max, err)
+            cases.append({"n": n, "shards": p, "kernel": got_v,
+                          "plain": want_v, "rel": err / abs(want_v),
+                          "chunk_rel_max": chunk_err})
+    log(f"  quadrature vs plain: {len(cases)} cases, max rel "
+        f"{max(c['rel'] for c in cases):.3g}, chunk sums max rel "
+        f"{max(c['chunk_rel_max'] for c in cases):.3g}")
+
+    # Realistic N through Integral, counts set to 0 just before each
+    # compute() and read just after.
+    runs = {}
+    for n in QUAD_REAL_N:
+        for p in QUAD_SHARDS:
+            integ = Integral(n, mesh=pm.make_mesh_1d(p, device="cuda",
+                                                     virtual=True))
+            if integ.engine != "kernel:quadrature":
+                raise AssertionError(f"Integral({n}) on {p} shards took "
+                                     f"engine {integ.engine}")
+            integ.compute()  # warm-up
+            t1 = time.perf_counter()
+            value, counts = run_counted(wrappers, integ.compute)
+            wall = time.perf_counter() - t1
+            others = {k: c for k, c in counts.items()
+                      if c and k != "quadrature"}
+            if (abs(value - math.pi) >= QUAD_PI_ABS
+                    or counts["quadrature"] != 2 or others):
+                raise AssertionError(
+                    f"Integral({n}) on {p} shards: {value!r} "
+                    f"(|value - pi| {abs(value - math.pi):.3g}), launches "
+                    f"{counts}")
+            label = f"n={n} p={p}"
+            rec = {"n": n, "shards": p, "value": value,
+                   "abs_err_pi": abs(value - math.pi),
+                   "launches_per_compute": counts["quadrature"],
+                   "compute_s": wall, "points_per_s": (n + 1) / wall}
+            if n == QUAD_REAL_N[0]:
+                fn = (lambda n=n, p=p:
+                      nq.trapezoid_circle(0.0, 2.0, n, p, dev))
+                # CUDA events around one call (two launches of half a
+                # second: the host's gaps are ~1e-5 of it); each pass's
+                # device time where the tracer keeps it.
+                rec["events_ms"] = cuda_ms(fn)
+                passes = quadrature_pass_ms(fn)
+                rec["chunk_device_ms"] = passes.get("quadrature_chunk_kernel")
+                rec["kahan_device_ms"] = passes.get("quadrature_kahan_kernel")
+                n_chunks = qd._chunk_grid(n)[0]
+                bound, by, terms = quadrature_bound_ms(
+                    n + 1, insns_per_point, mufu_per_point, 8 * n_chunks + 4)
+                rec.update(bound_ms=bound, bound_by=by, **terms,
+                           bound_share=bound / rec["events_ms"],
+                           device_points_per_s=(n + 1)
+                           / (rec["events_ms"] / 1e3))
+                if rec["chunk_device_ms"] is not None:
+                    rec["chunk_bound_share"] = (bound
+                                                / rec["chunk_device_ms"])
+            runs[label] = rec
+            log(f"  Integral {label}: {value!r} (|value - pi| "
+                f"{rec['abs_err_pi']:.3g}), {counts['quadrature']} launches "
+                f"a compute(), {wall:.6f} s, {rec['points_per_s']:.4g} "
+                "points/s"
+                + (f"; events {rec['events_ms']:.3f} ms a call (device: "
+                   f"chunk pass {rec['chunk_device_ms']}, Kahan pass "
+                   f"{rec['kahan_device_ms']} ms; None: the tracer kept no "
+                   f"record), bound {rec['bound_ms']:.3f} ms "
+                   f"({rec['bound_by']}: MUFU {rec['mufu_ms']:.3f}, issue "
+                   f"{rec['issue_ms']:.3f}), {rec['bound_share']:.3f} of it"
+                   if "events_ms" in rec else "")
+                + f" [{card}]")
+
+    # The plain version's time beside the kernel's, at 10^8 on 8 shards.
+    n_plain, p_plain = 10**8, 8
+    plain_ms = cuda_ms(lambda: qd.trapezoid_shard_sum(
+        qd.f_circle, 0.0, 2.0, n_plain, p_plain, dev))
+    kernel_small_ms = cuda_ms(
+        lambda: nq.trapezoid_circle(0.0, 2.0, n_plain, p_plain, dev), 20)
+    log(f"  n=1e8 p=8: plain {plain_ms:.3f} ms, the kernel (both passes) "
+        f"{kernel_small_ms:.4f} ms, CUDA events [{card}]")
+
+    # The three CLIs end to end, in this process (counts around the
+    # integral CLI: its warm-up and timed compute()).
+    argv = [str(QUAD_REAL_N[0]), "--devices", "8", "--print-value"]
+    (rc, out, err), cli_counts = run_counted(
+        wrappers, lambda: run_cli(integral_app.main, argv))
+    value = float(err.strip())
+    if (rc != 0 or len(out.split()) != 1 or abs(value - math.pi)
+            >= QUAD_PI_ABS or cli_counts["quadrature"] != 4):
+        raise AssertionError(f"apps.integral {' '.join(argv)}: rc {rc}, "
+                             f"stdout {out!r}, stderr {err!r}, launches "
+                             f"{cli_counts}")
+    cli_seconds = float(out)
+    log(f"  apps.integral {' '.join(argv)}: {cli_seconds:.6f} s, value "
+        f"{value!r}, launches {cli_counts['quadrature']} (warm-up and "
+        f"timed) [{card}]")
+    rc, out, err = run_cli(hello_app.main, ["--devices", "8"])
+    lines = out.strip().splitlines()
+    if rc != 0 or lines[-1] != "ring ok" or len(lines) != 10:
+        raise AssertionError(f"apps.hello --devices 8: rc {rc}, {out!r}")
+    log(f"  apps.hello --devices 8: {lines[0]}; {lines[-1]}")
+    if chaos.active_plan() is not None:
+        raise AssertionError("a chaos plan is active before the probe")
+    fits = {}
+    for p in (1, 8):
+        argv = ["--devices", str(p), "--fit"]
+        rc, out, err = run_cli(pingpong_app.main, argv)
+        lines = out.strip().splitlines()
+        fit = json.loads(lines[-1])
+        if (rc != 0 or lines[0] != "size,time" or len(lines) != 9
+                or fit.get("metric") != "pingpong_fit"):
+            raise AssertionError(f"apps.pingpong {' '.join(argv)}: rc {rc}, "
+                                 f"{out!r}, {err!r}")
+        for line in lines[:-1]:
+            log(f"  pingpong --devices {p}: {line}")
+        log(f"  pingpong --devices {p}: {err.strip()} (on-card copies) "
+            f"[{card}]")
+        fits[f"devices={p}"] = fit
+    log(f"phase 20 C1-C4: ok ({time.perf_counter() - t0:.2f} s)")
+
+    main = runs[f"n={QUAD_REAL_N[0]} p=8"]
+    return {
+        "name": "quadrature", "route": "cuda",
+        "source": "mpi_and_open_mp_tpu_torch/csrc/quadrature.cu",
+        "replaces": "mpi_and_open_mp_tpu/ops/quadrature.py:75",
+        "launches": cli_counts["quadrature"], "max_abs_err": err_max,
+        "ms": main["events_ms"], "plain_ms": plain_ms,
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "shape": (f"n = {QUAD_REAL_N[0]} trapezoids on 8 virtual shards, two "
+                  "launches (chunk sums, Kahan pass) a compute()"),
+        "note": ("no Pallas kernel in the JAX package (its jnp fori_loop, "
+                 "ops/quadrature.py:75-121); ms: CUDA events around one "
+                 "call (both passes); runs: each pass's device time from a "
+                 "torch.profiler trace where it kept the record; plain_ms: CUDA events around the "
+                 "plain version at n = 1e8 on 8 shards (plain_shape); "
+                 "bound: per point the interior loop's SASS instructions "
+                 "issued on its fast path (the square root's slow-path call "
+                 "skipped) at 128 lanes a clock an SM against its MUFU at "
+                 "16; launches: "
+                 "the integral CLI at 10^12 on 8 shards (warm-up and timed)"),
+        "plain_shape": f"n = {n_plain}, {p_plain} shards",
+        "kernel_ms_at_plain_shape": kernel_small_ms,
+        "sass_interior_loop": interior,
+        "instructions_per_point": insns_per_point,
+        "runs": runs, "exact_cases": cases, "cli_seconds": cli_seconds,
+        "pingpong_fit": fits}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -730,6 +1065,7 @@ def main() -> int:
     from mpi_and_open_mp_tpu_torch.ops import native_flash as nf
     from mpi_and_open_mp_tpu_torch.ops import native_halo as nh
     from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.ops import native_quadrature as nq
     from mpi_and_open_mp_tpu_torch.parallel import haloplan as hp
     from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
     from mpi_and_open_mp_tpu_torch.ops import native_stencil as ns
@@ -746,7 +1082,8 @@ def main() -> int:
                 "stencil": ns.stencil_step_padded,
                 "flash_fwd": nf.flash_fwd, "flash_hop_dq": fhb.flash_hop_dq,
                 "flash_hop_dkv": fhb.flash_hop_dkv,
-                "edge_pair": nh.edge_pair, "halo_frame": nh.halo_frame}
+                "edge_pair": nh.edge_pair, "halo_frame": nh.halo_frame,
+                "quadrature": nq.trapezoid_circle}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3331,6 +3668,9 @@ def main() -> int:
     log(f"phase 19 checkpoints, resume and preemption: ok "
         f"({time.perf_counter() - t0:.2f} s)")
 
+    # ------------------------------- 20. C1-C4: hello, quadrature, ping-pong
+    quadrature_row = phase_c1c4(card, wrappers, cuobjdump)
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -3576,6 +3916,7 @@ def main() -> int:
         if key:
             row["launches_checkpoint_runs"] = {
                 run: c[key] for run, c in ckpt_launches.items() if c[key]}
+    kernels.append(quadrature_row)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -42,6 +42,7 @@ import time
 
 import numpy as np
 
+from mpi_and_open_mp_tpu_torch.apps._common import check_devices
 from mpi_and_open_mp_tpu_torch.models.life import IMPLS, LAYOUTS, LifeSim
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 from mpi_and_open_mp_tpu_torch.robust.preempt import EXIT_PREEMPTED, Preempted
@@ -95,15 +96,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="assert one step matches the oracle before and "
                         "after the run")
     return p
-
-
-def _check_devices(args, mesh_shape: tuple[int, ...]) -> None:
-    """Refuse a mesh of more shards than ``--virtual-devices N``, with the
-    JAX package's text (its mesh of N simulated devices raises so)."""
-    n = args.virtual_devices
-    if n and int(np.prod(mesh_shape)) > n:
-        raise ValueError(f"Number of devices {n} must be >= the product of "
-                         f"mesh_shape {mesh_shape}")
 
 
 def _find_latest(directory: str | None, pattern: str
@@ -182,16 +174,16 @@ def make_mesh(args):
     kw = dict(device=args.device, virtual=virtual)
     if args.mesh:
         py, px = (int(v) for v in args.mesh.split(","))
-        _check_devices(args, (py, px))
+        check_devices(args, (py, px))
         return mesh_lib.make_mesh_2d(py, px, **kw)
     n = args.devices or args.virtual_devices
     if not n:
         return None
     if args.layout == "cart":
         shape = mesh_lib.dims_create(n, 2)
-        _check_devices(args, shape)
+        check_devices(args, shape)
         return mesh_lib.make_mesh_2d(*shape, **kw)
-    _check_devices(args, (n,))
+    check_devices(args, (n,))
     axis = "x" if args.layout == "col" else "y"
     return mesh_lib.make_mesh_1d(n, axis=axis, **kw)
 

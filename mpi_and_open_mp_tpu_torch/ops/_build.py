@@ -29,10 +29,11 @@ NVCC_FLAGS = [
 
 # Argument types of each library's C entry points (pointers and the stream
 # as c_void_p: a default ctypes int would cut a pointer to 32 bits; _L is
-# a 64-bit extent or stride; _IP is an int out-parameter): a list for the one entry point named like the
+# a 64-bit extent or stride; _F a float32; _IP is an int out-parameter): a list for the one entry point named like the
 # library, or a dict of entry point -> list where one source holds several
 # entry points.
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     "bitlife_vmem": {
@@ -70,6 +71,7 @@ SIGNATURES = {
     },
     "halo_edge_pair": [_P] * 5 + [_I, _L, _I, _I] + [_L] * 6 + [_I, _P],
     "halo_frame": [_P] * 3 + [_I] * 5 + [_L] * 3 + [_I, _P],
+    "quadrature": [_P, _P, _L, _L, _I, _I, _L, _F, _F, _F, _P, _IP],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -17,7 +17,9 @@ same error. Tokens with a hook in the port:
     (``parallel.haloplan._rdma_frame``).
 ``delay=<seconds>``
     A host-side delay before every segment of a ``LifeSim.run`` that runs
-    segments.
+    segments, and inside ``parallel.fabric.ping``'s timed bracket
+    (:func:`dispatch_delay`: a congested fabric, as in the JAX package's
+    probe).
 ``preempt=<step>``
     :class:`~mpi_and_open_mp_tpu_torch.robust.preempt.SimulatedPreemption`
     when a ``LifeSim.run`` crosses global step ``<step>``, after flushing a
@@ -229,3 +231,10 @@ def corrupt_ghost(ghost, spec):
     """A faulted ghost block of ``ghost``'s shape, dtype and device: zeroed
     (``drop``) or filled with :func:`ghost_value` (``corrupt``)."""
     return torch.full_like(ghost, ghost_value(spec))
+
+
+def dispatch_delay() -> float:
+    """Seconds of host-side delay to inject per guarded dispatch (0.0
+    when inactive)."""
+    plan = active_plan()
+    return 0.0 if plan is None else plan.delay_s

@@ -54,6 +54,15 @@ def test_import_pulls_in_no_jax():
         "assert checkpoint.save and model.LifeSim.from_checkpoint\n"
         "assert chaos.FaultPlan and guards.with_fallback\n"
         "assert preempt.EXIT_PREEMPTED == 75\n"
+        "from mpi_and_open_mp_tpu_torch.ops import quadrature, native_quadrature\n"
+        "from mpi_and_open_mp_tpu_torch.models import integral\n"
+        "from mpi_and_open_mp_tpu_torch.parallel import fabric\n"
+        "from mpi_and_open_mp_tpu_torch.apps import _common, hello, pingpong\n"
+        "from mpi_and_open_mp_tpu_torch.apps import integral as integral_app\n"
+        "from mpi_and_open_mp_tpu_torch.utils import timing\n"
+        "assert native_quadrature.trapezoid_circle and integral.Integral\n"
+        "assert fabric.fit_alpha_beta and timing.Timer and timing.write_csv_rows\n"
+        "assert chaos.dispatch_delay and _common.is_primary()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -235,6 +244,50 @@ def _attention_cli():
 def test_attention_entry_points_raise_without_cuda(entry):
     """The attention entry points default to the card too, whatever device
     their operands come from."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def _integral():
+    from mpi_and_open_mp_tpu_torch.models.integral import Integral
+
+    Integral(1000)
+
+
+def _hello_cli():
+    from mpi_and_open_mp_tpu_torch.apps import hello
+
+    hello.main(["--devices", "8"])
+
+
+def _integral_cli():
+    from mpi_and_open_mp_tpu_torch.apps import integral
+
+    integral.main(["1000", "--devices", "8"])
+
+
+def _pingpong_cli():
+    from mpi_and_open_mp_tpu_torch.apps import pingpong
+
+    pingpong.main(["--devices", "8", "--max-power", "0", "--reps", "1"])
+
+
+def _sweep():
+    from mpi_and_open_mp_tpu_torch.parallel import fabric
+
+    fabric.sweep(sizes=(1,), reps=1)
+
+
+@pytest.mark.parametrize("entry", [_integral, _hello_cli, _integral_cli,
+                                   _pingpong_cli, _sweep],
+                         ids=["Integral", "cli-hello", "cli-integral",
+                              "cli-pingpong", "fabric-sweep"])
+def test_c1c4_entry_points_raise_without_cuda(entry):
+    """The quadrature, the probe and the three CLIs of the reference's
+    programs C1-C4 default to the card too: without ``--device cpu`` they
+    try it and fail here, and never run on the CPU unasked."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -87,6 +87,26 @@ def test_times_txt_and_sync(tmp_path):
     ttiming.sync(torch.zeros(3))  # a CPU tensor has nothing to wait for
 
 
+def test_timer_runs_live_and_freezes_at_exit():
+    with ttiming.Timer() as t:
+        first = t.elapsed
+        assert t.elapsed >= first >= 0.0  # live inside the block
+    frozen = t.elapsed
+    assert frozen >= first and t.elapsed == frozen
+
+
+def test_write_csv_rows_bytes_equal_jax(tmp_path):
+    from mpi_and_open_mp_tpu.utils import timing as jtiming
+
+    rows = ["size,time", "1,2.500000", "10,3.000000"]
+    ttiming.write_csv_rows(str(tmp_path / "port" / "a.csv"), rows)
+    jtiming.write_csv_rows(str(tmp_path / "jax" / "a.csv"), rows)
+    assert (tmp_path / "port" / "a.csv").read_bytes() == \
+        (tmp_path / "jax" / "a.csv").read_bytes()
+    ttiming.write_csv_rows(str(tmp_path / "port" / "a.csv"), rows[:1])
+    assert (tmp_path / "port" / "a.csv").read_text() == "size,time\n"
+
+
 @pytest.mark.parametrize("shape", [(10, 10), (7, 13), (64, 33)])
 def test_unpacked_steps_match_jax(shape):
     rng = np.random.default_rng(sum(shape))
