@@ -253,17 +253,25 @@ Phases, each of which raises (exit code 1) when it fails:
    10000^2 board;
 20. the reference's programs C1-C4: the ``quadrature`` kernel's interior
    loop from ``cuobjdump -sass`` (the instructions it issues on its fast
-   path, its square root's slow-path call skipped, and MUFU a point); the
+   path, its square root's slow-path call skipped, by opcode: the
+   function's arithmetic and the kernel's overhead, and MUFU a point); the
    kernel against its plain version at n in {1000, 131072, 131073,
-   999983, 10^8} on 1 and 8 shards (the value within 2e-6 relative, every
-   chunk sum within 1e-6); ``Integral`` at the reference's N = 10^12 and
+   999983, 10^8, 3 567 587 328} on 1 and 8 shards (the value within 2e-6
+   relative and equal to the bit to the plain Kahan pass on the kernel's
+   own chunk sums, every chunk sum within 1e-6); at 10^12, 26 chunk sums
+   (0, 1, the last two, each side of every 8-shard boundary, 8 drawn from
+   a seeded generator) within 1e-6 of the plain ``_block_sum``, the chunk
+   sums of 1 and 8 shards equal to the bit and the 8-shard value equal to
+   the bit to the Kahan pass replayed on its own chunk sums; ``Integral``
+   at the reference's N = 10^12 and
    its 32-bit truncation 3 567 587 328 on 1 and 8 virtual shards, each on
    ``engine == "kernel:quadrature"`` within 2e-5 of pi, counts set to 0
    just before a ``compute()`` and read just after (2 launches, nothing
    else), with its wall seconds and points a second, and at 10^12 each
    pass's device time, CUDA events and the bound (the larger of the
-   interior loop's MUFU at 16 a clock an SM and its instructions at 128
-   lanes a clock an SM); the plain version's time at 10^8 on 8 shards; the
+   interior loop's MUFU at 16 a clock an SM and the arithmetic
+   instructions a point needs at 128 lanes a clock an SM); the plain
+   version's time at 10^8 on 8 shards; the
    CLIs in this process: ``apps.integral 1000000000000 --devices 8
    --print-value`` (its launches are the kernels line's), ``apps.hello
    --devices 8`` (``ring ok``), ``apps.pingpong --devices 1 --fit`` and
@@ -361,9 +369,15 @@ RUNG_LAUNCHES = {"halo_frame": 21054, "edge_pair": 108}
 # and what its 32-bit atoi made of it (SURVEY §3.3).
 QUAD_REAL_N = (10**12, 10**12 % (1 << 32))
 # Kernel against plain: n (one chunk, a chunk exactly, one point past it,
-# a prime, 10^8) at 1 and 8 shards.
-QUAD_CHECK_N = (1000, 131_072, 131_073, 999_983, 10**8)
+# a prime, 10^8, the reference's truncated N: its last chunk past 2^32
+# points) at 1 and 8 shards.
+QUAD_CHECK_N = (1000, 131_072, 131_073, 999_983, 10**8, QUAD_REAL_N[1])
 QUAD_SHARDS = (1, 8)
+# At 10^12, where the plain version would take minutes: chunk sums held
+# against the plain _block_sum at chunks 0 and 1, the last two, both sides
+# of every 8-shard boundary and this many more drawn from a seeded
+# generator.
+QUAD_SPREAD_RANDOM, QUAD_SPREAD_SEED = 8, 18
 # Tolerances: the kernel's value within 2e-6 relative of the plain
 # version's (the JAX package's own bound between 1 and 8 shards,
 # tests/test_integral.py:27); a chunk sum within 1e-6 relative (the CPU
@@ -374,6 +388,14 @@ QUAD_REL, QUAD_CHUNK_REL, QUAD_PI_ABS = 2e-6, 1e-6, 2e-5
 # Points a trip of the chunk kernel's interior loop evaluates
 # (csrc/quadrature.cu: kSums x kGroup).
 QUAD_POINTS_PER_TRIP = 64
+# The SASS opcodes of the arithmetic a trapezoid point needs at the JAX
+# package's roundings: the abscissa's product and sum, the lane stepped,
+# 4 - x^2's product and difference, the clamp, the correctly rounded root
+# (MUFU.RSQ and its float refinement) and the sum's add. Everything else
+# on the interior loop's fast path (the root's range check, its branch and
+# convergence barrier, moves, loop control) is the kernel's overhead, which
+# a bound must not count.
+QUAD_NEEDED_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "MUFU")
 # MUFU (special-function) issue rate: 132 SMs x 16 a clock x 1.98 GHz.
 MUFU_PER_S = N_SMS * 16 * 1.98e9
 
@@ -760,10 +782,12 @@ def sass_loops(cuobjdump: str, lib, function: str) -> list[dict]:
     """Every loop of ``function`` (a substring of its mangled name) in
     ``cuobjdump -sass`` of the library: for each backward branch, the
     instructions from its target to it, how many of them are MUFU
-    (special-function unit) instructions, and ``fast_path``: those a trip
+    (special-function unit) instructions, ``fast_path``: those a trip
     issues when no out-of-line call runs (a forward branch over a block
     that holds a ``CALL``, such as the square root's slow path, taken;
-    every other conditional forward branch falling through)."""
+    every other conditional forward branch falling through), and
+    ``fast_path_ops``: that path's instructions by opcode (``MUFU.RSQ``
+    counts as ``MUFU``)."""
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True, timeout=120).stdout
     for part in sass.split("Function : ")[1:]:
@@ -778,8 +802,15 @@ def sass_loops(cuobjdump: str, lib, function: str) -> list[dict]:
         if not m or int(m[1], 16) >= addr:
             continue
         body = [(a, t) for a, t in insns if int(m[1], 16) <= a <= addr]
+        path = sass_fast_path(body)
+        ops = {}
+        for text in path:
+            words = text.split()
+            op = (words[1] if words[0].startswith("@") else words[0])
+            op = op.split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
         loops.append({"instructions": len(body),
-                      "fast_path": len(sass_fast_path(body)),
+                      "fast_path": len(path), "fast_path_ops": ops,
                       "mufu": sum("MUFU" in t for _, t in body),
                       "mufu_rsq": sum("MUFU.RSQ" in t for _, t in body),
                       "from": m[1], "to": hex(addr)})
@@ -807,15 +838,16 @@ def sass_fast_path(body: list[tuple[int, str]]) -> list[str]:
     return path
 
 
-def quadrature_bound_ms(points: int, insns_per_point: float,
+def quadrature_bound_ms(points: int, needed_per_point: float,
                         mufu_per_point: float, nbytes: int
                         ) -> tuple[float, str, dict]:
     """The least time for ``points`` trapezoid points: the larger of their
-    MUFU instructions at 16 a clock an SM, their issued instructions at 128
-    lanes a clock an SM (counted in the kernel's interior loop), and the
-    chunk sums' bytes over HBM."""
+    MUFU instructions at 16 a clock an SM, the arithmetic instructions each
+    point needs (``QUAD_NEEDED_OPS``, counted on the interior loop's fast
+    path) at 128 lanes a clock an SM, and the chunk sums' bytes over
+    HBM."""
     terms = {"mufu_ms": points * mufu_per_point / MUFU_PER_S * 1e3,
-             "issue_ms": points * insns_per_point / FP32_ISSUE_PER_S * 1e3,
+             "issue_ms": points * needed_per_point / FP32_ISSUE_PER_S * 1e3,
              "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
     t_ops = max(terms["mufu_ms"], terms["issue_ms"])
     if t_ops >= terms["bytes_ms"]:
@@ -840,6 +872,28 @@ def quadrature_pass_ms(fn, tries: int = 2) -> dict[str, float]:
             break
         log(f"  quadrature_pass_ms: trace {attempt} kept {sorted(ms)}")
     return got
+
+
+def kahan_total_np(sums: np.ndarray, shards: int, h: float) -> float:
+    """``qd.shard_total`` in numpy: the same float32 operations in the same
+    order (a step of the loop costs a few µs here against ~15 in torch, so
+    7.6 M chunk sums on 8 shards replay in seconds)."""
+    per = -(-len(sums) // shards)
+    vals = np.zeros(shards * per, np.float32)
+    vals[:len(sums)] = sums
+    cols = np.ascontiguousarray(vals.reshape(shards, per).T)
+    acc, comp = np.zeros(shards, np.float32), np.zeros(shards, np.float32)
+    y, t = np.empty(shards, np.float32), np.empty(shards, np.float32)
+    for c in range(per):
+        np.subtract(cols[c], comp, out=y)
+        np.add(acc, y, out=t)
+        np.subtract(t, acc, out=comp)
+        np.subtract(comp, y, out=comp)
+        acc, t = t, acc
+    total = acc[0]
+    for k in range(1, shards):
+        total = np.float32(total + acc[k])
+    return float(np.float32(total * np.float32(h)))
 
 
 def run_cli(main_fn, argv) -> tuple[int, str, str]:
@@ -880,36 +934,97 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
                              f"quadrature_chunk_kernel's SASS: {loops}")
     interior = min(inner, key=lambda lp: lp["fast_path"])
     insns_per_point = interior["fast_path"] / QUAD_POINTS_PER_TRIP
+    needed_per_point = sum(c for op, c in interior["fast_path_ops"].items()
+                           if op in QUAD_NEEDED_OPS) / QUAD_POINTS_PER_TRIP
     mufu_per_point = interior["mufu"] / QUAD_POINTS_PER_TRIP
-    log(f"  quadrature_chunk_kernel loops (SASS): {loops}; interior "
-        f"{insns_per_point:.3f} instructions issued (fast path) and "
-        f"{mufu_per_point:.3f} MUFU a point")
+    ops_per_point = {op: c / QUAD_POINTS_PER_TRIP
+                     for op, c in sorted(interior["fast_path_ops"].items())}
+    log(f"  quadrature_chunk_kernel loops (SASS): {loops}; interior fast "
+        f"path a point: {insns_per_point:.3f} instructions "
+        f"({ops_per_point}), of which {needed_per_point:.3f} the function's "
+        f"arithmetic ({'/'.join(QUAD_NEEDED_OPS)}) and "
+        f"{insns_per_point - needed_per_point:.3f} the kernel's overhead; "
+        f"{mufu_per_point:.3f} MUFU")
 
-    # Kernel against plain.
+    # Kernel against plain. The plain version (trapezoid_shard_sum) is
+    # chunk_sums and then shard_total, whose Kahan loop runs on a host copy
+    # of the chunk sums: the same float32 operations without a launch a
+    # step. The kernel's value also equals shard_total of its own chunk sums
+    # to the bit (its Kahan pass and fold are those operations in that
+    # order), so a chunk it dropped, doubled or misplaced shows.
     cases, err_max = [], 0.0
     for n in QUAD_CHECK_N:
+        h = 2.0 / n
         want_sums = qd.chunk_sums(qd.f_circle, 0.0, 2.0, n, dev)
+        want_host = want_sums.cpu()
         for p in QUAD_SHARDS:
             got, sums = nq.launch(0.0, 2.0, n, p, dev)
-            want = qd.trapezoid_shard_sum(qd.f_circle, 0.0, 2.0, n, p, dev)
-            torch.cuda.synchronize()
-            got_v, want_v = float(got), float(want)
+            got_v = float(got)
+            want_v = float(qd.shard_total(want_host, p, h))
+            sums_host = sums.cpu()
+            own_v = float(qd.shard_total(sums_host, p, h))
+            if n == QUAD_REAL_N[1] and p == 8:
+                # Ties the numpy replay used at 10^12 to the plain version.
+                replay_v = kahan_total_np(sums_host.numpy(), p, h)
+                if replay_v != own_v:
+                    raise AssertionError(
+                        f"kahan_total_np {replay_v!r} against "
+                        f"qd.shard_total {own_v!r} at n={n} p={p}")
             err = abs(got_v - want_v)
             chunk_err = float(((sums - want_sums).abs()
                                / want_sums.abs().clamp_min(1e-30)).max())
             if (not math.isfinite(got_v) or err > QUAD_REL * abs(want_v)
-                    or chunk_err > QUAD_CHUNK_REL):
+                    or chunk_err > QUAD_CHUNK_REL or got_v != own_v):
                 raise AssertionError(
                     f"quadrature n={n} p={p}: kernel {got_v!r} against plain "
                     f"{want_v!r} (rel {err / abs(want_v):.3g}), chunk sums "
-                    f"rel {chunk_err:.3g}")
+                    f"rel {chunk_err:.3g}, the Kahan pass on its own chunk "
+                    f"sums {own_v!r}")
             err_max = max(err_max, err)
             cases.append({"n": n, "shards": p, "kernel": got_v,
                           "plain": want_v, "rel": err / abs(want_v),
                           "chunk_rel_max": chunk_err})
     log(f"  quadrature vs plain: {len(cases)} cases, max rel "
         f"{max(c['rel'] for c in cases):.3g}, chunk sums max rel "
-        f"{max(c['chunk_rel_max'] for c in cases):.3g}")
+        f"{max(c['chunk_rel_max'] for c in cases):.3g}; every value equal "
+        "to the bit to the Kahan pass on the kernel's own chunk sums")
+
+    # At 10^12: a spread of chunk sums against the plain _block_sum, the
+    # chunk pass of 1 and 8 shards equal to the bit, and the 8-shard Kahan
+    # pass replayed on the kernel's own 7.6 M chunk sums to the bit.
+    t_spread = time.perf_counter()
+    n = QUAD_REAL_N[0]
+    h = 2.0 / n
+    n_chunks, last_chunk, _ = qd._chunk_grid(n)
+    got8, sums8 = nq.launch(0.0, 2.0, n, 8, dev)
+    _, sums1 = nq.launch(0.0, 2.0, n, 1, dev)
+    per8 = -(-n_chunks // 8)
+    rng = np.random.default_rng(QUAD_SPREAD_SEED)
+    picks = ({0, 1, last_chunk - 1, last_chunk}
+             | {k * per8 + d for k in range(1, 8) for d in (-1, 0)}
+             | {int(g) for g in rng.integers(0, n_chunks,
+                                             QUAD_SPREAD_RANDOM)})
+    g = torch.tensor(sorted(picks), dtype=torch.int64, device=dev)
+    want = qd._block_sum(qd.f_circle, 0.0, h, g, n)
+    spread_rel = float(((sums8[g] - want).abs()
+                        / want.abs().clamp_min(1e-30)).max())
+    replay_v = kahan_total_np(sums8.cpu().numpy(), 8, h)
+    if (spread_rel > QUAD_CHUNK_REL or not torch.equal(sums1, sums8)
+            or replay_v != float(got8)):
+        raise AssertionError(
+            f"quadrature n={n}: chunk sums at {sorted(picks)} rel "
+            f"{spread_rel:.3g} against _block_sum, 1 and 8 shards' chunk "
+            f"sums equal: {torch.equal(sums1, sums8)}, 8 shards "
+            f"{float(got8)!r} against the replay {replay_v!r}")
+    spread = {"chunks": sorted(picks), "chunk_rel_max": spread_rel,
+              "kahan_replay": replay_v, "seconds":
+              time.perf_counter() - t_spread}
+    del sums8, sums1
+    log(f"  quadrature n={n}: {len(picks)} chunk sums (0, 1, the last two, "
+        f"each side of 7 shard boundaries, {QUAD_SPREAD_RANDOM} drawn) "
+        f"within {spread_rel:.3g} of _block_sum; 1 and 8 shards' chunk sums "
+        f"equal; the 8-shard value {float(got8)!r} equal to the Kahan "
+        f"replay ({spread['seconds']:.2f} s)")
 
     # Realistic N through Integral, counts set to 0 just before each
     # compute() and read just after.
@@ -950,7 +1065,8 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
                 rec["kahan_device_ms"] = passes.get("quadrature_kahan_kernel")
                 n_chunks = qd._chunk_grid(n)[0]
                 bound, by, terms = quadrature_bound_ms(
-                    n + 1, insns_per_point, mufu_per_point, 8 * n_chunks + 4)
+                    n + 1, needed_per_point, mufu_per_point,
+                    8 * n_chunks + 4)
                 rec.update(bound_ms=bound, bound_by=by, **terms,
                            bound_share=bound / rec["events_ms"],
                            device_points_per_s=(n + 1)
@@ -1036,15 +1152,19 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
                  "call (both passes); runs: each pass's device time from a "
                  "torch.profiler trace where it kept the record; plain_ms: CUDA events around the "
                  "plain version at n = 1e8 on 8 shards (plain_shape); "
-                 "bound: per point the interior loop's SASS instructions "
-                 "issued on its fast path (the square root's slow-path call "
-                 "skipped) at 128 lanes a clock an SM against its MUFU at "
+                 "bound: per point the arithmetic instructions the "
+                 "function needs (QUAD_NEEDED_OPS on the interior loop's "
+                 "fast path, the root's range check, branch and barrier "
+                 "left out) at 128 lanes a clock an SM against its MUFU at "
                  "16; launches: "
                  "the integral CLI at 10^12 on 8 shards (warm-up and timed)"),
         "plain_shape": f"n = {n_plain}, {p_plain} shards",
         "kernel_ms_at_plain_shape": kernel_small_ms,
         "sass_interior_loop": interior,
         "instructions_per_point": insns_per_point,
+        "needed_instructions_per_point": needed_per_point,
+        "overhead_instructions_per_point": insns_per_point - needed_per_point,
+        "spread_at_1e12": spread,
         "runs": runs, "exact_cases": cases, "cli_seconds": cli_seconds,
         "pingpong_fit": fits}
 

@@ -18,13 +18,12 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
 from mpi_and_open_mp_tpu_torch.apps._common import (
     add_platform_args, apply_platform_args, check_devices, is_primary)
 from mpi_and_open_mp_tpu_torch.models.integral import Integral
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
-from mpi_and_open_mp_tpu_torch.utils.timing import append_times_txt
+from mpi_and_open_mp_tpu_torch.utils.timing import Timer, append_times_txt
 
 
 def main(argv=None) -> int:
@@ -52,9 +51,9 @@ def main(argv=None) -> int:
     integral = Integral(n, mesh=mesh, device=args.device)
     integral.compute()  # warm-up: builds the kernel outside the timed region
 
-    t0 = time.perf_counter()
-    value = integral.compute()  # returns once the value is on the host
-    elapsed = time.perf_counter() - t0
+    with Timer() as t:
+        value = integral.compute()  # returns once the value is on the host
+    elapsed = t.elapsed
 
     if is_primary():  # print-from-one-rank (1-integral/integral.c:45-46)
         print(f"{elapsed:.6f}")

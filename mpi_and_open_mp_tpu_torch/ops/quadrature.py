@@ -113,8 +113,14 @@ def trapezoid_shard_sum(f: Callable, a: float, b: float, n: int,
     """∫_a^b f by ``n`` trapezoids over ``shards`` shards of one device: the
     shard partials (:func:`kahan_shards`) summed in float32 in shard order,
     times ``f32(h)``. A 0-dim float32 tensor on ``device``."""
-    h = (b - a) / n
-    partials = kahan_shards(chunk_sums(f, a, b, n, device), shards)
+    return shard_total(chunk_sums(f, a, b, n, device), shards, (b - a) / n)
+
+
+def shard_total(sums: torch.Tensor, shards: int, h: float) -> torch.Tensor:
+    """The integral from the chunk sums in chunk order: each shard's
+    :func:`kahan_shards` partial, the partials summed in float32 in shard
+    order, times ``f32(h)``. A 0-dim float32 tensor on ``sums``' device."""
+    partials = kahan_shards(sums, shards)
     total = partials[0]
     for k in range(1, shards):
         total = total + partials[k]

@@ -31,7 +31,7 @@ import torch
 from mpi_and_open_mp_tpu_torch.parallel import halo, mesh as mesh_lib
 from mpi_and_open_mp_tpu_torch.parallel.mesh import SHARD_DIM
 from mpi_and_open_mp_tpu_torch.robust import chaos
-from mpi_and_open_mp_tpu_torch.utils.timing import sync
+from mpi_and_open_mp_tpu_torch.utils.timing import Timer, sync, write_csv_rows
 
 # Message sizes in bytes: 10^0 .. 10^6, matching mpi_send_recv.c:22.
 DEFAULT_SIZES = tuple(10**k for k in range(7))
@@ -74,11 +74,11 @@ def ping(mesh: mesh_lib.Mesh, msg_bytes: int, reps: int = 100) -> float:
     # the CSV writers) can be tested against pathological timings. Nothing
     # when MOMP_CHAOS is unset.
     delay = chaos.dispatch_delay()
-    t0 = time.perf_counter()
-    if delay:
-        time.sleep(delay)
-    sync(ring_shift(buf, axis, reps))
-    return (time.perf_counter() - t0) / reps
+    with Timer() as t:
+        if delay:
+            time.sleep(delay)
+        sync(ring_shift(buf, axis, reps))
+    return t.elapsed / reps
 
 
 def sweep(mesh: mesh_lib.Mesh | None = None,
@@ -95,10 +95,7 @@ def sweep(mesh: mesh_lib.Mesh | None = None,
 def write_csv(path: str, rows: list[tuple[int, float]]) -> None:
     """``size,time`` CSV, byte for byte the JAX package's (the reference's
     ``out_*.csv`` files that its ``plot.ipynb`` reads)."""
-    with open(path, "w") as fd:
-        fd.write("size,time\n")
-        for s, us in rows:
-            fd.write(f"{s},{us:.6f}\n")
+    write_csv_rows(path, ["size,time"] + [f"{s},{us:.6f}" for s, us in rows])
 
 
 class Fit(NamedTuple):
