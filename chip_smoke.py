@@ -275,9 +275,35 @@ Phases, each of which raises (exit code 1) when it fails:
    CLIs in this process: ``apps.integral 1000000000000 --devices 8
    --print-value`` (its launches are the kernels line's), ``apps.hello
    --devices 8`` (``ring ok``), ``apps.pingpong --devices 1 --fit`` and
-   ``--devices 8 --fit`` (CSV rows and fit logged; on-card copies).
+   ``--devices 8 --fit`` (CSV rows and fit logged; on-card copies);
+21. ring and Ulysses attention on 8 virtual shards of the card: the
+   contiguous ring, the zigzag ring and Ulysses at 8 x 32768 x 128 causal
+   bf16 and the contiguous ring at GQA 8q/2kv, each a forward and a grad
+   step (a seeded cotangent) with the counts set to 0 just before and read
+   just after (the contiguous ring 8 ``flash_fwd`` launches a forward and
+   8 of each hop kernel more a grad step; zigzag 24 and its plain fold
+   backward; Ulysses 1 of each), their engine stamps; each output against
+   single-device ``flash_attention`` on the same operands and each
+   gradient against the single-device hop kernels' backward given that
+   run's own output (the same ``D``), under the bf16 rule below, the
+   ring's output with one more bf16 spacing of ``M = sum_j w_j |o_j|``
+   (its partials' merged magnitude, from the dense softmax over the ring's
+   key blocks by ``ring_partial_magnitude``, apart from the ring under
+   test: the kernel rounds each partial to bf16 before the merge), and
+   o's share of the plain rule logged; ms a
+   call by CUDA events, single-device flash and the sharded run in turns;
+   the contiguous ring's device ms by kernel (profiler); at 8 x 4096 x
+   128 float32 the hop schedules and the plain fold (``engine="plain"``)
+   against the dense oracle within 2e-4 forward and 5e-4 gradients;
+   ``MOMP_CHAOS=nan_hop=3`` recovered on the clean re-run of the hop
+   kernels (``ring_attention:cuda:flash_fwd:b64:recovered``, the clean
+   output; the card never falls back to the plain fold) and with ``noguard`` a non-finite output; the CLI
+   ``--variant ring --devices 8 --seq 32768 --heads 8 --head-dim 128
+   --causal --grad --ring-layout zigzag --no-check`` in a subprocess (48
+   ``flash_fwd`` launches, the stamps): the dense oracle's check would
+   hold three 32 GiB score matrices at 32k.
 
-Tolerances of phases 10-11 (``attention_err``). A float32 result (every
+Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
 bfloat16 operands, which both sides compute in float32 from the same
 bfloat16 values): ``|got - want| <= tol + tol * |want|``, tol 2e-4 for
@@ -303,6 +329,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import re
@@ -478,12 +505,13 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs)
 
 
-def attention_err(got, want, tol, what) -> tuple[float, float]:
+def attention_share(got, want, tol, extra=0.0) -> tuple[float, float]:
     """Max abs error of ``got`` against ``want`` and the largest share of
-    its limit used; raises past the stated tolerance (module docstring):
-    ``tol`` absolute and relative for a float32 result, two bfloat16
-    spacings of ``|want|`` plus 1e-3 of its row's largest and 1e-6 of
-    the tensor's largest for a bfloat16 result."""
+    its limit used (module docstring): ``tol`` absolute and relative for a
+    float32 result, two bfloat16 spacings of ``|want|`` plus 1e-3 of its
+    row's largest and 1e-6 of the tensor's largest for a bfloat16 result;
+    ``extra`` (a tensor or number) adds to the limit. A non-finite result
+    uses an infinite share."""
     g, w = got.detach().float(), want.detach().float()
     diff = (g - w).abs()
     a = w.abs()
@@ -492,9 +520,16 @@ def attention_err(got, want, tol, what) -> tuple[float, float]:
                  + 1e-6 * a.max())
     else:
         limit = tol + tol * a
-    err = float(diff.max())
-    share = float((diff / limit).max())
-    if not bool(torch.isfinite(g).all()) or share > 1:
+    share = float((diff / (limit + extra)).max())
+    if not bool(torch.isfinite(g).all()):
+        share = float("inf")
+    return float(diff.max()), share
+
+
+def attention_err(got, want, tol, what, extra=0.0) -> tuple[float, float]:
+    """:func:`attention_share`, raising past the limit."""
+    err, share = attention_share(got, want, tol, extra)
+    if share > 1:
         raise AssertionError(f"{what}: max abs error {err}, {share:.3g} of "
                              "the limit")
     return err, share
@@ -1167,6 +1202,268 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
         "spread_at_1e12": spread,
         "runs": runs, "exact_cases": cases, "cli_seconds": cli_seconds,
         "pingpong_fit": fits}
+
+
+# Phase 21: ring and Ulysses attention over virtual shards of the card. The
+# shards, the main path's shape, and the float32 shape the plain ring and
+# the dense oracle hold the hop schedules at.
+RING_SHARDS = 8
+RING_SEQ, RING_SEQ_F32 = 32768, 4096
+# Launches a call of (flash_fwd, flash_hop_dq, flash_hop_dkv) for each run
+# of p = RING_SHARDS shards, forward and grad step: the contiguous ring one
+# flash_fwd a hop and one of each backward kernel a hop; causal zigzag three
+# half-chunk flash_fwd launches a hop and the plain fold backward (as in
+# the JAX package); Ulysses one launch of each over its shards' heads.
+RING_RUNS = {
+    "ring contiguous": ("ring", "contiguous", 8,
+                        (RING_SHARDS, 0, 0), (RING_SHARDS,) * 3),
+    "ring zigzag": ("ring", "zigzag", 8, (3 * RING_SHARDS, 0, 0),
+                    (3 * RING_SHARDS, 0, 0)),
+    "ulysses": ("ulysses", None, 8, (1, 0, 0), (1, 1, 1)),
+    "ring contiguous gqa 8q/2kv": ("ring", "contiguous", 2,
+                                   (RING_SHARDS, 0, 0), (RING_SHARDS,) * 3),
+}
+
+
+def phase_sharded_attention(card: str, wrappers: dict) -> dict:
+    """Phase 21 (module docstring): returns the launches of the attention
+    kernels by run, the kernels line's ``launches_by_run`` of rows 8 and
+    10, and the timings."""
+    from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd as fhb
+    from mpi_and_open_mp_tpu_torch.ops import native_flash as nf
+    from mpi_and_open_mp_tpu_torch.parallel import context as cx
+    from mpi_and_open_mp_tpu_torch.robust import chaos, guards
+
+    t0 = time.perf_counter()
+    if chaos.active_plan() is not None:
+        raise AssertionError("a chaos plan is active before phase 21")
+    p = RING_SHARDS
+    names = ("flash_fwd", "flash_hop_dq", "flash_hop_dkv")
+    counted = {name: wrappers[name] for name in names}
+    gen = torch.Generator(device="cuda").manual_seed(2100)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def sharded(variant, layout, engine="auto"):
+        if variant == "ring":
+            return lambda q, k, v: cx.ring_attention(
+                q, k, v, devices=p, causal=True, layout=layout,
+                engine=engine)
+        return lambda q, k, v: cx.ulysses_attention(
+            q, k, v, devices=p, causal=True, engine=engine)
+
+    def flash(q, k, v):
+        return cx.flash_attention(q, k, v, causal=True)
+
+    def grad_step(fn, q, k, v, do):
+        """Output and (q, k, v) gradients for the cotangent ``do``."""
+        qkv = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        out = fn(*qkv)
+        return out.detach(), torch.autograd.grad(out, qkv, do)
+
+    def forward(fn, q, k, v):
+        with torch.no_grad():
+            return fn(q, k, v)
+
+    launches, timings, stamps, shares, breakdown = {}, {}, {}, {}, {}
+    for run, (variant, layout, hkv, fwd_want, grad_want) in RING_RUNS.items():
+        q = randn((8, RING_SEQ, 128), torch.bfloat16)
+        k, v = (randn((hkv, RING_SEQ, 128), torch.bfloat16)
+                for _ in range(2))
+        do = randn((8, RING_SEQ, 128), torch.bfloat16)
+        zig = layout == "zigzag"
+        fn = sharded(variant, layout)
+        # The zigzag order is a deployment layout: operands permuted once,
+        # outputs and gradients permuted back for the comparison.
+        qz, kz, vz, doz = ((cx.zigzag_shard(x, p) for x in (q, k, v, do))
+                           if zig else (q, k, v, do))
+
+        def natural(x):
+            return cx.zigzag_unshard(x, p) if zig else x
+
+        o, fwd_counts = run_counted(counted, lambda: forward(fn, qz, kz, vz))
+        torch.cuda.synchronize()
+        (o2, grads), grad_counts = run_counted(
+            counted, lambda: grad_step(fn, qz, kz, vz, doz))
+        torch.cuda.synchronize()
+        got = tuple(fwd_counts[n] for n in names), tuple(
+            grad_counts[n] for n in names)
+        if got != (fwd_want, grad_want):
+            raise AssertionError(f"{run}: launches (flash_fwd, dq, dkv) "
+                                 f"forward {got[0]}, grad step {got[1]}; "
+                                 f"want {fwd_want}, {grad_want}")
+        launches[f"{run} forward"] = fwd_counts
+        launches[f"{run} grad step"] = grad_counts
+        if variant == "ring":
+            stamps[run] = {
+                "forward": cx.ring_hop_engine_for(qz, kz, vz, p=p,
+                                                  causal=True, layout=layout),
+                "backward": cx.ring_hop_bwd_engine_for(
+                    qz, kz, vz, p=p, causal=True, layout=layout)}
+        else:
+            stamps[run] = {"local": cx.flash_engine_for(
+                q, *cx._ulysses_kv(k, v, p, 8))}
+        # The output against single-device flash_attention: the bf16 rule,
+        # plus for the ring one spacing of its partials' merged magnitude
+        # (each hop's partial comes out of the kernel rounded to bf16),
+        # computed from the dense softmax apart from the ring under test.
+        want_o = forward(flash, q, k, v)
+        extra = (BF16_SPACING * natural(cx.ring_partial_magnitude(
+            qz, kz, vz, p, True, layout)) if variant == "ring" else 0.0)
+        errs = {"o": attention_err(natural(o), want_o, 0, f"{run} o", extra),
+                "o (grad step)": attention_err(natural(o2), want_o, 0,
+                                               f"{run} o (grad step)", extra)}
+        shares[run] = attention_share(natural(o), want_o, 0)[1]
+        # The gradients against the single-device backward given this run's
+        # own output (the same D = rowsum(do o)): the bf16 rule.
+        _, L = nf.flash_fwd(q, k, v, True)
+        D = (do.float() * natural(o2).float()).sum(-1)
+        want_grads = fhb.hop_block_grads(q, do, L, D, k, v, causal=True)
+        for what, a, b in zip(("dq", "dk", "dv"), grads, want_grads):
+            errs[what] = attention_err(natural(a), b.to(a.dtype), 0,
+                                       f"{run} {what}")
+        del o, o2, grads, want_o, want_grads, extra, L, D
+        # CUDA events, single-device flash and the sharded run in turns.
+        ms = {}
+        for label, f in (("flash", flash), (variant, fn), (f"{variant} 2", fn),
+                         ("flash 2", flash)):
+            a, b, c, g = (q, k, v, do) if f is flash else (qz, kz, vz, doz)
+            forward(f, a, b, c)
+            ms[f"{label} forward"] = cuda_ms(lambda: forward(f, a, b, c),
+                                             reps=3)
+            ms[f"{label} grad step"] = cuda_ms(
+                lambda: grad_step(f, a, b, c, g), reps=2)
+        timings[run] = ms
+        if run == "ring contiguous":
+            # Device ms by kernel of one forward and one grad step: the hop
+            # kernels against the rotations, merges and casts around them.
+            for what, f in (("forward", lambda: forward(fn, qz, kz, vz)),
+                            ("grad step",
+                             lambda: grad_step(fn, qz, kz, vz, doz))):
+                by_kernel = grad_step_kernels(f)
+                breakdown[what] = by_kernel
+                log(f"  profiler, one {run} {what}, device ms by kernel: "
+                    + "; ".join(f"{name} {t:.3f}" for name, t in
+                                list(by_kernel.items())[:8])
+                    + f"; total {sum(by_kernel.values()):.3f}")
+        log(f"  {run}, {p} virtual shards, 8 x {RING_SEQ} x 128 kv {hkv} "
+            f"causal bf16: engines {stamps[run]}; launches a forward "
+            f"{fwd_counts}, a grad step {grad_counts}; max abs error (share "
+            "of the limit) against single-device flash_attention (o; the "
+            "ring's limit with one spacing of its partials) and its "
+            "backward given this output (gradients): "
+            + ", ".join(f"{w} {e:.4g} ({s:.3g})" for w, (e, s) in errs.items())
+            + f"; o's share of the one-rounding rule {shares[run]:.3g}")
+        log(f"  {run} ms a call (CUDA events; flash, sharded, sharded, "
+            f"flash): " + ", ".join(f"{w} {t:.3f}" for w, t in ms.items())
+            + f" [{card}]")
+        del q, k, v, do, qz, kz, vz, doz
+        torch.cuda.empty_cache()
+
+    # Float32 at 8 x 4096 x 128: the hop schedules (the FMA kernels) against
+    # the plain ring (engine="plain") and the dense oracle, within the gate's
+    # 2e-4 forward and 5e-4 gradients.
+    def oracle(q, k, v):
+        return cx.attention_reference(
+            q, *cx._repeat_heads(k, v, q.shape[0] // k.shape[0]),
+            causal=True)
+
+    with cx._full_f32_matmul():
+        for hkv in (8, 2):
+            q = randn((8, RING_SEQ_F32, 128), torch.float32)
+            k, v = (randn((hkv, RING_SEQ_F32, 128), torch.float32)
+                    for _ in range(2))
+            do = randn((8, RING_SEQ_F32, 128), torch.float32)
+            want_o, want_grads = grad_step(oracle, q, k, v, do)
+            for variant, layout in (("ring", "contiguous"),
+                                    ("ring", "zigzag"), ("ulysses", None)):
+                zig = layout == "zigzag"
+                qz, kz, vz, doz = ((cx.zigzag_shard(x, p)
+                                    for x in (q, k, v, do))
+                                   if zig else (q, k, v, do))
+                errs = {}
+                for engine in (("auto", "plain") if variant == "ring"
+                               else ("auto",)):
+                    o, grads = grad_step(sharded(variant, layout, engine),
+                                         qz, kz, vz, doz)
+                    if zig:
+                        o, grads = (cx.zigzag_unshard(o, p),
+                                    [cx.zigzag_unshard(g, p) for g in grads])
+                    errs[f"{engine} o"] = attention_err(
+                        o, want_o, 2e-4, f"{variant} {layout} {engine} o")
+                    for what, a, b in zip(("dq", "dk", "dv"), grads,
+                                          want_grads):
+                        errs[f"{engine} {what}"] = attention_err(
+                            a, b, 5e-4, f"{variant} {layout} {engine} {what}")
+                log(f"  {variant} {layout or ''} 8 x {RING_SEQ_F32} x 128 kv "
+                    f"{hkv} causal float32 against the dense oracle (auto: "
+                    "the hop kernels; plain: the plain fold), max abs error "
+                    "(share of the limit): " + ", ".join(
+                        f"{w} {e:.3g} ({s:.3g})"
+                        for w, (e, s) in errs.items()))
+            del q, k, v, do, qz, kz, vz, doz, want_o, want_grads
+
+        # The guard: a NaN at hop 3 recovers on the clean re-run of the hop
+        # kernels (never the plain fold on the card); without the guard it
+        # reaches the output.
+        q, k, v = (randn((8, RING_SEQ_F32, 128), torch.float32)
+                   for _ in range(3))
+        clean = sharded("ring", "contiguous")(q, k, v)
+        recovered = ["ring_attention:" + cx.ring_hop_engine_for(
+            q, k, v, p=p, causal=True) + ":recovered"]
+        for spec in ("nan_hop=3", "nan_hop=3;noguard"):
+            os.environ[chaos.ENV] = spec
+            chaos.reset()
+            guards.reset_recovery_log()
+            try:
+                out = sharded("ring", "contiguous")(q, k, v)
+            finally:
+                os.environ.pop(chaos.ENV)
+                chaos.reset()
+            finite = bool(torch.isfinite(out).all())
+            log_ = guards.recovery_log()
+            if spec == "nan_hop=3":
+                ok = (finite and log_ == recovered
+                      and attention_err(out, clean, 2e-4, "recovered ring"))
+            else:
+                ok = not finite and not log_
+            log(f"  MOMP_CHAOS={spec}: finite {finite}, recoveries {log_}")
+            if not ok:
+                raise AssertionError(f"ring under MOMP_CHAOS={spec}")
+        guards.reset_recovery_log()
+        del q, k, v, clean, out
+    torch.cuda.empty_cache()
+
+    # The CLI end to end. The dense oracle's check would hold three 32 GiB
+    # score matrices at 32k, so it runs with --no-check: the ring at this
+    # shape is held above against single-device flash_attention.
+    argv = ["--variant", "ring", "--devices", str(p), "--seq", str(RING_SEQ),
+            "--heads", "8", "--head-dim", "128", "--causal", "--grad",
+            "--ring-layout", "zigzag", "--no-check"]
+    cli = subprocess.run(
+        [sys.executable, "-m", "mpi_and_open_mp_tpu_torch.apps.attention",
+         *argv], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=600)
+    err_lines = cli.stderr.strip().splitlines()
+    if cli.returncode != 0 or len(err_lines) < 2:
+        raise AssertionError(f"attention CLI {argv}: {cli.stderr[-2000:]}")
+    cli_counts = {kv.split("=")[0]: int(kv.split("=")[1])
+                  for kv in err_lines[-1].split()[1:]}
+    # Two grad steps (warm-up and timed) of 3p forward launches each.
+    if (cli_counts != {"flash_fwd": 6 * p, "flash_hop_dq": 0,
+                       "flash_hop_dkv": 0}
+            or "devices=8 engine=cuda:flash_fwd:b64:zz bwd_engine=plain "
+            not in err_lines[-2]):
+        raise AssertionError(f"attention CLI {argv}: {cli.stdout!r} "
+                             f"{cli.stderr!r}")
+    log(f"  CLI attention {' '.join(argv)}: {float(cli.stdout):.6f} s "
+        f"elapsed line; " + "; ".join(err_lines[-2:]) + f" [{card}]")
+    launches["CLI ring zigzag --devices 8 --grad"] = cli_counts
+    log(f"phase 21 sharded attention: ok ({time.perf_counter() - t0:.2f} s)")
+    return {"launches_by_run": launches, "ms": timings, "engines": stamps,
+            "o_share_of_one_rounding_rule": shares,
+            "ring_contiguous_device_ms_by_kernel": breakdown}
 
 
 def main() -> int:
@@ -3791,6 +4088,9 @@ def main() -> int:
     # ------------------------------- 20. C1-C4: hello, quadrature, ping-pong
     quadrature_row = phase_c1c4(card, wrappers, cuobjdump)
 
+    # ---------------------- 21. ring and Ulysses attention on virtual shards
+    sharded_attn = phase_sharded_attention(card, wrappers)
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -3960,7 +4260,12 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"mpi_and_open_mp_tpu_torch/csrc/{source}",
             "replaces": f"mpi_and_open_mp_tpu/{replaces}",
-            "launches": attn_launches[name],
+            "launches": attn_launches[name] + sum(
+                c[name] for c in sharded_attn["launches_by_run"].values()),
+            "launches_by_run": {
+                "phase 11: CLI, 32k main path, gate": attn_launches[name],
+                **{run: c[name] for run, c in
+                   sharded_attn["launches_by_run"].items()}},
             "max_abs_err": flash_err[name], "ms": rec[name],
             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib,
@@ -3984,6 +4289,12 @@ def main() -> int:
                        "dv together; library_ms: scaled_dot_product_"
                        "attention's backward, dq, dk and dv together; "
                        + build_note)
+    kernels[-3]["sharded_attention_ms"] = sharded_attn["ms"]
+    kernels[-3]["sharded_attention_engines"] = sharded_attn["engines"]
+    kernels[-3]["sharded_attention_o_share_of_one_rounding_rule"] = (
+        sharded_attn["o_share_of_one_rounding_rule"])
+    kernels[-3]["ring_contiguous_device_ms_by_kernel"] = sharded_attn[
+        "ring_contiguous_device_ms_by_kernel"]
     kernels[-1]["attention_32k"] = attn_line
     kernels[-1]["grad_step_kernels_ms"] = step_kernels
     main_frame = frame_rec[0]

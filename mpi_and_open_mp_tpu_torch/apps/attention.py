@@ -6,12 +6,14 @@ chosen variant, timed after a warm-up run that builds the kernels, checked
 against the dense oracle, the elapsed seconds on stdout, and ``parity ok
 (...)`` and the ``tflops=`` line on stderr (the FLOP count of the JAX CLI:
 ``4 h n^2 d``, halved under causal), followed by the kernels' launch counts.
-This slice runs one device: the ring and Ulysses variants run their
-single-device form, and ``--devices`` other than 1 is refused (the sharded
-slice).
+``--devices N`` runs the ring (or Ulysses) over N virtual shards of
+``--device``, refused past ``--virtual-devices`` with the JAX package's
+text; ``--ring-layout zigzag`` permutes the operands into zigzag order
+before the timed bracket and the output back after it.
 
     python -m mpi_and_open_mp_tpu_torch.apps.attention --variant flash --seq 8192 --heads 8 --head-dim 128 --causal --grad
-    python -m mpi_and_open_mp_tpu_torch.apps.attention --variant flash --seq 640 --heads 2 --head-dim 16 --causal --grad --device cpu
+    python -m mpi_and_open_mp_tpu_torch.apps.attention --variant ring --devices 8 --seq 32768 --heads 8 --head-dim 128 --causal --grad --ring-layout zigzag
+    python -m mpi_and_open_mp_tpu_torch.apps.attention --variant ring --devices 4 --seq 1024 --heads 4 --head-dim 32 --causal --grad --device cpu
 """
 
 from __future__ import annotations
@@ -23,8 +25,11 @@ import time
 import numpy as np
 import torch
 
+from mpi_and_open_mp_tpu_torch.apps._common import (
+    add_platform_args, apply_platform_args, check_devices, is_primary)
 from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd, native_flash
 from mpi_and_open_mp_tpu_torch.parallel import context
+from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 
 KERNELS = {"flash_fwd": native_flash.flash_fwd,
@@ -38,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
         description="long-context attention (PyTorch/CUDA port)")
     p.add_argument("--variant", choices=("ring", "ulysses", "flash"),
                    default="ring",
-                   help="ring / all-to-all (both single-device in this "
-                   "slice) / single-device flash")
+                   help="ring / all-to-all over the sequence shards / "
+                   "single-device flash")
     p.add_argument("--seq", type=int, default=8192)
     p.add_argument("--heads", type=int, default=8)
     p.add_argument("--head-dim", type=int, default=64)
@@ -50,11 +55,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-heads", type=int, default=None,
                    help="GQA/MQA: fewer K/V heads than query heads")
     p.add_argument("--devices", type=int, default=None,
-                   help="ring size; this slice runs 1 device")
+                   help="sp ring size: N virtual shards of --device "
+                   "(default: --virtual-devices, else one)")
     p.add_argument("--ring-layout", choices=("contiguous", "zigzag"),
                    default="contiguous",
-                   help="ring variant only; on one device zigzag is the "
-                   "natural order")
+                   help="ring variant only: zigzag = striped causal-"
+                   "load-balanced token layout (the CLI permutes "
+                   "operands in and outputs back out, so the parity "
+                   "check still runs in natural order)")
     p.add_argument("--dtype", choices=("float32", "bfloat16"),
                    default="bfloat16")
     p.add_argument("--no-check", action="store_true",
@@ -62,33 +70,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--engine", choices=("auto", "jnp"), default="auto",
                    help="auto = the kernels on the card (the plain engine "
                    "on the CPU); jnp = the plain chunked engine")
-    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--seed", type=int, default=0)
+    add_platform_args(p)
     return p
 
 
 def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
-    if args.devices not in (None, 1):
-        p.error(f"--devices {args.devices}: {context._SHARDED}")
+    apply_platform_args(p, args)
     if args.ring_layout != "contiguous" and args.variant != "ring":
         p.error("--ring-layout applies to --variant ring only")
     dev = resolve_device(args.device)
     engine = "plain" if args.engine == "jnp" else "auto"
     if args.variant == "flash":
+        if args.devices not in (None, 1):
+            p.error(f"--variant flash is single-device; --devices "
+                    f"{args.devices} would be silently ignored (use "
+                    "--variant ring/ulysses for a sharded run)")
+        shards = 1
+
         def fn(q, k, v):
             return context.flash_attention(q, k, v, causal=args.causal,
                                            device=dev, engine=engine)
-    elif args.variant == "ring":
-        def fn(q, k, v):
-            return context.ring_attention(q, k, v, causal=args.causal,
-                                          layout=args.ring_layout,
-                                          device=dev, engine=engine)
     else:
-        def fn(q, k, v):
-            return context.ulysses_attention(q, k, v, causal=args.causal,
-                                             device=dev, engine=engine)
+        shards = args.devices or args.virtual_devices or 1
+        check_devices(args, (shards,))
+        mesh = mesh_lib.make_mesh_1d(shards, axis=context.AXIS_SP,
+                                     device=dev,
+                                     virtual=bool(args.virtual_devices))
+        if args.variant == "ring":
+            def fn(q, k, v):
+                return context.ring_attention(q, k, v, causal=args.causal,
+                                              layout=args.ring_layout,
+                                              mesh=mesh, engine=engine)
+        else:
+            def fn(q, k, v):
+                return context.ulysses_attention(q, k, v, causal=args.causal,
+                                                 mesh=mesh, engine=engine)
     dtype = getattr(torch, args.dtype)
     rng = np.random.default_rng(args.seed)
     hkv = args.kv_heads or args.heads
@@ -98,9 +117,10 @@ def main(argv=None) -> int:
     k, v = (torch.from_numpy(
         rng.standard_normal((hkv, args.seq, args.head_dim))).to(dev, dtype)
         for _ in range(2))
+    qn, kn, vn = q, k, v  # natural order, for the oracle check
     zig = args.ring_layout == "zigzag"
-    if zig:  # the 1-device zigzag order, outside the timed bracket
-        q, k, v = (context.zigzag_shard(x, 1) for x in (q, k, v))
+    if zig:  # a deployment-time layout: permuted outside the timed bracket
+        q, k, v = (context.zigzag_shard(x, shards) for x in (q, k, v))
 
     if args.grad:
         def run():
@@ -128,31 +148,46 @@ def main(argv=None) -> int:
         with torch.no_grad():
             out = fn(q, k, v)
         if zig:
-            out = context.zigzag_unshard(out, 1)
+            out = context.zigzag_unshard(out, shards)
         groups = args.heads // hkv
         with context._full_f32_matmul():
             want = context.attention_reference(
-                q.float(), *context._repeat_heads(k.float(), v.float(),
-                                                  groups),
+                qn.float(), *context._repeat_heads(kn.float(), vn.float(),
+                                                   groups),
                 causal=args.causal)
         err = float((out.float() - want).abs().max())
         tol = 1e-4 if dtype == torch.float32 else 0.06
         if not err <= tol:
             print(f"PARITY FAIL: max|err|={err:.3g} > {tol}", file=sys.stderr)
             return 1
-        print(f"parity ok (max|err|={err:.3g})", file=sys.stderr)
+        if is_primary():
+            print(f"parity ok (max|err|={err:.3g})", file=sys.stderr)
 
+    if args.variant == "flash":
+        stamp = context.flash_engine_for(q, k, v, engine)
+    elif args.variant == "ring":
+        stamp = context.ring_hop_engine_for(
+            q, k, v, p=shards, causal=args.causal, layout=args.ring_layout,
+            engine=engine)
+        if args.grad:
+            stamp += " bwd_engine=" + context.ring_hop_bwd_engine_for(
+                q, k, v, p=shards, causal=args.causal,
+                layout=args.ring_layout, engine=engine)
+    else:
+        stamp = context.flash_engine_for(
+            q, *context._ulysses_kv(k, v, shards, args.heads), engine)
     # 2*(softmax QK^T)*V matmuls = 4*h*n^2*d multiply-adds (x0.5 causal).
     flops = 4 * args.heads * args.seq**2 * args.head_dim
     if args.causal:
         flops //= 2
-    print(f"{elapsed:.6f}")
-    print(f"variant={args.variant} seq={args.seq} devices=1 "
-          f"engine={context.flash_engine_for(q, k, v, engine)} "
-          f"tflops={flops / elapsed / 1e12:.2f}", file=sys.stderr)
-    print("launches " + " ".join(f"{name}={kernel.launches}"
-                                 for name, kernel in KERNELS.items()),
-          file=sys.stderr)
+    if is_primary():  # print-from-one-rank (3-life/life_mpi.c:64-67)
+        print(f"{elapsed:.6f}")
+        print(f"variant={args.variant} seq={args.seq} devices={shards} "
+              f"engine={stamp} tflops={flops / elapsed / 1e12:.2f}",
+              file=sys.stderr)
+        print("launches " + " ".join(f"{name}={kernel.launches}"
+                                     for name, kernel in KERNELS.items()),
+              file=sys.stderr)
     return 0
 
 

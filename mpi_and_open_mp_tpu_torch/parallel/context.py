@@ -1,11 +1,10 @@
-"""Long-context attention on one card: flash attention, forward and full
-backward, and the single-device forms of ring and Ulysses attention.
+"""Long-context attention: flash attention on one card, forward and full
+backward, and ring and Ulysses attention over virtual shards of it.
 
-Counterpart of ``mpi_and_open_mp_tpu/parallel/context.py`` (its
-single-device part). Shapes ``(heads, seq, head_dim)``; K/V may carry
-fewer heads than q (GQA/MQA) as long as they divide q's, and 4-D
-``(B, heads, seq, head_dim)`` operands fold the request batch into the
-head axis (:func:`_fold_batch`).
+Counterpart of ``mpi_and_open_mp_tpu/parallel/context.py``. Shapes
+``(heads, seq, head_dim)``; K/V may carry fewer heads than q (GQA/MQA) as
+long as they divide q's, and 4-D ``(B, heads, seq, head_dim)`` operands
+fold the request batch into the head axis (:func:`_fold_batch`).
 
 Engines. ``flash_attention`` keeps the JAX package's order: a sequence of
 at most :data:`_Q_CHUNK` tokens takes the dense oracle
@@ -21,14 +20,21 @@ L)`` for the backward, ``L`` the per-row logsumexp of the scaled scores.
 On a TPU the JAX package runs the bundled Pallas kernel's own backward
 here; the port runs the repo's hop kernels, which give the same gradients.
 
-The multi-device ring, zigzag and Ulysses schedules belong to the sharded
-slice of the port (ROADMAP Queue 1 item 3): ``ring_attention`` and
-``ulysses_attention`` take one device, where the JAX package itself runs
-:func:`_attention_chunked`, and raise for more.
+Sequence parallelism (:func:`ring_attention`, :func:`ulysses_attention`)
+runs over a mesh of virtual shards of one device on the ``"sp"`` axis
+(``parallel/mesh.py``), the operands stacked ``(p, heads, seq/p,
+head_dim)``. The ring's K/V rotate by ``parallel/halo.py:ppermute`` and
+every live hop is one launch of the same kernels over the shards folded
+into the head axis (:class:`_RingFlash`); Ulysses re-shards by
+``halo.all_to_all`` around one local launch. The hop-by-hop traced dispatch
+of the JAX package (``_ring_attention_traced``) belongs to the
+observability port (ROADMAP Queue 1 item 10), and meshes across cards to
+Queue 1's last item.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import math
@@ -38,7 +44,12 @@ import torch
 import torch.nn.functional as F
 
 from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd, native_flash
+from mpi_and_open_mp_tpu_torch.parallel import halo
+from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
+from mpi_and_open_mp_tpu_torch.robust import chaos, guards
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
+
+AXIS_SP = mesh_lib.AXIS_SP
 
 # Finite "minus infinity" for masked scores: exp() of a masked-vs-unmasked
 # gap underflows to 0, and NEG - NEG = 0 stays exact (no -inf - -inf = nan
@@ -52,10 +63,6 @@ _NEG = -1e30
 _Q_CHUNK = 512
 
 ENGINES = ("auto", "plain")
-
-_SHARDED = ("the multi-device ring, zigzag and Ulysses schedules belong to "
-            "the sharded slice of the port (ROADMAP Queue 1 item 3); this "
-            "slice runs one device")
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -463,40 +470,751 @@ def flash_attention(q, k, v, causal: bool = False, *,
     return _attention_chunked(q, k, v, causal, engine)
 
 
-def _one_device(devices: int | None, what: str) -> None:
-    if devices not in (None, 1):
-        raise ValueError(f"{what}: {devices} devices asked for; {_SHARDED}")
+# ---------------------------------------------------------------------------
+# Sequence parallelism over a ring of p virtual shards of one device.
+#
+# The operands of a ring live as stacks (p, heads, n/p, d) on the "sp" axis
+# (parallel/mesh.py): shard i holds tokens [i n/p, (i+1) n/p) of the
+# operand's order (the zigzag order under layout="zigzag"). The JAX
+# package's per-device ring body runs here once over the stack: its
+# ppermute of K/V is halo.ppermute, one torch.roll of the stack a rotation,
+# and its per-device hop kernel is one launch over the shards that are live
+# at that hop, folded into the kernel's head axis (shards x heads; GQA K/V
+# fold the same way, so query head i still reads K/V head i // g). The
+# rotations stay, although views would do on one card, so that the hop
+# structure and the chaos poison map one to one onto the JAX package's, and
+# a ring across cards can swap the roll for a send. The plain fold runs only
+# under engine="plain", on the causal-zigzag backward (as in the JAX
+# package) and as the CPU's last stage of the guarded recovery.
+
+
+def _ring_positions(layout: str, dev: int, p: int, nl: int,
+                    rows: torch.Tensor) -> torch.Tensor:
+    """Global token positions of local rows ``rows`` of ring shard ``dev``:
+    ``dev * nl + rows`` in the contiguous layout; in the zigzag layout the
+    shard holds half-chunks ``dev`` and ``2p-1-dev`` of ``nl/2`` tokens."""
+    if layout == "zigzag":
+        if nl % 2:
+            raise ValueError(
+                f"zigzag layout needs an even local length, got {nl}")
+        half = nl // 2
+        lo = rows < half
+        return (torch.where(lo, dev, 2 * p - 1 - dev) * half
+                + torch.where(lo, rows, rows - half))
+    if layout != "contiguous":
+        raise ValueError(f"unknown ring layout {layout!r}")
+    return dev * nl + rows
+
+
+def _hop_kernels_take(q, k, p: int) -> bool:
+    """Whether the per-hop engines take these operands (heads at
+    ``shape[-3]``, head width last) over ``p`` shards: on a CPU tensor their
+    plain versions take any; on the card the kernels' dtypes (float32 or
+    bfloat16, one for all), head widths and head count (a grid axis)."""
+    if q.device.type != "cuda":
+        return True
+    return (q.dtype in native_flash.DTYPE_CODES and k.dtype == q.dtype
+            and q.shape[-1] in native_flash.HEAD_DIMS
+            and p * q.shape[-3] < 65536)
+
+
+def _hop_stamp(q, k, kernel: str, plain: str) -> str:
+    groups = q.shape[-3] // k.shape[-3]
+    stamp = (f"cuda:{kernel}:b{native_flash.BLOCK}"
+             if q.device.type == "cuda" else f"cpu:{plain}")
+    return stamp + f":g{groups}" if groups > 1 else stamp
+
+
+def _ring_hop_plan(q, k, p: int, causal: bool, layout: str,
+                   engine: str = "auto") -> str | None:
+    """The per-hop FORWARD engine's stamp for a ring of ``p`` shards, or
+    ``None`` for the plain fold: ``engine="plain"``, and
+    :func:`_hop_kernels_take`. Causal zigzag runs the kernel on
+    half-chunks."""
+    if engine == "plain" or not _hop_kernels_take(q, k, p):
+        return None
+    return _hop_stamp(q, k, "flash_fwd", "flash_fwd_plain")
+
+
+def _ring_hop_bwd_plan(q, k, p: int, causal: bool, layout: str,
+                       engine: str = "auto") -> str | None:
+    """The per-hop BACKWARD engine's stamp (the ``flash_hop_dq`` and
+    ``flash_hop_dkv`` kernels), or ``None`` for the plain fold. Causal
+    zigzag always folds, as in the JAX package: its half-chunk gradient
+    decomposition is not written (ROADMAP Queue 2)."""
+    if engine == "plain" or (causal and layout == "zigzag"):
+        return None
+    if not _hop_kernels_take(q, k, p):
+        return None
+    return _hop_stamp(q, k, "flash_hop_bwd", "hop_block_grads_plain")
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` contiguous and starting on 16 bytes (the bf16 kernels' loads)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+def _to_shards(x: torch.Tensor, p: int) -> torch.Tensor:
+    """``(h, n, d)`` -> the ``(p, h, n/p, d)`` stack of the ``"sp"`` axis."""
+    h, n, d = x.shape
+    return _aligned(x.reshape(h, p, n // p, d).transpose(0, 1))
+
+
+def _from_shards(x: torch.Tensor) -> torch.Tensor:
+    p, h, nl, d = x.shape
+    return x.transpose(0, 1).reshape(h, p * nl, d)
+
+
+def _ring_trip(blocks, p: int):
+    """``(j, blocks after j ring rotations)`` for hops ``j = 0 .. p-1``.
+    Each rotation (:func:`halo.ppermute` of every stack of ``blocks``) is
+    started one hop ahead, as the JAX package's single-slot hop loop does:
+    hop ``j+1``'s before hop ``j`` folds; ``p - 1`` rotations in all."""
+    held = blocks
+    for j in range(p):
+        ahead = (tuple(halo.ppermute(x, AXIS_SP, 1) for x in held)
+                 if j + 1 < p else None)
+        yield j, held
+        held = ahead
+
+
+_Folder = collections.namedtuple("_Folder", "state0 fold finish")
+
+
+def _make_folder(causal: bool, g: int, npos: int, qsub, qpos_of):
+    """The ``_Folder`` ``(state0, fold, finish)`` of the plain fold for one
+    shard's q subset of ``npos`` positions (folded GQA rows ``npos*g``,
+    float32), as the JAX package's ``make_folder``: q rows in
+    :data:`_Q_CHUNK` chunks past that length (padded rows computed and
+    sliced off by ``finish``); ``qpos_of`` maps subset positions to global
+    token positions."""
+    hkv, _, d = qsub.shape
+    chunked = npos > _Q_CHUNK
+    nc = -(-npos // _Q_CHUNK)
+    npp = nc * _Q_CHUNK if chunked else npos
+    if npp != npos:
+        qsub = _pad_seq(qsub, (npp - npos) * g)
+    rows, dev, cg = npp * g, qsub.device, _Q_CHUNK * g
+    state0 = (torch.zeros((hkv, rows, d), dtype=torch.float32, device=dev),
+              torch.full((hkv, rows), _NEG, dtype=torch.float32, device=dev),
+              torch.zeros((hkv, rows), dtype=torch.float32, device=dev))
+
+    def fold(state, kb, vb, kpos):
+        if not chunked:
+            qpos = qpos_of(torch.arange(npos * g, device=dev) // g)
+            return _block_update(qsub, kb, vb, qpos, kpos, None, causal,
+                                 *state)
+        parts = []
+        for ci in range(nc):
+            sl = slice(ci * cg, (ci + 1) * cg)
+            qpos = qpos_of(ci * _Q_CHUNK + torch.arange(cg, device=dev) // g)
+            parts.append(_block_update(qsub[:, sl], kb, vb, qpos, kpos, None,
+                                       causal, *(x[:, sl] for x in state)))
+        return tuple(torch.cat(x, dim=1) for x in zip(*parts))
+
+    def finish(state):
+        return tuple(x[:, : npos * g] for x in state)
+
+    return _Folder(state0, fold, finish)
+
+
+def _ring_fold_forward(causal: bool, layout: str, q, k, v):
+    """The plain rotate-and-fold forward (the JAX package's jnp fold, its
+    per-device body run for each shard of the stacks) and the oracle of the
+    hop engines: ``(o, L)``, ``o`` in q's dtype, ``L`` the per-row
+    logsumexp ``(p, h, nl)`` float32. Contiguous causal shards skip blocks
+    wholly in their future; causal zigzag folds only the live (q-half,
+    k-half) pairs: ``(lo, lo)`` iff ``src <= idx``, ``(hi, lo)`` always,
+    ``(hi, hi)`` iff ``src >= idx``."""
+    p, h, nl, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    half = nl // 2
+    zz = causal and layout == "zigzag"
+    dev = q.device
+
+    def folders(idx):
+        q32 = _fold_groups(q[idx].float(), hkv, g)
+        if not zz:
+            return (_make_folder(causal, g, nl, q32, lambda r: (
+                _ring_positions(layout, idx, p, nl, r))),)
+        hg = half * g
+        return (_make_folder(causal, g, half, q32[:, :hg],
+                             lambda r: idx * half + r),
+                _make_folder(causal, g, half, q32[:, hg:],
+                             lambda r: (2 * p - 1 - idx) * half + r))
+
+    shards = [folders(idx) for idx in range(p)]
+    rows, rows_half = torch.arange(nl, device=dev), torch.arange(half,
+                                                                 device=dev)
+
+    def fold(j, state, kb, vb):
+        new = []
+        for idx, (fs, st) in enumerate(zip(shards, state)):
+            # After j rotations this shard holds the block of shard src.
+            src = (idx - j) % p
+            kbi, vbi = kb[idx], vb[idx]
+            if not zz:
+                if causal and src > idx:  # wholly in this shard's future
+                    new.append(st)
+                    continue
+                kpos = _ring_positions(layout, src, p, nl, rows)
+                new.append((fs[0].fold(st[0], kbi, vbi, kpos),))
+                continue
+            fold_lo, fold_hi = fs[0].fold, fs[1].fold
+            s_lo, s_hi = st
+            k_lo, k_hi = kbi[:, :half], kbi[:, half:]
+            v_lo, v_hi = vbi[:, :half], vbi[:, half:]
+            kpos_lo = src * half + rows_half
+            kpos_hi = (2 * p - 1 - src) * half + rows_half
+            if src <= idx:
+                s_lo = fold_lo(s_lo, k_lo, v_lo, kpos_lo)
+            s_hi = fold_hi(s_hi, k_lo, v_lo, kpos_lo)
+            if src >= idx:
+                s_hi = fold_hi(s_hi, k_hi, v_hi, kpos_hi)
+            new.append((s_lo, s_hi))
+        return new
+
+    poison = chaos.hop_poison_spec()
+    if poison is not None:
+        fold = chaos.poisoned_fold(fold, poison)
+    state = [tuple(f.state0 for f in fs) for fs in shards]
+    for j, (kb, vb) in _ring_trip((k, v), p):
+        state = fold(j, state, kb, vb)
+    outs, lses = [], []
+    for fs, st in zip(shards, state):
+        o, m, l = (torch.cat(parts, dim=1) for parts in zip(
+            *(f.finish(s) for f, s in zip(fs, st))))
+        live = l > 0
+        lses.append(_unfold_groups(torch.where(
+            live, m + torch.log(torch.clamp_min(l, 1e-37)),
+            torch.full_like(l, -_NEG)), hkv, g))
+        outs.append(_unfold_groups(
+            o / torch.where(live, l, torch.ones_like(l))[..., None], hkv, g))
+    return torch.stack(outs).to(q.dtype), torch.stack(lses)
+
+
+def _make_bwd(causal: bool, g: int, scale: float, npos: int, qsub, dosub,
+              Lsub, Dsub, qpos_of):
+    """One shard's per-hop ``(dq, dk, dv)`` contribution of a q subset of
+    ``npos`` positions against a K/V block, as the JAX package's
+    ``make_bwd``: :func:`_flash_block_grads` over the same q chunks as the
+    forward's folder, padded rows at ``L = -_NEG`` (their p underflows to
+    0). ``dq`` in the folded GQA layout, dk and dv group-summed."""
+    chunked = npos > _Q_CHUNK
+    nc = -(-npos // _Q_CHUNK)
+    npp = nc * _Q_CHUNK if chunked else npos
+    if npp != npos:
+        pad = (npp - npos) * g
+        qsub, dosub, Dsub = (_pad_seq(x, pad) for x in (qsub, dosub, Dsub))
+        Lsub = _pad_seq(Lsub, pad, -_NEG)
+    dev, cg = qsub.device, _Q_CHUNK * g
+
+    def block(sl, qpos, kb32, vb32, kpos):
+        mask = _mask_from_pos(qpos, kpos, None, causal)
+        return _flash_block_grads(qsub[:, sl], dosub[:, sl], Lsub[:, sl],
+                                  Dsub[:, sl], kb32, vb32, mask, scale)
+
+    def contribution(kb32, vb32, kpos):
+        if not chunked:
+            return block(slice(None),
+                         qpos_of(torch.arange(npos * g, device=dev) // g),
+                         kb32, vb32, kpos)
+        dqs, dk, dv = [], 0.0, 0.0
+        for ci in range(nc):
+            qpos = qpos_of(ci * _Q_CHUNK + torch.arange(cg, device=dev) // g)
+            dqc, dkc, dvc = block(slice(ci * cg, (ci + 1) * cg), qpos, kb32,
+                                  vb32, kpos)
+            dqs.append(dqc)
+            dk, dv = dk + dkc, dv + dvc
+        return torch.cat(dqs, dim=1)[:, : npos * g], dk, dv
+
+    return contribution
+
+
+def _ring_fold_backward(causal: bool, layout: str, res, do):
+    """The plain travelling-dk/dv backward (the JAX package's jnp
+    ``_ring_flash_bwd``, per shard): K/V make a second trip round the
+    ring, each block carrying its ``(dk, dv)`` accumulator, rotated after
+    every hop (p rotations: home again); each shard adds its recomputed
+    block gradients to its ``dq`` and to the accumulators in hand. Causal
+    skipping and the zigzag live pairs as in :func:`_ring_fold_forward`."""
+    q, k, v, o, L = res
+    p, h, nl, d = q.shape
+    hkv = k.shape[1]
+    g = h // hkv
+    half = nl // 2
+    hg = half * g
+    zz = causal and layout == "zigzag"
+    scale = 1.0 / math.sqrt(d)
+    dev = q.device
+
+    def shard_bwd(idx):
+        q32, do32, o32 = (_fold_groups(x[idx].float(), hkv, g)
+                          for x in (q, do, o))
+        D = (do32 * o32).sum(dim=-1)
+        Lf = _fold_groups(L[idx], hkv, g)
+        if not zz:
+            return (_make_bwd(causal, g, scale, nl, q32, do32, Lf, D,
+                              lambda r: _ring_positions(layout, idx, p, nl,
+                                                        r)),)
+        return tuple(
+            _make_bwd(causal, g, scale, half, *(x[:, sl] for x in (
+                q32, do32, Lf, D)), qpos_of)
+            for sl, qpos_of in (
+                (slice(None, hg), lambda r: idx * half + r),
+                (slice(hg, None), lambda r: (2 * p - 1 - idx) * half + r)))
+
+    bwds = [shard_bwd(idx) for idx in range(p)]
+    rows, rows_half = torch.arange(nl, device=dev), torch.arange(half,
+                                                                 device=dev)
+    dq = torch.zeros((p, hkv, nl * g, d), dtype=torch.float32, device=dev)
+    dkb = torch.zeros((p, hkv, nl, d), dtype=torch.float32, device=dev)
+    dvb = torch.zeros_like(dkb)
+    for j, (kb, vb) in _ring_trip((k, v), p):
+        for idx in range(p):
+            src = (idx - j) % p
+            kb32, vb32 = kb[idx].float(), vb[idx].float()
+            if not zz:
+                if causal and src > idx:
+                    continue
+                dqj, dkj, dvj = bwds[idx][0](
+                    kb32, vb32, _ring_positions(layout, src, p, nl, rows))
+                dq[idx] += dqj
+                dkb[idx] += dkj
+                dvb[idx] += dvj
+                continue
+            bwd_lo, bwd_hi = bwds[idx]
+            k_lo, k_hi = kb32[:, :half], kb32[:, half:]
+            v_lo, v_hi = vb32[:, :half], vb32[:, half:]
+            kpos_lo = src * half + rows_half
+            kpos_hi = (2 * p - 1 - src) * half + rows_half
+            if src <= idx:
+                dqj, dkj, dvj = bwd_lo(k_lo, v_lo, kpos_lo)
+                dq[idx, :, :hg] += dqj
+                dkb[idx, :, :half] += dkj
+                dvb[idx, :, :half] += dvj
+            dqj, dkj, dvj = bwd_hi(k_lo, v_lo, kpos_lo)
+            dq[idx, :, hg:] += dqj
+            dkb[idx, :, :half] += dkj
+            dvb[idx, :, :half] += dvj
+            if src >= idx:
+                dqj, dkj, dvj = bwd_hi(k_hi, v_hi, kpos_hi)
+                dq[idx, :, hg:] += dqj
+                dkb[idx, :, half:] += dkj
+                dvb[idx, :, half:] += dvj
+        dkb, dvb = (halo.ppermute(x, AXIS_SP, 1) for x in (dkb, dvb))
+    dq = torch.stack([_unfold_groups(x, hkv, g) for x in dq])
+    return dq.to(q.dtype), dkb.to(k.dtype), dvb.to(v.dtype)
+
+
+def _hop_partial(q, kb, vb, causal: bool):
+    """One ``flash_fwd`` launch over stacks of shards folded into the head
+    axis: the normalised partial ``(o, L)`` of each shard's q against the
+    block in hand, float32, shaped like the stacks."""
+    o, L = native_flash.flash_fwd(q.flatten(0, 1), kb.flatten(0, 1),
+                                  vb.flatten(0, 1), causal)
+    return o.float().reshape(q.shape), L.reshape(q.shape[:-1])
+
+
+def _merge_into(state, lo: int, hi: int, part) -> None:
+    """Merge the partial ``part`` of shards ``lo .. hi-1`` into ``state``."""
+    o, L = state
+    o[lo:hi], L[lo:hi] = _merge_partials(o[lo:hi], L[lo:hi], *part)
+
+
+def _ring_forward_hopflash(causal: bool, p: int, q, k, v):
+    """The ring forward with ``flash_fwd`` as the per-hop engine
+    (contiguous layout, or any layout without causality): hop 0 is the
+    resident diagonal block, the kernel's causal flag, over every shard;
+    after ``j`` rotations shard ``i`` holds the block of shard ``i - j``,
+    in the past of shards ``j .. p-1`` and wholly in the future of the
+    rest, so each later hop is one unmasked launch over shards ``j ..
+    p-1`` (every shard without causality), merged by
+    :func:`_merge_partials`. Returns ``(o, L)`` as the fold does."""
+    poison = chaos.hop_poison_spec()
+
+    def fold(j, state, kb, vb):
+        lo = j if causal else 0
+        _merge_into(state, lo, p, _hop_partial(q[lo:], kb[lo:], vb[lo:],
+                                               False))
+        return state
+
+    if poison is not None:
+        fold = chaos.poisoned_fold(fold, poison)
+    for j, (kb, vb) in _ring_trip((k, v), p):
+        if j:
+            state = fold(j, state, kb, vb)
+            continue
+        if poison is not None:
+            kb, vb = chaos.poison_hop(kb, vb, 0, poison)
+        state = _hop_partial(q, kb, vb, causal)
+    o, L = state
+    return o.to(q.dtype), L
+
+
+def _halves(x: torch.Tensor):
+    half = x.shape[2] // 2
+    return _aligned(x[:, :, :half]), _aligned(x[:, :, half:])
+
+
+def _ring_forward_hopflash_zz(p: int, q, k, v):
+    """The causal-zigzag ring forward on ``flash_fwd`` over half-chunks:
+    the fold's live-pair table as launches over contiguous runs of shards.
+    Hop 0: ``(lo, lo)`` and ``(hi, hi)`` the kernel's causal triangles,
+    ``(hi, lo)`` unmasked, all shards. Hop ``j >= 1``, all unmasked:
+    ``(lo, lo)`` on shards ``j .. p-1`` (``src < idx``), ``(hi, lo)`` on
+    every shard, ``(hi, hi)`` on shards ``0 .. j-1`` (``src > idx``). K/V
+    travel as their half stacks, so each launch reads contiguous slices.
+    Returns ``(o, L)`` in the lo-then-hi row order of each shard."""
+    poison = chaos.hop_poison_spec()
+    q_lo, q_hi = _halves(q)
+
+    def fold(j, state, kb, vb):
+        s_lo, s_hi = state
+        (k_lo, k_hi), (v_lo, v_hi) = kb, vb
+        _merge_into(s_lo, j, p, _hop_partial(q_lo[j:], k_lo[j:], v_lo[j:],
+                                             False))
+        _merge_into(s_hi, 0, p, _hop_partial(q_hi, k_lo, v_lo, False))
+        _merge_into(s_hi, 0, j, _hop_partial(q_hi[:j], k_hi[:j], v_hi[:j],
+                                             False))
+        return state
+
+    if poison is not None:
+        fold = chaos.poisoned_fold(fold, poison)
+    for j, (k_lo, k_hi, v_lo, v_hi) in _ring_trip(
+            (*_halves(k), *_halves(v)), p):
+        kb, vb = (k_lo, k_hi), (v_lo, v_hi)
+        if j:
+            state = fold(j, state, kb, vb)
+            continue
+        if poison is not None:
+            kb, vb = chaos.poison_hop(kb, vb, 0, poison)
+        (k_lo, k_hi), (v_lo, v_hi) = kb, vb
+        s_hi = _hop_partial(q_hi, k_lo, v_lo, False)
+        _merge_into(s_hi, 0, p, _hop_partial(q_hi, k_hi, v_hi, True))
+        state = (_hop_partial(q_lo, k_lo, v_lo, True), s_hi)
+    (o_lo, L_lo), (o_hi, L_hi) = state
+    return torch.cat([o_lo, o_hi], dim=2).to(q.dtype), torch.cat(
+        [L_lo, L_hi], dim=2)
+
+
+def _ring_backward_hopflash(causal: bool, p: int, res, do):
+    """The travelling-dk/dv ring backward with ``flash_hop_dq`` and
+    ``flash_hop_dkv`` as the per-hop engine (contiguous layout, or any
+    without causality): ``D = rowsum(do·o)`` once; hop 0 the kernels'
+    causal flag over every shard, each later hop one unmasked pair of
+    launches over its live shards (those of :func:`_ring_forward_hopflash`);
+    the dk/dv accumulators, summed over each K/V head's query group inside
+    the kernels, rotate after every hop and are home after p rotations."""
+    q, k, v, o, L = res
+    D = (do.float() * o.float()).sum(dim=-1)
+    do = _aligned(do.to(q.dtype))
+
+    def grads(lo, kb, vb, diag):
+        return flash_hop_bwd.hop_block_grads(
+            *(x[lo:].flatten(0, 1) for x in (q, do, L, D, kb, vb)),
+            causal=diag)
+
+    for j, (kb, vb) in _ring_trip((k, v), p):
+        if not j:
+            dq, dk, dv = grads(0, kb, vb, causal)
+            dq, dk, dv = (x.reshape(s.shape)
+                          for x, s in ((dq, q), (dk, k), (dv, v)))
+        else:
+            lo = j if causal else 0
+            dqj, dkj, dvj = grads(lo, kb, vb, False)
+            dq[lo:] += dqj.reshape(q[lo:].shape)
+            dk[lo:] += dkj.reshape(k[lo:].shape)
+            dv[lo:] += dvj.reshape(v[lo:].shape)
+        dk, dv = (halo.ppermute(x, AXIS_SP, 1) for x in (dk, dv))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _RingFlash(torch.autograd.Function):
+    """Ring attention over the ``(p, h, nl, d)`` stacks, saving only ``(q,
+    k, v, o, L)``. The forward runs the per-hop engine its plan grants
+    (:func:`_ring_forward_hopflash`, or ``_zz`` for causal zigzag), else
+    the plain fold; the backward's engine is decided with the forward's
+    (``engine="plain"`` folds both directions)."""
+
+    @staticmethod
+    def forward(ctx, causal, layout, engine, q, k, v):
+        p = q.shape[0]
+        if _ring_hop_plan(q, k, p, causal, layout, engine) is None:
+            o, L = _ring_fold_forward(causal, layout, q, k, v)
+        elif causal and layout == "zigzag":
+            o, L = _ring_forward_hopflash_zz(p, q, k, v)
+        else:
+            o, L = _ring_forward_hopflash(causal, p, q, k, v)
+        ctx.causal, ctx.layout = causal, layout
+        ctx.hop_bwd = _ring_hop_bwd_plan(q, k, p, causal, layout,
+                                         engine) is not None
+        ctx.save_for_backward(q, k, v, o, L)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        res = ctx.saved_tensors
+        if ctx.hop_bwd:
+            grads = _ring_backward_hopflash(ctx.causal, res[0].shape[0], res,
+                                            do)
+        else:
+            grads = _ring_fold_backward(ctx.causal, ctx.layout, res, do)
+        return (None, None, None, *grads)
+
+
+def ring_hop_engine_for(q, k, v, *, p: int | None = None, causal: bool = True,
+                        layout: str = "contiguous",
+                        engine: str = "auto") -> str:
+    """The engine each K/V hop of a ``ring_attention`` over these GLOBAL
+    operands on ``p`` shards runs: ``cuda:flash_fwd:b<tile>`` (``:g<groups>``
+    under GQA) for the kernel on the card, ``cpu:flash_fwd_plain`` for its
+    plain version on the CPU, ``plain`` for the fold; ``:zz`` marks the
+    causal-zigzag half-chunk decomposition. A ring of one (``p`` defaults to 1) is local attention,
+    ``local:<flash_engine_for>``. 4-D operands fold the batch and gain
+    ``:b{B}``."""
+    if q.dim() == 4:
+        return ring_hop_engine_for(
+            _fold_batch(q), _fold_batch(k), _fold_batch(v), p=p,
+            causal=causal, layout=layout, engine=engine) + f":b{q.shape[0]}"
+    _check_engine(engine)
+    p = p or 1
+    if p == 1:
+        return "local:" + flash_engine_for(q, k, v, engine)
+    stamp = _ring_hop_plan(q, k, p, causal, layout, engine)
+    if stamp is None:
+        return "plain"
+    return stamp + ":zz" if causal and layout == "zigzag" else stamp
+
+
+def ring_hop_bwd_engine_for(q, k, v, *, p: int | None = None,
+                            causal: bool = True, layout: str = "contiguous",
+                            engine: str = "auto") -> str:
+    """The ring BACKWARD's per-hop engine for these global operands:
+    ``cuda:flash_hop_bwd:b<tile>`` (the dq and dk/dv kernels; ``:g<groups>``
+    under GQA, K/V read un-expanded), ``cpu:hop_block_grads_plain`` on the
+    CPU, ``plain`` for the fold (causal zigzag always, as in the JAX
+    package; ``engine="plain"``). ``:b{B}`` and ``local:`` as
+    :func:`ring_hop_engine_for`."""
+    if q.dim() == 4:
+        return ring_hop_bwd_engine_for(
+            _fold_batch(q), _fold_batch(k), _fold_batch(v), p=p,
+            causal=causal, layout=layout, engine=engine) + f":b{q.shape[0]}"
+    _check_engine(engine)
+    p = p or 1
+    if p == 1:
+        return "local:" + flash_engine_for(q, k, v, engine)
+    stamp = _ring_hop_bwd_plan(q, k, p, causal, layout, engine)
+    return "plain" if stamp is None else stamp
+
+
+def ring_partial_magnitude(q, k, v, p: int, causal: bool = True,
+                           layout: str = "contiguous",
+                           rows: int = 4096) -> torch.Tensor:
+    """``M = sum_j w_j |o_j|``, float32, shaped like ``q`` ``(h, n, d)``:
+    the magnitude, merged as the ring merges it, of the normalised partial
+    ``o_j`` that each hop's launch writes, ``w_j`` its merge weight. A hop
+    whose kernel rounds ``o_j`` to the operands' dtype can move the ring's
+    output by at most one rounding of this, so a check of a bfloat16 ring
+    adds one bf16 spacing of ``M`` to its limit.
+
+    Computed from the dense softmax ``P`` alone, independent of the ring's
+    schedule: ``w_j o_j = sum_{key in G_j} P_key v_key`` for ``G_j`` the
+    keys of hop ``j``'s launch, so ``M = sum_G |P[:, G] @ v[G]|``. The
+    groups are the ring's key blocks of ``n/p`` tokens in the operands'
+    order, halved to the zigzag half-chunks under causal zigzag; positions
+    follow ``layout``. Rows in slices of ``rows``, one head at a time."""
+    h, n, d = q.shape
+    g = h // k.shape[0]
+    nl = n // p
+    width = nl // 2 if causal and layout == "zigzag" else nl
+    pos = (torch.tensor(zigzag_order(n, p), device=q.device)
+           if layout == "zigzag" else torch.arange(n, device=q.device))
+    out = torch.empty((h, n, d), dtype=torch.float32, device=q.device)
+    with _full_f32_matmul():
+        for head in range(h):
+            kh, vh = k[head // g].float(), v[head // g].float()
+            vg = vh.reshape(n // width, width, d)
+            for r0 in range(0, n, rows):
+                s = q[head, r0:r0 + rows].float() @ kh.T / math.sqrt(d)
+                if causal:
+                    s.masked_fill_(pos[r0:r0 + rows, None] < pos[None, :],
+                                   -math.inf)
+                pr = torch.softmax(s, dim=-1).reshape(len(s), n // width,
+                                                      width)
+                out[head, r0:r0 + rows] = torch.einsum(
+                    "rgk,gkd->rgd", pr, vg).abs().sum(1)
+    return out
+
+
+def _check_seq(n: int, p: int, what: str) -> None:
+    if n % p:
+        raise ValueError(
+            f"{what}: sequence length {n} not divisible by mesh size {p}; "
+            "pad the sequence to a multiple (the framework's uneven-board "
+            "handling pads globally the same way)")
+
+
+def _sp_mesh(devices, mesh, axis: str, device) -> mesh_lib.Mesh:
+    """The mesh a sharded call runs on: ``mesh``, or ``devices`` virtual
+    shards of ``device`` on ``axis`` (one shard when neither is given)."""
+    if mesh is None:
+        return mesh_lib.make_mesh_1d(devices or 1, axis=axis, device=device,
+                                     virtual=True)
+    if devices is not None:
+        raise ValueError("pass devices or mesh, not both")
+    return mesh
+
+
+def _guarded_ring(dispatch, name: str, on_card: bool):
+    """:func:`ring_attention`'s dispatch under the robust layer, the policy
+    of ``LifeSim``'s guarded step. With no chaos plan and no
+    ``MOMP_GUARD=1`` (the default path) it is ``dispatch()`` alone; under
+    ``noguard`` the fault lands. Armed, the output is validated (a host
+    sync); a non-finite one is recomputed on the same engine with
+    injection suppressed, then, for operands on the CPU only, on the plain
+    fold (``dispatch(fold=True)``). Operands on the card whose clean re-run
+    still diverges are a kernel fault: ``guards.FallbackExhausted``, never
+    the plain version. A recovery is recorded as ``<name>:recovered``
+    (``name`` the engine that ran, ``ring_attention:plain`` for the fold).
+    An exception (a build or launch error) is no fault to recover from: it
+    is raised."""
+    if not guards.guards_active():
+        return dispatch()
+    raised = []
+
+    def kept(fold=False, clean=True):
+        def run():
+            try:
+                with chaos.suppressed() if clean else contextlib.nullcontext():
+                    return dispatch(fold)
+            except Exception as e:  # re-raised below, never recovered
+                raised.append(e)
+                return None
+        return run
+
+    engines = [(name, kept(clean=False)), (name, kept())]
+    if not on_card:
+        engines.append(("ring_attention:plain", kept(fold=True)))
+    out, stamp, _ = guards.with_fallback(
+        engines, validator=lambda o: o is None or guards.all_finite(o))
+    if raised:
+        raise raised[0]
+    if stamp.endswith(":recovered"):
+        guards.record_recovery(stamp)
+    return out
 
 
 def ring_attention(q, k, v, devices: int | None = None, causal: bool = False,
                    layout: str = "contiguous", *,
+                   mesh: mesh_lib.Mesh | None = None, axis: str = AXIS_SP,
                    device: str | torch.device = "cuda",
                    engine: str = "auto") -> torch.Tensor:
-    """Sequence-parallel attention over a ring of ``devices`` cards. This
-    slice runs a ring of one, which is full local attention under either
-    layout (the 1-device zigzag order is the identity), as in the JAX
-    package: :func:`flash_attention`, 4-D operands included. More devices
-    raise."""
-    _one_device(devices, "ring_attention")
+    """Sequence-parallel attention over a ring of shards: ``mesh``'s axis
+    ``axis``, or ``devices`` virtual shards of ``device`` (the card unless
+    the caller asks for the CPU). Shapes ``(heads, seq, head_dim)`` with
+    ``seq`` split over the shards; K/V may carry fewer heads (GQA/MQA)
+    dividing q's; 4-D ``(B, heads, seq, head_dim)`` operands run B requests
+    in one ring trip (:func:`_fold_batch`).
+
+    K/V blocks rotate round the ring, one hop a step, folded into each
+    shard's online softmax; on the card every live hop launches
+    ``flash_fwd`` and the backward ``flash_hop_dq`` and ``flash_hop_dkv``
+    (:func:`ring_hop_engine_for`, :func:`ring_hop_bwd_engine_for` name
+    them); ``engine="plain"`` asks for the plain fold. ``layout="zigzag"``
+    balances causal work: operands arrive in zigzag order
+    (:func:`zigzag_shard`; invert with :func:`zigzag_unshard`), and
+    ``seq % (2 * shards) == 0``. A ring of one is local attention under
+    either layout."""
+    _check_engine(engine)
+    mesh = _sp_mesh(devices, mesh, axis, device)
+    q, k, v = _on_device(mesh.device, q, k, v)
+    if q.dim() == 4:
+        if not (k.dim() == v.dim() == 4 and k.shape[0] == q.shape[0]):
+            raise ValueError(
+                f"ring_attention: batched q {tuple(q.shape)} needs k/v with "
+                f"the same leading batch, got {tuple(k.shape)} / "
+                f"{tuple(v.shape)}")
+        out = ring_attention(_fold_batch(q), _fold_batch(k), _fold_batch(v),
+                             causal=causal, layout=layout, mesh=mesh,
+                             axis=axis, engine=engine)
+        return out.reshape(q.shape)
+    p = mesh.shape[axis]
+    _check_seq(q.shape[1], p, "ring_attention")
+    _check_gqa(q, k, v, "ring_attention")
     if layout not in ("contiguous", "zigzag"):
         raise ValueError(f"unknown ring layout {layout!r}")
-    if layout == "zigzag" and q.shape[-2] % 2:
+    if layout == "zigzag" and q.shape[1] % (2 * p):
         raise ValueError(
             f"ring_attention zigzag layout needs seq % (2*mesh) == 0, got "
-            f"seq {q.shape[-2]} over 1 device")
-    return flash_attention(q, k, v, causal, device=device, engine=engine)
+            f"seq {q.shape[1]} over {p} devices")
+
+    def dispatch(fold=False):
+        eng = "plain" if fold else engine
+        if p == 1:
+            return _attention_chunked(q, k, v, causal, eng)
+        return _from_shards(_RingFlash.apply(
+            causal, layout, eng, *(_to_shards(x, p) for x in (q, k, v))))
+
+    return _guarded_ring(dispatch, "ring_attention:" + ring_hop_engine_for(
+        q, k, v, p=p, causal=causal, layout=layout, engine=engine),
+                         q.device.type == "cuda")
+
+
+def _ulysses_kv(k, v, p: int, heads: int):
+    """K/V for the all-to-all: un-expanded when the kv heads split over the
+    ``p`` shards, else expanded just enough to split (the smallest count
+    divisible by p that divides the query heads; all of them at worst)."""
+    hkv = k.shape[0]
+    if hkv % p == 0:
+        return k, v
+    e = hkv * (p // math.gcd(hkv, p))
+    factor = e // hkv if heads % e == 0 else heads // hkv
+    return _repeat_heads(k, v, factor)
 
 
 def ulysses_attention(q, k, v, devices: int | None = None,
                       causal: bool = False, *,
+                      mesh: mesh_lib.Mesh | None = None, axis: str = AXIS_SP,
                       device: str | torch.device = "cuda",
                       engine: str = "auto") -> torch.Tensor:
-    """All-to-all (Ulysses) sequence-parallel attention. On one device the
-    two all-to-alls are the identity and it is full local attention
-    (:func:`flash_attention`), as in the JAX package; more devices
-    raise."""
-    _one_device(devices, "ulysses_attention")
-    return flash_attention(q, k, v, causal, device=device, engine=engine)
+    """All-to-all (Ulysses) sequence-parallel attention over the shards of
+    :func:`ring_attention`'s ``mesh``/``devices``: an all-to-all
+    (:func:`halo.all_to_all`) re-shards the stacks from sequence-split to
+    head-split, each shard runs full local attention on its ``heads/p``
+    heads (:func:`_attention_chunked`, one launch over the shards folded
+    into the head axis: ``_FlashKernel`` on the card), and a second
+    all-to-all returns the sequence split. ``heads`` must divide over the
+    shards; GQA/MQA K/V stay un-expanded when their heads split, else are
+    expanded just enough. 4-D operands fold the batch into the heads."""
+    _check_engine(engine)
+    mesh = _sp_mesh(devices, mesh, axis, device)
+    q, k, v = _on_device(mesh.device, q, k, v)
+    if q.dim() == 4:
+        if not (k.dim() == v.dim() == 4 and k.shape[0] == q.shape[0]):
+            raise ValueError(
+                f"ulysses_attention: batched q {tuple(q.shape)} needs k/v "
+                f"with the same leading batch, got {tuple(k.shape)} / "
+                f"{tuple(v.shape)}")
+        out = ulysses_attention(_fold_batch(q), _fold_batch(k),
+                                _fold_batch(v), causal=causal, mesh=mesh,
+                                axis=axis, engine=engine)
+        return out.reshape(q.shape)
+    p = mesh.shape[axis]
+    _check_seq(q.shape[1], p, "ulysses_attention")
+    _check_gqa(q, k, v, "ulysses_attention")
+    if q.shape[0] % p:
+        raise ValueError(
+            f"ulysses_attention: {q.shape[0]} heads not divisible by mesh "
+            f"size {p}; use ring_attention (no head constraint) instead")
+    k, v = _ulysses_kv(k, v, p, q.shape[0])
+    # (p, h, n/p, d) -> (p, h/p, n, d): scatter heads, gather the sequence.
+    qh, kh, vh = (halo.all_to_all(_to_shards(x, p), 0, 1) for x in (q, k, v))
+    oh = _attention_chunked(qh.flatten(0, 1), kh.flatten(0, 1),
+                            vh.flatten(0, 1), causal, engine)
+    return _from_shards(halo.all_to_all(oh.reshape(qh.shape), 1, 0))
 
 
 @contextlib.contextmanager

@@ -6,8 +6,10 @@ package's ``lax.ppermute`` ghost exchange (itself the reference's ghost
 ``4-life/life_mpi.c:197-208`` for strided columns,
 ``6-cartesian/life_cart.c:225-279`` for the 2-D sequence).
 
-Every function takes the stacked shards ``(py, px, *C, h, w)`` of one
-device (``parallel.mesh``). A ring ``ppermute`` along a mesh axis is one
+Every ghost exchange takes the stacked shards ``(py, px, *C, h, w)`` of
+one device (``parallel.mesh``); :func:`ppermute` and :func:`all_to_all`
+also serve the ``"sp"`` stacks of attention operands (ring attention's
+K/V rotations and Ulysses' re-shards, ``parallel/context.py``). A ring ``ppermute`` along a mesh axis is one
 ``torch.roll`` along that axis's shard dimension (:func:`ppermute`), and
 the per-shard branches of the JAX package (``lax.axis_index`` under
 ``jnp.where``) become slices of the first and last shard on the axis
@@ -47,6 +49,28 @@ def ppermute(x: torch.Tensor, axis_name: str, shift: int) -> torch.Tensor:
     """``lax.ppermute(x, axis_name, ring_perm(p, shift))`` on stacked
     shards: shard ``i`` receives what shard ``i - shift`` holds."""
     return torch.roll(x, shift, SHARD_DIM[axis_name])
+
+
+def all_to_all(x: torch.Tensor, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)`` on
+    a stack of shards along dimension 0 (the ``"sp"`` stacks of
+    ``parallel/context.py``): shard ``i`` cuts its axis ``split_axis``
+    into p blocks and sends block ``j`` to shard ``j``, which concatenates
+    what it receives along ``concat_axis`` in the order of the senders.
+    Axes count within a shard, as in the JAX call. One permuted copy."""
+    p = x.shape[0]
+    s, c = split_axis + 1, concat_axis + 1
+    shape = list(x.shape)
+    if shape[s] % p:
+        raise ValueError(f"all_to_all: axis {split_axis} of size {shape[s]} "
+                         f"does not split over {p} shards")
+    y = x.reshape(*shape[:s], p, shape[s] // p, *shape[s + 1:])
+    # (sender, ..., receiver, block, ...) -> (receiver, sender, ...), then
+    # the sender just before the concatenated axis, merged into it.
+    y = y.movedim(s, 0).movedim(1, c)
+    out = list(y.shape)
+    return y.reshape(*out[:c], p * out[c + 1], *out[c + 2:])
 
 
 def _chaos_ghost(ghost: torch.Tensor) -> torch.Tensor:

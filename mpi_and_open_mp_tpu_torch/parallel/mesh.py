@@ -18,7 +18,10 @@ exchange is then one ``torch.roll`` along a shard axis
 advances every shard at once, as one ``shard_map`` program does.
 
 Axis naming follows the JAX package: ``"y"`` shards the row dimension
-(axis 0 of the ``(ny, nx)`` board), ``"x"`` the column dimension.
+(axis 0 of the ``(ny, nx)`` board), ``"x"`` the column dimension, and
+``"sp"`` (``parallel/context.py``'s ``AXIS_SP``) the sequence of attention
+operands, stacked as ``(p, heads, seq/p, head_dim)`` with the shard
+dimension first.
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 
 AXIS_Y = "y"
 AXIS_X = "x"
-# The stacked board's dimension that carries each mesh axis.
-SHARD_DIM = {AXIS_Y: 0, AXIS_X: 1}
+AXIS_SP = "sp"
+# The stacked tensor's dimension that carries each mesh axis.
+SHARD_DIM = {AXIS_Y: 0, AXIS_X: 1, AXIS_SP: 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +144,8 @@ def make_mesh_1d(n: int | None = None, axis: str = AXIS_Y,
     shards than devices, or ``virtual=True`` (the CLI's
     ``--virtual-devices``), put every shard on the one device."""
     if axis not in SHARD_DIM:
-        raise ValueError(f"axis must be 'y' or 'x', got {axis!r}")
+        raise ValueError(f"axis must be one of {tuple(SHARD_DIM)}, got "
+                         f"{axis!r}")
     if n is None:
         n = device_count(device)
     return _make((axis,), (int(n),), device, virtual)

@@ -24,16 +24,24 @@ same error. Tokens with a hook in the port:
     :class:`~mpi_and_open_mp_tpu_torch.robust.preempt.SimulatedPreemption`
     when a ``LifeSim.run`` crosses global step ``<step>``, after flushing a
     checkpoint when one is configured.
+``nan_hop=<j>`` / ``inf_hop=<j>``
+    Ring attention's K/V blocks arrive at hop ``j`` of the forward with a
+    NaN or Inf added, on every shard of the stack: the hop engines and the
+    plain fold of ``parallel/context.py`` read :func:`hop_poison_spec` at
+    each call and wrap their fold in :func:`poisoned_fold` (hop 0 through
+    :func:`poison_hop`). Under the guards ``ring_attention`` then recovers
+    on a clean re-run of the same engine
+    (``ring_attention:<engine>:recovered``).
 ``seed=<int>``
     Seed of the corrupted value (default 0).
 ``noguard``
     Inject without arming the guards: the run must then diverge, which
     shows that the fault landed.
 
-The ``nan_hop``/``inf_hop`` (ring attention across shards), ``serve_fail``,
-``crash``, ``kill_worker`` (the serving daemon, its journal and fleet) and
-``aot_corrupt`` (the AOT cache) tokens parse, but the layers they hook into
-are not ported yet (ROADMAP Queue 1 items 3 and 9), so nothing reads them.
+The ``serve_fail``, ``crash``, ``kill_worker`` (the serving daemon, its
+journal and fleet) and ``aot_corrupt`` (the AOT cache) tokens parse, but
+the layers they hook into are not ported yet (ROADMAP Queue 1 item 9), so
+nothing reads them.
 
 The JAX package decides injection when it traces a program, so a fault
 stays in that program until a rebuild under :func:`suppressed`. The port's
@@ -206,6 +214,39 @@ def suppressed():
         yield
     finally:
         _SUPPRESS -= 1
+
+
+def hop_poison_spec() -> tuple[str, int] | None:
+    """``(kind, hop)`` for the ring fold engines to poison, or ``None`` (no
+    plan, :func:`suppressed`, or no hop fault)."""
+    plan = active_plan()
+    return None if plan is None else plan.hop_poison
+
+
+def poison_hop(kb, vb, j: int, spec):
+    """A ring hop's K/V blocks, with a NaN or Inf added to every element
+    when ``j`` is the planned hop, else the blocks themselves. ``kb`` and
+    ``vb`` are tensors or tuples of tensors (the zigzag halves)."""
+    kind, hop = spec
+    if j != hop:
+        return kb, vb
+    bad = float("nan") if kind == "nan" else float("inf")
+
+    def poison(x):
+        return tuple(y + bad for y in x) if isinstance(x, tuple) else x + bad
+
+    return poison(kb), poison(vb)
+
+
+def poisoned_fold(fold, spec):
+    """Wrap a ring fold ``(j, state, kb, vb) -> state`` so the planned
+    hop's K/V arrive poisoned."""
+
+    def wrapped(j, state, kb, vb):
+        kb, vb = poison_hop(kb, vb, j, spec)
+        return fold(j, state, kb, vb)
+
+    return wrapped
 
 
 def halo_ghost_spec() -> tuple[str, int] | None:

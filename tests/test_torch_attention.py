@@ -532,9 +532,10 @@ def test_errors():
     with pytest.raises(ValueError, match="not a multiple"):
         T.flash_attention(q, k, v, device="cpu")
     q, k, v = _t(*_qkv(2, 2, 16, 8))
+    # Two devices now run the sharded schedules: the same attention.
+    want = T.flash_attention(q, k, v, device="cpu")
     for fn in (T.ring_attention, T.ulysses_attention):
-        with pytest.raises(ValueError, match="sharded slice"):
-            fn(q, k, v, devices=2, device="cpu")
+        _close(fn(q, k, v, devices=2, device="cpu"), want, 1e-5)
     with pytest.raises(ValueError, match="unknown ring layout"):
         T.ring_attention(q, k, v, layout="striped", device="cpu")
     with pytest.raises(ValueError, match="engine"):
@@ -560,6 +561,14 @@ def test_cli_flash_grad_on_cpu():
 
 
 def test_cli_refuses_more_devices():
+    """``--devices 2`` runs a ring of two virtual shards; more shards than
+    ``--virtual-devices`` are refused with the JAX CLI's text."""
     res = _cli("--device", "cpu", "--devices", "2", "--seq", "64")
-    assert res.returncode == 2
-    assert "sharded slice" in res.stderr
+    assert res.returncode == 0, res.stderr
+    assert "parity ok" in res.stderr and " devices=2 " in res.stderr
+    res = _cli("--device", "cpu", "--devices", "4", "--virtual-devices", "2",
+               "--seq", "64")
+    assert res.returncode == 1
+    assert res.stderr.strip().splitlines()[-1] == (
+        "ValueError: Number of devices 2 must be >= the product of "
+        "mesh_shape (4,)")
