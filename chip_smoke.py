@@ -301,7 +301,37 @@ Phases, each of which raises (exit code 1) when it fails:
    ``--variant ring --devices 8 --seq 32768 --heads 8 --head-dim 128
    --causal --grad --ring-layout zigzag --no-check`` in a subprocess (48
    ``flash_fwd`` launches, the stamps): the dense oracle's check would
-   hold three 32 GiB score matrices at 32k.
+   hold three 32 GiB score matrices at 32k;
+22. the sparse sharded engine (``stencils/sparse_sharded.py``) at the
+   JAX bench's configuration: the 2048^2 mostly-dead seed board (ten
+   blinkers and a glider, ``bench.py:877-900``), 256 Life steps on 8
+   virtual row shards at tile 64 and tile 32, on col 8 and cart 4x2 at
+   tile 64; wireworld (conductor loops with electrons) and heat (hot spots)
+   for 64 steps on cart 4x2 at tile 64; a random soup that resolves to
+   ``dense:crossover`` and ``MOMP_SPARSE_SHARDED=0`` (``dense:sharded``),
+   32 steps each; the counts set to 0 just before each run and read just
+   after (``stencil_padded`` one launch a step of every round with an
+   active tile); every board against the dense sharded runner on the card,
+   the NumPy oracle and the same engine on the CPU (integer rules bit for
+   bit, heat within ``parity_tol_for("offset")``), the counters and stamp
+   equal to the CPU engine's, ``exchange_skips`` > 0 on the seed board;
+   ``stencil_padded`` against ``step_padded_plain`` on each run's gathered
+   tile stack over a full round, bit for bit; and at tiles 64 and 32 on
+   row 8 us a step sparse against dense sharded, chain-differenced (K =
+   256 and 2K, fresh engines, min of 2), the mean active fraction, and
+   ``stencil_padded``'s launches and device ms a round;
+23. the obs layer: the Life CLI on p46gun_big serial and on native cart
+   4x2 under ``MOMP_HALO_RDMA=1``, untraced then with ``--trace`` (spans
+   ``life.run`` and ``life.advance``, population 7288, both elapsed lines
+   logged); ``--profile DIR`` once (a Chrome trace naming the
+   ``bitlife_vmem`` kernel); the contiguous ring forward at 8 x 32768 x
+   128 causal bf16 on 8 virtual shards under ``MOMP_TRACE`` (the output
+   bit for bit the untraced one's, 8 ``flash_fwd`` launches either way,
+   7 ``ring.hop.transfer`` and 7 ``ring.hop.fold`` spans,
+   ``ring.hops.fwd`` 7) and its seconds untraced and traced in turns; a
+   checkpointed p46gun_big, its resume, and native cart 4x2 on the rung
+   under ``halo=corrupt``, traced (the checkpoint counters, the recovery
+   event); each trace read back with ``obs.report`` and rendered.
 
 Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -327,6 +357,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -1464,6 +1495,493 @@ def phase_sharded_attention(card: str, wrappers: dict) -> dict:
     return {"launches_by_run": launches, "ms": timings, "engines": stamps,
             "o_share_of_one_rounding_rule": shares,
             "ring_contiguous_device_ms_by_kernel": breakdown}
+
+
+# Phase 22: the sparse sharded engine on the JAX bench's configuration
+# (bench.py:1418-1470, launchers/queue_r08/10_sparse_sharded_ab.sh): a
+# 2048^2 mostly-dead board, 256 Life steps, 8 virtual row shards, tiles 64
+# and 32; col 8 and cart 4x2 at tile 64; wireworld and heat on cart; a soup
+# past the crossover; the kill switch. (run, spec, layout, mesh, tile,
+# steps, board, stamp wanted; None: the first sparse or dense stamp).
+SPARSE_EDGE = 2048
+SPARSE_STEPS = 256
+SPARSE_RUNS = (
+    ("life row 8 t64", "life", "row", (8,), 64, SPARSE_STEPS, "seed",
+     "sparse-sharded:row:t64"),
+    ("life row 8 t32", "life", "row", (8,), 32, SPARSE_STEPS, "seed",
+     "sparse-sharded:row:t32"),
+    ("life col 8 t64", "life", "col", (8,), 64, SPARSE_STEPS, "seed",
+     "sparse-sharded:col:t64"),
+    ("life cart 4x2 t64", "life", "cart", (4, 2), 64, SPARSE_STEPS, "seed",
+     "sparse-sharded:cart:t64"),
+    ("wireworld cart 4x2 t64", "wireworld", "cart", (4, 2), 64, 64,
+     "wires", "sparse-sharded:cart:t64"),
+    ("heat cart 4x2 t64", "heat", "cart", (4, 2), 64, 64, "spots", None),
+    ("life soup row 8 t64", "life", "row", (8,), 64, 32, "soup",
+     "dense:crossover"),
+    ("life row 8 t64 MOMP_SPARSE_SHARDED=0", "life", "row", (8,), 64, 32,
+     "seed", "dense:sharded"),
+)
+# The runs timed sparse against dense, as the JAX bench times them.
+SPARSE_TIMED = ("life row 8 t64", "life row 8 t32")
+
+
+def sparse_seed_board(edge: int, tile: int) -> np.ndarray:
+    """The JAX bench's mostly-dead Life board (``bench.py:877-900``): ten
+    horizontal blinkers in tile interiors on a coarse grid, and a glider
+    just off the (0, 0) tile's corner, aimed across tile edges."""
+    board = np.zeros((edge, edge), dtype=np.uint8)
+    ty = edge // tile
+    stride = max(3, ty // 3)
+    placed = 0
+    for j in range(1, ty, stride):
+        for i in range(1, ty, stride):
+            if placed >= 10:
+                break
+            cy, cx = j * tile + tile // 2, i * tile + tile // 2
+            board[cy, cx - 1:cx + 2] = 1
+            placed += 1
+    gy, gx = tile - 2, tile - 2
+    board[gy:gy + 3, gx:gx + 3] = np.array(
+        [[0, 1, 0], [0, 0, 1], [1, 1, 1]], dtype=np.uint8)
+    return board
+
+
+def sparse_wire_board(edge: int, tile: int) -> np.ndarray:
+    """A mostly empty wireworld board on the seed board's grid: a conductor
+    loop (3) with one electron (head 1, tail 2) in each grid tile, and one
+    long wire whose electron crosses tile and shard edges."""
+    board = np.zeros((edge, edge), dtype=np.uint8)
+    ty = edge // tile
+    stride = max(3, ty // 3)
+    q = tile // 4
+    for j in range(1, ty, stride):
+        for i in range(1, ty, stride):
+            y0, x0 = j * tile + q, i * tile + q
+            board[y0, x0:x0 + 2 * q] = 3
+            board[y0 + 2 * q, x0:x0 + 2 * q] = 3
+            board[y0:y0 + 2 * q + 1, x0] = 3
+            board[y0:y0 + 2 * q + 1, x0 + 2 * q - 1] = 3
+            board[y0, x0 + 2], board[y0, x0 + 1] = 1, 2
+    y = tile - 3
+    board[y, 8:edge // 2] = 3
+    board[y, 12], board[y, 11] = 1, 2
+    return board
+
+
+def sparse_spot_board(edge: int, tile: int) -> np.ndarray:
+    """Heat: the seed board's blinker cells and glider as 1.0 hot spots on
+    a cold float32 board."""
+    return sparse_seed_board(edge, tile).astype(np.float32)
+
+
+def sparse_board(kind: str, tile: int) -> np.ndarray:
+    if kind == "seed":
+        return sparse_seed_board(SPARSE_EDGE, tile)
+    if kind == "wires":
+        return sparse_wire_board(SPARSE_EDGE, tile)
+    if kind == "spots":
+        return sparse_spot_board(SPARSE_EDGE, tile)
+    return (np.random.default_rng(2200).random((SPARSE_EDGE, SPARSE_EDGE))
+            < 0.35).astype(np.uint8)
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str | None):
+    """The environment variable ``name`` set to ``value`` (unset for None)
+    for the block."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def phase_sparse_sharded(card: str, wrappers: dict) -> dict:
+    """Phase 22 (module docstring): returns the stencil_padded launches by
+    run and the timings."""
+    from mpi_and_open_mp_tpu_torch import stencils
+    from mpi_and_open_mp_tpu_torch.ops import native_stencil as ns
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
+    from mpi_and_open_mp_tpu_torch.stencils import engine as se
+    from mpi_and_open_mp_tpu_torch.stencils import sparse_sharded as ss
+
+    t0 = time.perf_counter()
+    counted = {"stencil": wrappers["stencil"]}
+
+    def mesh_of(layout, shape, device):
+        if layout == "cart":
+            return pm.make_mesh_2d(*shape, device=device, virtual=True)
+        return pm.make_mesh_1d(shape[0], axis="x" if layout == "col" else "y",
+                               device=device, virtual=True)
+
+    def engine(spec, board, layout, shape, tile, device="cuda"):
+        return ss.SparseShardedEngine(spec, board, mesh=mesh_of(
+            layout, shape, device), layout=layout, tile=tile)
+
+    def same(spec, got, want) -> bool:
+        if spec.is_float:
+            return se.parity_ok(spec, got, want, **se.parity_tol_for(
+                "offset"))
+        return np.array_equal(got, want)
+
+    launches, records, kernel_cases, oracles = {}, {}, [], {}
+    for (run, name, layout, shape, tile, steps, kind,
+         stamp_want) in SPARSE_RUNS:
+        spec = stencils.get(name)
+        board = sparse_board(kind, tile)
+        kill = "MOMP_SPARSE_SHARDED=0" in run
+        with env_set(ss.ENV_SPARSE_SHARDED, "0" if kill else None):
+            eng = engine(spec, board, layout, shape, tile)
+            got, counts = run_counted(counted, lambda: (
+                eng.step(steps), torch.cuda.synchronize())[0])
+            cpu = engine(spec, board, layout, shape, tile, "cpu")
+            cpu.step(steps)
+        got = got.cpu().numpy()
+        c = eng.counters()
+        # One launch a step of every round that had an active tile.
+        want_launches = c["sparse_steps"] - c["settled_steps"]
+        run_dense, plan = se.make_sharded_runner(
+            spec, mesh_of(layout, shape, "cuda"), layout, board.shape)
+        dense = run_dense(torch.from_numpy(board).cuda(), steps).cpu().numpy()
+        key = (name, kind, tile, steps)
+        if key not in oracles:
+            oracles[key] = stencils.oracle_run(spec, board, steps)
+        oracle = oracles[key]
+        problems = []
+        if not same(spec, got, dense):
+            problems.append("board differs from the dense sharded runner's")
+        if not same(spec, got, oracle):
+            problems.append("board differs from the NumPy oracle's")
+        if not same(spec, cpu.snapshot(), got):
+            problems.append("board differs from the engine's on the CPU")
+        if cpu.counters() != c:
+            problems.append(f"counters {c} != the CPU engine's "
+                            f"{cpu.counters()}")
+        if eng.engine_stamp != cpu.engine_stamp or (
+                stamp_want and eng.engine_stamp != stamp_want):
+            problems.append(f"stamp {eng.engine_stamp} (CPU "
+                            f"{cpu.engine_stamp}), want {stamp_want}")
+        if counts["stencil"] != want_launches:
+            problems.append(f"{counts['stencil']} stencil_padded launches, "
+                            f"want {want_launches}")
+        if kind == "seed" and not kill and not c["exchange_skips"]:
+            problems.append("no exchange skip on the seed board")
+        if problems:
+            raise AssertionError(f"phase 22 {run}: " + "; ".join(problems))
+        launches[run] = counts["stencil"]
+        records[run] = {"stamp": eng.engine_stamp, "counters": c,
+                        "dense_plan": plan.engine}
+        log(f"  {run}, {SPARSE_EDGE}^2 {name} {steps} steps: "
+            f"{eng.engine_stamp}; counters {c}; stencil_padded launches "
+            f"{counts['stencil']}; equal to the dense sharded runner's "
+            f"({plan.engine}), the oracle's and the CPU engine's board and "
+            "counters")
+        # The kernel against its plain version on this run's gathered tile
+        # stacks: a fresh engine past its first (dense) round, one sparse
+        # round's stack stepped f times both ways.
+        if kill or kind == "soup":
+            continue
+        probe = engine(spec, board, layout, shape, tile)
+        probe.step(probe.fuse)
+        idx = np.argwhere(probe.active)
+        if not len(idx):
+            continue
+        stack = probe._gather(tuple(probe._bucket(idx)),
+                              spec.radius * probe.fuse, True)
+        err = 0.0
+        for _ in range(probe.fuse):
+            a = ns.stencil_step_padded(spec, stack)
+            b = ns.step_padded_plain(spec, stack)
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(
+                    f"phase 22 {run}: stencil_padded differs from its plain "
+                    f"version on a gathered {tuple(stack.shape)} stack")
+            err = max(err, float((a.float() - b.float()).abs().max()))
+            stack = a
+        kernel_cases.append({"run": run, "tiles": int(len(idx)),
+                             "steps": probe.fuse, "max_abs_err": err})
+        log(f"  {run}: stencil_padded against step_padded_plain on the "
+            f"gathered stack of {len(idx)} tiles, {probe.fuse} steps from "
+            f"{tile + 2 * spec.radius * probe.fuse}^2 to {tile}^2: bit for "
+            "bit")
+        del probe, stack, a, b
+    torch.cuda.empty_cache()
+
+    # Sparse against dense sharded, us a step, chain-differenced (K and 2K
+    # steps, fresh engines, min of 2), as the JAX bench's A/B.
+    timings = {}
+    life = stencils.get("life")
+    k = SPARSE_STEPS
+    for run in SPARSE_TIMED:
+        _, _, layout, shape, tile, _, kind, _ = next(
+            r for r in SPARSE_RUNS if r[0] == run)
+        board = sparse_board(kind, tile)
+        mesh = mesh_of(layout, shape, "cuda")
+        run_dense, _ = se.make_sharded_runner(life, mesh, layout,
+                                              board.shape)
+        dev_board = torch.from_numpy(board).cuda()
+
+        def dense_s(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run_dense(dev_board, n)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        def sparse_s(n):
+            eng = engine(life, board, layout, shape, tile)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eng.step(n)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, eng
+
+        dense_s(k)
+        d1 = min(dense_s(k) for _ in range(2))
+        d2 = min(dense_s(2 * k) for _ in range(2))
+        sparse_s(2 * k)
+        s1 = min(sparse_s(k)[0] for _ in range(2))
+        (s2a, eng2), (s2b, _) = sparse_s(2 * k), sparse_s(2 * k)
+        s2 = min(s2a, s2b)
+        dense_us = (d2 - d1) / k * 1e6
+        sparse_us = (s2 - s1) / k * 1e6
+        _, counts = run_counted(counted, lambda: sparse_s(2 * k))
+        c2 = eng2.counters()
+        rounds = -(-(c2["sparse_steps"] - c2["settled_steps"]) // eng2.fuse)
+        per_launch = device_ms(lambda: engine(life, board, layout, shape,
+                                              tile).step(k), 1,
+                               kernel_name="stencil_padded")
+        per_round = counts["stencil"] / max(rounds, 1)
+        timings[run] = {
+            "sparse_us_per_step": sparse_us, "dense_us_per_step": dense_us,
+            "sparse_vs_dense": dense_us / sparse_us,
+            "mean_active_frac": eng2.mean_active_frac,
+            "stencil_launches_per_round": per_round,
+            "stencil_device_ms_per_launch": per_launch,
+            "stencil_device_ms_per_round": per_launch * per_round,
+            "brackets_s": {"dense_k": d1, "dense_2k": d2, "sparse_k": s1,
+                           "sparse_2k": s2}}
+        log(f"  {run}: {sparse_us:.2f} us a step sparse against "
+            f"{dense_us:.2f} dense sharded ({dense_us / sparse_us:.2f}x; "
+            f"K = {k} and 2K, fresh engines, min of 2); mean active "
+            f"fraction {eng2.mean_active_frac:.6f}; stencil_padded "
+            f"{per_round:.2f} launches a round, {per_launch:.5f} ms a launch"
+            f", {per_launch * per_round:.5f} ms a round of device time "
+            f"[{card}]")
+    log(f"phase 22 sparse sharded: ok ({time.perf_counter() - t0:.2f} s)")
+    return {"launches_by_run": launches, "runs": records,
+            "timings": timings, "exact_cases": kernel_cases}
+
+
+def phase_obs(card: str, wrappers: dict) -> dict:
+    """Phase 23 (module docstring): the obs layer on the ported paths.
+    Returns the traced and untraced seconds side by side and what the
+    traces held."""
+    import shutil
+
+    from mpi_and_open_mp_tpu_torch import LifeSim, load_config
+    from mpi_and_open_mp_tpu_torch.apps import life as life_app
+    from mpi_and_open_mp_tpu_torch.obs import metrics, report, trace
+    from mpi_and_open_mp_tpu_torch.parallel import context as cx
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
+    from mpi_and_open_mp_tpu_torch.robust import chaos, guards
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_obs")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    side_by_side, held = {}, {}
+
+    def traced(path):
+        trace.reset()
+        return env_set(trace._ENV, path)
+
+    def read(path, want_names):
+        trace.reset()
+        recs = report.load(path)
+        names = [r["name"] for r in recs]
+        missing = [n for n in want_names if n not in names]
+        if missing:
+            raise AssertionError(f"phase 23: {path} lacks {missing}: "
+                                 f"{sorted(set(names))}")
+        rep = report.report_dict(recs)
+        for line in report.render(rep).splitlines():
+            log(f"    {line}")
+        return recs, rep
+
+    # The Life CLI, untraced then traced, on p46gun_big serial and on the
+    # RDMA rung's native cart 4x2.
+    for run, argv, env in (
+            ("CLI p46gun_big serial", ["--layout", "serial"], None),
+            ("CLI p46gun_big native cart 4x2, MOMP_HALO_RDMA=1",
+             ["--layout", "cart", "--mesh", "4,2", "--virtual-devices", "8",
+              "--impl", "native"], "1")):
+        argv = [GUN_BIG, *argv, "--print-final-population"]
+        path = os.path.join(root, f"life{len(held)}.jsonl")
+        with env_set("MOMP_HALO_RDMA", env):
+            rc0, out0, err0 = run_cli(life_app.main, argv)
+            with traced(path):
+                rc1, out1, err1 = run_cli(life_app.main,
+                                          argv + ["--trace", path])
+        if (rc0, rc1) != (0, 0) or [e.strip().splitlines()[-1]
+                                    for e in (err0, err1)] != ["7288"] * 2:
+            raise AssertionError(f"phase 23 {run}: rc {rc0}, {rc1}; "
+                                 f"{err0[-500:]!r} {err1[-500:]!r}")
+        recs, rep = read(path, ["life.run", "life.advance"])
+        side_by_side[run] = {"untraced_s": float(out0), "traced_s":
+                             float(out1)}
+        held[run] = {"spans": [r["name"] for r in recs]}
+        log(f"  {run}: elapsed {float(out0):.6f} s untraced, "
+            f"{float(out1):.6f} s traced; population 7288 both; spans "
+            f"{held[run]['spans']} [{card}]")
+
+    # --profile: a Chrome trace of the serial run, naming the resident
+    # kernel.
+    prof_dir = os.path.join(root, "profile")
+    rc, out, err = run_cli(life_app.main, [GUN_BIG, "--layout", "serial",
+                                           "--profile", prof_dir])
+    prof_file = os.path.join(prof_dir, life_app.PROFILE_FILE)
+    with open(prof_file) as fd:
+        chrome = json.load(fd)
+    kernels = sorted({ev.get("name", "")[:60] for ev in
+                      chrome.get("traceEvents", [])
+                      if ev.get("cat") == "kernel"})
+    if rc != 0 or not any("bitlife_vmem" in k for k in kernels):
+        raise AssertionError(f"phase 23 --profile: rc {rc}, kernels "
+                             f"{kernels}")
+    log(f"  CLI p46gun_big serial --profile: {float(out):.6f} s elapsed; "
+        f"{os.path.getsize(prof_file)} bytes of Chrome trace, "
+        f"{len(chrome['traceEvents'])} events, kernels {kernels}")
+    held["profile kernels"] = kernels
+
+    # The contiguous ring forward at 8 x 32768 x 128 causal bf16 on 8
+    # virtual shards, untraced and traced: the same output to the bit, the
+    # same launches, p - 1 hops under spans.
+    p = RING_SHARDS
+    gen = torch.Generator(device="cuda").manual_seed(2300)
+    q, k, v = (torch.randn((8, RING_SEQ, 128), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    counted = {"flash_fwd": wrappers["flash_fwd"]}
+
+    def ring():
+        with torch.no_grad():
+            out = cx.ring_attention(q, k, v, devices=p, causal=True)
+        torch.cuda.synchronize()
+        return out
+
+    ring()
+    plain_out, plain_counts = run_counted(counted, ring)
+    path = os.path.join(root, "ring.jsonl")
+    metrics.reset()
+    with traced(path):
+        traced_out, traced_counts = run_counted(counted, ring)
+    stamp = cx.ring_hop_engine_for(q, k, v, p=p, causal=True)
+    recs, rep = read(path, ["ring_attention", "ring.fold.resident",
+                            "ring.hop.transfer", "ring.hop.fold"])
+    names = [r["name"] for r in recs]
+    hops = metrics.get("ring.hops.fwd", engine=stamp)
+    if (not torch.equal(plain_out, traced_out)
+            or plain_counts != {"flash_fwd": p}
+            or traced_counts != plain_counts
+            or names.count("ring.hop.transfer") != p - 1
+            or names.count("ring.hop.fold") != p - 1
+            or hops != p - 1 or metrics.get("ring.steps.traced") != 1
+            or rep["attention"]["traced_steps"] != 1):
+        raise AssertionError(f"phase 23 traced ring: equal "
+                             f"{torch.equal(plain_out, traced_out)}, "
+                             f"launches {plain_counts} {traced_counts}, "
+                             f"spans {names}, ring.hops.fwd {hops}")
+    times = {}
+    for label in ("untraced", "traced", "traced 2", "untraced 2"):
+        with traced(path if label.startswith("traced") else None):
+            t = time.perf_counter()
+            ring()
+            times[label] = time.perf_counter() - t
+    side_by_side["ring forward 8 x 32768 x 128 causal bf16, 8 shards"] = {
+        "untraced_s": min(times["untraced"], times["untraced 2"]),
+        "traced_s": min(times["traced"], times["traced 2"])}
+    held["ring"] = {"engine": stamp, "ring.hops.fwd": hops,
+                    "launches": traced_counts}
+    log(f"  ring forward, {p} virtual shards, 8 x {RING_SEQ} x 128 causal "
+        f"bf16: traced output equal to the untraced bit for bit; launches "
+        f"{traced_counts} both; {p - 1} ring.hop.transfer and {p - 1} "
+        f"ring.hop.fold spans; ring.hops.fwd{{engine={stamp}}} = {hops}; "
+        f"seconds a forward (host clock, synced; untraced, traced, traced, "
+        f"untraced): " + ", ".join(f"{t:.5f}" for t in times.values())
+        + f" [{card}]")
+    del q, k, v, plain_out, traced_out
+    torch.cuda.empty_cache()
+
+    # A checkpointed run and its resume, then a guarded recovery, traced.
+    gun = load_config(GUN_BIG)
+    path = os.path.join(root, "robust.jsonl")
+    ck = os.path.join(root, "ck")
+    metrics.reset()
+    guards.reset_recovery_log()
+    with traced(path):
+        sim = LifeSim(gun, layout="serial", checkpoint_dir=ck,
+                      checkpoint_every=2500)
+        final = sim.run()
+        resumed = LifeSim.from_checkpoint(
+            os.path.join(ck, "step_005000.state"), gun, layout="serial")
+        resumed.run()
+        with env_set("MOMP_HALO_RDMA", "1"), env_set(chaos.ENV,
+                                                     "halo=corrupt"):
+            chaos.reset()
+            try:
+                gcfg = dataclasses.replace(gun, steps=1000)
+                gsim = LifeSim(gcfg, layout="cart", impl="native",
+                               mesh=pm.make_mesh_2d(4, 2))
+                gfinal = gsim.run()
+            finally:
+                chaos.reset()
+    recs, rep = read(path, ["life.segment", "checkpoint.save",
+                            "checkpoint.restore", "recovery"])
+    snap = metrics.snapshot()["counters"]
+    stamp = "life_step:native:recovered"
+    saves = len([r for r in recs if r["name"] == "checkpoint.save"])
+    if (int(final.sum()) != 7288 or int(resumed.collect().sum()) != 7288
+            # Checkpoints at steps 0 (the save cadence's first point),
+            # 2500, 5000 and 7500; the resumed sim writes none.
+            or saves != 4 or snap.get("checkpoint.saves") != saves
+            or snap.get("checkpoint.restores") != 1
+            or snap.get(f"recovery{{stamp={stamp}}}") != 1
+            or rep["recoveries"]["by_stamp"] != {stamp: 1}
+            or not np.array_equal(gfinal, life_ops_oracle(gun, 1000))):
+        raise AssertionError(f"phase 23 checkpoints and recovery: "
+                             f"populations {int(final.sum())}, "
+                             f"{int(resumed.collect().sum())}; counters "
+                             f"{snap}; recoveries {rep['recoveries']}")
+    held["robust"] = {k: v for k, v in snap.items()
+                      if k.startswith(("checkpoint.", "recovery"))}
+    log(f"  checkpointed p46gun_big (every 2500 steps), its resume at 5000 "
+        f"and native cart 4x2 on the rung under halo=corrupt, traced: "
+        f"counters {held['robust']}; the recovery event "
+        f"{rep['recoveries']}; populations 7288; the guarded board the "
+        "oracle's")
+    guards.reset_recovery_log()
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 23 obs: ok ({time.perf_counter() - t0:.2f} s)")
+    return {"untraced_vs_traced_s": side_by_side, "held": held}
+
+
+def life_ops_oracle(cfg, n: int) -> np.ndarray:
+    """``cfg``'s board after ``n`` NumPy oracle steps."""
+    from mpi_and_open_mp_tpu_torch.ops import life_ops
+
+    board = cfg.board()
+    for _ in range(n):
+        board = life_ops.life_step_numpy(board)
+    return board
 
 
 def main() -> int:
@@ -3359,15 +3877,8 @@ def main() -> int:
     def with_env(name, value, build):
         """``build()`` with the environment variable ``name`` set to
         ``value`` (plans read their flags when they are made)."""
-        old = os.environ.get(name)
-        os.environ[name] = value
-        try:
+        with env_set(name, value):
             return build()
-        finally:
-            if old is None:
-                del os.environ[name]
-            else:
-                os.environ[name] = old
 
     def without_overlap(build):
         return with_env("MOMP_HALO_OVERLAP", "0", build)
@@ -4091,6 +4602,12 @@ def main() -> int:
     # ---------------------- 21. ring and Ulysses attention on virtual shards
     sharded_attn = phase_sharded_attention(card, wrappers)
 
+    # ------------ 22. the sparse sharded engine on stencil_padded
+    sparse = phase_sparse_sharded(card, wrappers)
+
+    # ----------------------------------- 23. obs: traces, metrics, report
+    obs_rec = phase_obs(card, wrappers)
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -4188,7 +4705,8 @@ def main() -> int:
         {"name": "stencil_padded", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/stencil_padded.cu",
          "replaces": "mpi_and_open_mp_tpu/ops/pallas_life.py:373",
-         "launches": sum(stencil_launches.values()),
+         "launches": (sum(stencil_launches.values())
+                      + sum(sparse["launches_by_run"].values())),
          "max_abs_err": stencil_err_max,
          "ms": stencil_rec["heat"]["ms"],
          "plain_ms": stencil_rec["heat"]["plain_ms"],
@@ -4199,6 +4717,9 @@ def main() -> int:
                    "step per launch; library_ms is conv2d computing the "
                    "aggregate alone"),
          "launches_by_workload": stencil_launches,
+         "launches_sparse_sharded": sparse["launches_by_run"],
+         "sparse_sharded": {k: sparse[k] for k in (
+             "runs", "timings", "exact_cases")},
          "per_spec": stencil_rec,
          "note": ("ms: CUDA events around 20 back-to-back launches; "
                   "device_ms: the same launches' device time from a "
@@ -4348,6 +4869,8 @@ def main() -> int:
             row["launches_checkpoint_runs"] = {
                 run: c[key] for run, c in ckpt_launches.items() if c[key]}
     kernels.append(quadrature_row)
+    log(f"obs, untraced against traced seconds: "
+        f"{json.dumps(obs_rec['untraced_vs_traced_s'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -29,11 +29,21 @@ checkpoint at the next segment boundary, and the run exits 75 with
 plan. ``--resume`` continues from the newest state, checkpoint or
 ``--outdir`` snapshot, and refuses a JAX Orbax checkpoint newer than both.
 ``--impl pallas`` is the JAX package's name of ``native``.
+
+Observability: ``--trace PATH`` sets ``MOMP_TRACE`` before any work, so
+the run's spans (``life.run``, ``life.advance`` or ``life.segment``,
+checkpoints, recoveries) land in PATH as JSON lines (read them with
+``mpi_and_open_mp_tpu_torch.obs.report``, or with the JAX package's
+``analysis/trace_report.py``); ``--profile DIR`` records the timed run
+with ``torch.profiler`` (CPU and, on the card, CUDA activities) and writes
+a Chrome trace into DIR. The JAX package's ``--plans`` waits for the
+tuning port.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -92,10 +102,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
                    help="also checkpoint every N steps, whatever the save "
                         "cadence (SIGTERM flushes one and exits 75)")
+    p.add_argument("--profile", metavar="DIR", default=None,
+                   help="record the run with torch.profiler and write a "
+                        "Chrome trace into DIR")
+    p.add_argument("--trace", metavar="PATH", default=None,
+                   help="write obs span/event JSONL here (sets MOMP_TRACE; "
+                        "read it back with obs.report)")
     p.add_argument("--debug-check", action="store_true",
                    help="assert one step matches the oracle before and "
                         "after the run")
     return p
+
+
+#: The Chrome trace ``--profile DIR`` writes.
+PROFILE_FILE = "life_profile.trace.json"
+
+
+@contextlib.contextmanager
+def _profiled(outdir: str | None, device: str):
+    """Record the block with ``torch.profiler`` (CPU, and CUDA activities
+    for a run on the card) and write a Chrome trace into ``outdir``; a
+    no-op without ``outdir``."""
+    if not outdir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(outdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(outdir, PROFILE_FILE))
 
 
 def _find_latest(directory: str | None, pattern: str
@@ -199,6 +238,12 @@ def main(argv=None) -> int:
     if args.batch and (args.outdir or args.checkpoint_dir or args.resume):
         parser.error("--batch is a throughput mode: drop --outdir/"
                      "--checkpoint-dir/--resume")
+    if args.trace:
+        # Before any sim work, so every span of the run lands in the sink
+        # (cached per value; appends across invocations).
+        os.environ["MOMP_TRACE"] = args.trace
+    from mpi_and_open_mp_tpu_torch.obs import trace
+
     cfg = load_config(args.cfg)
     kwargs = dict(layout=args.layout,
                   impl="native" if args.impl == "pallas" else args.impl,
@@ -219,15 +264,21 @@ def main(argv=None) -> int:
     sim.warmup()
     if args.debug_check:
         sim.debug_check()
-    t0 = time.perf_counter()
-    try:
-        final = sim.run()  # collect() at the end waits for the device
-    except Preempted as e:
-        # EX_TEMPFAIL: a queue keeps the job; --resume continues from the
-        # flushed checkpoint.
-        print(f"{e} -- requeue with --resume", file=sys.stderr)
-        return EXIT_PREEMPTED
-    elapsed = time.perf_counter() - t0
+    with _profiled(args.profile, args.device):
+        t0 = time.perf_counter()
+        try:
+            # The whole-run root span: segments nest under it, and a
+            # preempted run closes it with its error.
+            with trace.span("life.run", cfg=os.path.basename(args.cfg),
+                            steps=cfg.steps, impl=sim.impl,
+                            layout=sim.layout):
+                final = sim.run()  # collect() waits for the device
+        except Preempted as e:
+            # EX_TEMPFAIL: a queue keeps the job; --resume continues from
+            # the flushed checkpoint.
+            print(f"{e} -- requeue with --resume", file=sys.stderr)
+            return EXIT_PREEMPTED
+        elapsed = time.perf_counter() - t0
     if args.debug_check:
         sim.debug_check()
     for stamp in sim.recoveries:

@@ -81,6 +81,15 @@ checks each segment against the oracle and re-runs it clean, stamping
 ``run()`` advances the whole budget in one call. Checkpoints hold Life
 boards only: the JAX package's restore casts every board to uint8, so
 other workloads and batched sims refuse ``checkpoint_dir``.
+
+Observability (``obs``), as the JAX package's: ``run()`` wraps the whole
+advance of the default path in a ``life.advance`` span and each segment
+of the loop in a ``life.segment`` span, each anchored on the board (a
+sync only while ``MOMP_TRACE`` is set); the roll, halo and packed
+advances tick ``jit.retrace{fn=life_advance_*}`` the first time a sim
+runs them at a step count (the packed one once: its count is a run-time
+scalar in the JAX package too), where the JAX package compiles a
+program.
 """
 
 from __future__ import annotations
@@ -93,6 +102,7 @@ import torch
 import torch.nn.functional as F
 
 from mpi_and_open_mp_tpu_torch import stencils
+from mpi_and_open_mp_tpu_torch.obs import metrics, trace
 from mpi_and_open_mp_tpu_torch.ops import (
     bitlife, life_ops, native_life, native_stencil)
 from mpi_and_open_mp_tpu_torch.parallel import halo, haloplan
@@ -300,6 +310,7 @@ class LifeSim:
             board = self.spec.init(np.random.default_rng(0xD1CE), cfg.shape)
         self._initial = board
         self._probe = None
+        self._retraced: set = set()
         self._advance = self._build_advance()
         self.board = self._place(board)
 
@@ -347,6 +358,18 @@ class LifeSim:
             self.spec, padded,
             lambda b: stencils.step_padded(self.spec, b, torch))
 
+    def _counted(self, fn: str, advance, per_count: bool = True):
+        """``advance`` that ticks ``jit.retrace{fn=...}`` the first time
+        this sim runs it at a step count (at all, with ``per_count``
+        False): where the JAX package compiles its program."""
+        def counted(board, n):
+            metrics.inc_once(self._retraced, (fn, int(n) if per_count
+                                              else None),
+                             "jit.retrace", fn=fn)
+            return advance(board, n)
+
+        return counted
+
     def _build_advance(self):
         """``advance(board, n)``: the stored state advanced ``n`` steps (the
         argument itself is untouched)."""
@@ -362,7 +385,8 @@ class LifeSim:
             return lambda board, n: mesh_lib.shard(
                 native_life.life_run_vmem(mesh_lib.unshard(board), n), 1, 1)
         if self.impl == "roll":
-            return self._build_roll_advance()
+            return self._counted("life_advance_roll",
+                                 self._build_roll_advance())
         # halo / native: rounds of k fused steps per exchange.
         k = self.fuse_steps
         plan_k = self._halo_plan(k)
@@ -377,7 +401,7 @@ class LifeSim:
                                             self._padded_step, board)
             return board
 
-        return advance
+        return self._counted("life_advance_halo", advance)
 
     def _build_serial_advance(self):
         on_card = self.device.type == "cuda"
@@ -390,14 +414,16 @@ class LifeSim:
                                                        on_card=on_card)
             return native_life.life_run_vmem
         if self.workload != "life":
-            return lambda board, n: stencils.run_roll(self.spec, board, n)
+            return self._counted("life_advance_roll", lambda board, n: (
+                stencils.run_roll(self.spec, board, n)))
 
         def advance(board, n):
             for _ in range(int(n)):
                 board = life_ops.life_step_roll(board)
             return board
 
-        return advance
+        return self._counted("life_advance_roll" if self.batch is None
+                             else "life_advance_roll_batch", advance)
 
     def _build_roll_advance(self):
         """The global torus step over the assembled shards, un- and
@@ -438,7 +464,8 @@ class LifeSim:
                             (0, fx - nx, 0, fy - ny))
                 return mesh_lib.shard(out, 1, 1)
 
-            return advance
+            return self._counted("life_advance_bitfused", advance,
+                                 per_count=False)
 
         # Window-mode row shards of an exact frame split each round into
         # the interior and two 3h-word edge windows (haloplan's gates).
@@ -483,7 +510,8 @@ class LifeSim:
                 rem -= k
             return bitlife.unpack_board_exact(q)
 
-        return advance
+        return self._counted("life_advance_bitfused", advance,
+                             per_count=False)
 
     # ------------------------------------------------------------ public API
 
@@ -728,7 +756,11 @@ class LifeSim:
             # its one segment would then be swallowed with nothing flushed;
             # here a signal keeps its default meaning.
             if cfg.steps > self.step_count:
-                self.step(cfg.steps - self.step_count)
+                with trace.span("life.advance",
+                                steps=cfg.steps - self.step_count,
+                                impl=self.impl, layout=self.layout) as sp:
+                    self.step(cfg.steps - self.step_count)
+                    sp.anchor(self.board)
             return self.collect()
         i = self.step_count
         with preempt.flush_on_signal(
@@ -749,10 +781,14 @@ class LifeSim:
                 if plan is not None and plan.delay_s:
                     time.sleep(plan.delay_s)
                 next_stop = self._next_stop(i, save)
-                if guard:
-                    self._guarded_step(next_stop - i)
-                else:
-                    self.step(next_stop - i)
+                with trace.span("life.segment", start=i, stop=next_stop,
+                                impl=self.impl, layout=self.layout,
+                                guarded=guard) as sp:
+                    if guard:
+                        self._guarded_step(next_stop - i)
+                    else:
+                        self.step(next_stop - i)
+                    sp.anchor(self.board)
                 prev_i, i = i, next_stop
                 if (plan is not None and plan.preempt_step is not None
                         and not plan.preempt_fired

@@ -88,6 +88,7 @@ import math
 import numpy as np
 import torch
 
+from mpi_and_open_mp_tpu_torch.obs import metrics
 from mpi_and_open_mp_tpu_torch.ops import _build
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 
@@ -1625,10 +1626,26 @@ def vmem_batch_attributes(b: int, ny: int, nx: int,
                     vals))
 
 
+# The batched runners' (function, stack geometry, card) seen so far: the
+# port's counterpart of the JAX package's compiled batch programs.
+_RETRACED: set = set()
+
+
+def _note_retrace(fn: str, geometry: tuple, card: bool) -> None:
+    """Tick ``jit.retrace{fn=...}`` the first time ``fn`` runs a stack of
+    this geometry (``obs.metrics``). The JAX package ticks it inside the
+    jitted body, once per compiled stack shape; the step count is a
+    run-time scalar in both, so a bucket of one shape counts once whatever
+    its steps. The names are the JAX package's (``life_batch_xla`` is its
+    name for the plain loop)."""
+    metrics.inc_once(_RETRACED, (fn, geometry, card), "jit.retrace", fn=fn)
+
+
 def life_run_vmem_bits_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
     """Advance B stacked boards ``n`` steps in one launch, each board
     resident for the whole loop. Gate callers on
     :func:`fits_vmem_packed_batch`."""
+    _note_retrace("life_batch_vmem", tuple(boards.shape), boards.is_cuda)
     ny = boards.shape[1]
     out = vmem_batch_steps(pack_boards(boards), ny, n)
     return unpack_boards(out, ny).to(boards.dtype)
@@ -1637,6 +1654,7 @@ def life_run_vmem_bits_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
 def life_run_bits_plain_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
     """Advance B stacked boards with the plain packed loop (any shape; the
     CPU's path for stacks the board-sliced layout does not take)."""
+    _note_retrace("life_batch_xla", tuple(boards.shape), boards.is_cuda)
     ny = boards.shape[1]
     out = _vmem_batch_steps_plain(pack_boards(boards), ny, n)
     return unpack_boards(out, ny).to(boards.dtype)
@@ -1649,6 +1667,7 @@ def life_run_fused_bits_batch(
     :func:`life_run_fused_bits`, one board after another (each board's
     tiles fill the card already; the JAX package scans the stack with
     ``lax.map`` for the same reason)."""
+    _note_retrace("life_batch_fused", tuple(boards.shape), boards.is_cuda)
     return torch.stack([life_run_fused_bits(b, n, budget=budget)
                         for b in boards])
 
@@ -1658,6 +1677,7 @@ def life_run_frame_bits_batch(
 ) -> torch.Tensor:
     """Advance B stacked unaligned big boards through
     :func:`life_run_frame_bits`, one board after another."""
+    _note_retrace("life_batch_frame", tuple(boards.shape), boards.is_cuda)
     return torch.stack([life_run_frame_bits(b, n, budget=budget)
                         for b in boards])
 
@@ -2030,6 +2050,10 @@ def bitsliced_attributes(shape: tuple[int, int, int],
 
 def life_run_bitsliced_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
     """Advance B stacked boards ``n`` steps through the board-sliced layout:
-    pack to planes, step, unpack, drop the ragged padding."""
+    pack to planes, step, unpack, drop the ragged padding (one retrace
+    tick per plane stack, as the JAX package compiles per plane shape)."""
+    b, ny, nx = boards.shape
+    _note_retrace("life_batch_bitsliced", (n_planes(b), ny, nx),
+                  boards.is_cuda)
     out = bitsliced_steps(pack_batch_bits(boards), n)
     return unpack_batch_bits(out, boards.shape[0]).to(boards.dtype)

@@ -26,10 +26,23 @@ runs over a mesh of virtual shards of one device on the ``"sp"`` axis
 head_dim)``. The ring's K/V rotate by ``parallel/halo.py:ppermute`` and
 every live hop is one launch of the same kernels over the shards folded
 into the head axis (:class:`_RingFlash`); Ulysses re-shards by
-``halo.all_to_all`` around one local launch. The hop-by-hop traced dispatch
-of the JAX package (``_ring_attention_traced``) belongs to the
-observability port (ROADMAP Queue 1 item 10), and meshes across cards to
-Queue 1's last item.
+``halo.all_to_all`` around one local launch. Meshes across cards are
+ROADMAP Queue 1's last item.
+
+Observability (``obs``), as the JAX package's: with ``MOMP_TRACE`` set
+and no chaos plan or guard, a contiguous ring of more than one shard runs
+its forward hop by hop under spans (the JAX package's
+``_ring_attention_traced``): a ``ring_attention`` span with
+``traced_dispatch=True`` around ``ring.fold.resident`` (hop 0),
+``ring.hop.transfer`` (each K/V rotation, with its ``bytes``) and
+``ring.hop.fold`` (each later hop), each anchored on the card, and the
+``ring.hops.fwd{engine=...}`` and ``ring.steps.traced`` counters. These
+spans wrap the same hops and launches as the untraced ring; only the
+rotations move from one hop ahead to just before their fold. Causal
+zigzag, a ring of one and ``MOMP_TRACE_HOPS=0`` get one whole-call
+``ring_attention`` span; the guarded dispatch one with ``guarded=True``.
+Each distinct sharded call ticks ``jit.retrace{fn=sharded_attention}``
+(``obs.metrics``) once, where the JAX package compiles its program.
 """
 
 from __future__ import annotations
@@ -43,6 +56,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mpi_and_open_mp_tpu_torch.obs import metrics, trace
 from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd, native_flash
 from mpi_and_open_mp_tpu_torch.parallel import halo
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
@@ -566,17 +580,40 @@ def _from_shards(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(0, 1).reshape(h, p * nl, d)
 
 
-def _ring_trip(blocks, p: int):
+# The traced forward's span attributes: the hop engine's stamp and the
+# bytes of one shard's K/V block pair.
+_HopTrace = collections.namedtuple("_HopTrace", "engine bytes")
+
+
+def _ring_trip(blocks, p: int, hops: _HopTrace | None = None):
     """``(j, blocks after j ring rotations)`` for hops ``j = 0 .. p-1``.
     Each rotation (:func:`halo.ppermute` of every stack of ``blocks``) is
     started one hop ahead, as the JAX package's single-slot hop loop does:
-    hop ``j+1``'s before hop ``j`` folds; ``p - 1`` rotations in all."""
+    hop ``j+1``'s before hop ``j`` folds; ``p - 1`` rotations in all.
+
+    With ``hops`` (the traced forward, module docstring) each rotation runs
+    just before its hop in a ``ring.hop.transfer`` span, and the caller's
+    work on each hop runs inside a ``ring.fold.resident`` (hop 0) or
+    ``ring.hop.fold`` span; every span is anchored on the card."""
     held = blocks
     for j in range(p):
-        ahead = (tuple(halo.ppermute(x, AXIS_SP, 1) for x in held)
-                 if j + 1 < p else None)
-        yield j, held
-        held = ahead
+        if hops is None:
+            ahead = (tuple(halo.ppermute(x, AXIS_SP, 1) for x in held)
+                     if j + 1 < p else None)
+            yield j, held
+            held = ahead
+            continue
+        if j:
+            with trace.span("ring.hop.transfer", hop=j,
+                            bytes=hops.bytes) as sp:
+                held = tuple(halo.ppermute(x, AXIS_SP, 1) for x in held)
+                sp.anchor(held)
+            fold = trace.span("ring.hop.fold", hop=j, engine=hops.engine)
+        else:
+            fold = trace.span("ring.fold.resident", engine=hops.engine)
+        with fold as sp:
+            yield j, held
+            sp.anchor(held)
 
 
 _Folder = collections.namedtuple("_Folder", "state0 fold finish")
@@ -619,7 +656,8 @@ def _make_folder(causal: bool, g: int, npos: int, qsub, qpos_of):
     return _Folder(state0, fold, finish)
 
 
-def _ring_fold_forward(causal: bool, layout: str, q, k, v):
+def _ring_fold_forward(causal: bool, layout: str, q, k, v,
+                       hops: _HopTrace | None = None):
     """The plain rotate-and-fold forward (the JAX package's jnp fold, its
     per-device body run for each shard of the stacks) and the oracle of the
     hop engines: ``(o, L)``, ``o`` in q's dtype, ``L`` the per-row
@@ -680,7 +718,7 @@ def _ring_fold_forward(causal: bool, layout: str, q, k, v):
     if poison is not None:
         fold = chaos.poisoned_fold(fold, poison)
     state = [tuple(f.state0 for f in fs) for fs in shards]
-    for j, (kb, vb) in _ring_trip((k, v), p):
+    for j, (kb, vb) in _ring_trip((k, v), p, hops):
         state = fold(j, state, kb, vb)
     outs, lses = [], []
     for fs, st in zip(shards, state):
@@ -824,7 +862,8 @@ def _merge_into(state, lo: int, hi: int, part) -> None:
     o[lo:hi], L[lo:hi] = _merge_partials(o[lo:hi], L[lo:hi], *part)
 
 
-def _ring_forward_hopflash(causal: bool, p: int, q, k, v):
+def _ring_forward_hopflash(causal: bool, p: int, q, k, v,
+                           hops: _HopTrace | None = None):
     """The ring forward with ``flash_fwd`` as the per-hop engine
     (contiguous layout, or any layout without causality): hop 0 is the
     resident diagonal block, the kernel's causal flag, over every shard;
@@ -843,7 +882,7 @@ def _ring_forward_hopflash(causal: bool, p: int, q, k, v):
 
     if poison is not None:
         fold = chaos.poisoned_fold(fold, poison)
-    for j, (kb, vb) in _ring_trip((k, v), p):
+    for j, (kb, vb) in _ring_trip((k, v), p, hops):
         if j:
             state = fold(j, state, kb, vb)
             continue
@@ -940,14 +979,14 @@ class _RingFlash(torch.autograd.Function):
     (``engine="plain"`` folds both directions)."""
 
     @staticmethod
-    def forward(ctx, causal, layout, engine, q, k, v):
+    def forward(ctx, causal, layout, engine, hops, q, k, v):
         p = q.shape[0]
         if _ring_hop_plan(q, k, p, causal, layout, engine) is None:
-            o, L = _ring_fold_forward(causal, layout, q, k, v)
+            o, L = _ring_fold_forward(causal, layout, q, k, v, hops)
         elif causal and layout == "zigzag":
             o, L = _ring_forward_hopflash_zz(p, q, k, v)
         else:
-            o, L = _ring_forward_hopflash(causal, p, q, k, v)
+            o, L = _ring_forward_hopflash(causal, p, q, k, v, hops)
         ctx.causal, ctx.layout = causal, layout
         ctx.hop_bwd = _ring_hop_bwd_plan(q, k, p, causal, layout,
                                          engine) is not None
@@ -962,7 +1001,7 @@ class _RingFlash(torch.autograd.Function):
                                             do)
         else:
             grads = _ring_fold_backward(ctx.causal, ctx.layout, res, do)
-        return (None, None, None, *grads)
+        return (None, None, None, None, *grads)
 
 
 def ring_hop_engine_for(q, k, v, *, p: int | None = None, causal: bool = True,
@@ -1068,7 +1107,8 @@ def _sp_mesh(devices, mesh, axis: str, device) -> mesh_lib.Mesh:
     return mesh
 
 
-def _guarded_ring(dispatch, name: str, on_card: bool):
+def _guarded_ring(dispatch, name: str, on_card: bool,
+                  attrs: dict | None = None):
     """:func:`ring_attention`'s dispatch under the robust layer, the policy
     of ``LifeSim``'s guarded step. With no chaos plan and no
     ``MOMP_GUARD=1`` (the default path) it is ``dispatch()`` alone; under
@@ -1080,7 +1120,8 @@ def _guarded_ring(dispatch, name: str, on_card: bool):
     the plain version. A recovery is recorded as ``<name>:recovered``
     (``name`` the engine that ran, ``ring_attention:plain`` for the fold).
     An exception (a build or launch error) is no fault to recover from: it
-    is raised."""
+    is raised. Armed, the call is one ``ring_attention`` span (``attrs``
+    and ``guarded=True``) stamped with the engine that held."""
     if not guards.guards_active():
         return dispatch()
     raised = []
@@ -1098,13 +1139,28 @@ def _guarded_ring(dispatch, name: str, on_card: bool):
     engines = [(name, kept(clean=False)), (name, kept())]
     if not on_card:
         engines.append(("ring_attention:plain", kept(fold=True)))
-    out, stamp, _ = guards.with_fallback(
-        engines, validator=lambda o: o is None or guards.all_finite(o))
-    if raised:
-        raise raised[0]
-    if stamp.endswith(":recovered"):
-        guards.record_recovery(stamp)
+    with trace.span("ring_attention", **(attrs or {}),
+                    guarded=True) as sp:
+        out, stamp, _ = guards.with_fallback(
+            engines, validator=lambda o: o is None or guards.all_finite(o))
+        sp.set(engine=stamp)
+        if raised:
+            raise raised[0]
+        if stamp.endswith(":recovered"):
+            # The funnel's trace event lands inside this span.
+            guards.record_recovery(stamp)
+        sp.anchor(out)
     return out
+
+
+# The sharded attention calls seen so far (variant, shapes, dtype, shards,
+# causality, layout, engine, card): the port's counterpart of the JAX
+# package's compiled sharded programs.
+_SHARDED: set = set()
+
+
+def _note_sharded(*key) -> None:
+    metrics.inc_once(_SHARDED, key, "jit.retrace", fn="sharded_attention")
 
 
 def ring_attention(q, k, v, devices: int | None = None, causal: bool = False,
@@ -1151,16 +1207,37 @@ def ring_attention(q, k, v, devices: int | None = None, causal: bool = False,
             f"ring_attention zigzag layout needs seq % (2*mesh) == 0, got "
             f"seq {q.shape[1]} over {p} devices")
 
-    def dispatch(fold=False):
+    def dispatch(fold=False, hops=None):
         eng = "plain" if fold else engine
+        if hops is None:
+            _note_sharded("ring", q.shape, k.shape, q.dtype, p, causal,
+                          layout, eng, q.is_cuda)
         if p == 1:
             return _attention_chunked(q, k, v, causal, eng)
         return _from_shards(_RingFlash.apply(
-            causal, layout, eng, *(_to_shards(x, p) for x in (q, k, v))))
+            causal, layout, eng, hops, *(_to_shards(x, p)
+                                         for x in (q, k, v))))
 
-    return _guarded_ring(dispatch, "ring_attention:" + ring_hop_engine_for(
-        q, k, v, p=p, causal=causal, layout=layout, engine=engine),
-                         q.device.type == "cuda")
+    stamp = ring_hop_engine_for(q, k, v, p=p, causal=causal, layout=layout,
+                                engine=engine)
+    attrs = dict(devices=p, seq=q.shape[1], layout=layout, causal=causal)
+    if chaos.active_plan() is not None or guards.guard_env():
+        return _guarded_ring(dispatch, "ring_attention:" + stamp,
+                             q.device.type == "cuda", attrs)
+    if trace.hop_spans_active() and p > 1 and layout == "contiguous":
+        # The traced hop-by-hop forward (module docstring).
+        with trace.span("ring_attention", devices=p, seq=q.shape[1],
+                        heads=q.shape[0], causal=causal, engine=stamp,
+                        traced_dispatch=True) as sp:
+            out = dispatch(hops=_HopTrace(stamp, (k.nbytes + v.nbytes) // p))
+            metrics.inc("ring.hops.fwd", p - 1, engine=stamp)
+            metrics.inc("ring.steps.traced")
+            sp.anchor(out)
+        return out
+    with trace.span("ring_attention", **attrs, engine=stamp) as sp:
+        out = dispatch()
+        sp.anchor(out)
+    return out
 
 
 def _ulysses_kv(k, v, p: int, heads: int):
@@ -1210,6 +1287,8 @@ def ulysses_attention(q, k, v, devices: int | None = None,
             f"ulysses_attention: {q.shape[0]} heads not divisible by mesh "
             f"size {p}; use ring_attention (no head constraint) instead")
     k, v = _ulysses_kv(k, v, p, q.shape[0])
+    _note_sharded("ulysses", q.shape, k.shape, q.dtype, p, causal, engine,
+                  q.is_cuda)
     # (p, h, n/p, d) -> (p, h/p, n, d): scatter heads, gather the sequence.
     qh, kh, vh = (halo.all_to_all(_to_shards(x, p), 0, 1) for x in (q, k, v))
     oh = _attention_chunked(qh.flatten(0, 1), kh.flatten(0, 1),

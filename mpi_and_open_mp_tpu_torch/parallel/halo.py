@@ -21,15 +21,19 @@ Every exchange passes its incoming top ghost (y) and left ghost (x)
 through :func:`_chaos_ghost`, the fault injection of ``robust.chaos``,
 where the JAX package's ``_chaos_ghost`` sits; the packed paths wrap the
 incoming block only, never the refresh of the last shard's mirror rows or
-columns, which is live board state. The JAX package's ``_note_exchange``
-(an ``obs.metrics`` count) belongs to the observability port (ROADMAP
-Queue 1 item 10) and is left out here.
+columns, which is live board state.
+
+Every exchange also passes through :func:`_note_exchange`, the JAX
+package's count of exchanges traced (``halo.exchange.traced{kind=...,
+axis=...}``, ``obs.metrics``): there once per compiled program, here once
+per distinct exchange geometry, so the count never grows with the steps.
 """
 
 from __future__ import annotations
 
 import torch
 
+from mpi_and_open_mp_tpu_torch.obs import metrics
 from mpi_and_open_mp_tpu_torch.ops import bitlife
 from mpi_and_open_mp_tpu_torch.parallel.mesh import SHARD_DIM
 from mpi_and_open_mp_tpu_torch.robust import chaos
@@ -83,6 +87,22 @@ def _chaos_ghost(ghost: torch.Tensor) -> torch.Tensor:
     return chaos.corrupt_ghost(ghost, spec)
 
 
+# The exchange geometries noted so far (kind, axis, shape, dtype, card,
+# depth): the port's counterpart of the JAX package's traced programs.
+_EXCHANGES: set = set()
+
+
+def _note_exchange(kind: str, axis_name: str, x: torch.Tensor,
+                   depth: int) -> None:
+    """Tick ``halo.exchange.traced{kind, axis}`` the first time this
+    exchange runs at this geometry: the JAX package ticks it when a
+    program that exchanges is traced, so a count of 0 means the sharded
+    path never engaged, and a steady run adds nothing."""
+    metrics.inc_once(_EXCHANGES, (kind, axis_name, x.shape, x.dtype,
+                                  x.is_cuda, depth),
+                     "halo.exchange.traced", kind=kind, axis=axis_name)
+
+
 def _with_shard(x: torch.Tensor, axis_name: str, i: int,
                 value: torch.Tensor) -> torch.Tensor:
     """``x`` with shard ``i`` of axis ``axis_name`` replaced by ``value``
@@ -107,6 +127,7 @@ def halo_pad_y(block: torch.Tensor, axis_name: str = "y",
     shard's last rows on top, the next shard's first rows below. With one
     shard on the axis this is the torus self-wrap. Channel axes ride
     along; any dtype."""
+    _note_exchange("y", axis_name, block, depth)
     top = _chaos_ghost(ppermute(block[..., -depth:, :], axis_name, 1))
     bot = ppermute(block[..., :depth, :], axis_name, -1)
     return torch.cat([top, block, bot], dim=-2)
@@ -118,6 +139,7 @@ def halo_pad_x(block: torch.Tensor, axis_name: str = "x",
     columns from its ring neighbours: the reference's strided
     ``MPI_Type_vector`` exchange (``4-life/life_mpi.c:106-109``) as a
     slice and a roll."""
+    _note_exchange("x", axis_name, block, depth)
     left = _chaos_ghost(ppermute(block[..., -depth:], axis_name, 1))
     right = ppermute(block[..., :depth], axis_name, -1)
     return torch.cat([left, block, right], dim=-1)
@@ -146,6 +168,7 @@ def packed_halo_y(e: torch.Tensor, axis_name: str = "y", h: int = 4, *,
     ``bitlife.wrap_y_padded``."""
     if pad == 0:
         return halo_pad_y(e, axis_name, h)
+    _note_exchange("packed_y", axis_name, e, h)
     p = axis_size(e, axis_name)
     s = h + 1 + pad // 32
     up = _chaos_ghost(ppermute(e[..., -s:, :], axis_name, 1))
@@ -177,6 +200,7 @@ def packed_halo_x(block: torch.Tensor, axis_name: str = "x", hx: int = 128,
     :func:`halo_pad_x`."""
     if pad == 0:
         return halo_pad_x(block, axis_name, hx)
+    _note_exchange("packed_x", axis_name, block, hx)
     p = axis_size(block, axis_name)
     s = hx + pad
     left = _chaos_ghost(ppermute(block[..., -s:], axis_name, 1))

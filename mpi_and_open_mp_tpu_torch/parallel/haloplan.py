@@ -56,9 +56,14 @@ those ghosts would fill: the first ``depth`` rows of a frame that carries
 the y ring (row, cart), the first ``depth`` columns of one that carries
 the x ring (col, cart); on cart that is also where the JAX package's
 corner forwarding carries its faulted ghosts. With no halo fault active the
-hook is one check on the host and the frame is returned as it came. The
-JAX package's ``_note_schedule`` (an ``obs.metrics`` count) belongs to the
-observability port (ROADMAP Queue 1 item 10) and is left out here.
+hook is one check on the host and the frame is returned as it came.
+
+Counts (``obs.metrics``): ``halo.schedule.traced{engine=...,layout=...}``
+ticks when a plan is built (:func:`_note_schedule`; the JAX package ticks
+it when a round's program is traced), and the deferred ghost pairs note
+their exchanges as ``halo._note_exchange`` does (``y-overlap``,
+``x-overlap``, ``packed_y-overlap``, ``y-part``, ``x-part``), once per
+geometry.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ import os
 
 import torch
 
+from mpi_and_open_mp_tpu_torch.obs import metrics
 from mpi_and_open_mp_tpu_torch.ops import native_halo
 from mpi_and_open_mp_tpu_torch.parallel import halo
 from mpi_and_open_mp_tpu_torch.robust import chaos
@@ -124,11 +130,26 @@ def _overlap_axis(layout: str) -> str:
     return "x" if layout == "col" else "y"
 
 
+def _note_schedule(plan: HaloPlan) -> HaloPlan:
+    """Tick ``halo.schedule.traced{engine, layout}`` for a plan just built
+    (module docstring): no overlap tick means the overlap path never
+    engaged."""
+    metrics.inc("halo.schedule.traced", engine=plan.engine,
+                layout=plan.layout)
+    return plan
+
+
 @functools.lru_cache(maxsize=512)
-def _plan(layout: str, mesh_axes: tuple[int, int],
-          shard_shape: tuple[int, int], radius: int, fuse_steps: int,
-          boundary_steps: int, channels: int, pack_layout: str,
-          enabled: bool, rdma: bool, card: bool) -> HaloPlan:
+def _plan(*key) -> HaloPlan:
+    """The plan of one geometry, built and counted once."""
+    return _note_schedule(_derive_plan(*key))
+
+
+def _derive_plan(layout: str, mesh_axes: tuple[int, int],
+                 shard_shape: tuple[int, int], radius: int,
+                 fuse_steps: int, boundary_steps: int, channels: int,
+                 pack_layout: str, enabled: bool, rdma: bool,
+                 card: bool) -> HaloPlan:
     depth = radius * fuse_steps
     py, px = mesh_axes
     h, w = shard_shape
@@ -194,10 +215,12 @@ def plan_halo(layout: str, mesh_axes: tuple[int, int],
 # --------------------------------------------------------------- ghost moves
 
 
-def ghosts_y(block: torch.Tensor, depth: int,
-             axis_name: str = "y") -> tuple[torch.Tensor, torch.Tensor]:
+def ghosts_y(block: torch.Tensor, depth: int, axis_name: str = "y",
+             kind: str = "y-overlap") -> tuple[torch.Tensor, torch.Tensor]:
     """The y ghost pair ``(top, bot)``: the slices :func:`halo.halo_pad_y`
-    concatenates, without the concatenation (chaos hook on ``top``)."""
+    concatenates, without the concatenation (chaos hook on ``top``),
+    noted as an exchange of ``kind``."""
+    halo._note_exchange(kind, axis_name, block, depth)
     top = halo._chaos_ghost(
         halo.ppermute(block[..., -depth:, :], axis_name, 1))
     bot = halo.ppermute(block[..., :depth, :], axis_name, -1)
@@ -208,6 +231,7 @@ def ghosts_x(block: torch.Tensor, depth: int,
              axis_name: str = "x") -> tuple[torch.Tensor, torch.Tensor]:
     """The x ghost pair ``(left, right)``, :func:`ghosts_y` on the last
     axis (chaos hook on ``left``)."""
+    halo._note_exchange("x-overlap", axis_name, block, depth)
     left = halo._chaos_ghost(
         halo.ppermute(block[..., -depth:], axis_name, 1))
     right = halo.ppermute(block[..., :depth], axis_name, -1)
@@ -219,7 +243,7 @@ def packed_ghosts_y(q: torch.Tensor, h: int,
     """Packed-frame y ghost pair ``(top, bot)``, ``h`` words per side: the
     deferred form of ``halo.packed_halo_y``'s ``pad == 0`` path (the packed
     overlap is gated to exact frames)."""
-    return ghosts_y(q, h, axis_name)
+    return ghosts_y(q, h, axis_name, "packed_y-overlap")
 
 
 # ------------------------------------------------ the RDMA rung's transport
@@ -368,6 +392,7 @@ def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
         interior = _steps(step_fn, base, k)
         lead, tail = base[..., : 2 * d], base[..., -2 * d:]
         for _ in range(k // b):
+            halo._note_exchange("x-part", "x", tail, e)
             if rdma:
                 left, right = _rdma_edge_pair(
                     tail[..., -e:], lead[..., :e], "x", px,
@@ -386,6 +411,7 @@ def _partitioned_fused_step(plan: HaloPlan, step_fn, block: torch.Tensor
     interior = _steps(step_fn, base, k)
     lead, tail = base[..., : 2 * d, :], base[..., -2 * d:, :]
     for _ in range(k // b):
+        halo._note_exchange("y-part", "y", tail, e)
         if rdma:
             top, bot = _rdma_edge_pair(
                 tail[..., -e:, :], lead[..., :e, :], "y", py,

@@ -9,10 +9,12 @@ healed itself is never reported as a clean one.
 Guards are armed only by an active chaos plan without ``noguard``
 (``MOMP_CHAOS``) or by ``MOMP_GUARD=1``: a validator is a host fetch,
 which would stall the card's queue if it ran on every segment of the
-default path, and a guard must never hide a kernel fault there. The JAX
-package's metrics counters and trace events around validations and
-recoveries belong to the observability port (ROADMAP Queue 1 item 10) and
-are left out; the log keeps the stamps in order.
+default path, and a guard must never hide a kernel fault there.
+
+Each validation ticks ``guard.validation{engine=...}`` and each rejected
+one ``guard.validation_failed{engine=...}``; each recovery ticks
+``recovery{stamp=...}`` and writes a ``recovery`` trace event (``obs``),
+as in the JAX package. The log keeps the stamps in order.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import os
 import numpy as np
 import torch
 
+from mpi_and_open_mp_tpu_torch.obs import metrics, trace
 from mpi_and_open_mp_tpu_torch.robust import chaos
 
 
@@ -56,6 +59,7 @@ def with_fallback(engines, validator=None, *, retries: int = 1):
                 clean = False
                 continue
             if validator is not None:
+                metrics.inc("guard.validation", engine=name)
                 try:
                     ok = bool(validator(result))
                 except Exception as e:
@@ -63,6 +67,7 @@ def with_fallback(engines, validator=None, *, retries: int = 1):
                         f"{name} validator: {type(e).__name__}: {e}"[:160])
                     ok = False
                 if not ok:
+                    metrics.inc("guard.validation_failed", engine=name)
                     if not notes or not notes[-1].startswith(f"{name} "):
                         notes.append(f"{name} failed validation")
                     clean = False
@@ -98,8 +103,11 @@ _RECOVERIES: collections.deque[str] = collections.deque(
 
 
 def record_recovery(stamp: str) -> None:
-    """The one funnel every recovery passes through."""
+    """The one funnel every recovery passes through: the log, the
+    ``recovery{stamp=...}`` counter and a ``recovery`` trace event."""
     _RECOVERIES.append(stamp)
+    metrics.inc("recovery", stamp=stamp)
+    trace.event("recovery", stamp=stamp)
 
 
 def recovery_log() -> list[str]:
@@ -109,5 +117,6 @@ def recovery_log() -> list[str]:
 
 
 def reset_recovery_log() -> None:
-    """Empty the log."""
+    """Empty the log (the registry's counters stay: ``obs.metrics.reset``
+    empties those)."""
     _RECOVERIES.clear()

@@ -11,4 +11,5 @@ and fleet are not ported yet).
 from mpi_and_open_mp_tpu_torch.serve.batcher import (  # noqa: F401
     ShapeBucketBatcher,
     bucket_batch_size,
+    retrace_counts,
 )

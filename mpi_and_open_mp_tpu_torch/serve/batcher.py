@@ -11,9 +11,14 @@ it bucket by bucket, turning R same-shape requests into
 package. Padding boards are zeros; boards never interact, and results are
 cut to the live requests.
 
+Each stack runs in a ``serve.batch`` span (``obs.trace``) and ticks
+``serve.requests``, ``serve.batches`` and ``serve.padding``
+(``obs.metrics``), as in the JAX package. :func:`retrace_counts` reads the
+batched runners' ``jit.retrace`` ticks, one per stack geometry
+(``ops.bitlife._note_retrace``): a flush over K shape buckets sums to K.
+
 Not ported yet: the resident-session pool behind ``submit_session``
-(ROADMAP Queue 1 item 9), and the trace spans, metrics and retrace
-counters (Queue 1 item 10).
+(ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from mpi_and_open_mp_tpu_torch import stencils
+from mpi_and_open_mp_tpu_torch.obs import metrics, trace
 from mpi_and_open_mp_tpu_torch.ops import native_life
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 
@@ -52,6 +58,30 @@ def bucket_batch_size(
     while b < n_requests and b < max_batch:
         b *= 2
     return min(b, max_batch)
+
+
+# The batched engines' retrace names (the JAX package's; ``pool_step``
+# waits for the session pool).
+_BATCH_FNS = (
+    "life_batch_bitsliced",
+    "life_batch_vmem",
+    "life_batch_xla",
+    "life_batch_fused",
+    "life_batch_frame",
+    "pool_step",
+)
+
+
+def retrace_counts() -> dict[str, int]:
+    """Stack geometries built per batched engine since the last
+    ``obs.metrics.reset()``: after a flush over K shape buckets (one padded
+    size each) the values sum to K. Engines at zero are left out."""
+    out = {}
+    for fn in _BATCH_FNS:
+        n = metrics.get("jit.retrace", fn=fn)
+        if n:
+            out[fn] = int(n)
+    return out
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -171,17 +201,27 @@ class ShapeBucketBatcher:
                     for i, r in enumerate(chunk):
                         stack[i] = r.board
                     dev_stack = torch.from_numpy(stack).to(self.device)
-                    if workload == "life":
-                        path = native_life.native_path_batch(
-                            stack.shape, on_card=on_card)
-                        out = native_life.life_run_vmem_batch(dev_stack, steps)
-                    else:
-                        path = f"stencil:{workload}"
-                        out = stencils.run_roll_batch(
-                            stencils.get(workload), dev_stack, steps)
+                    path = (native_life.native_path_batch(
+                        stack.shape, on_card=on_card)
+                        if workload == "life" else f"stencil:{workload}")
+                    with trace.span(
+                            "serve.batch", shape=f"{shape[-2]}x{shape[-1]}",
+                            steps=steps, requests=len(chunk), padded=padded,
+                            path=path, workload=workload) as sp:
+                        if workload == "life":
+                            out = native_life.life_run_vmem_batch(dev_stack,
+                                                                  steps)
+                        else:
+                            out = stencils.run_roll_batch(
+                                stencils.get(workload), dev_stack, steps)
+                        sp.anchor(out)
                     host = out[: len(chunk)].cpu().numpy()
                     for i, r in enumerate(chunk):
                         results[r.ticket] = host[i]
+                    metrics.inc("serve.requests", len(chunk))
+                    metrics.inc("serve.batches")
+                    if padded > len(chunk):
+                        metrics.inc("serve.padding", padded - len(chunk))
                     stats.append(_BatchStat(
                         shape=shape, steps=steps, requests=len(chunk),
                         padded_batch=padded, path=path,

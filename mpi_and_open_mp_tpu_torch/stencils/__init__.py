@@ -4,10 +4,10 @@ Counterpart of ``mpi_and_open_mp_tpu/stencils`` on one device:
 ``stencils.spec`` (the declarative :class:`StencilSpec` and the registry),
 ``stencils.engine`` (roll, padded, oracle and engine-family steps, and the
 stack runner over the hand-written padded kernel) and ``stencils.sparse``
-(the active-tile engine for mostly-dead boards), and the sharded runners
-over a mesh of shards on one device (``make_sharded_runner``,
-``run_sharded``). ``SparseShardedEngine`` is not ported yet (ROADMAP
-Queue 1 item 3).
+(the active-tile engine for mostly-dead boards), the sharded runners over
+a mesh of shards on one device (``make_sharded_runner``, ``run_sharded``),
+and ``stencils.sparse_sharded`` (the active-tile skip composed with the
+sharded halo rounds: a global tile mask, activation across shards).
 """
 
 from mpi_and_open_mp_tpu_torch.stencils.engine import (  # noqa: F401
@@ -55,4 +55,7 @@ from mpi_and_open_mp_tpu_torch.stencils.spec import (  # noqa: F401
 )
 from mpi_and_open_mp_tpu_torch.stencils.sparse import (  # noqa: F401
     ActiveTileEngine,
+)
+from mpi_and_open_mp_tpu_torch.stencils.sparse_sharded import (  # noqa: F401
+    SparseShardedEngine,
 )

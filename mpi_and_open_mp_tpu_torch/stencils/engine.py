@@ -31,9 +31,8 @@ Sharded runners (the JAX package's ``shard_map`` halo rounds), over a
   ``fuse_steps`` steps scheduled by a persistent ``parallel.haloplan``
   plan (overlap or sequential), on the stacked shards;
   :func:`sharded_pspec`, :func:`mesh_axes_for` and
-  :func:`fused_steps_valid` are their helpers. The sparse sharded engine
-  (``stencils/sparse_sharded.py``) is not ported yet (ROADMAP Queue 1
-  item 3).
+  :func:`fused_steps_valid` are their helpers; ``stencils.sparse_sharded``
+  steps only the active tiles of such a board.
 
 Engine families restructure the aggregation for wide float kernels:
 
@@ -625,7 +624,11 @@ def run_sharded(spec: StencilSpec, board, n: int, *, mesh,
                 overlap: bool | None = None, family: str = "offset"):
     """Advance ``board`` (host or device; placed on the mesh's device in
     the spec's dtype) ``n`` sharded steps; returns the board on the
-    mesh's device. The plan rides on ``run_sharded.last_plan``."""
+    mesh's device. The plan rides on ``run_sharded.last_plan``. The run is
+    one ``halo.overlap`` or ``halo.seq`` span (``obs.trace``), anchored on
+    the board while tracing is on."""
+    from mpi_and_open_mp_tpu_torch.obs import trace
+
     board = torch.as_tensor(np.asarray(board, dtype=spec.np_dtype)
                             if not isinstance(board, torch.Tensor) else board)
     board = board.to(device=mesh.device, dtype=spec.torch_dtype)
@@ -634,7 +637,13 @@ def run_sharded(spec: StencilSpec, board, n: int, *, mesh,
         fuse_steps=fuse_steps, boundary_steps=boundary_steps,
         overlap=overlap, family=family)
     run_sharded.last_plan = plan
-    return run(board, int(n))
+    name = "halo.overlap" if plan.overlap else "halo.seq"
+    with trace.span(name, engine=plan.engine, layout=layout,
+                    workload=spec.name, steps=int(n),
+                    fuse_steps=int(fuse_steps), family=family) as sp:
+        out = run(board, int(n))
+        sp.anchor(out)
+    return out
 
 
 run_sharded.last_plan = None

@@ -20,8 +20,18 @@ package takes the other's restart point for its own.
 
 Writes are crash-atomic: a tmp sibling, ``fsync``, ``os.replace``, then an
 ``fsync`` of the directory, so a kill mid-save leaves the old complete
-file at the path. The JAX package's spans and metrics around saves belong
-to the observability port (ROADMAP Queue 1 item 10) and are left out.
+file at the path.
+
+Observability, as the JAX package's: spans ``checkpoint.save``,
+``checkpoint.restore``, ``checkpoint.state_save`` and
+``checkpoint.state_restore`` (``obs.trace``); counters
+``checkpoint.saves``, ``checkpoint.save.bytes``, ``checkpoint.restores``,
+``checkpoint.restore.bytes``, ``checkpoint.state_saves``,
+``checkpoint.state_save.bytes`` and ``checkpoint.state_restores``, and
+histograms ``checkpoint.save_seconds`` and ``checkpoint.restore_seconds``
+(``obs.metrics``). A board checkpoint counts as a save, not also as a
+state save, as in the JAX package, whose board checkpoints are Orbax
+trees.
 """
 
 from __future__ import annotations
@@ -33,6 +43,9 @@ import time
 import zlib
 
 import numpy as np
+
+from mpi_and_open_mp_tpu_torch.obs import metrics, trace
+from mpi_and_open_mp_tpu_torch.utils.timing import Timer
 
 STATE_MAGIC = b"MOMP-STATE/1\n"
 _STATE_HEADER = struct.Struct(">QI")  # payload length, CRC32
@@ -80,13 +93,14 @@ def quarantine(path: str | os.PathLike, label: str = "corrupt") -> str | None:
     return dst
 
 
-def save_state(path: str | os.PathLike, state) -> None:
-    """Write one picklable host-state tree to ``path`` atomically."""
-    path = os.path.abspath(os.fspath(path))
+def _frame(state) -> bytes:
     payload = pickle.dumps(state, protocol=pickle.HIGHEST_PROTOCOL)
-    blob = (STATE_MAGIC
+    return (STATE_MAGIC
             + _STATE_HEADER.pack(len(payload), zlib.crc32(payload))
             + payload)
+
+
+def _write_atomic(path: str, blob: bytes) -> None:
     outdir = os.path.dirname(path)
     if outdir:
         os.makedirs(outdir, exist_ok=True)
@@ -99,11 +113,9 @@ def save_state(path: str | os.PathLike, state) -> None:
     _fsync_dir(path)
 
 
-def restore_state(path: str | os.PathLike):
-    """Read a :func:`save_state` file back, fully validated; raises
-    ``ValueError`` naming the failure (missing file, bad magic, truncated
-    header or payload, CRC mismatch, undecodable payload)."""
-    path = os.path.abspath(os.fspath(path))
+def _read_frame(path: str):
+    """The state in the ``MOMP-STATE/1`` file at ``path``, validated
+    (:func:`restore_state`'s checks)."""
     try:
         with open(path, "rb") as fd:
             blob = fd.read()
@@ -140,6 +152,27 @@ def restore_state(path: str | os.PathLike):
             f"to decode ({type(e).__name__}: {e})"[:400]) from e
 
 
+def save_state(path: str | os.PathLike, state) -> None:
+    """Write one picklable host-state tree to ``path`` atomically."""
+    path = os.path.abspath(os.fspath(path))
+    blob = _frame(state)
+    with trace.span("checkpoint.state_save", path=path, bytes=len(blob)):
+        _write_atomic(path, blob)
+    metrics.inc("checkpoint.state_saves")
+    metrics.inc("checkpoint.state_save.bytes", len(blob))
+
+
+def restore_state(path: str | os.PathLike):
+    """Read a :func:`save_state` file back, fully validated; raises
+    ``ValueError`` naming the failure (missing file, bad magic, truncated
+    header or payload, CRC mismatch, undecodable payload)."""
+    path = os.path.abspath(os.fspath(path))
+    with trace.span("checkpoint.state_restore", path=path):
+        state = _read_frame(path)
+    metrics.inc("checkpoint.state_restores")
+    return state
+
+
 def _board_crc(board: np.ndarray) -> int:
     """CRC32 of the uint8 board bytes, the manifest :func:`restore`
     verifies."""
@@ -149,14 +182,21 @@ def _board_crc(board: np.ndarray) -> int:
 def save(path: str | os.PathLike, board, step: int) -> None:
     """Write ``{board, step, crc}`` at ``path`` atomically. ``board`` is a
     ``(ny, nx)`` host array or tensor, stored as uint8."""
-    if hasattr(board, "detach"):
-        board = board.detach().cpu().numpy()
-    board = np.ascontiguousarray(board, dtype=np.uint8)
-    if board.ndim != 2:
-        raise ValueError(f"a checkpoint holds one (ny, nx) board, got "
-                         f"shape {board.shape}")
-    save_state(path, {"board": board, "step": int(step),
-                      "crc": _board_crc(board)})
+    path = os.path.abspath(os.fspath(path))
+    nbytes = int(getattr(board, "nbytes", 0))
+    with trace.span("checkpoint.save", step=int(step), bytes=nbytes,
+                    path=path), Timer() as t:
+        if hasattr(board, "detach"):
+            board = board.detach().cpu().numpy()
+        board = np.ascontiguousarray(board, dtype=np.uint8)
+        if board.ndim != 2:
+            raise ValueError(f"a checkpoint holds one (ny, nx) board, got "
+                             f"shape {board.shape}")
+        _write_atomic(path, _frame({"board": board, "step": int(step),
+                                    "crc": _board_crc(board)}))
+    metrics.inc("checkpoint.saves")
+    metrics.inc("checkpoint.save.bytes", nbytes)
+    metrics.observe("checkpoint.save_seconds", t.elapsed)
 
 
 def restore(path: str | os.PathLike) -> tuple[np.ndarray, int]:
@@ -165,7 +205,10 @@ def restore(path: str | os.PathLike) -> tuple[np.ndarray, int]:
     rank 2, step >= 0, and the CRC manifest (0 means unverified). The
     caller places the board on its own mesh."""
     path = os.path.abspath(os.fspath(path))
-    tree = restore_state(path)
+    with trace.span("checkpoint.restore", path=path), Timer() as t:
+        tree = _read_frame(path)
+    metrics.inc("checkpoint.restores")
+    metrics.observe("checkpoint.restore_seconds", t.elapsed)
     if not isinstance(tree, dict) or "board" not in tree or "step" not in tree:
         raise ValueError(
             f"checkpoint at {path} is missing its board/step leaves "
@@ -175,6 +218,7 @@ def restore(path: str | os.PathLike) -> tuple[np.ndarray, int]:
         raise ValueError(
             f"checkpoint board at {path} has rank {board.ndim}, want 2")
     board = board.astype(np.uint8)
+    metrics.inc("checkpoint.restore.bytes", int(board.nbytes))
     step = int(tree["step"])
     if step < 0:
         raise ValueError(f"checkpoint at {path} carries negative step {step}")

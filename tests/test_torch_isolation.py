@@ -63,6 +63,11 @@ def test_import_pulls_in_no_jax():
         "assert native_quadrature.trapezoid_circle and integral.Integral\n"
         "assert fabric.fit_alpha_beta and timing.Timer and timing.write_csv_rows\n"
         "assert chaos.dispatch_delay and _common.is_primary()\n"
+        "from mpi_and_open_mp_tpu_torch.stencils import sparse_sharded\n"
+        "from mpi_and_open_mp_tpu_torch import obs\n"
+        "from mpi_and_open_mp_tpu_torch.obs import metrics, trace, report\n"
+        "assert sparse_sharded.SparseShardedEngine and obs.report\n"
+        "assert metrics.snapshot and trace.span and report.report_dict\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
