@@ -331,7 +331,28 @@ Phases, each of which raises (exit code 1) when it fails:
    ``ring.hops.fwd`` 7) and its seconds untraced and traced in turns; a
    checkpointed p46gun_big, its resume, and native cart 4x2 on the rung
    under ``halo=corrupt``, traced (the checkpoint counters, the recovery
-   event); each trace read back with ``obs.report`` and rendered.
+   event); each trace read back with ``obs.report`` and rendered;
+24. the tuner (``tune``) on the batched and sharded paths, the counts set
+   to 0 just before each pass and read just after (the board-sliced,
+   cell-packed stack, fused and padded stencil kernels must each launch):
+   ``tune("life", ...)`` at 64, 8 and 1 x 500^2 and 512 x 95x130, ``tune``
+   of heat and wireworld at 64 x 500^2, and ``tune_sharded`` of life at
+   500^2 on 4x2 virtual shards, each stack made from the spec's generator
+   with seed 46 (``TUNE_*``: each shape's brackets), into one plan store;
+   each pass with no rejected candidate, every candidate held against the
+   NumPy oracle before it was timed, the tuned path the least time and
+   ``vs_heuristic`` >= 1, its measurements logged; two launch records of
+   the 64-board bucket saved under ``MOMP_CHAOS="aot_corrupt=bitflip:1"``
+   and ``"aot_corrupt=skew:1"``; a second process
+   (``TUNE_SECOND_PROCESS``) that installs the store (every plan, none
+   corrupt, stale or parity-rejected), dispatches (64, 500, 500) on the
+   tuned path, finds the damaged records ``corrupt`` and ``stale``,
+   quarantines and rebuilds them and holds their first results to the
+   oracle, then under ``MOMP_TUNE=0`` installs nothing and dispatches on
+   the ladder; the Life CLI ``--batch 64`` traced on the ladder and with
+   ``--plans`` (population 466 432 both, only the path's kernel launched,
+   the installed plan in the trace), its elapsed seconds untraced in turns,
+   and a ``--resume --plans`` status line with ``plan_source`` ``store``.
 
 Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -1972,6 +1993,272 @@ def phase_obs(card: str, wrappers: dict) -> dict:
     shutil.rmtree(root, ignore_errors=True)
     log(f"phase 23 obs: ok ({time.perf_counter() - t0:.2f} s)")
     return {"untraced_vs_traced_s": side_by_side, "held": held}
+
+
+# Phase 24: the tuner on the batched and sharded paths. Each shape's
+# brackets (steps, steps * mult, the least of reps runs each): long enough
+# on the kernel paths for the host clock (the 500^2 stacks' 1000 and 5000
+# steps take ~1.3-10 ms of a kernel), short enough for the frame path's
+# per-board host loop at 512 boards (one round a 64 steps a board).
+TUNE_LIFE = (((64, 500, 500), dict(steps=1000, mult=5, reps=3)),
+             ((8, 500, 500), dict(steps=1000, mult=5, reps=3)),
+             ((512, 95, 130), dict(steps=200, mult=5, reps=2)),
+             ((1, 500, 500), dict(steps=1000, mult=5, reps=3)))
+TUNE_STENCIL = (("heat", (64, 500, 500)), ("wireworld", (64, 500, 500)))
+TUNE_STENCIL_BUDGET = dict(steps=100, mult=5, reps=2)
+TUNE_SHARDED_BUDGET = dict(steps=32, mult=5, reps=2)
+TUNE_KERNELS = ("vmem_batch", "bitsliced", "fused", "stencil")
+
+# The second process of phase 24: a fresh store's install, the dispatch it
+# steers, the two damaged launch records loaded, rebuilt and run against
+# the oracle, then the kill switch. Prints one JSON object.
+TUNE_SECOND_PROCESS = r"""
+import json, os, sys
+import numpy as np
+from mpi_and_open_mp_tpu_torch import stencils
+from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+from mpi_and_open_mp_tpu_torch.serve import aotcache
+from mpi_and_open_mp_tpu_torch.tune import PlanStore
+store, chaos_dirs = sys.argv[1], sys.argv[2:]
+out = {"install": PlanStore(store).install()}
+out["path"] = nl.native_path_batch((64, 500, 500))
+spec = stencils.get("life")
+rng = np.random.default_rng(46)
+stack = np.stack([spec.init(rng, (500, 500)) for _ in range(64)])
+for d in chaos_dirs:
+    cache = aotcache.AOTCache(d)
+    digest, record, status = cache.ensure(stack.shape, stack.dtype)
+    cache.call_verified(digest, stack, 8)
+    out[os.path.basename(d)] = {"status": status, "stats": cache.stats(),
+                                "path": record["path"],
+                                "quarantined": sorted(
+                                    f for f in os.listdir(d)
+                                    if ".aot." in f)}
+os.environ["MOMP_TUNE"] = "0"
+out["kill_switch"] = {"install": PlanStore(store).install(),
+                      "path": nl.native_path_batch((64, 500, 500))}
+print(json.dumps(out))
+"""
+
+
+def tune_label(m: dict) -> str:
+    """A measured candidate's name: its path, and for a sharded one its
+    schedule and interior/boundary depths."""
+    if "halo_overlap" not in m:
+        return m["path"]
+    return (f"{m['path']} {m['halo_overlap']} {m['fuse_steps']}/"
+            f"{m['boundary_steps']}")
+
+
+def phase_tune(card: str, wrappers: dict) -> dict:
+    """Phase 24 (module docstring): the tuner, its store, its launch
+    records and the CLI's ``--plans``. Returns each pass's measurements and
+    the kernels' launches in them."""
+    import shutil
+
+    from mpi_and_open_mp_tpu_torch.apps import life as life_app
+    from mpi_and_open_mp_tpu_torch.obs import report, trace
+    from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
+    from mpi_and_open_mp_tpu_torch.robust import chaos
+    from mpi_and_open_mp_tpu_torch.serve import aotcache
+    from mpi_and_open_mp_tpu_torch.tune import PlanStore, space, tune, \
+        tune_sharded
+
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "chip_smoke_tune")
+    shutil.rmtree(root, ignore_errors=True)
+    plans_dir = os.path.join(root, "plans")
+    store = PlanStore(plans_dir)
+    counted = {k: wrappers[k] for k in TUNE_KERNELS}
+    launches = dict.fromkeys(TUNE_KERNELS, 0)
+    passes = {}
+
+    def held(label, res, cands):
+        """The pass's contract: no rejection, every candidate timed (each
+        after its oracle check), the tuned path the least time (the first
+        on a tie), vs_heuristic >= 1."""
+        ms = res["measurements"]
+        fastest = min(m["steady_s_per_step"] for m in ms)
+        first = next(m for m in ms if m["steady_s_per_step"] == fastest)
+        if (res["rejected"] or len(ms) != len(cands)
+                or res["tuned"] != first or res["vs_heuristic"] < 1.0):
+            raise AssertionError(f"phase 24 {label}: {json.dumps(res)}")
+        log(f"  tune {label}: heuristic {tune_label(res['heuristic'])}, "
+            f"tuned {tune_label(res['tuned'])}, vs_heuristic "
+            f"{res['vs_heuristic']}; us a step: "
+            + ", ".join(f"{tune_label(m)} {m['steady_s_per_step'] * 1e6:.4f}"
+                        + ("" if m["is_differenced"] else " (short bracket)")
+                        for m in ms) + f" [{card}]")
+        passes[label] = {k: res[k] for k in (
+            "heuristic", "tuned", "vs_heuristic", "measurements")}
+
+    def counted_pass(fn):
+        res, counts = run_counted(counted, fn)
+        for k, n in counts.items():
+            launches[k] += n
+        return res
+
+    tuned, digests = {}, {}
+    for shape, budget in TUNE_LIFE:
+        res = counted_pass(lambda: tune("life", shape, store=store,
+                                        **budget))
+        held(f"life {shape}", res, space.candidates("life", shape))
+        tuned[shape] = res["tuned"]["path"]
+        digests[shape] = res["digest"]
+    for workload, shape in TUNE_STENCIL:
+        res = counted_pass(lambda: tune(workload, shape, store=store,
+                                        **TUNE_STENCIL_BUDGET))
+        held(f"{workload} {shape}", res, space.candidates(workload, shape))
+    mesh = pm.make_mesh_2d(4, 2)
+    res = counted_pass(lambda: tune_sharded(
+        "life", (500, 500), mesh=mesh, store=store, **TUNE_SHARDED_BUDGET))
+    held("life (500, 500) sharded 4x2", res,
+         space.sharded_candidates("life", (500, 500), mesh))
+    passes["life (500, 500) sharded 4x2"]["vs_sequential"] = res[
+        "vs_sequential"]
+    missing = [k for k, n in launches.items() if not n]
+    if missing:
+        raise AssertionError(f"phase 24: kernels of the tuned paths never "
+                             f"launched: {missing} ({launches})")
+    log(f"  tuning passes: {time.perf_counter() - t0:.2f} s; launches "
+        f"{launches}")
+
+    # Two launch records damaged on disk as they are saved, for the second
+    # process to find: one bit flipped, one key skewed.
+    stack_shape = (64, 500, 500)
+    chaos_dirs = []
+    for kind in ("bitflip", "skew"):
+        d = os.path.join(root, f"aot_{kind}")
+        with env_set(chaos.ENV, f"aot_corrupt={kind}:1"):
+            chaos.reset()
+            try:
+                _, record, status = aotcache.AOTCache(d).ensure(
+                    stack_shape, np.uint8)
+            finally:
+                chaos.reset()
+        if status != "miss" or record["path"] != tuned[stack_shape]:
+            raise AssertionError(f"phase 24 aot_corrupt={kind}: {status} "
+                                 f"{record}")
+        chaos_dirs.append(d)
+
+    # A second process: the store installed fresh, its dispatch, the
+    # damaged records, the kill switch.
+    t1 = time.perf_counter()
+    second = subprocess.run(
+        [sys.executable, "-c", TUNE_SECOND_PROCESS, plans_dir, *chaos_dirs],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        capture_output=True, text=True, timeout=300)
+    if second.returncode != 0:
+        raise AssertionError(f"phase 24 second process: "
+                             f"{second.stderr[-3000:]}")
+    got = json.loads(second.stdout.strip().splitlines()[-1])
+    inst, kill = got["install"], got["kill_switch"]
+    ladder = space.heuristic_path("life", stack_shape, True)
+    if (inst["installed"] < 1 or inst["installed"] != inst["scanned"]
+            or inst["corrupt"] or inst["stale"] or inst["parity_rejected"]
+            or got["path"] != tuned[stack_shape]
+            or got["aot_bitflip"]["status"] != "corrupt"
+            or got["aot_skew"]["status"] != "stale"
+            or [len(got[f"aot_{k}"]["quarantined"])
+                for k in ("bitflip", "skew")] != [1, 1]
+            or not kill["install"]["disabled"] or kill["path"] != ladder):
+        raise AssertionError(f"phase 24 second process: {json.dumps(got)}")
+    log(f"  second process ({time.perf_counter() - t1:.2f} s): installed "
+        f"{inst['installed']} of {inst['scanned']} plans (corrupt, stale, "
+        f"parity_rejected 0), native_path_batch((64, 500, 500)) = "
+        f"{got['path']}; aot_corrupt=bitflip:1 -> "
+        f"{got['aot_bitflip']['status']}, aot_corrupt=skew:1 -> "
+        f"{got['aot_skew']['status']}, each quarantined, rebuilt and equal "
+        f"to the oracle; MOMP_TUNE=0: disabled, path {kill['path']}")
+
+    # The CLI: --batch 64 on the ladder, then with --plans, traced; the
+    # kernel each run launched names its path.
+    def cli(argv, path=None):
+        with env_set(trace._ENV, path):
+            trace.reset()
+            try:
+                (rc, out, err), counts = run_counted(
+                    counted, lambda: run_cli(life_app.main, argv))
+            finally:
+                trace.reset()
+        if rc != 0:
+            raise AssertionError(f"phase 24 CLI {argv}: {err[-2000:]}")
+        return out, err, counts
+
+    kernel_of = {"bitsliced": "bitsliced", "vmem-grid": "vmem_batch",
+                 "frame": "fused", "fused": "fused"}
+    batch = [GUN_BIG, "--layout", "serial", "--batch", "64",
+             "--print-final-population"]
+    # The batched CLI reads a store of the (64, 500, 500) plan and its
+    # launch record alone, so that every launch of the run (the install's
+    # parity check included) is of the plan's kernel.
+    cli_plans = os.path.join(root, "cli_plans")
+    os.makedirs(cli_plans)
+    for ext in (".plan", ".aot"):
+        shutil.copy(os.path.join(plans_dir, digests[stack_shape] + ext),
+                    cli_plans)
+    with_plans = ["--plans", cli_plans]
+    cli_rec = {}
+    for label, extra, want_path in (
+            ("ladder", [], ladder),
+            ("--plans", with_plans, tuned[stack_shape])):
+        nl.clear_planned_paths()
+        path = os.path.join(root, f"cli_{len(cli_rec)}.jsonl")
+        out, err, counts = cli(batch + extra + ["--trace", path], path)
+        recs = report.load(path)
+        installed = [r["attrs"] for r in recs if r["name"] == "tune.plan"
+                     and r["attrs"]["status"] == "installed"]
+        engines = {(a["workload"], a["engine"]) for a in installed}
+        ran = [k for k, n in counts.items() if n]
+        if (err.strip().splitlines()[-1] != "466432"
+                or ran != [kernel_of[want_path]]
+                or (label == "ladder") != (not installed)
+                or (installed and engines != {("life", want_path)})
+                or "life.run" not in [r["name"] for r in recs]):
+            raise AssertionError(f"phase 24 CLI {label}: population "
+                                 f"{err[-200:]!r}, launches {counts}, "
+                                 f"installed {installed}")
+        cli_rec[label] = {"path": want_path, "launches": counts,
+                          "elapsed_s": float(out)}
+        log(f"  CLI --batch 64 {label}: population 466432, path "
+            f"{want_path} ({ran[0]} launched {counts[ran[0]]}x), "
+            f"{len(installed)} plans installed in the trace, elapsed "
+            f"{float(out):.6f} s [{card}]")
+    # Elapsed seconds untraced, in turns.
+    for label, extra in (("--plans", with_plans), ("ladder", []),
+                         ("ladder", []), ("--plans", with_plans)):
+        nl.clear_planned_paths()
+        out, _, _ = cli(batch + extra)
+        cli_rec[label].setdefault("untraced_elapsed_s", []).append(
+            float(out))
+    log("  CLI --batch 64 elapsed seconds untraced (plans, ladder, ladder, "
+        f"plans): {cli_rec['--plans']['untraced_elapsed_s'][0]:.6f}, "
+        + ", ".join(f"{t:.6f}" for t in cli_rec["ladder"][
+            "untraced_elapsed_s"])
+        + f", {cli_rec['--plans']['untraced_elapsed_s'][1]:.6f} [{card}]")
+    # --resume with --plans: the status line reports the store's plan.
+    nl.clear_planned_paths()
+    ck = os.path.join(root, "ck")
+    single = [GUN_BIG, "--layout", "serial", "--checkpoint-dir", ck]
+    cli(single)
+    _, err, _ = cli(single + ["--resume", "--plans", plans_dir])
+    status = json.loads([ln for ln in err.splitlines()
+                         if ln.startswith("{")][-1])
+    if (status.get("plan_source") != "store"
+            or status.get("plans_installed", 0) < 1
+            or status.get("tuned_path") != tuned[(1, 500, 500)]):
+        raise AssertionError(f"phase 24 --resume --plans: {status}")
+    log(f"  CLI --resume --plans status line: {json.dumps(status)}")
+    nl.clear_planned_paths()
+    shutil.rmtree(root, ignore_errors=True)
+    budget = {"life": {str(s): b for s, b in TUNE_LIFE},
+              "stencils": TUNE_STENCIL_BUDGET,
+              "sharded": TUNE_SHARDED_BUDGET}
+    log(f"phase 24 tuning: ok ({time.perf_counter() - t0:.2f} s; budgets "
+        f"{json.dumps(budget)})")
+    return {"passes": passes, "launches": launches, "cli": cli_rec,
+            "budget": budget}
 
 
 def life_ops_oracle(cfg, n: int) -> np.ndarray:
@@ -4509,7 +4796,8 @@ def main() -> int:
             or not first_err[-1].startswith("preempted at step 5000 by chaos "
                                             "plan")
             or again.returncode != 0 or again_err[-1] != "7288"
-            or resumed != ['{"resumed": "step_005000.state", "step": 5000}']):
+            or resumed != ['{"resumed": "step_005000.state", "step": 5000, '
+                           '"plan_source": "heuristic"}']):
         raise AssertionError(f"CLI preempt and resume: rc {first.returncode}"
                              f" {first.stderr[-1500:]!r}, then rc "
                              f"{again.returncode} {again.stderr[-1500:]!r}")
@@ -4607,6 +4895,9 @@ def main() -> int:
 
     # ----------------------------------- 23. obs: traces, metrics, report
     obs_rec = phase_obs(card, wrappers)
+
+    # ------------------------ 24. tune: plans, launch records, --plans
+    tune_rec = phase_tune(card, wrappers)
 
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
@@ -4868,9 +5159,20 @@ def main() -> int:
         if key:
             row["launches_checkpoint_runs"] = {
                 run: c[key] for run, c in ckpt_launches.items() if c[key]}
+    # Phase 24's tuning passes, beside the main path's launches.
+    tune_keys = {"bitlife_vmem_batch": "vmem_batch",
+                 "bitlife_bitsliced": "bitsliced", "bitlife_fused": "fused",
+                 "stencil_padded": "stencil"}
+    for row in kernels:
+        key = tune_keys.get(row["name"])
+        if key:
+            row["launches_tune"] = tune_rec["launches"][key]
+            row["launches"] += tune_rec["launches"][key]
     kernels.append(quadrature_row)
     log(f"obs, untraced against traced seconds: "
         f"{json.dumps(obs_rec['untraced_vs_traced_s'])}")
+    log(f"tune: {json.dumps({k: {'tuned': v['tuned']['path'], 'vs_heuristic': v['vs_heuristic']} for k, v in tune_rec['passes'].items()})}; "
+        f"CLI {json.dumps(tune_rec['cli'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -36,8 +36,14 @@ checkpoints, recoveries) land in PATH as JSON lines (read them with
 ``mpi_and_open_mp_tpu_torch.obs.report``, or with the JAX package's
 ``analysis/trace_report.py``); ``--profile DIR`` records the timed run
 with ``torch.profiler`` (CPU and, on the card, CUDA activities) and writes
-a Chrome trace into DIR. The JAX package's ``--plans`` waits for the
-tuning port.
+a Chrome trace into DIR.
+
+Tuned plans: ``--plans DIR`` (or ``MOMP_TUNE_PLANS``) names a store that
+``tune`` wrote; its records are validated, held against the oracle and
+installed before the sim is built, so a batched run dispatches the
+measured path, and a ``--resume`` status line carries ``plans_installed``,
+``plan_source`` and ``tuned_path``. ``MOMP_TUNE=0`` leaves the store
+untouched and the ladder in charge.
 """
 
 from __future__ import annotations
@@ -102,6 +108,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
                    help="also checkpoint every N steps, whatever the save "
                         "cadence (SIGTERM flushes one and exits 75)")
+    p.add_argument("--plans", default=None, metavar="DIR",
+                   help="tuned-plan store (default $MOMP_TUNE_PLANS): its "
+                        "records are validated, held against the oracle "
+                        "and installed before the first dispatch; the "
+                        "resume status line (stderr JSON) carries "
+                        "plan_source")
     p.add_argument("--profile", metavar="DIR", default=None,
                    help="record the run with torch.profiler and write a "
                         "Chrome trace into DIR")
@@ -170,7 +182,33 @@ def find_latest_orbax(ckpt_dir: str | None) -> tuple[str, int] | None:
     return found if found is not None and os.path.isdir(found[0]) else None
 
 
-def _resume(args, cfg, kwargs):
+def _plan_store(args):
+    """The tuned-plan store ``--plans`` / ``MOMP_TUNE_PLANS`` names, on
+    ``--device``, or None (the ladder only)."""
+    plans_dir = args.plans or os.environ.get("MOMP_TUNE_PLANS") or None
+    if not plans_dir:
+        return None
+    from mpi_and_open_mp_tpu_torch.tune.plans import PlanStore
+
+    return PlanStore(plans_dir, device=args.device)
+
+
+def _plan_fields(store, cfg, batch: int) -> dict:
+    """The resume status line's ``plan_source``: ``store`` when an
+    installed plan covers this (workload, stack shape), with its
+    ``tuned_path``, else ``heuristic`` (no store, a miss, or
+    ``MOMP_TUNE=0``)."""
+    fields = {"plan_source": "heuristic"}
+    if store is None:
+        return fields
+    hit = store.lookup("life", (max(batch, 1), cfg.ny, cfg.nx))
+    if hit is not None:
+        fields["plan_source"] = "store"
+        fields["tuned_path"] = hit["choice"]["path"]
+    return fields
+
+
+def _resume(args, cfg, kwargs, store=None, plans_installed=None):
     """The sim ``--resume`` continues, from the newest state (a stale
     checkpoint must not roll back past newer snapshots), or None with the
     reason on stderr."""
@@ -199,8 +237,11 @@ def _resume(args, cfg, kwargs):
             sources.insert(0, f"no checkpoints in {args.checkpoint_dir!r}")
         print(f"--resume: {' and '.join(sources)}", file=sys.stderr)
         return None
-    print(json.dumps({"resumed": os.path.basename(path), "step": step}),
-          file=sys.stderr)
+    print(json.dumps({
+        "resumed": os.path.basename(path), "step": step,
+        **({"plans_installed": plans_installed.get("installed", 0)}
+           if plans_installed is not None else {}),
+        **_plan_fields(store, cfg, args.batch)}), file=sys.stderr)
     return sim
 
 
@@ -251,8 +292,12 @@ def main(argv=None) -> int:
                   device=args.device, outdir=args.outdir,
                   checkpoint_dir=args.checkpoint_dir,
                   checkpoint_every=args.checkpoint_every)
+    # Plans go in before the sim exists: the batched engines consult them
+    # at each dispatch, so a --resume with --plans restarts tuned.
+    store = _plan_store(args)
+    plans_installed = store.install() if store is not None else None
     if args.resume:
-        sim = _resume(args, cfg, kwargs)
+        sim = _resume(args, cfg, kwargs, store, plans_installed)
         if sim is None:
             return 2
     else:

@@ -19,8 +19,11 @@ For a (B, ny, nx) stack, :func:`native_path_batch` picks the path and
 ``"fused"`` and ``"frame"`` (the big-board engines, board after board), and
 ``"plain"`` on the CPU. The JAX package's ``"vmem"`` (whole stack resident
 in one program) has no counterpart: on Hopper a block holds one board, so
-both TPU forms are ``"vmem-grid"``. Installed tuned plans
-(``pallas_life.planned_path``) are not ported yet.
+both TPU forms are ``"vmem-grid"``. A tuned plan installed for the stack's
+shape (:func:`install_planned_path`, by ``tune.plans.PlanStore.install``)
+is consulted first and taken wherever :func:`_planned_legal` allows it on
+this device; the static ladder below it is the fallback and the no-plans
+behaviour.
 
 On the card only the kernel paths exist: a shape none of them covers
 raises. On the CPU the resident and board-sliced paths run their plain
@@ -49,11 +52,12 @@ _BITSLICE = os.environ.get("MOMP_BITSLICE", "1") != "0"
 
 # Below this batch a plane is more than 75 % padding, and the cell-packed
 # ladder (whose work scales with B, not ceil(B / 32)) takes the stack. The
-# JAX package's figure, kept until the tuning port. On an H100 the measured
-# line has moved with each kernel's redesign (chip_smoke.py phase 6,
-# PERF.md): "bitsliced" was the faster at every stack of 8 to 512 boards
-# measured after its own, and "vmem-grid", one cluster a board, is the
-# faster at every stack of 1 to 512 boards measured after its own.
+# JAX package's figure, and the ladder's: a stack whose best path was
+# measured on the card (``tune``) takes it through an installed plan
+# instead. On an H100 the measured line has moved with each kernel's
+# redesign (chip_smoke.py phases 6 and 24, PERF.md): "vmem-grid", one
+# cluster a board, was the faster at every stack of 1 to 512 boards
+# measured after its own.
 BITSLICE_MIN_BATCH = 8
 
 
@@ -68,6 +72,93 @@ def _bitslice_pinned(value: bool):
         yield
     finally:
         _BITSLICE = prev
+
+
+# Installed tuned plans: (workload, *stack shape) -> engine path, filled by
+# tune.plans.PlanStore.install() once a record passed its CRC, fingerprint
+# and parity gates, and consulted by native_path_batch before the static
+# ladder. MOMP_TUNE=0 is the kill switch, read at each call.
+_PLANNED_PATHS: dict[tuple, str] = {}
+
+
+def _tune_enabled() -> bool:
+    return os.environ.get("MOMP_TUNE", "1") != "0"
+
+
+def _plan_key(workload: str, shape) -> tuple:
+    return (str(workload), *(int(x) for x in shape))
+
+
+def install_planned_path(workload: str, shape, path: str) -> None:
+    """Install a tuned engine path for one (workload, stack shape). Only
+    ``tune`` calls this, after the record passed its gates; nothing here
+    validates it again."""
+    _PLANNED_PATHS[_plan_key(workload, shape)] = str(path)
+
+
+def planned_path(workload: str, shape) -> str | None:
+    """The installed tuned path for (workload, stack shape), or None when
+    none is installed or ``MOMP_TUNE=0``. A ``stencil:sep``/``stencil:fft``
+    plan whose family the ``MOMP_ENGINE_FAMILY`` pin disallows is None
+    too, from the next dispatch on."""
+    if not _tune_enabled():
+        return None
+    path = _PLANNED_PATHS.get(_plan_key(workload, shape))
+    if path is not None and path.startswith("stencil:"):
+        from mpi_and_open_mp_tpu_torch.stencils import engine as stencil_engine
+
+        if not stencil_engine.family_allowed(
+                stencil_engine.family_for_path(path)):
+            return None
+    return path
+
+
+def clear_planned_paths() -> None:
+    _PLANNED_PATHS.clear()
+
+
+@contextlib.contextmanager
+def _planned_pinned(workload: str, shape, path: str | None):
+    """Pin one (workload, shape) plan entry for the block (``None`` removes
+    it): ``tune.plans.fingerprint_for`` keys a plan with its path pinned
+    in, so ``<digest>.plan`` and ``<digest>.aot`` share one digest, and
+    ``tune.space.heuristic_path`` asks the ladder with it pinned out."""
+    key = _plan_key(workload, shape)
+    missing = object()
+    prev = _PLANNED_PATHS.get(key, missing)
+    if path is None:
+        _PLANNED_PATHS.pop(key, None)
+    else:
+        _PLANNED_PATHS[key] = str(path)
+    try:
+        yield
+    finally:
+        if prev is missing:
+            _PLANNED_PATHS.pop(key, None)
+        else:
+            _PLANNED_PATHS[key] = prev
+
+
+def _planned_legal(path: str, shape: tuple[int, int, int], on_card: bool,
+                   allow_bitsliced: bool) -> bool:
+    """Whether an installed plan's path may run a (B, ny, nx) stack here.
+    The gates are the port's own: the resident gate for the board-sliced
+    and cell-packed kernels, the big-board plans for the fused kernel, and
+    the runtime pins (``MOMP_BITSLICE=0``, ``allow_bitsliced=False``). A
+    plan may override :data:`BITSLICE_MIN_BATCH`, never a gate; the plain
+    loop is legal off the card only, and the JAX package's own names
+    (``vmem``, ``xla``) nowhere."""
+    _, ny, nx = (int(s) for s in shape)
+    if path == "bitsliced":
+        return (allow_bitsliced and _BITSLICE
+                and bitlife.fits_vmem_packed((ny, nx)))
+    if path == "vmem-grid":
+        return on_card and bitlife.fits_vmem_packed((ny, nx))
+    if path == "fused":
+        return on_card and bitlife.fused_bits_supported((ny, nx))
+    if path == "frame":
+        return on_card and bitlife.plan_sharded_bits((ny, nx)) is not None
+    return path == "plain" and not on_card
 
 
 def native_path(shape: tuple[int, int], on_card: bool = True) -> str:
@@ -119,8 +210,15 @@ def native_path_batch(
     The bitsliced kernel tiles a plane of any size and has no gate of its
     own. Boards past the resident gate stay on the big-board ladder, which
     tiles each board over the card already, as the JAX package's VMEM gate
-    (``fits_vmem_bitsliced``) hands boards past about 1000^2 to it."""
+    (``fits_vmem_bitsliced``) hands boards past about 1000^2 to it.
+
+    An installed tuned plan (:func:`planned_path`) comes first wherever
+    :func:`_planned_legal` allows it."""
     b, ny, nx = (int(s) for s in shape)
+    planned = planned_path("life", (b, ny, nx))
+    if planned is not None and _planned_legal(
+            planned, (b, ny, nx), on_card, allow_bitsliced):
+        return planned
     resident = bitlife.fits_vmem_packed((ny, nx))
     if allow_bitsliced and _BITSLICE and b >= BITSLICE_MIN_BATCH and resident:
         return "bitsliced"
@@ -154,7 +252,16 @@ def life_run_vmem_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
     """Advance a (B, ny, nx) stack (on the card or the CPU) ``n`` steps on
     the path :func:`native_path_batch` picks; bit-exact per board against
     the single-board engines."""
-    path = native_path_batch(boards.shape, on_card=boards.device.type == "cuda")
+    return run_path_batch(
+        native_path_batch(boards.shape, on_card=boards.device.type == "cuda"),
+        boards, n)
+
+
+def run_path_batch(path: str, boards: torch.Tensor, n: int) -> torch.Tensor:
+    """Advance a (B, ny, nx) stack ``n`` steps on the named batched path,
+    whatever the ladder or a plan would pick. Raises ValueError on a name
+    that is not a path, and on ``"plain"`` for a stack on the card: no
+    caller makes the card run the plain loop."""
     if path == "bitsliced":
         return bitlife.life_run_bitsliced_batch(boards, n)
     if path == "vmem-grid":
@@ -163,7 +270,12 @@ def life_run_vmem_batch(boards: torch.Tensor, n: int) -> torch.Tensor:
         return bitlife.life_run_fused_bits_batch(boards, n)
     if path == "frame":
         return bitlife.life_run_frame_bits_batch(boards, n)
-    return bitlife.life_run_bits_plain_batch(boards, n)
+    if path == "plain":
+        if boards.device.type == "cuda":
+            raise ValueError("the plain batched loop runs on the CPU only; "
+                             "a stack on the card takes a kernel path")
+        return bitlife.life_run_bits_plain_batch(boards, n)
+    raise ValueError(f"unknown life engine path {path!r}")
 
 
 def life_step_padded_native(padded: torch.Tensor) -> torch.Tensor:

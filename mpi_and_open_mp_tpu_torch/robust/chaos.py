@@ -38,10 +38,15 @@ same error. Tokens with a hook in the port:
     Inject without arming the guards: the run must then diverge, which
     shows that the fault landed.
 
-The ``serve_fail``, ``crash``, ``kill_worker`` (the serving daemon, its
-journal and fleet) and ``aot_corrupt`` (the AOT cache) tokens parse, but
-the layers they hook into are not ported yet (ROADMAP Queue 1 item 9), so
-nothing reads them.
+``aot_corrupt=<kind>:<k>``
+    The first ``k`` launch records ``serve.aotcache.save_artifact`` writes
+    are damaged on disk after the clean write (:func:`take_aot_corrupt`):
+    ``bitflip`` flips one bit mid-file (the next load is ``corrupt``),
+    ``skew`` rewrites the key with a foreign ``torch`` version (``stale``).
+
+The ``serve_fail``, ``crash`` and ``kill_worker`` tokens (the serving
+daemon, its journal and fleet) parse, but the layers they hook into are not
+ported yet (ROADMAP Queue 1 item 9), so nothing reads them.
 
 The JAX package decides injection when it traces a program, so a fault
 stays in that program until a rebuild under :func:`suppressed`. The port's
@@ -78,9 +83,10 @@ AOT_CORRUPT_KINDS = ("bitflip", "skew")
 
 @dataclasses.dataclass
 class FaultPlan:
-    """A parsed ``MOMP_CHAOS`` spec and its one piece of runtime state, the
-    preemption latch. The parsed fields are the JAX package's; its hit
-    counters belong to hooks that are not ported, and are left out."""
+    """A parsed ``MOMP_CHAOS`` spec and its runtime state: the preemption
+    latch and the artifact faults spent. The parsed fields are the JAX
+    package's; its other hit counters belong to hooks that are not ported,
+    and are left out."""
 
     raw: str
     seed: int = 0
@@ -97,6 +103,7 @@ class FaultPlan:
     kill_worker_at: int = 0
     aot_corrupt_kind: str | None = None
     aot_corrupt: int = 0
+    aot_corrupted: int = 0  # artifact faults spent (take_aot_corrupt)
 
     @classmethod
     def parse(cls, raw: str) -> "FaultPlan":
@@ -279,3 +286,16 @@ def dispatch_delay() -> float:
     when inactive)."""
     plan = active_plan()
     return 0.0 if plan is None else plan.delay_s
+
+
+def take_aot_corrupt() -> str | None:
+    """Spend one artifact fault of the plan's ``aot_corrupt`` budget: the
+    kind (``"bitflip"`` or ``"skew"``) to apply to the artifact just saved,
+    or None. The first ``k`` saves are damaged and every later one stays
+    clean; None whenever no plan is active or injection is
+    :func:`suppressed`."""
+    plan = active_plan()
+    if plan is None or plan.aot_corrupted >= plan.aot_corrupt:
+        return None
+    plan.aot_corrupted += 1
+    return plan.aot_corrupt_kind

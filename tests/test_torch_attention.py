@@ -572,3 +572,34 @@ def test_cli_refuses_more_devices():
     assert res.stderr.strip().splitlines()[-1] == (
         "ValueError: Number of devices 2 must be >= the product of "
         "mesh_shape (4,)")
+
+
+def test_cli_forward_checks_the_timed_output(tmp_path, monkeypatch, capsys):
+    """In forward mode both CLIs check the timed output: under
+    ``MOMP_TRACE`` each writes 2 ``ring_attention`` spans (the warm-up and
+    the timed call), the port no third for its parity check. The JAX CLI
+    runs in this process through its own ``main``."""
+    from mpi_and_open_mp_tpu.apps import attention as japp
+    from mpi_and_open_mp_tpu.obs import trace as jtrace
+    from mpi_and_open_mp_tpu_torch.apps import attention as tapp
+    from mpi_and_open_mp_tpu_torch.obs import report
+    from mpi_and_open_mp_tpu_torch.obs import trace as ttrace
+
+    argv = ["--variant", "ring", "--devices", "4", "--seq", "256",
+            "--heads", "2", "--head-dim", "64", "--causal"]
+    spans = {}
+    for name, main, tracer, extra in (
+            ("jax", japp.main, jtrace, []),
+            ("port", tapp.main, ttrace, ["--device", "cpu"])):
+        path = tmp_path / f"{name}.jsonl"
+        monkeypatch.setenv("MOMP_TRACE", str(path))
+        tracer.reset()
+        try:
+            assert main(argv + extra) == 0
+        finally:
+            monkeypatch.delenv("MOMP_TRACE")
+            tracer.reset()
+        assert "parity ok" in capsys.readouterr().err
+        spans[name] = [r["name"] for r in report.load(str(path))].count(
+            "ring_attention")
+    assert spans == {"jax": 2, "port": 2}

@@ -327,7 +327,10 @@ def test_cli_checkpoint_only_no_outdir(tmp_path, capsys, make_board):
                 "--resume", "--print-final-population") == 0
     err = capsys.readouterr().err.splitlines()
     assert err[0].startswith("resuming from checkpoint")
-    assert err[1] == '{"resumed": "step_000005.state", "step": 5}'
+    # The JAX CLI's status line: without a plan store, plan_source
+    # "heuristic" and no plans_installed.
+    assert err[1] == ('{"resumed": "step_000005.state", "step": 5, '
+                      '"plan_source": "heuristic"}')
     assert int(err[-1]) == int(oracle_n(cfg.board(), 10).sum())
 
 

@@ -68,6 +68,11 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.obs import metrics, trace, report\n"
         "assert sparse_sharded.SparseShardedEngine and obs.report\n"
         "assert metrics.snapshot and trace.span and report.report_dict\n"
+        "from mpi_and_open_mp_tpu_torch import tune\n"
+        "from mpi_and_open_mp_tpu_torch.tune import plans, runner, space\n"
+        "from mpi_and_open_mp_tpu_torch.serve import aotcache\n"
+        "assert tune.PlanStore and runner.tune and space.candidates\n"
+        "assert aotcache.AOTCache and plans.load_plan\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
