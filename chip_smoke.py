@@ -352,7 +352,30 @@ Phases, each of which raises (exit code 1) when it fails:
    the ladder; the Life CLI ``--batch 64`` traced on the ladder and with
    ``--plans`` (population 466 432 both, only the path's kernel launched,
    the installed plan in the trace), its elapsed seconds untraced in turns,
-   and a ``--resume --plans`` status line with ``plan_source`` ``store``.
+   and a ``--resume --plans`` status line with ``plan_source`` ``store``;
+25. the serving daemon (``serve/daemon.py``) on the card, the counts set
+   to 0 just before each run and read just after: the Life CLI
+   ``--serve 64 --batch 64`` on p46gun_big on the ladder (only
+   ``bitlife_bitsliced`` launched) and with ``--plans`` of phase 24's
+   64-board plan (only ``bitlife_vmem_batch``), 64/64 resolved, shed and
+   degraded 0, every board phase 5's oracle board (population 7288), both
+   elapsed lines logged; the daemon CLI's 256-ticket burst
+   (``SERVE_BURST``) under ``--wal-fsync every-record`` and
+   ``every-chunk``, every board equal to the plain packed loop run on the
+   card, requests a second, p50/p99, batches, engines and the journal's
+   records, syncs and bytes logged; the cost of padding 40 boards to a
+   64-board ``vmem-grid`` stack; ``MOMP_CHAOS=serve_fail=1`` recovered on
+   a kernel rung (``batch:vmem-grid:recovered``, degraded 1) on the ladder
+   and with the plan; ``preempt=1`` with ``--checkpoint`` (exit 75), then
+   ``--resume --verify`` from the checkpoint; a child daemon under
+   ``crash=post-dispatch:1`` (exit 137) and ``resume_any`` from its
+   journal (the in-flight batch replayed), drained to the plain loop's
+   boards; heat and wireworld 64 x 500^2 buckets at 100 steps with phase
+   24's ``stencil:native`` plans (``stencil_padded`` launched, heat within
+   ``parity_tol_for("offset")`` and wireworld exact against the roll
+   engine on the card); ``--aot-cache`` on 64 x 500^2 at 64 steps twice
+   (a miss, then a hit, both stamped ``aot:bitsliced``); no ticket on the
+   card ever stamped ``batch:plain`` or ``oracle``.
 
 Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -983,15 +1006,19 @@ def kahan_total_np(sums: np.ndarray, shards: int, h: float) -> float:
     return float(np.float32(total * np.float32(h)))
 
 
-def run_cli(main_fn, argv) -> tuple[int, str, str]:
-    """``main_fn(argv)`` in this process: (exit code, stdout, stderr)."""
-    import contextlib
+def captured(fn):
+    """``fn()`` in this process: (its result, stdout, stderr)."""
     import io
 
     out, err = io.StringIO(), io.StringIO()
     with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
-        rc = main_fn(argv)
-    return rc, out.getvalue(), err.getvalue()
+        res = fn()
+    return res, out.getvalue(), err.getvalue()
+
+
+def run_cli(main_fn, argv) -> tuple[int, str, str]:
+    """``main_fn(argv)`` in this process: (exit code, stdout, stderr)."""
+    return captured(lambda: main_fn(argv))
 
 
 def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
@@ -2009,6 +2036,19 @@ TUNE_STENCIL_BUDGET = dict(steps=100, mult=5, reps=2)
 TUNE_SHARDED_BUDGET = dict(steps=32, mult=5, reps=2)
 TUNE_KERNELS = ("vmem_batch", "bitsliced", "fused", "stencil")
 
+# Phase 25: the serving daemon on the card. Its working directory; the
+# daemon CLI's burst (the JAX CLI's mixed-shape defaults scaled to
+# p46gun_big's 500^2 and phase 6's 95x130, 64-board buckets); the kernels a
+# dispatch of its paths launches.
+SERVE_ROOT = os.path.join(ROOT, "build", "chip_smoke_serve")
+SERVE_BURST = ["--requests", "256", "--shapes", "500x500,95x130",
+               "--steps", "1000,100", "--max-batch", "64"]
+SERVE_KERNELS = ("vmem_batch", "bitsliced", "stencil")
+# The second burst's process, hard-killed after its first batch is
+# computed and before its RESOLVE is journaled.
+SERVE_CRASH = ["--requests", "128", "--shapes", "95x130", "--steps", "100",
+               "--max-batch", "64"]
+
 # The second process of phase 24: a fresh store's install, the dispatch it
 # steers, the two damaged launch records loaded, rebuilt and run against
 # the oracle, then the kill switch. Prints one JSON object.
@@ -2110,6 +2150,8 @@ def phase_tune(card: str, wrappers: dict) -> dict:
         res = counted_pass(lambda: tune(workload, shape, store=store,
                                         **TUNE_STENCIL_BUDGET))
         held(f"{workload} {shape}", res, space.candidates(workload, shape))
+        tuned[(workload, shape)] = res["tuned"]["path"]
+        digests[(workload, shape)] = res["digest"]
     mesh = pm.make_mesh_2d(4, 2)
     res = counted_pass(lambda: tune_sharded(
         "life", (500, 500), mesh=mesh, store=store, **TUNE_SHARDED_BUDGET))
@@ -2251,6 +2293,20 @@ def phase_tune(card: str, wrappers: dict) -> dict:
         raise AssertionError(f"phase 24 --resume --plans: {status}")
     log(f"  CLI --resume --plans status line: {json.dumps(status)}")
     nl.clear_planned_paths()
+    # Phase 25 serves with this store's plans: the 64-board Life bucket's
+    # alone (so that a --serve run launches only its kernel), and the two
+    # stencil buckets'.
+    serve_plans = {}
+    for label, keys in (("life", [stack_shape]),
+                        ("stencil", list(TUNE_STENCIL))):
+        serve_plans[label] = os.path.join(SERVE_ROOT, f"plans_{label}")
+        shutil.rmtree(serve_plans[label], ignore_errors=True)
+        os.makedirs(serve_plans[label])
+        for key in keys:
+            for ext in (".plan", ".aot"):
+                src = os.path.join(plans_dir, digests[key] + ext)
+                if os.path.exists(src):
+                    shutil.copy(src, serve_plans[label])
     shutil.rmtree(root, ignore_errors=True)
     budget = {"life": {str(s): b for s, b in TUNE_LIFE},
               "stencils": TUNE_STENCIL_BUDGET,
@@ -2258,7 +2314,345 @@ def phase_tune(card: str, wrappers: dict) -> dict:
     log(f"phase 24 tuning: ok ({time.perf_counter() - t0:.2f} s; budgets "
         f"{json.dumps(budget)})")
     return {"passes": passes, "launches": launches, "cli": cli_rec,
-            "budget": budget}
+            "budget": budget, "serve_plans": serve_plans,
+            "serve_tuned": {"life": tuned[stack_shape],
+                            **{w: tuned[(w, sh)] for w, sh in TUNE_STENCIL}}}
+
+
+def phase_serve(card: str, wrappers: dict, gun_board: np.ndarray,
+                tune_rec: dict) -> dict:
+    """Phase 25 (module docstring): the serving daemon's ticket path on
+    the card. Returns each run's record and the kernels' launches in them.
+    ``gun_board`` is p46gun_big's oracle board at its 10 000 steps."""
+    import shutil
+
+    from mpi_and_open_mp_tpu_torch import stencils
+    from mpi_and_open_mp_tpu_torch.apps import life as life_app
+    from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
+    from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.robust import chaos
+    from mpi_and_open_mp_tpu_torch.serve import ServePolicy, ServingDaemon
+    from mpi_and_open_mp_tpu_torch.serve import daemon as daemon_cli
+    from mpi_and_open_mp_tpu_torch.serve.queue import DONE
+    from mpi_and_open_mp_tpu_torch.tune import PlanStore
+    from mpi_and_open_mp_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    plans = tune_rec["serve_plans"]
+    for workload, path in tune_rec["serve_tuned"].items():
+        want = "vmem-grid" if workload == "life" else "stencil:native"
+        if path != want:
+            raise AssertionError(f"phase 25: phase 24 tuned {workload} "
+                                 f"(64, 500, 500) to {path}, not {want}")
+    work = os.path.join(SERVE_ROOT, "runs")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    counted = {k: wrappers[k] for k in SERVE_KERNELS}
+    launches: dict[str, dict] = {}
+    runs: dict[str, dict] = {}
+    plain_refs: dict[tuple, np.ndarray] = {}
+
+    def counted_run(label, fn):
+        nl.clear_planned_paths()
+        out, counts = run_counted(counted, fn)
+        launches[label] = counts
+        return out
+
+    def card_only(daemon, label):
+        """No ticket on the card ever resolves on the plain loop or the
+        oracle."""
+        bad = sorted({t.engine for t in daemon.queue.tickets()
+                      if t.engine and t.engine.startswith(
+                          ("batch:plain", "oracle"))})
+        if bad:
+            raise AssertionError(f"phase 25 {label}: stamps {bad}")
+
+    def plain_life(boards: np.ndarray, steps: int) -> np.ndarray:
+        """The plain packed loop on CUDA tensors, called directly."""
+        key = (boards.shape, steps, boards.tobytes())
+        if key not in plain_refs:
+            plain_refs[key] = tb.life_run_bits_plain_batch(
+                torch.from_numpy(boards).cuda(), steps).cpu().numpy()
+        return plain_refs[key]
+
+    def held_to_plain(daemon, label):
+        """Every resolved Life board equal to the plain loop's on the card,
+        bucket by bucket."""
+        groups: dict[tuple, list] = {}
+        for t in daemon.queue.tickets():
+            if t.state == DONE:
+                groups.setdefault((t.board.shape, t.steps), []).append(t)
+        for (_, steps), ts in groups.items():
+            want = plain_life(np.stack([t.board for t in ts]), steps)
+            got = np.stack([t.result for t in ts])
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"phase 25 {label}: {int((got != want).sum())} cells "
+                    "differ from the plain loop on the card")
+        card_only(daemon, label)
+
+    def daemon_run(label, argv, *, chaos_spec=None, want_rc=0):
+        with env_set(chaos.ENV, chaos_spec):
+            chaos.reset()
+            try:
+                rc, rec, daemon = counted_run(
+                    label, lambda: daemon_cli.run(argv))
+            finally:
+                chaos.reset()
+        if rc != want_rc:
+            raise AssertionError(f"phase 25 {label}: rc {rc}, "
+                                 f"{json.dumps(rec)[:2000]}")
+        return rec, daemon
+
+    # (a) The Life CLI: --serve 64 --batch 64 on p46gun_big, on the ladder
+    # and with phase 24's plan of the 64-board bucket.
+    cfg = load_config(GUN_BIG)
+    for label, extra, kernel in (("ladder", [], "bitsliced"),
+                                 ("--plans", ["--plans", plans["life"]],
+                                  "vmem_batch")):
+        parser = life_app.build_parser()
+        args = parser.parse_args([GUN_BIG, "--layout", "serial", "--serve",
+                                  "64", "--batch", "64", *extra])
+        (rc, daemon), out, err = counted_run(
+            f"life --serve {label}",
+            lambda: captured(lambda: life_app.serve(args, cfg, parser)))
+        s = daemon.summary()
+        counts = launches[f"life --serve {label}"]
+        ran = [k for k, n in counts.items() if n]
+        pops = {int(t.result.sum()) for t in daemon.queue.tickets()}
+        if (rc != 0 or len(out.split()) != 1 or s["resolved"] != 64
+                or s["shed"] or s["degraded"] or pops != {7288}
+                or "served 64/64 (shed 0, degraded 0" not in err
+                or ran != [kernel]
+                or not all(np.array_equal(t.result, gun_board)
+                           for t in daemon.queue.tickets())):
+            raise AssertionError(f"phase 25 life --serve {label}: rc {rc}, "
+                                 f"{s}, populations {pops}, launches "
+                                 f"{counts}, stderr {err[-500:]!r}")
+        card_only(daemon, f"life --serve {label}")
+        runs[f"life --serve 64 {label}"] = {
+            "elapsed_s": float(out), "engines": s["engines"],
+            "p99_latency_s": s["p99_latency_s"], "launches": counts}
+        log(f"  Life CLI --serve 64 --batch 64 {label}: 64/64 resolved, "
+            f"every board the oracle's (population 7288), "
+            f"{s['engines']}, {kernel} launched {counts[kernel]}x, "
+            f"elapsed {float(out):.6f} s, p99 {s['p99_latency_s']} s "
+            f"[{card}]")
+
+    # (b) The daemon CLI's 256-ticket burst under each journal policy.
+    for fsync in ("every-record", "every-chunk"):
+        label = f"daemon --wal-fsync {fsync}"
+        rec, daemon = daemon_run(label, SERVE_BURST + [
+            "--wal", os.path.join(work, f"{fsync}.wal"),
+            "--wal-fsync", fsync])
+        if rec["resolved"] != 256 or rec["shed"] or rec["degraded"]:
+            raise AssertionError(f"phase 25 {label}: {json.dumps(rec)}")
+        held_to_plain(daemon, label)
+        runs[label] = {k: rec[k] for k in (
+            "requests_per_sec", "wall_sec", "p50_latency_s",
+            "p99_latency_s", "batches", "engines", "wal")}
+        runs[label]["launches"] = launches[label]
+        w = rec["wal"]
+        log(f"  daemon CLI 256 tickets ({' '.join(SERVE_BURST[2:6])}), "
+            f"--wal-fsync {fsync}: {rec['requests_per_sec']} requests/s, "
+            f"wall {rec['wall_sec']} s, p50 {rec['p50_latency_s']} s, p99 "
+            f"{rec['p99_latency_s']} s, {rec['batches']} batches, "
+            f"{rec['engines']}; journal {w['records']} records, "
+            f"{w['syncs']} syncs ({w['sync_seconds']} s), {w['bytes']} "
+            f"bytes; every board the plain loop's [{card}]")
+
+    # Where a dispatch of the burst's 64 x 500^2 chunk spends its time
+    # (host clock around each part, synced; the kernel by CUDA events),
+    # three times.
+    chunk = [t for t in daemon.queue.tickets()
+             if t.board.shape == (500, 500)][:64]
+    validator = daemon._validator((64, 500, 500))
+    parts: dict[str, list] = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts.setdefault(name, []).append(
+            round((time.perf_counter() - t1) * 1e3, 4))
+        return out
+
+    for _ in range(3):
+        stack = timed("host stack ms", lambda: np.stack(
+            [t.board for t in chunk]))
+        dev = timed("to card ms", lambda: torch.from_numpy(stack).cuda())
+        parts.setdefault("kernel path ms", []).append(round(cuda_ms(
+            lambda: nl.life_run_vmem_batch(dev, 1000)), 4))
+        out = nl.life_run_vmem_batch(dev, 1000)
+        host = timed("to host ms", lambda: out.cpu().numpy())
+        timed("validator ms", lambda: validator(host))
+    w = runs["daemon --wal-fsync every-record"]["wal"]
+    parts["fsync ms a record (every-record)"] = round(
+        w["sync_seconds"] / w["syncs"] * 1e3, 4)
+    runs["dispatch breakdown 64 x 500^2, 1000 steps"] = parts
+    log(f"  a 64 x 500^2 dispatch at 1000 steps, by part: {parts} "
+        f"[{card}]")
+
+    # Padding under plans: 40 tickets of 500^2 pad to a 64-board stack
+    # (the board-sliced plane rounding) even where a plan sends the
+    # bucket to vmem-grid. Its cost: 64 boards against 40, 1000 steps.
+    pad = {}
+    stacks = {b: torch.from_numpy(np.stack([gun_board] * b)).cuda()
+              for b in (64, 40)}
+    for b, stack in stacks.items():  # each geometry's first launch
+        nl.run_path_batch("vmem-grid", stack, 8)
+    for b in (64, 40, 40, 64):
+        pad.setdefault(b, []).append(cuda_ms(
+            lambda: nl.run_path_batch("vmem-grid", stacks[b], 1000), 3))
+    del stacks
+    runs["padding under plans"] = {"vmem-grid 1000 steps ms": pad}
+    log(f"  padding under plans: vmem-grid 1000 steps of 64 x 500^2 "
+        f"{pad[64]} ms against 40 x 500^2 {pad[40]} ms (CUDA events, 3 "
+        f"calls each, in turns) [{card}]")
+
+    # (c) Recovery on the card. serve_fail=1 on the ladder (the cell-packed
+    # rung) and with the plan (the primary's clean re-run).
+    for label, extra, stamp in (
+            ("serve_fail ladder", [], "batch:vmem-grid:recovered"),
+            ("serve_fail --plans", ["--plans", plans["life"]],
+             "batch:vmem-grid:recovered")):
+        rec, daemon = daemon_run(label, [
+            "--requests", "64", "--shapes", "500x500", "--steps", "100",
+            "--max-batch", "64", *extra], chaos_spec="serve_fail=1")
+        if (rec["resolved"] != 64 or rec["degraded"] != 1
+                or rec["engines"] != {stamp: 64}):
+            raise AssertionError(f"phase 25 {label}: {json.dumps(rec)}")
+        held_to_plain(daemon, label)
+        runs[label] = {"engines": rec["engines"],
+                       "launches": launches[label]}
+        log(f"  {label}: degraded 1, {rec['engines']}, launches "
+            f"{launches[label]}, boards the plain loop's")
+
+    # preempt=1 with a checkpoint: exit 75; --resume --verify drains the
+    # rest from the checkpoint, every board held to the NumPy oracle.
+    ck = os.path.join(work, "queue.state")
+    burst = ["--requests", "128", "--shapes", "95x130", "--steps", "100",
+             "--max-batch", "64"]
+    rec1, daemon = daemon_run("preempt", burst + ["--checkpoint", ck],
+                              chaos_spec="preempt=1", want_rc=75)
+    card_only(daemon, "preempt")
+    rec2, daemon = daemon_run("resume", [
+        "--requests", "0", "--resume", "--checkpoint", ck, "--verify",
+        "--max-batch", "64"])
+    if (not rec1["preempted"] or rec1["resolved"] != 64
+            or rec2["resume_source"] != "checkpoint"
+            or rec2["resolved"] != 64 or not rec2["verified"]):
+        raise AssertionError(f"phase 25 preempt/resume: {json.dumps(rec1)} "
+                             f"{json.dumps(rec2)}")
+    card_only(daemon, "resume")
+    log(f"  preempt=1: exit 75 after {rec1['batches']} batch, 64 resolved, "
+        f"64 checkpointed; --resume --verify: source checkpoint, 64 "
+        f"resolved, verified against the oracle, {rec2['engines']}")
+
+    # crash=post-dispatch:1 in a child daemon: exit 137 with the batch
+    # computed and unjournaled; resume_any replays it from the journal.
+    walp = os.path.join(work, "crash.wal")
+    t1 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "mpi_and_open_mp_tpu_torch.serve.daemon",
+         *SERVE_CRASH, "--wal", walp],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
+                           **{chaos.ENV: "crash=post-dispatch:1"}),
+        capture_output=True, text=True, timeout=300)
+    if child.returncode != chaos.CRASH_EXIT:
+        raise AssertionError(f"phase 25 crash child: rc {child.returncode}"
+                             f", {child.stderr[-2000:]}")
+    def crash_resume():
+        d, source, detail = ServingDaemon.resume_any(
+            wal_path=walp, policy=ServePolicy(max_batch=64, max_wait_s=0.0))
+        d.drain()
+        return d, source, detail
+
+    daemon, source, detail = counted_run("crash resume", crash_resume)
+    rep = detail["wal_replay"]
+    s = daemon.summary()
+    if (source != "wal" or rep["pending"] != 128 or rep["in_flight"] != 64
+            or s["resolved"] != 128 or s["pending"]):
+        raise AssertionError(f"phase 25 crash resume: {source} {detail} "
+                             f"{s}")
+    held_to_plain(daemon, "crash resume")
+    runs["crash"] = {"replay": rep, "engines": s["engines"]}
+    log(f"  crash=post-dispatch:1: child exit 137 "
+        f"({time.perf_counter() - t1:.2f} s); resume_any from the journal: "
+        f"{rep['pending']} pending, {rep['in_flight']} in flight, drained "
+        f"{s['resolved']}, {s['engines']}, boards the plain loop's")
+
+    # (d) Heat and wireworld 64 x 500^2 buckets, 100 steps, with phase
+    # 24's stencil:native plans installed.
+    rng = np.random.default_rng(46)
+    specs = [stencils.get(n) for n in ("heat", "wireworld")]
+    boards = {sp.name: np.stack([sp.init(rng, (500, 500))
+                                 for _ in range(64)]) for sp in specs}
+
+    def stencil_serve():
+        # Admission projects a growing bucket's pow2 padding: a bucket
+        # that ends full must not be shed on its way there.
+        d = ServingDaemon(ServePolicy(max_batch=64, max_depth=256,
+                                      max_padding_frac=1.0, max_wait_s=0.0),
+                          plan_store=PlanStore(plans["stencil"]))
+        for sp in specs:
+            for b in boards[sp.name]:
+                d.submit(b, 100, workload=sp.name)
+        d.serve()
+        return d
+
+    daemon = counted_run("stencil buckets", stencil_serve)
+    s = daemon.summary()
+    if s["resolved"] != 128:
+        raise AssertionError(f"phase 25 stencil buckets: {s}")
+    errs = {}
+    for sp in specs:
+        ts = [t for t in daemon.queue.tickets() if t.workload == sp.name]
+        got = np.stack([t.result for t in ts])
+        want = stencils.run_roll_batch(
+            sp, torch.from_numpy(boards[sp.name]).cuda(), 100).cpu().numpy()
+        errs[sp.name] = float(np.abs(got.astype(np.float64) - want).max())
+        ok = (stencils.parity_ok(sp, got, want,
+                                 **stencils.parity_tol_for("offset"))
+              if sp.is_float else np.array_equal(got, want))
+        if not ok or {t.engine for t in ts} != {
+                f"batch:stencil-native:{sp.name}"}:
+            raise AssertionError(f"phase 25 {sp.name} bucket: max err "
+                                 f"{errs[sp.name]}, {s['engines']}")
+    if s["plans_installed"] != 2 or not launches["stencil buckets"][
+            "stencil"]:
+        raise AssertionError(f"phase 25 stencil buckets: {s}, launches "
+                             f"{launches['stencil buckets']}")
+    card_only(daemon, "stencil buckets")
+    runs["stencil buckets"] = {"engines": s["engines"], "max_abs_err": errs,
+                               "launches": launches["stencil buckets"]}
+    log(f"  heat and wireworld 64 x 500^2, 100 steps, plans installed: "
+        f"{s['engines']}, stencil_padded launched "
+        f"{launches['stencil buckets']['stencil']}x; max |err| against "
+        f"the roll engine on the card {errs} (heat within "
+        f"parity_tol_for('offset'), wireworld exact)")
+
+    # (e) The launch-record rung: 64 x 500^2 at 64 steps, twice.
+    aot_dir = os.path.join(work, "aot")
+    for label, status in (("aot miss", "misses"), ("aot hit", "hits")):
+        rec, daemon = daemon_run(label, [
+            "--requests", "64", "--shapes", "500x500", "--steps", "64",
+            "--max-batch", "64", "--aot-cache", aot_dir])
+        if (rec["engines"] != {"aot:bitsliced": 64} or not rec["aot"][status]
+                or (label == "aot hit" and rec["aot"]["misses"])):
+            raise AssertionError(f"phase 25 {label}: {json.dumps(rec)}")
+        held_to_plain(daemon, label)
+        runs[label] = {"engines": rec["engines"], "aot": rec["aot"]}
+        log(f"  --aot-cache {label}: {rec['engines']}, aot stats "
+            f"{rec['aot']}, boards the plain loop's")
+
+    nl.clear_planned_paths()
+    shutil.rmtree(SERVE_ROOT, ignore_errors=True)
+    totals = {k: sum(c[k] for c in launches.values()) for k in SERVE_KERNELS}
+    log(f"phase 25 serving: ok ({time.perf_counter() - t0:.2f} s; launches "
+        f"{totals})")
+    return {"runs": runs, "launches": launches, "totals": totals}
 
 
 def life_ops_oracle(cfg, n: int) -> np.ndarray:
@@ -4899,6 +5293,9 @@ def main() -> int:
     # ------------------------ 24. tune: plans, launch records, --plans
     tune_rec = phase_tune(card, wrappers)
 
+    # ------------- 25. serving: the daemon's ticket path on the kernels
+    serve_rec = phase_serve(card, wrappers, gun_serial, tune_rec)
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -5168,11 +5565,22 @@ def main() -> int:
         if key:
             row["launches_tune"] = tune_rec["launches"][key]
             row["launches"] += tune_rec["launches"][key]
+    # Phase 25's serving runs, beside the main path's launches.
+    serve_keys = {"bitlife_vmem_batch": "vmem_batch",
+                  "bitlife_bitsliced": "bitsliced",
+                  "stencil_padded": "stencil"}
+    for row in kernels:
+        key = serve_keys.get(row["name"])
+        if key:
+            row["launches_serve"] = {run: c[key] for run, c in
+                                     serve_rec["launches"].items()}
+            row["launches"] += serve_rec["totals"][key]
     kernels.append(quadrature_row)
     log(f"obs, untraced against traced seconds: "
         f"{json.dumps(obs_rec['untraced_vs_traced_s'])}")
     log(f"tune: {json.dumps({k: {'tuned': v['tuned']['path'], 'vs_heuristic': v['vs_heuristic']} for k, v in tune_rec['passes'].items()})}; "
         f"CLI {json.dumps(tune_rec['cli'])}")
+    log(f"serve: {json.dumps(serve_rec['runs'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

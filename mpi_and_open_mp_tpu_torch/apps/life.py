@@ -38,6 +38,18 @@ checkpoints, recoveries) land in PATH as JSON lines (read them with
 with ``torch.profiler`` (CPU and, on the card, CUDA activities) and writes
 a Chrome trace into DIR.
 
+Serving: ``--serve N`` pushes N copies of the cfg board through the
+serving daemon (``serve.daemon``: admission, bucket deadlines, the engine
+ladder on the card), ``--batch B`` capping a bucket (default 8). The
+stdout line is the drain's elapsed seconds, and ``served r/n (shed,
+degraded, p99)`` goes to stderr. SIGTERM (or ``MOMP_CHAOS=preempt=<k>``,
+after ``k`` batches) drains the in-flight batch, checkpoints the queue as
+``serve_queue.state`` under ``--checkpoint-dir`` and exits 75; a bare
+``--resume`` over that checkpoint re-enters serving. ``--serve`` needs
+``--layout serial`` and refuses ``--outdir``::
+
+    python -m mpi_and_open_mp_tpu_torch.apps.life configs/gun_big_500x500.cfg --layout serial --serve 64 --batch 64
+
 Tuned plans: ``--plans DIR`` (or ``MOMP_TUNE_PLANS``) names a store that
 ``tune`` wrote; its records are validated, held against the oracle and
 installed before the sim is built, so a batched run dispatches the
@@ -93,6 +105,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "elapsed line then covers B boards' worth of "
                         "updates, and the final population is the sum over "
                         "the stack")
+    p.add_argument("--serve", type=int, default=0, metavar="N",
+                   help="serving mode: push N copies of the cfg board "
+                        "through the serving daemon (admission, bucket "
+                        "deadlines, retry and recovery ladder). SIGTERM "
+                        "drains the in-flight batch, checkpoints the queue "
+                        "under --checkpoint-dir and exits 75; --resume "
+                        "restores it. Prints the drain's elapsed seconds. "
+                        "Needs --layout serial; --batch B caps the bucket "
+                        "(default 8); excludes --outdir")
     p.add_argument("--outdir", default=None,
                    help="write VTK snapshots here (default: no saves)")
     p.add_argument("--times-file", default=None,
@@ -245,6 +266,83 @@ def _resume(args, cfg, kwargs, store=None, plans_installed=None):
     return sim
 
 
+#: The serving queue's drain checkpoint under ``--checkpoint-dir``.
+SERVE_CHECKPOINT = "serve_queue.state"
+
+
+def serve_checkpoint(args) -> str | None:
+    return (os.path.join(args.checkpoint_dir, SERVE_CHECKPOINT)
+            if args.checkpoint_dir else None)
+
+
+def serving(args) -> bool:
+    """``--serve N``, or a bare ``--resume`` over a serving checkpoint: a
+    requeued serving job must drain its tickets, not start a simulation."""
+    ckpt = serve_checkpoint(args)
+    return bool(args.serve or (args.resume and ckpt
+                               and os.path.exists(ckpt)))
+
+
+def serve(args, cfg, parser) -> tuple[int, object | None]:
+    """The cfg board as ``--serve`` tickets through the serving daemon on
+    ``--device``; returns the exit code and the daemon (None when it
+    could not be built). The stdout line is the drain's elapsed seconds,
+    the service summary goes to stderr. Preemption checkpoints the queue
+    (with ``--checkpoint-dir``) and returns 75."""
+    from mpi_and_open_mp_tpu_torch.obs import trace
+    from mpi_and_open_mp_tpu_torch.serve import ServePolicy, ServingDaemon
+
+    if args.layout != "serial":
+        parser.error("--serve needs --layout serial "
+                     "(a bucket is one single-program dispatch)")
+    if args.outdir:
+        parser.error("--serve is a serving mode: drop --outdir")
+    ckpt = serve_checkpoint(args)
+    policy = ServePolicy(max_batch=args.batch or 8,
+                         max_depth=max(64, 2 * args.serve))
+    # The daemon installs the store when it is built, so every resume
+    # comes up tuned before its first dispatch.
+    store = _plan_store(args)
+    if args.resume:
+        if not ckpt:
+            parser.error("--serve --resume needs --checkpoint-dir")
+        try:
+            daemon = ServingDaemon.resume(ckpt, policy, plan_store=store,
+                                          device=args.device)
+        except ValueError as e:
+            print(f"--serve --resume: {e}", file=sys.stderr)
+            return 2, None
+        print(f"resuming {daemon.queue.depth()} queued tickets from "
+              f"{ckpt}", file=sys.stderr)
+        print(json.dumps({
+            "resumed": "serve_queue", "tickets": daemon.queue.depth(),
+            **_plan_fields(store, cfg, policy.max_batch)}),
+            file=sys.stderr)
+    else:
+        daemon = ServingDaemon(policy, checkpoint_path=ckpt,
+                               plan_store=store, device=args.device)
+    board = cfg.board()
+    for _ in range(args.serve):
+        daemon.submit(board, cfg.steps)
+    t0 = time.perf_counter()
+    try:
+        with trace.span("life.serve", cfg=os.path.basename(args.cfg),
+                        requests=args.serve, steps=cfg.steps):
+            daemon.serve()
+    except Preempted as e:
+        print(f"{e} -- requeue with --serve --resume", file=sys.stderr)
+        return EXIT_PREEMPTED, daemon
+    elapsed = time.perf_counter() - t0
+    print(f"{elapsed:.6f}")
+    if args.times_file:
+        append_times_txt(args.times_file, elapsed)
+    s = daemon.summary()
+    print(f"served {s['resolved']}/{s['requests']} "
+          f"(shed {s['shed']}, degraded {s['degraded']}, "
+          f"p99 {s['p99_latency_s']}s)", file=sys.stderr)
+    return 0, daemon
+
+
 def make_mesh(args):
     """The mesh the flags ask for, or None for LifeSim's default (one
     shard per device)."""
@@ -271,8 +369,16 @@ def make_mesh(args):
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.serve < 0:
+        parser.error("--serve must be >= 1")
     if args.batch < 0:
         parser.error("--batch must be >= 1")
+    if serving(args):
+        # Serving is its own mode: the daemon owns batching, retries
+        # and the queue checkpoint.
+        if args.trace:
+            os.environ["MOMP_TRACE"] = args.trace
+        return serve(args, load_config(args.cfg), parser)[0]
     if args.batch and args.layout != "serial":
         parser.error("--batch needs --layout serial "
                      "(a batch is one single-program dispatch)")

@@ -17,13 +17,14 @@ same error. Tokens with a hook in the port:
     (``parallel.haloplan._rdma_frame``).
 ``delay=<seconds>``
     A host-side delay before every segment of a ``LifeSim.run`` that runs
-    segments, and inside ``parallel.fabric.ping``'s timed bracket
-    (:func:`dispatch_delay`: a congested fabric, as in the JAX package's
-    probe).
+    segments, inside ``parallel.fabric.ping``'s timed bracket, and before
+    each attempt of a serving dispatch (:func:`dispatch_delay`: a
+    congested fabric, as in the JAX package).
 ``preempt=<step>``
     :class:`~mpi_and_open_mp_tpu_torch.robust.preempt.SimulatedPreemption`
     when a ``LifeSim.run`` crosses global step ``<step>``, after flushing a
-    checkpoint when one is configured.
+    checkpoint when one is configured; the serving daemon reads it in
+    batches: it drains after dispatching ``<step>`` batches.
 ``nan_hop=<j>`` / ``inf_hop=<j>``
     Ring attention's K/V blocks arrive at hop ``j`` of the forward with a
     NaN or Inf added, on every shard of the stack: the hop engines and the
@@ -44,9 +45,31 @@ same error. Tokens with a hook in the port:
     ``bitflip`` flips one bit mid-file (the next load is ``corrupt``),
     ``skew`` rewrites the key with a foreign ``torch`` version (``stale``).
 
-The ``serve_fail``, ``crash`` and ``kill_worker`` tokens (the serving
-daemon, its journal and fleet) parse, but the layers they hook into are not
-ported yet (ROADMAP Queue 1 item 9), so nothing reads them.
+``serve_fail=<k>``
+    The first ``k`` batch dispatches of the serving daemon fail at their
+    primary engine (:func:`take_serve_fault`), which drives the daemon's
+    engine ladder and retries (``serve.daemon``).
+``crash=<site>:<k>``
+    ``os._exit(CRASH_EXIT)`` (137, as a SIGKILL reports: no atexit, no
+    ``finally``, no flush) at the ``k``-th arrival at the named site
+    (:func:`crash_armed`, :func:`crash_now`). Hooked: ``post-admit`` (a
+    ticket admitted, its journal record not yet written), ``mid-frame``
+    (half a journal frame written, ``serve.wal``) and ``post-dispatch`` (a
+    batch computed, its RESOLVE record not yet written). The sites of the
+    session pool (``post-create``, ``post-step``, ``post-snapshot``,
+    ``post-evict``) and of the fleet (``post-rejoin``, ``mid-drain``) parse
+    as in the JAX package; their layers are not ported yet (ROADMAP Queue
+    1 item 9), so nothing arrives at them.
+``kill_worker=<i>:<k>``
+    The daemon whose ``worker_index`` is ``i`` dies as ``crash`` does at
+    its ``k``-th batch dispatch, after the DISPATCH record is journaled
+    (:func:`kill_worker_armed`). A daemon's index is its constructor's
+    ``worker_index``; the fleet that numbers its workers is not ported
+    yet.
+
+Hit counters (:attr:`FaultPlan.serve_failed`, ``crash_hits``,
+``kill_worker_hits``, ``aot_corrupted``) count in this process, as the JAX
+package's do.
 
 The JAX package decides injection when it traces a program, so a fault
 stays in that program until a rebuild under :func:`suppressed`. The port's
@@ -77,6 +100,10 @@ CRASH_SITES = ("post-admit", "mid-frame", "post-dispatch",
                "post-create", "post-step", "post-snapshot", "post-evict",
                "post-rejoin", "mid-drain")
 
+#: The exit status of an injected hard kill: 128 + SIGKILL, so a requeue
+#: loop cannot tell it from a real ``kill -9``.
+CRASH_EXIT = 137
+
 #: Artifact-damage modes of the ``aot_corrupt=<kind>:<k>`` token.
 AOT_CORRUPT_KINDS = ("bitflip", "skew")
 
@@ -84,9 +111,7 @@ AOT_CORRUPT_KINDS = ("bitflip", "skew")
 @dataclasses.dataclass
 class FaultPlan:
     """A parsed ``MOMP_CHAOS`` spec and its runtime state: the preemption
-    latch and the artifact faults spent. The parsed fields are the JAX
-    package's; its other hit counters belong to hooks that are not ported,
-    and are left out."""
+    latch and the hit counters, the JAX package's fields."""
 
     raw: str
     seed: int = 0
@@ -96,11 +121,14 @@ class FaultPlan:
     preempt_step: int | None = None
     guard: bool = True
     preempt_fired: bool = False  # in-process refire latch
-    serve_fail: int = 0
+    serve_fail: int = 0  # serve-dispatch faults to inject
+    serve_failed: int = 0  # of them spent (take_serve_fault)
     crash_site: str | None = None
-    crash_at: int = 0
+    crash_at: int = 0  # the arrival at crash_site that kills, 1-based
+    crash_hits: int = 0  # arrivals counted (crash_armed)
     kill_worker_idx: int | None = None
-    kill_worker_at: int = 0
+    kill_worker_at: int = 0  # the dispatch of that worker that kills
+    kill_worker_hits: int = 0  # its dispatches counted (kill_worker_armed)
     aot_corrupt_kind: str | None = None
     aot_corrupt: int = 0
     aot_corrupted: int = 0  # artifact faults spent (take_aot_corrupt)
@@ -299,3 +327,48 @@ def take_aot_corrupt() -> str | None:
         return None
     plan.aot_corrupted += 1
     return plan.aot_corrupt_kind
+
+
+def take_serve_fault() -> bool:
+    """Spend one serve-dispatch fault of the plan's ``serve_fail`` budget:
+    True means this dispatch must fail (the daemon's primary engine
+    raises). The first ``k`` calls return True and every later one False;
+    False whenever no plan is active or injection is :func:`suppressed`,
+    so a recovery rung runs clean."""
+    plan = active_plan()
+    if plan is None or plan.serve_failed >= plan.serve_fail:
+        return False
+    plan.serve_failed += 1
+    return True
+
+
+def crash_armed(site: str) -> bool:
+    """Count one arrival at ``site``; True exactly when it is the plan's
+    ``k``-th there. The caller then tears what the site tears (half a
+    frame, or nothing) and calls :func:`crash_now`. No counting when no
+    plan targets ``site`` or injection is :func:`suppressed`."""
+    plan = active_plan()
+    if plan is None or plan.crash_site != site:
+        return False
+    plan.crash_hits += 1
+    return plan.crash_hits == plan.crash_at
+
+
+def kill_worker_armed(worker_index: int | None) -> bool:
+    """Count one batch dispatch of worker ``worker_index``; True exactly
+    when it is the planned victim's ``k``-th, and the caller then calls
+    :func:`crash_now`. No counting for a daemon without an index, another
+    index, no plan, or :func:`suppressed` injection."""
+    plan = active_plan()
+    if (plan is None or worker_index is None
+            or plan.kill_worker_idx != worker_index):
+        return False
+    plan.kill_worker_hits += 1
+    return plan.kill_worker_hits == plan.kill_worker_at
+
+
+def crash_now() -> None:
+    """Die as hard as ``kill -9``: ``os._exit`` runs no atexit hook, no
+    ``finally`` and flushes nothing, so only what was already written to
+    the journal survives."""
+    os._exit(CRASH_EXIT)

@@ -1,13 +1,32 @@
-"""Micro-batching front door over the batched Life engines.
+"""The serving layer over the batched kernels.
 
-Callers :meth:`~ShapeBucketBatcher.submit` independent boards;
-:meth:`~ShapeBucketBatcher.flush` groups them into shape buckets and
-advances each bucket's stack at once through
-``ops.native_life.life_run_vmem_batch``. ``serve.aotcache`` keeps the
-launch record of each bucket (path, planner geometry, library hashes) on
-disk. Counterpart of the JAX package's ``serve`` package (its batcher and
-AOT cache; the policy, queue, journal, pool, daemon and fleet are not
-ported yet).
+Counterpart of the JAX package's ``serve`` package. Ported:
+
+``batcher``
+    :class:`ShapeBucketBatcher`: callers submit independent boards,
+    ``flush`` groups them into shape buckets and advances each bucket's
+    stack at once (``ops.native_life.life_run_vmem_batch`` for Life, the
+    spec's roll engine for other rules).
+``policy``
+    :class:`ServePolicy`: admission (depth, padding waste), deadlines,
+    retry budget; the ``SHED_*`` vocabulary; the fleet's elasticity
+    policy and controller.
+``queue``
+    :class:`ServeQueue` and :class:`Ticket`: the ticket ledger, buckets,
+    deadlines, the drain checkpoint's tree (the JAX package's).
+``wal``
+    :class:`TicketWAL` and :func:`replay`: the write-ahead journal,
+    byte-compatible with the JAX package's.
+``aotcache``
+    :class:`AOTCache`: each bucket's launch record (path, planner
+    geometry, library hashes) on disk.
+``daemon``
+    :class:`ServingDaemon`: the supervised loop, its engine ladder on the
+    card, retries, preemption drain and the resume ladder (journal,
+    checkpoint, fresh); ``python -m mpi_and_open_mp_tpu_torch.serve.daemon``.
+
+Not ported yet (ROADMAP Queue 1 item 9): the resident-session pool, then
+the router, fleet and load generator.
 """
 
 from mpi_and_open_mp_tpu_torch.serve.batcher import (  # noqa: F401
@@ -15,3 +34,29 @@ from mpi_and_open_mp_tpu_torch.serve.batcher import (  # noqa: F401
     bucket_batch_size,
     retrace_counts,
 )
+from mpi_and_open_mp_tpu_torch.serve.policy import (  # noqa: F401
+    SCALE_ADD,
+    SCALE_DRAIN,
+    SHED_DEPTH,
+    SHED_DISPATCH,
+    SHED_PADDING,
+    SHED_REASONS,
+    SHED_REHOMED,
+    SHED_TIMEOUT,
+    ElasticController,
+    ElasticityPolicy,
+    ServePolicy,
+    rollup,
+)
+from mpi_and_open_mp_tpu_torch.serve.queue import (  # noqa: F401
+    ServeQueue,
+    Ticket,
+)
+from mpi_and_open_mp_tpu_torch.serve.wal import (  # noqa: F401
+    FSYNC_POLICIES,
+    TicketWAL,
+    WALReplay,
+    replay,
+)
+from mpi_and_open_mp_tpu_torch.serve.aotcache import AOTCache  # noqa: F401
+from mpi_and_open_mp_tpu_torch.serve.daemon import ServingDaemon  # noqa: F401

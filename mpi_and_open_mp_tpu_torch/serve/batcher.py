@@ -18,7 +18,8 @@ batched runners' ``jit.retrace`` ticks, one per stack geometry
 (``ops.bitlife._note_retrace``): a flush over K shape buckets sums to K.
 
 Not ported yet: the resident-session pool behind ``submit_session``
-(ROADMAP Queue 1 item 9).
+(ROADMAP Queue 1 item 9, its pool split: ``lane_change_bits``, the
+session rung, the pool's crash modes).
 """
 
 from __future__ import annotations
@@ -82,6 +83,10 @@ def retrace_counts() -> dict[str, int]:
         if n:
             out[fn] = int(n)
     return out
+
+
+#: Where the resident-session pool stands in the ROADMAP.
+POOL_SPLIT = "9, its pool split"
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -163,7 +168,7 @@ class ShapeBucketBatcher:
     def submit_session(self, session: str, steps: int) -> int:
         """Resident-session steps need the session pool, not ported yet."""
         raise _not_ported("submit_session (the resident-session pool)",
-                          "9 (serving stack)")
+                          POOL_SPLIT)
 
     def bucket_keys(self) -> list[tuple]:
         """The distinct buckets currently queued, in first-submission

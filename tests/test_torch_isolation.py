@@ -73,6 +73,11 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.serve import aotcache\n"
         "assert tune.PlanStore and runner.tune and space.candidates\n"
         "assert aotcache.AOTCache and plans.load_plan\n"
+        "from mpi_and_open_mp_tpu_torch.serve import policy, queue, wal\n"
+        "from mpi_and_open_mp_tpu_torch.serve import daemon\n"
+        "from mpi_and_open_mp_tpu_torch.robust import watchdog\n"
+        "assert policy.ServePolicy and queue.ServeQueue and wal.replay\n"
+        "assert daemon.ServingDaemon and watchdog.backoff_schedule\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
