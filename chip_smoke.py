@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the eleven sources (twelve kernels) of
+1. build the twelve sources (fifteen kernels) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel, each one's
    build seconds logged; for each kernel of ``flash_fwd`` and
    ``flash_hop_bwd`` its registers and spills (``-Xptxas -v``), and its
@@ -375,7 +375,32 @@ Phases, each of which raises (exit code 1) when it fails:
    ``parity_tol_for("offset")`` and wireworld exact against the roll
    engine on the card); ``--aot-cache`` on 64 x 500^2 at 64 steps twice
    (a miss, then a hit, both stamped ``aot:bitsliced``); no ticket on the
-   card ever stamped ``batch:plain`` or ``oracle``.
+   card ever stamped ``batch:plain`` or ``oracle``;
+26. the resident-session pool (``serve/pool.py``) on the card, the counts
+   set to 0 just before each run and read just after: ``pool_step_tail``
+   against its plain version on slabs of 1 and 2 planes at 1x7, 7x1, 3x3,
+   48^2, 95x130 and 500^2 under a random, an all-set, an empty and a
+   lane-31 mask, ``pool_lane_write`` and ``pool_lane_read`` at lanes 0, 31,
+   32 and 63, and whole dispatches (``bitlife_bitsliced`` for s - 1 steps,
+   then the tail) against the plain masked step, all exact; p46gun_big and
+   39 soups of 500^2 (``spec.init(default_rng(46))``) in two slabs, a lone
+   step, a 32-lane group and both slabs, 10 000 steps in all, p46gun_big's
+   snapshot the oracle's (population 7288) and every soup row 4's board;
+   the default 64 MiB budget filled (67 one-plane slabs of 500^2, 2144
+   sessions from 64 boards), rounds of 100 steps over every session
+   (session-steps a second, Gcups, launches, peak memory), one create more
+   spilling exactly one LRU session, its snapshot from the host copy, its
+   next step a ``pool.miss``, every session row 4's board; 31 of 32
+   evicted and a compaction, the survivor bit-equal; a slab of still lifes
+   skipping its second dispatch with no launch, a blinker and a mixed slab
+   never; ``submit_session`` tickets through the daemon's ``pump``
+   (``pool:bitsliced``); the JAX bench's resident A/B (``bench.py:775-870``)
+   at 1024 x 48^2 and 256 x 500^2, each side's boards row 4's before any
+   number (``session_vs_ship``, p50, p99); a crash-driver child killed at
+   ``post-step`` in ``pool`` and in ``settled`` mode, each journal resumed
+   to the acked ledger; each pool kernel's device ms a launch at a 500^2
+   and a 48^2 plane beside its plain version and bound, and a 1000-step
+   dispatch at 500^2 against ``bitsliced_steps(slab, 1000)``.
 
 Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -2655,6 +2680,563 @@ def phase_serve(card: str, wrappers: dict, gun_board: np.ndarray,
     return {"runs": runs, "launches": launches, "totals": totals}
 
 
+# Phase 26: the resident-session pool, on POOL_DEV (the card).
+POOL_DEV = torch.device("cuda")
+POOL_ROOT = os.path.join(ROOT, "build", "chip_smoke_pool")
+# The JAX bench's resident-session A/B (bench.py:775-870): soups at density
+# 0.3 from default_rng(48), 4 steps a round, 8 rounds, max_batch 8; at 1024
+# sessions of its 48^2 and 256 of p46gun_big's 500^2.
+POOL_AB = ((48, 1024), (500, 256))
+POOL_AB_ROUNDS, POOL_AB_STEPS, POOL_AB_SEED, POOL_AB_DENSITY = 8, 4, 48, 0.3
+# pool_step_tail against its plain version: plane extents (a 1-row and a
+# 1-column torus, whose neighbours alias the cell, the bench's, 95x130, the
+# flagship's), slabs of 1 and 2 planes, four masks each.
+POOL_TAIL_SHAPES = ((1, 7), (7, 1), (3, 3), (48, 48), (95, 130), (500, 500))
+POOL_MASKS = ("random", "all", "empty", "lane 31")
+# The default budget (serve/pool.py:95-98) filled with 500^2 one-plane
+# slabs of 1 000 000 bytes: 67 slabs of 32 sessions from 64 distinct
+# boards; rounds of one step_group over every session.
+POOL_BUDGET_ROUNDS, POOL_BUDGET_STEPS, POOL_BUDGET_BOARDS = 3, 100, 64
+# Operations a board-sliced word of the tail: the rule's 15, one 3-input
+# LOP3 for the masked merge, an XOR and an OR for the change word.
+POOL_TAIL_OPS_PER_WORD = OPS_PER_SLICED_WORD_STEP + 3
+# Phase 26's kernels, as main names their wrappers.
+POOL_KERNELS = ("bitsliced", "pool_step_tail", "pool_lane_write",
+                "pool_lane_read")
+
+
+def pool_words(g, shape) -> torch.Tensor:
+    """Random int32 words (every bit, the sign bit too) on POOL_DEV."""
+    return torch.randint(-2**31, 2**31, shape, generator=g, device=POOL_DEV,
+                         dtype=torch.int64).to(torch.int32)
+
+
+def pool_mask(g, kind: str, planes: int) -> torch.Tensor:
+    if kind == "random":
+        return pool_words(g, (planes,))
+    fill = {"all": -1, "empty": 0, "lane 31": -2**31}[kind]
+    return torch.full((planes,), fill, dtype=torch.int32, device=POOL_DEV)
+
+
+def pool_kernel_checks() -> dict:
+    """``pool_step_tail``, ``pool_lane_write`` and ``pool_lane_read``
+    against their plain versions, every word equal; then whole dispatches
+    (row 5 for s - 1 steps, then the tail) against the plain masked step.
+    Returns the case counts."""
+    from mpi_and_open_mp_tpu_torch.ops import native_pool as npl
+
+    g = torch.Generator(device=POOL_DEV).manual_seed(26)
+    cases = {"pool_step_tail": 0, "pool_lane_write": 0, "pool_lane_read": 0,
+             "pool_step": 0}
+    for planes in (1, 2):
+        for shape in POOL_TAIL_SHAPES:
+            for kind in POOL_MASKS:
+                prev = pool_words(g, (planes, *shape))
+                slab = pool_words(g, (planes, *shape))
+                mask = pool_mask(g, kind, planes)
+                keep = prev.clone()
+                want, got = slab.clone(), slab.clone()
+                want_change = npl._pool_step_tail_plain(prev, want, mask)
+                got_change = npl.pool_step_tail(prev, got, mask)
+                if (not torch.equal(got, want)
+                        or not torch.equal(got_change, want_change)
+                        or not torch.equal(prev, keep)):
+                    raise AssertionError(
+                        f"phase 26 pool_step_tail {planes} x {shape}, mask "
+                        f"{kind}: {diff_count(got, want)} words and "
+                        f"{diff_count(got_change, want_change)} change "
+                        "words differ from the plain version")
+                cases["pool_step_tail"] += 1
+    for shape in ((48, 48), (500, 500)):
+        slab = pool_words(g, (2, *shape))
+        for lane in (0, 31, 32, 63):
+            plane, bit = divmod(lane, 32)
+            board = (torch.rand(shape, generator=g, device=POOL_DEV)
+                     < 0.4).to(torch.uint8)
+            want, got = slab.clone(), slab.clone()
+            npl._lane_write_plain(want, board, plane, bit)
+            npl.pool_lane_write(got, board, plane, bit)
+            read = npl.pool_lane_read(got, plane, bit)
+            if (not torch.equal(got, want) or not torch.equal(
+                    read, npl._lane_read_plain(want, plane, bit))
+                    or not torch.equal(read, board)):
+                raise AssertionError(f"phase 26 lane {lane} at {shape}: the "
+                                     "write or the read differs")
+            cases["pool_lane_write"] += 1
+            cases["pool_lane_read"] += 1
+        for steps in (1, 2, 7, 33):
+            slab = pool_words(g, (1, *shape))
+            mask = pool_mask(g, "random", 1)
+            want, change = npl._pool_step_plain(slab, steps, mask)
+            got = slab.clone()
+            got_change = npl.pool_step(got, steps, mask)
+            if (not torch.equal(got, want)
+                    or not torch.equal(got_change, change)):
+                raise AssertionError(f"phase 26 pool_step {shape} at {steps} "
+                                     "steps differs from the plain step")
+            cases["pool_step"] += 1
+    try:
+        npl.pool_step_tail(slab, slab.clone(),
+                           torch.zeros(1, dtype=torch.int32))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("phase 26: a host mask reached the kernel")
+    return cases
+
+
+def pool_oracle(boards: list, steps: int) -> list:
+    """Each board after ``steps`` steps of an independent engine on the
+    card, row 4's cell-packed stack kernel (``life_run_vmem_bits_batch``),
+    which phases 4 and 5 hold to its plain version and the NumPy oracle."""
+    from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
+
+    if steps == 0:
+        return list(boards)
+    stack = torch.from_numpy(np.stack(boards)).to(POOL_DEV)
+    return list(tb.life_run_vmem_bits_batch(stack, steps).cpu().numpy())
+
+
+def pool_numpy_oracle(board: np.ndarray, steps: int) -> np.ndarray:
+    from mpi_and_open_mp_tpu_torch.ops import life_ops
+
+    for _ in range(steps):
+        board = life_ops.life_step_numpy(board)
+    return board
+
+
+def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
+    """Phase 26 (module docstring): the resident-session pool on the card.
+    Returns the runs' records, the kernels' launches in them and the
+    kernel rows' times. ``gun_board`` is p46gun_big's oracle board at its
+    10 000 steps."""
+    import shutil
+
+    from mpi_and_open_mp_tpu_torch import stencils
+    from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
+    from mpi_and_open_mp_tpu_torch.ops import native_pool as npl
+    from mpi_and_open_mp_tpu_torch.robust import chaos
+    from mpi_and_open_mp_tpu_torch.serve import (
+        DEFAULT_DEVICE_BUDGET, ServePolicy, ServingDaemon, SessionPool, wal)
+    from mpi_and_open_mp_tpu_torch.serve.queue import DONE
+    from mpi_and_open_mp_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    counted = {k: wrappers[k] for k in POOL_KERNELS}
+    launches: dict[str, dict] = {}
+    runs: dict[str, dict] = {}
+
+    def counted_run(label, fn):
+        out, counts = run_counted(counted, fn)
+        launches[label] = counts
+        return out
+
+    def same(label, got: dict, want: dict) -> None:
+        bad = [sid for sid in want if not np.array_equal(got[sid], want[sid])]
+        if bad:
+            raise AssertionError(f"phase 26 {label}: {len(bad)} of "
+                                 f"{len(want)} sessions differ ({bad[:4]})")
+
+    # (a) The three kernels against their plain versions (not counted).
+    checks = pool_kernel_checks()
+    log(f"  pool kernels against their plain versions: {checks}, every "
+        "word equal")
+
+    # (b) The flagship's size: p46gun_big and 39 soups of 500^2 in two
+    # slabs; a lone step, a 32-lane group and both slabs, 10 000 steps.
+    life = stencils.get("life")
+    rng = np.random.default_rng(46)
+    gun0 = load_config(GUN_BIG).board()
+    soups = {f"soup{i:02d}": life.init(rng, (500, 500)) for i in range(39)}
+
+    def flagship():
+        pool = SessionPool(device=POOL_DEV)
+        pool.create("gun", gun0)
+        for sid, b in soups.items():
+            pool.create(sid, b)
+        slab0 = [sid for sid in pool.sessions() if pool.handle(sid).slab == 0]
+        n = [pool.step_group(["gun"], 1), pool.step_group(slab0, 999),
+             pool.step_group(pool.sessions(), 9000)]
+        return slab0, n, {sid: pool.snapshot(sid) for sid in pool.sessions()}
+
+    t1 = time.perf_counter()
+    slab0, dispatches, snaps = counted_run("flagship", flagship)
+    flag_s = time.perf_counter() - t1
+    in0 = [sid for sid in soups if sid in slab0]
+    in1 = [sid for sid in soups if sid not in slab0]
+    want = dict(zip(in0, pool_oracle([soups[s] for s in in0], 9999)))
+    want.update(zip(in1, pool_oracle([soups[s] for s in in1], 9000)))
+    want["gun"] = gun_board
+    counts = launches["flagship"]
+    if (dispatches != [1, 1, 2] or len(in0) != 31
+            or int(snaps["gun"].sum()) != 7288
+            or counts["pool_step_tail"] != 4 or counts["pool_lane_write"] != 40
+            or counts["pool_lane_read"] != 40 or not counts["bitsliced"]):
+        raise AssertionError(f"phase 26 flagship: dispatches {dispatches}, "
+                             f"population {int(snaps['gun'].sum())}, "
+                             f"launches {counts}")
+    same("flagship", snaps, want)
+    runs["flagship 40 x 500^2"] = {"dispatches": dispatches,
+                                   "launches": counts, "seconds": flag_s}
+    log(f"  p46gun_big and 39 soups of 500^2 in 2 slabs (a lone step, a "
+        f"32-lane group of 999, both slabs 9000): p46gun_big's snapshot the "
+        f"oracle's (population 7288), every soup row 4's board at 9999 or "
+        f"9000 steps; launches {counts} ({flag_s:.3f} s)")
+
+    # (c) The default budget filled with 500^2 slabs.
+    n_slabs = DEFAULT_DEVICE_BUDGET // (500 * 500 * 4)
+    n_sess = n_slabs * 32
+    brng = np.random.default_rng(64)
+    distinct = [life.init(brng, (500, 500))
+                for _ in range(POOL_BUDGET_BOARDS)]
+    sids = [f"b{i:04d}" for i in range(n_sess)]
+    pool = SessionPool(device=POOL_DEV)
+    for i, sid in enumerate(sids):
+        pool.create(sid, distinct[i % POOL_BUDGET_BOARDS])
+    st = pool.stats()
+    if st["slabs"] != n_slabs or st["spills"]:
+        raise AssertionError(f"phase 26 budget fill: {st}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the slabs and earlier phases'
+
+    def budget_rounds():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(POOL_BUDGET_ROUNDS):
+            pool.step_group(sids, POOL_BUDGET_STEPS)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    wall = counted_run("default budget", budget_rounds)
+    peak = torch.cuda.max_memory_allocated()
+    steps_done = POOL_BUDGET_ROUNDS * POOL_BUDGET_STEPS
+    rate = n_sess * steps_done / wall
+    counts = launches["default budget"]
+    if counts["pool_step_tail"] != n_slabs * POOL_BUDGET_ROUNDS:
+        raise AssertionError(f"phase 26 default budget: launches {counts}")
+    # One create more spills exactly one session, the least recently used
+    # (the first stepped); its snapshot comes from the host copy.
+    pool.create("extra", distinct[0])
+    st = pool.stats()
+    spilled = [s for s in pool.sessions() if pool.handle(s) is None]
+    ref = pool_oracle(distinct, steps_done)
+    if (st["spills"] != 1 or spilled != [sids[0]]
+            or not np.array_equal(pool.snapshot(sids[0]), ref[0])
+            or pool.stats()["revivals"]):
+        raise AssertionError(f"phase 26 spill: {st}, spilled {spilled}")
+    pool.step(sids[0], 1)  # a pool.miss: revived, one more spills
+    st = pool.stats()
+    if st["misses"] != 1 or st["revivals"] != 1 or st["spills"] != 2:
+        raise AssertionError(f"phase 26 revival: {st}")
+    want = {sid: ref[i % POOL_BUDGET_BOARDS] for i, sid in enumerate(sids)}
+    want[sids[0]] = pool_oracle([distinct[0]], steps_done + 1)[0]
+    want["extra"] = distinct[0]
+    same("default budget",
+         {sid: pool.snapshot(sid) for sid in pool.sessions()}, want)
+    runs["default budget"] = {
+        "sessions": n_sess, "slabs": n_slabs, "rounds": POOL_BUDGET_ROUNDS,
+        "steps_a_round": POOL_BUDGET_STEPS, "seconds": wall,
+        "session_steps_per_sec": rate, "gcups": rate * 500 * 500 / 1e9,
+        "launches": counts, "budget_bytes": DEFAULT_DEVICE_BUDGET,
+        "slab_bytes": pool.device_bytes(), "max_memory_allocated": peak,
+        "allocated_before": base, "transient_bytes": peak - base,
+        "stats": st}
+    log(f"  default budget ({DEFAULT_DEVICE_BUDGET} B): {n_sess} sessions of "
+        f"500^2 in {n_slabs} one-plane slabs from {POOL_BUDGET_BOARDS} "
+        f"boards, {POOL_BUDGET_ROUNDS} rounds of {POOL_BUDGET_STEPS} steps in "
+        f"{wall:.4f} s: {rate:.6g} session-steps/s, "
+        f"{rate * 500 * 500 / 1e9:.6g} Gcups; launches {counts}; "
+        f"max_memory_allocated {peak} B, {peak - base} B over the "
+        f"{base} B allocated before the rounds (the {pool.device_bytes()} B "
+        f"of slabs and what earlier phases hold); one create more spilled "
+        f"{sids[0]} (its snapshot from the host copy), its next step a "
+        f"pool.miss; every session row 4's board [{card}]")
+    del pool
+
+    # (d) Compaction: evict 31 of 32, compact, the survivor bit-equal.
+    crng = np.random.default_rng(POOL_AB_SEED)
+    small = {f"c{i:02d}": (crng.random((48, 48)) < POOL_AB_DENSITY).astype(
+        np.uint8) for i in range(40)}
+
+    def compaction():
+        pool = SessionPool(device=POOL_DEV)
+        for sid, b in small.items():
+            pool.create(sid, b)
+        pool.step_group(list(small), 10)
+        first = [s for s in small if pool.handle(s).slab == 0]
+        for sid in first[1:]:
+            pool.evict(sid)
+        before = pool.snapshot(first[0])
+        res = pool.compact()
+        after = pool.snapshot(first[0])
+        pool.step(first[0], 10)
+        return res, before, after, pool.snapshot(first[0]), first[0]
+
+    res, before, after, last, survivor = counted_run("compaction", compaction)
+    if (res["migrated"] < 1 or res["slabs"] != 1
+            or not np.array_equal(before, after) or not np.array_equal(
+                last, pool_numpy_oracle(small[survivor], 20))):
+        raise AssertionError(f"phase 26 compaction: {res}")
+    runs["compaction"] = {**res, "launches": launches["compaction"]}
+    log(f"  compaction: 31 of 32 evicted, {res}, the survivor bit-equal, "
+        "then the oracle's at 20 steps")
+
+    # (e) The settled skip: a slab of still lifes skips its second dispatch
+    # with no launch at all; a blinker and a mixed slab never skip.
+    def still(k):
+        b = np.zeros((48, 48), np.uint8)
+        y, x = 2 + (k // 8) * 11, 2 + (k % 8) * 5
+        b[y:y + 2, x:x + 2] = 1
+        return b
+
+    blinker = np.zeros((48, 48), np.uint8)
+    blinker[24, 23:26] = 1
+    pool = SessionPool(device=POOL_DEV)
+    stills = [f"q{k:02d}" for k in range(32)]
+    for k, sid in enumerate(stills):
+        pool.create(sid, still(k))
+    first = counted_run("settled first", lambda: pool.step_group(stills, 4))
+    second = counted_run("settled skip", lambda: pool.step_group(stills, 4))
+    skip_counts = launches["settled skip"]
+    if (first != 1 or second != 0 or pool.counts["settled_skips"] != 1
+            or skip_counts["bitsliced"] or skip_counts["pool_step_tail"]
+            or not all(np.array_equal(pool.snapshot(s), still(k))
+                       for k, s in enumerate(stills))):
+        raise AssertionError(f"phase 26 settled skip: {first} {second} "
+                             f"{pool.counts} {skip_counts}")
+    for label, boards in (("blinker", {"osc": blinker}),
+                          ("mixed", {"still": still(0), "osc": blinker})):
+        p = SessionPool(device=POOL_DEV)
+        for sid, b in boards.items():
+            p.create(sid, b)
+        n = counted_run(f"settled {label}", lambda: [
+            p.step_group(list(boards), 2) for _ in range(3)])
+        if n != [1, 1, 1] or p.counts["settled_skips"] or not all(
+                np.array_equal(p.snapshot(sid), pool_numpy_oracle(b, 6))
+                for sid, b in boards.items()):
+            raise AssertionError(f"phase 26 settled {label}: {n}, "
+                                 f"{p.counts}")
+    runs["settled"] = {"skip_launches": skip_counts,
+                       "settled_skips": pool.counts["settled_skips"]}
+    log(f"  settled skip: 32 still lifes dispatched once, then skipped "
+        f"(launches {skip_counts}); a blinker and a mixed slab dispatched "
+        "every time, boards the oracle's")
+    del pool
+
+    # (f) The daemon: submit_session tickets through pump, then the bench's
+    # resident A/B, each side gated on its boards before any number.
+    def tickets():
+        d = ServingDaemon(ServePolicy(max_batch=8, max_wait_s=0.0),
+                          device=POOL_DEV)
+        for sid, b in small.items():
+            d.create_session(sid, b)
+        ts = [d.submit_session(sid, 4) for sid in small]
+        d.pump(drain=True)
+        return d, ts
+
+    d, ts = counted_run("daemon tickets", tickets)
+    s = d.summary()
+    if ({t.state for t in ts} != {DONE}
+            or s["engines"] != {"pool:bitsliced": len(ts)}
+            or s["pool_sessions"] != len(small)):
+        raise AssertionError(f"phase 26 daemon tickets: {s}")
+    same("daemon tickets", {sid: d.snapshot_session(sid) for sid in small},
+         {sid: pool_numpy_oracle(b, 4) for sid, b in small.items()})
+    log(f"  daemon: {len(ts)} submit_session tickets through pump, "
+        f"{s['engines']}, {s['batches']} batches, every board the oracle's")
+
+    ab = {}
+    for edge, n in POOL_AB:
+        arng = np.random.default_rng(POOL_AB_SEED)
+        boards0 = {f"sess{i:04d}": (arng.random((edge, edge))
+                                    < POOL_AB_DENSITY).astype(np.uint8)
+                   for i in range(n)}
+        policy = ServePolicy(max_batch=8, max_depth=max(64, 4 * n),
+                             max_wait_s=0.0)
+        total = POOL_AB_ROUNDS * POOL_AB_STEPS
+        ref = dict(zip(boards0, pool_oracle(list(boards0.values()), total)))
+        for sid in list(boards0)[:4]:
+            if not np.array_equal(ref[sid], pool_numpy_oracle(
+                    boards0[sid], total)):
+                raise AssertionError(f"phase 26 A/B {edge}^2: row 4 and the "
+                                     "NumPy oracle differ")
+        daemon = ServingDaemon(policy, device=POOL_DEV)
+        for sid, b in boards0.items():
+            daemon.create_session(sid, b)
+
+        def resident():
+            done = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(POOL_AB_ROUNDS):
+                for sid in boards0:
+                    done.append(daemon.submit_session(sid, POOL_AB_STEPS))
+                daemon.pump(drain=True)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, done
+
+        label = f"A/B {edge}^2 x {n}"
+        res_wall, done = counted_run(label, resident)
+        res_done = sum(1 for t in done if t.state == DONE)
+        same(f"{label} resident",
+             {sid: daemon.snapshot_session(sid) for sid in boards0}, ref)
+        rs = daemon.summary()
+        ship = ServingDaemon(policy, device=POOL_DEV)
+        cur = dict(boards0)
+        ship_done = 0
+        t = time.perf_counter()
+        for _ in range(POOL_AB_ROUNDS):
+            tks = {sid: ship.submit(cur[sid], POOL_AB_STEPS) for sid in cur}
+            ship.pump(drain=True)
+            for sid, tk in tks.items():
+                if tk.state == DONE:
+                    ship_done += 1
+                    cur[sid] = np.asarray(tk.result)
+        ship_wall = time.perf_counter() - t
+        same(f"{label} ship", cur, ref)
+        if res_done != ship_done or res_done != n * POOL_AB_ROUNDS:
+            raise AssertionError(f"phase 26 {label}: resident {res_done}, "
+                                 f"ship {ship_done} of {n * POOL_AB_ROUNDS}")
+        ss = ship.summary()
+        res_rate, ship_rate = res_done / res_wall, ship_done / ship_wall
+        ab[label] = {
+            "session_requests_per_sec": res_rate,
+            "ship_requests_per_sec": ship_rate,
+            "session_vs_ship": res_rate / ship_rate,
+            "session_p50_latency_s": rs["p50_latency_s"],
+            "session_p99_latency_s": rs["p99_latency_s"],
+            "ship_p50_latency_s": ss["p50_latency_s"],
+            "ship_p99_latency_s": ss["p99_latency_s"],
+            "session_dispatches": rs["batches"], "ship_batches": ss["batches"],
+            "ship_engines": ss["engines"], "resident_s": res_wall,
+            "ship_s": ship_wall, "launches": launches[label]}
+        log(f"  A/B {edge}^2 x {n} sessions, {POOL_AB_ROUNDS} rounds of "
+            f"{POOL_AB_STEPS} steps: resident {res_rate:.2f} requests/s "
+            f"({res_wall:.4f} s, p50 {rs['p50_latency_s']} s, p99 "
+            f"{rs['p99_latency_s']} s, {rs['batches']} dispatches), ship "
+            f"{ship_rate:.2f} requests/s ({ship_wall:.4f} s, p50 "
+            f"{ss['p50_latency_s']} s, p99 {ss['p99_latency_s']} s, "
+            f"{ss['engines']}), session_vs_ship {res_rate / ship_rate:.4f}; "
+            f"both sides' boards row 4's [{card}]")
+        del daemon, ship
+    runs["A/B"] = ab
+
+    # (g) Crashes on the card: a child in pool mode killed at post-step, one
+    # in settled mode; each journal resumed to the acked ledger.
+    shutil.rmtree(POOL_ROOT, ignore_errors=True)
+    os.makedirs(POOL_ROOT)
+    crash = {}
+    for mode, spec in (("pool", "crash=post-step:5"),
+                       ("settled", "crash=post-step:15")):
+        walp = os.path.join(POOL_ROOT, f"{mode}.wal")
+        ackp = os.path.join(POOL_ROOT, f"{mode}.acked")
+        t1 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tests",
+                                          "_torch_wal_crash_driver.py"),
+             walp, "every-record", ackp, "4", mode, POOL_DEV.type],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
+                               **{chaos.ENV: spec}),
+            capture_output=True, text=True, timeout=300)
+        if child.returncode != chaos.CRASH_EXIT:
+            raise AssertionError(f"phase 26 {mode} crash child: rc "
+                                 f"{child.returncode}, {child.stderr[-2000:]}")
+        acked: dict[str, int] = {}
+        for op in (ln.split() for ln in open(ackp).read().splitlines()):
+            if op and op[0] == "S":
+                acked[op[1]] = acked.get(op[1], 0) + int(op[2])
+        rep = wal.replay(walp)
+        d, source, _ = ServingDaemon.resume_any(
+            wal_path=walp, policy=ServePolicy(max_batch=4, max_wait_s=0.0),
+            device=POOL_DEV)
+        if source != "wal" or sorted(d.sessions()) != sorted(
+                rep.pool_sessions):
+            raise AssertionError(f"phase 26 {mode} resume: {source}")
+        for sid, entry in rep.pool_sessions.items():
+            if entry["steps"] not in (acked.get(sid, 0),
+                                      acked.get(sid, 0) + 2):
+                raise AssertionError(f"phase 26 {mode}: {sid} journaled "
+                                     f"{entry['steps']} steps, acked "
+                                     f"{acked.get(sid, 0)}")
+            if not np.array_equal(d.snapshot_session(sid), pool_numpy_oracle(
+                    np.asarray(entry["board"]), int(entry["steps"]))):
+                raise AssertionError(f"phase 26 {mode}: {sid} after resume")
+        crash[mode] = {"acked_steps": acked,
+                       "sessions": len(rep.pool_sessions),
+                       "seconds": time.perf_counter() - t1}
+        log(f"  {spec} ({mode} mode): child exit 137, acked steps {acked}; "
+            f"resume_any re-materialized {len(rep.pool_sessions)} sessions, "
+            f"each the oracle's board at its journaled total "
+            f"({time.perf_counter() - t1:.2f} s)")
+    runs["crash"] = crash
+    shutil.rmtree(POOL_ROOT, ignore_errors=True)
+
+    # (h) Times: each pool kernel a launch at a 500^2 and a 48^2 plane
+    # (profiler device time, CUDA events beside it), its plain version
+    # (CUDA events) and its bound; a 1000-step dispatch at 500^2 against
+    # bitsliced_steps(slab, 1000), in turns.
+    g = torch.Generator(device=POOL_DEV).manual_seed(260)
+    times = {}
+    for edge in (500, 48):
+        words = edge * edge
+        prev = pool_words(g, (1, edge, edge))
+        slab = pool_words(g, (1, edge, edge))
+        mask = pool_mask(g, "random", 1)
+        board = (torch.rand((edge, edge), generator=g, device=POOL_DEV)
+                 < 0.4).to(torch.uint8)
+        rows = {}
+        for name, fn, plain, nbytes, ops in (
+                ("pool_step_tail",
+                 lambda: npl.pool_step_tail(prev, slab, mask),
+                 lambda: npl._pool_step_tail_plain(prev, slab, mask),
+                 12 * words, POOL_TAIL_OPS_PER_WORD * words),
+                ("pool_lane_write",
+                 lambda: npl.pool_lane_write(slab, board, 0, 31),
+                 lambda: npl._lane_write_plain(slab, board, 0, 31),
+                 9 * words, 3 * words),
+                ("pool_lane_read",
+                 lambda: npl.pool_lane_read(slab, 0, 31),
+                 lambda: npl._lane_read_plain(slab, 0, 31),
+                 5 * words, 2 * words)):
+            for _ in range(3):
+                fn()
+                plain()
+            bound, by = bound_ms(ops, nbytes)
+            rows[name] = {
+                "ms": device_ms(fn, 50, kernel_name=f"{name}_kernel"),
+                "events_ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 20),
+                "bound_ms": bound, "bound_by": by,
+                "shape": f"1 x {edge} x {edge} int32 slab"}
+        times[edge] = rows
+        log(f"  {edge}^2 plane: " + "; ".join(
+            f"{k} {v['ms']:.5f} ms device ({v['events_ms']:.5f} by events), "
+            f"plain {v['plain_ms']:.5f}, bound {v['bound_ms']:.6f} "
+            f"({v['bound_by']})" for k, v in rows.items()) + f" [{card}]")
+    slab = pool_words(g, (1, 500, 500))
+    mask = pool_mask(g, "all", 1)
+    npl.pool_step(slab, 8, mask)
+    tb.bitsliced_steps(slab, 8)
+    dispatch: dict[str, list] = {"pool_step": [], "bitsliced_steps": []}
+    for name in ("pool_step", "bitsliced_steps", "bitsliced_steps",
+                 "pool_step"):
+        fn = ((lambda: npl.pool_step(slab, 1000, mask))
+              if name == "pool_step" else
+              (lambda: tb.bitsliced_steps(slab, 1000)))
+        dispatch[name].append(cuda_ms(fn, 5))
+    times["dispatch_1000_steps_500_ms"] = dispatch
+    log(f"  a 1000-step dispatch of a 500^2 plane: pool_step "
+        f"{dispatch['pool_step']} ms against bitsliced_steps(slab, 1000) "
+        f"{dispatch['bitsliced_steps']} (CUDA events, 5 calls each, in "
+        f"turns) [{card}]")
+    runs["times"] = times
+    totals = {k: sum(c[k] for c in launches.values()) for k in POOL_KERNELS}
+    log(f"phase 26 session pool: ok ({time.perf_counter() - t0:.2f} s; "
+        f"launches {totals})")
+    return {"runs": runs, "launches": launches, "totals": totals,
+            "checks": checks, "times": times}
+
+
 def life_ops_oracle(cfg, n: int) -> np.ndarray:
     """``cfg``'s board after ``n`` NumPy oracle steps."""
     from mpi_and_open_mp_tpu_torch.ops import life_ops
@@ -2681,6 +3263,7 @@ def main() -> int:
     from mpi_and_open_mp_tpu_torch.ops import native_flash as nf
     from mpi_and_open_mp_tpu_torch.ops import native_halo as nh
     from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.ops import native_pool as npool
     from mpi_and_open_mp_tpu_torch.ops import native_quadrature as nq
     from mpi_and_open_mp_tpu_torch.parallel import haloplan as hp
     from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
@@ -2699,7 +3282,10 @@ def main() -> int:
                 "flash_fwd": nf.flash_fwd, "flash_hop_dq": fhb.flash_hop_dq,
                 "flash_hop_dkv": fhb.flash_hop_dkv,
                 "edge_pair": nh.edge_pair, "halo_frame": nh.halo_frame,
-                "quadrature": nq.trapezoid_circle}
+                "quadrature": nq.trapezoid_circle,
+                "pool_step_tail": npool.pool_step_tail,
+                "pool_lane_write": npool.pool_lane_write,
+                "pool_lane_read": npool.pool_lane_read}
 
     t_start = time.perf_counter()
     card = card_line()
@@ -5296,6 +5882,9 @@ def main() -> int:
     # ------------- 25. serving: the daemon's ticket path on the kernels
     serve_rec = phase_serve(card, wrappers, gun_serial, tune_rec)
 
+    # ------------------- 26. the resident-session pool on its kernels
+    pool_rec = phase_pool(card, wrappers, gun_serial)
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -5575,12 +6164,45 @@ def main() -> int:
             row["launches_serve"] = {run: c[key] for run, c in
                                      serve_rec["launches"].items()}
             row["launches"] += serve_rec["totals"][key]
+    # Phase 26's pool runs: row 5's launches in them, and the pool's rows.
+    for row in kernels:
+        if row["name"] == "bitlife_bitsliced":
+            row["launches_pool"] = {run: c["bitsliced"] for run, c in
+                                    pool_rec["launches"].items()}
+            row["launches"] += pool_rec["totals"]["bitsliced"]
     kernels.append(quadrature_row)
+    for name, line in (("pool_step_tail", 170), ("pool_lane_write", 191),
+                       ("pool_lane_read", 203)):
+        main_t, small_t = pool_rec["times"][500][name], pool_rec["times"][48][
+            name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "mpi_and_open_mp_tpu_torch/csrc/pool_lanes.cu",
+            "replaces": f"mpi_and_open_mp_tpu/serve/pool.py:{line}",
+            "launches": pool_rec["totals"][name], "max_abs_err": 0.0,
+            "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+            "library_ms": None,
+            "shape": (f"{main_t['shape']}, one launch a call; no Pallas "
+                      "kernel in the JAX package (an XLA program)"),
+            "at_48": small_t,
+            "note": ("ms: device time per launch from a torch.profiler "
+                     "trace of 50 calls (events_ms: CUDA events); plain_ms: "
+                     "CUDA events over 20 calls; no single PyTorch call "
+                     "computes the function"),
+            "events_ms": main_t["events_ms"],
+            "exact_cases": pool_rec["checks"][name],
+            "launches_by_run": {run: c[name] for run, c in
+                                pool_rec["launches"].items()}})
+    kernels[-3]["dispatch_1000_steps_500_ms"] = pool_rec["times"][
+        "dispatch_1000_steps_500_ms"]
+    kernels[-3]["exact_cases_pool_step"] = pool_rec["checks"]["pool_step"]
     log(f"obs, untraced against traced seconds: "
         f"{json.dumps(obs_rec['untraced_vs_traced_s'])}")
     log(f"tune: {json.dumps({k: {'tuned': v['tuned']['path'], 'vs_heuristic': v['vs_heuristic']} for k, v in tune_rec['passes'].items()})}; "
         f"CLI {json.dumps(tune_rec['cli'])}")
     log(f"serve: {json.dumps(serve_rec['runs'])}")
+    log(f"pool: {json.dumps(pool_rec['runs'])}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

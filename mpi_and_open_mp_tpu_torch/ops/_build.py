@@ -69,6 +69,11 @@ SIGNATURES = {
         "flash_hop_dkv": [_P] * 8 + [_I] * 6 + [_P],
         "flash_hop_attributes": [_I, _I, _I, _IP],
     },
+    "pool_lanes": {
+        "pool_step_tail": [_P] * 4 + [_I] * 3 + [_P],
+        "pool_lane_write": [_P, _P] + [_I] * 5 + [_P],
+        "pool_lane_read": [_P, _P] + [_I] * 5 + [_P],
+    },
     "halo_edge_pair": [_P] * 5 + [_I, _L, _I, _I] + [_L] * 6 + [_I, _P],
     "halo_frame": [_P] * 3 + [_I] * 5 + [_L] * 3 + [_I, _P],
     "quadrature": [_P, _P, _L, _L, _I, _I, _L, _F, _F, _F, _P, _IP],

@@ -55,11 +55,13 @@ same error. Tokens with a hook in the port:
     (:func:`crash_armed`, :func:`crash_now`). Hooked: ``post-admit`` (a
     ticket admitted, its journal record not yet written), ``mid-frame``
     (half a journal frame written, ``serve.wal``) and ``post-dispatch`` (a
-    batch computed, its RESOLVE record not yet written). The sites of the
-    session pool (``post-create``, ``post-step``, ``post-snapshot``,
-    ``post-evict``) and of the fleet (``post-rejoin``, ``mid-drain``) parse
-    as in the JAX package; their layers are not ported yet (ROADMAP Queue
-    1 item 9), so nothing arrives at them.
+    batch computed, its RESOLVE record not yet written); the session
+    pool's ``post-create``, ``post-step``, ``post-snapshot`` and
+    ``post-evict`` (the daemon's CREATE, STEP, SNAPSHOT or EVICT frame
+    journaled, the pool not yet acted on it) and ``post-rejoin``
+    (``adopt_session``'s CREATE and STEP frames journaled, the session not
+    yet in the pool). ``mid-drain`` parses as in the JAX package; the
+    fleet that reaches it is not ported yet (ROADMAP Queue 1 item 9).
 ``kill_worker=<i>:<k>``
     The daemon whose ``worker_index`` is ``i`` dies as ``crash`` does at
     its ``k``-th batch dispatch, after the DISPATCH record is journaled

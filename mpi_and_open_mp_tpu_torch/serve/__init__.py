@@ -20,13 +20,19 @@ Counterpart of the JAX package's ``serve`` package. Ported:
 ``aotcache``
     :class:`AOTCache`: each bucket's launch record (path, planner
     geometry, library hashes) on disk.
+``pool``
+    :class:`SessionPool`, :class:`Handle`, :class:`PoolError`: live Life
+    sessions resident on the card as bit-lanes of board-sliced slabs,
+    stepped in place (``bitlife_bitsliced`` and ``pool_step_tail``), with
+    spills under a hard budget, compaction and the settled skip.
 ``daemon``
     :class:`ServingDaemon`: the supervised loop, its engine ladder on the
     card, retries, preemption drain and the resume ladder (journal,
-    checkpoint, fresh); ``python -m mpi_and_open_mp_tpu_torch.serve.daemon``.
+    checkpoint, fresh), and the pool's session methods;
+    ``python -m mpi_and_open_mp_tpu_torch.serve.daemon``.
 
-Not ported yet (ROADMAP Queue 1 item 9): the resident-session pool, then
-the router, fleet and load generator.
+Not ported yet (ROADMAP Queue 1 item 9): the router, fleet and load
+generator.
 """
 
 from mpi_and_open_mp_tpu_torch.serve.batcher import (  # noqa: F401
@@ -59,4 +65,11 @@ from mpi_and_open_mp_tpu_torch.serve.wal import (  # noqa: F401
     replay,
 )
 from mpi_and_open_mp_tpu_torch.serve.aotcache import AOTCache  # noqa: F401
+from mpi_and_open_mp_tpu_torch.serve.pool import (  # noqa: F401
+    DEFAULT_DEVICE_BUDGET,
+    LANES_PER_PLANE,
+    Handle,
+    PoolError,
+    SessionPool,
+)
 from mpi_and_open_mp_tpu_torch.serve.daemon import ServingDaemon  # noqa: F401

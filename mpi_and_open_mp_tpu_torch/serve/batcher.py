@@ -9,17 +9,17 @@ it bucket by bucket, turning R same-shape requests into
 ``stencils`` workload the spec's roll engine
 (``stencils.run_roll_batch``, path ``stencil:<name>``), as in the JAX
 package. Padding boards are zeros; boards never interact, and results are
-cut to the live requests.
+cut to the live requests. With a ``pool`` (``serve.pool.SessionPool``),
+:meth:`ShapeBucketBatcher.submit_session` queues resident-session steps:
+``flush`` groups them by (current slab, steps) into one in-place
+``step_group`` each, however few lanes are live, and their results are
+``None`` (the board stays on the device).
 
 Each stack runs in a ``serve.batch`` span (``obs.trace``) and ticks
 ``serve.requests``, ``serve.batches`` and ``serve.padding``
 (``obs.metrics``), as in the JAX package. :func:`retrace_counts` reads the
 batched runners' ``jit.retrace`` ticks, one per stack geometry
 (``ops.bitlife._note_retrace``): a flush over K shape buckets sums to K.
-
-Not ported yet: the resident-session pool behind ``submit_session``
-(ROADMAP Queue 1 item 9, its pool split: ``lane_change_bits``, the
-session rung, the pool's crash modes).
 """
 
 from __future__ import annotations
@@ -61,8 +61,7 @@ def bucket_batch_size(
     return min(b, max_batch)
 
 
-# The batched engines' retrace names (the JAX package's; ``pool_step``
-# waits for the session pool).
+# The batched engines' retrace names (the JAX package's).
 _BATCH_FNS = (
     "life_batch_bitsliced",
     "life_batch_vmem",
@@ -83,15 +82,6 @@ def retrace_counts() -> dict[str, int]:
         if n:
             out[fn] = int(n)
     return out
-
-
-#: Where the resident-session pool stands in the ROADMAP.
-POOL_SPLIT = "9, its pool split"
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
 @dataclass
@@ -124,20 +114,25 @@ class ShapeBucketBatcher:
     by ``(shape, dtype, workload)``; inside a bucket, requests with the same
     step count share a dispatch (all boards of a stack advance together),
     chunked at ``max_batch``. Stacks run on ``device``: the card unless the
-    caller asks for the CPU."""
+    caller asks for the CPU. Resident-session steps (``submit_session``)
+    need a ``pool`` and run on its device."""
 
     def __init__(self, max_batch: int = 8,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", pool=None):
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.max_batch = int(max_batch)
         self.device = resolve_device(device)
         self._queue: list[_Request] = []
+        # Resident-session steps (ticket, session, steps), coalesced at
+        # flush by slab: a lone lane and 32 slab-mates are one dispatch.
+        self._pool = pool
+        self._session_queue: list[tuple[int, str, int]] = []
         self._next_ticket = 0
         self.last_flush_stats: list[_BatchStat] = []
 
     def __len__(self) -> int:
-        return len(self._queue)
+        return len(self._queue) + len(self._session_queue)
 
     def submit(self, board: np.ndarray, steps: int,
                workload: str = "life") -> int:
@@ -166,17 +161,38 @@ class ShapeBucketBatcher:
         return ticket
 
     def submit_session(self, session: str, steps: int) -> int:
-        """Resident-session steps need the session pool, not ported yet."""
-        raise _not_ported("submit_session (the resident-session pool)",
-                          POOL_SPLIT)
+        """Enqueue one resident-session step (needs a ``pool``); returns a
+        ticket like :meth:`submit`. Its flush result is ``None``: the
+        board stays on the device."""
+        if self._pool is None:
+            raise ValueError(
+                "submit_session: this batcher has no session pool")
+        steps = int(steps)
+        if steps < 0:
+            raise ValueError(
+                f"submit_session: steps must be >= 0, got {steps}")
+        if not self._pool.has(str(session)):
+            raise ValueError(
+                f"submit_session: unknown session {session!r}")
+        ticket = self._next_ticket
+        self._next_ticket += 1
+        self._session_queue.append((ticket, str(session), steps))
+        return ticket
+
+    def _slab_of(self, sid: str) -> int:
+        h = self._pool.handle(sid)
+        return -1 if h is None else h.slab  # spilled: placed at flush
 
     def bucket_keys(self) -> list[tuple]:
         """The distinct buckets currently queued, in first-submission
-        order: ``(shape, dtype, workload)``."""
+        order: ``(shape, dtype, workload)`` for boards, ``("slab",
+        slab_id, steps)`` for resident-session steps."""
         seen: dict[tuple, None] = {}
         for r in self._queue:
             seen.setdefault((r.board.shape, r.board.dtype.str, r.workload),
                             None)
+        for _, sid, steps in self._session_queue:
+            seen.setdefault(("slab", self._slab_of(sid), steps), None)
         return list(seen)
 
     def flush(self) -> list[np.ndarray]:
@@ -231,8 +247,27 @@ class ShapeBucketBatcher:
                         shape=shape, steps=steps, requests=len(chunk),
                         padded_batch=padded, path=path,
                         tickets=tuple(r.ticket for r in chunk)))
-        ordered = [results[r.ticket] for r in sorted(
-            self._queue, key=lambda r: r.ticket)]
+        # Resident-session steps: one in-place step_group per (current
+        # slab, steps), however few lanes are live.
+        groups: dict[tuple, list[tuple[int, str]]] = {}
+        for ticket, sid, steps in self._session_queue:
+            groups.setdefault((self._slab_of(sid), steps), []).append(
+                (ticket, sid))
+        for (slab, steps), members in groups.items():
+            sids = [sid for _, sid in members]
+            with trace.span("serve.batch", slab=slab, steps=steps,
+                            requests=len(sids), path="pool"):
+                self._pool.step_group(sids, steps)
+            for ticket, _ in members:
+                results[ticket] = None
+            metrics.inc("serve.requests", len(sids))
+            metrics.inc("serve.batches")
+            stats.append(_BatchStat(
+                shape=("slab", slab), steps=steps, requests=len(sids),
+                padded_batch=len(sids), path="pool",
+                tickets=tuple(t for t, _ in members)))
+        ordered = [results[t] for t in sorted(results)]
         self._queue.clear()
+        self._session_queue.clear()
         self.last_flush_stats = stats
         return ordered

@@ -41,11 +41,14 @@ engine cannot take the process down:
   crash=<site>:<k>`` kills at the instrumented sites.
 
 Tickets hold host boards; a stack goes to ``device`` once per dispatch and
-comes back once. The resident-session pool (``create_session`` and the
-rest) is not ported yet: those methods raise, and so does a resume whose
-journal holds pool sessions. Every admission, shed, retry, degrade and
-drain ticks ``serve.*`` metrics and trace events (``obs``): requests ==
-resolved + shed, always.
+comes back once. Resident sessions live in a ``serve.pool.SessionPool`` on
+``device``, built at the first ``create_session``: each session method
+journals its frame (CREATE, STEP, SNAPSHOT, EVICT) before the pool acts, a
+``submit_session`` ticket carries a handle instead of a board and resolves
+stamped ``pool:bitsliced``, and ``resume_any`` re-materializes the pool
+from the journal's create boards and step totals. Every admission, shed,
+retry, degrade and drain ticks ``serve.*`` metrics and trace events
+(``obs``): requests == resolved + shed, always.
 """
 
 from __future__ import annotations
@@ -69,17 +72,12 @@ from mpi_and_open_mp_tpu_torch.robust.preempt import (
     EXIT_PREEMPTED, Preempted, SimulatedPreemption, flush_on_signal)
 from mpi_and_open_mp_tpu_torch.serve import policy as policy_mod
 from mpi_and_open_mp_tpu_torch.serve import wal as wal_mod
-from mpi_and_open_mp_tpu_torch.serve.batcher import (
-    POOL_SPLIT, _not_ported, bucket_batch_size)
+from mpi_and_open_mp_tpu_torch.serve.batcher import bucket_batch_size
 from mpi_and_open_mp_tpu_torch.serve.policy import ServePolicy, percentile
 from mpi_and_open_mp_tpu_torch.serve.queue import (
     DONE, PENDING, SHED, ServeQueue, Ticket)
 from mpi_and_open_mp_tpu_torch.utils import checkpoint as checkpoint_mod
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
-
-
-def _pool_not_ported(what: str) -> NotImplementedError:
-    return _not_ported(f"{what} (the resident-session pool)", POOL_SPLIT)
 
 
 class ServingDaemon:
@@ -99,6 +97,7 @@ class ServingDaemon:
                  aot_cache=None,
                  plan_store=None,
                  worker_index: int | None = None,
+                 pool_budget_bytes: int | None = None,
                  device: str | torch.device = "cuda",
                  clock=time.monotonic, sleep=time.sleep):
         self.device = resolve_device(device)
@@ -130,6 +129,13 @@ class ServingDaemon:
             chunk_records=self.policy.max_batch,
             compact_bytes=wal_compact_bytes)
             if wal_path else None)
+        # The session pool, built at the first create_session; the session
+        # log is the host mirror of the journal's live sessions ({id,
+        # board, steps, wall}): compaction snapshots it without touching
+        # the device, and resume rebuilds both from the journal.
+        self._pool = None
+        self._pool_budget = pool_budget_bytes
+        self._session_log: dict[str, dict] = {}
 
     # -- intake ------------------------------------------------------------
 
@@ -153,36 +159,148 @@ class ServingDaemon:
                             workload=t.workload)
         return t
 
-    # -- device-resident sessions: the pool is not ported yet ---------------
+    # -- device-resident sessions -------------------------------------------
 
     @property
     def pool(self):
-        raise _pool_not_ported("ServingDaemon.pool")
+        """The device-resident session pool on ``device``, built on first
+        use."""
+        if self._pool is None:
+            from mpi_and_open_mp_tpu_torch.serve.pool import SessionPool
+
+            kw = {}
+            if self._pool_budget is not None:
+                kw["device_budget_bytes"] = self._pool_budget
+            self._pool = SessionPool(device=self.device, **kw)
+        return self._pool
+
+    def _live(self, session, what: str) -> str:
+        session = str(session)
+        if session not in self._session_log:
+            raise ValueError(f"{what}: unknown session {session!r}")
+        return session
 
     def create_session(self, session: str, board: np.ndarray):
-        raise _pool_not_ported("create_session")
+        """Admit a board into the pool under ``session`` (the one time the
+        board goes to the device). The CREATE frame is durable before the
+        pool sees it. Returns the handle."""
+        session = str(session)
+        if session in self._session_log:
+            raise ValueError(
+                f"create_session: session {session!r} is already live")
+        board = np.asarray(board)
+        wall = time.time()
+        if self._wal is not None:
+            self._wal.pool_create(session, board, wall=wall)
+            if chaos.crash_armed("post-create"):
+                chaos.crash_now()
+        handle = self.pool.create(session, board)
+        self._session_log[session] = {
+            "id": session, "board": board.copy(), "steps": 0, "wall": wall}
+        return handle
 
     def step_session(self, session: str, steps: int) -> int:
-        raise _pool_not_ported("step_session")
+        """Advance one resident session ``steps`` steps in place, at once
+        (the ticketed path is :meth:`submit_session`). The STEP frame is
+        write-ahead and authoritative."""
+        return self.step_sessions([str(session)], steps)
 
     def step_sessions(self, sessions: list[str], steps: int) -> int:
-        raise _pool_not_ported("step_sessions")
+        steps = int(steps)
+        sids = [self._live(sid, "step_sessions") for sid in sessions]
+        if self._wal is not None:
+            for sid in sids:
+                self._wal.pool_step(sid, steps)
+            if chaos.crash_armed("post-step"):
+                chaos.crash_now()
+        n = self.pool.step_group(sids, steps)
+        for sid in sids:
+            self._session_log[sid]["steps"] += steps
+        return n
 
     def submit_session(self, session: str, steps: int) -> Ticket:
-        raise _pool_not_ported("submit_session")
+        """Admit one resident step as a ticket: one STEP frame (no
+        ADMIT/DISPATCH/RESOLVE), write-ahead and authoritative, so the ack
+        this return implies holds whether the dispatch happens here or is
+        replayed into the pool on resume. A door-shed ticket never touches
+        the journal."""
+        session = self._live(session, "submit_session")
+        t = self.queue.submit_session(
+            session, self.pool.handle(session), steps, self._clock())
+        if t.state == PENDING:
+            if self._wal is not None:
+                self._wal.pool_step(session, t.steps)
+                if chaos.crash_armed("post-step"):
+                    chaos.crash_now()
+            self._session_log[session]["steps"] += t.steps
+        return t
 
     def snapshot_session(self, session: str) -> np.ndarray:
-        raise _pool_not_ported("snapshot_session")
+        """A resident session's board (one read from the device): the
+        create board advanced by the journaled step total."""
+        session = self._live(session, "snapshot_session")
+        if self._wal is not None:
+            self._wal.pool_snapshot(
+                session, int(self._session_log[session]["steps"]))
+            if chaos.crash_armed("post-snapshot"):
+                chaos.crash_now()
+        return self.pool.snapshot(session)
 
     def evict_session(self, session: str) -> np.ndarray:
-        raise _pool_not_ported("evict_session")
+        """Remove a session from the pool, returning its final board. The
+        EVICT frame lands first, so a crash mid-evict replays to the
+        evicted state."""
+        session = self._live(session, "evict_session")
+        if self._wal is not None:
+            self._wal.pool_evict(session)
+            if chaos.crash_armed("post-evict"):
+                chaos.crash_now()
+        board = self.pool.evict(session)
+        del self._session_log[session]
+        return board
 
     def adopt_session(self, session: str, board: np.ndarray, steps: int):
-        raise _pool_not_ported("adopt_session")
+        """The destination half of a pool re-home: journal a fresh CREATE
+        and STEP lifetime here, then replay the advance on the device
+        (``board`` is the origin's create board). ``post-rejoin`` fires
+        between the journal and the pool: a kill there leaves the session
+        live in both journals, duplicated and never lost."""
+        session = str(session)
+        board = np.asarray(board)
+        steps = int(steps)
+        wall = time.time()
+        if self._wal is not None:
+            self._wal.pool_create(session, board, wall=wall)
+            if steps:
+                self._wal.pool_step(session, steps)
+            if chaos.crash_armed("post-rejoin"):
+                chaos.crash_now()
+        handle = self.pool.create(session, board)
+        if steps:
+            self.pool.step(session, steps)
+        self._session_log[session] = {
+            "id": session, "board": board.copy(), "steps": steps,
+            "wall": wall}
+        return handle
 
     def sessions(self) -> list[str]:
-        """Live resident sessions: none without the pool."""
-        return []
+        return list(self._session_log)
+
+    def _rematerialize_pool(self, pool_sessions: dict[str, dict]) -> int:
+        """Rebuild the pool from a journal replay's sessions: each create
+        board enters the pool and advances by its journaled step total (a
+        journaled but unacked step is applied: at least once for unacked
+        work, no acked loss)."""
+        for sid, entry in pool_sessions.items():
+            board = np.asarray(entry["board"])
+            steps = int(entry["steps"])
+            self.pool.create(sid, board)
+            if steps:
+                self.pool.step(sid, steps)
+            self._session_log[sid] = {
+                "id": sid, "board": board.copy(), "steps": steps,
+                "wall": float(entry.get("wall", 0.0))}
+        return len(pool_sessions)
 
     # -- fleet worker-mode hooks -------------------------------------------
 
@@ -278,11 +396,10 @@ class ServingDaemon:
         the restored tickets carry new ids in this process, and rotation
         re-anchors the journal on them. An unreadable journal or
         checkpoint is quarantined to a stamped ``.corrupt.<stamp>``
-        sibling and the ladder falls through. A journal that holds
-        resident pool sessions raises ``NotImplementedError``: the pool is
-        not ported, and dropping them would lose acknowledged work. With
-        an ``aot_cache``, every rung ends by warming the pending buckets'
-        launch records (``detail["aot_preload"]``)."""
+        sibling and the ladder falls through. The journal's live pool
+        sessions are re-materialized into the pool before the rotation.
+        With an ``aot_cache``, every rung ends by warming the pending
+        buckets' launch records (``detail["aot_preload"]``)."""
         detail: dict = {}
         if wal_path and os.path.exists(wal_path):
             try:
@@ -296,10 +413,6 @@ class ServingDaemon:
                 if q:
                     detail["wal_quarantine"] = q
             else:
-                if rep.pool_sessions:
-                    raise _pool_not_ported(
-                        f"resuming the {len(rep.pool_sessions)} pool "
-                        f"sessions journaled in {wal_path}")
                 daemon = cls(policy, checkpoint_path=checkpoint_path,
                              wal_path=wal_path, wal_fsync=wal_fsync, **kw)
                 daemon._wal._generation = rep.generation
@@ -316,6 +429,10 @@ class ServingDaemon:
                         entry["board"], entry["steps"], now, queued_s=queued,
                         session=entry.get("session"),
                         workload=str(entry.get("workload", "life")))
+                # The pool before the rotation: rotation snapshots the
+                # session log, which must hold every replayed session.
+                if rep.pool_sessions:
+                    daemon._rematerialize_pool(rep.pool_sessions)
                 daemon._compact_wal()
                 detail["wal_replay"] = rep.counts()
                 trace.event("serve.resume", source="wal",
@@ -402,6 +519,10 @@ class ServingDaemon:
             n += 1
         if self._wal is not None and self._wal.should_compact():
             self._compact_wal()
+        if self._pool is not None:
+            # Lane hygiene between rounds: repack planes left sparse by
+            # evicted sessions.
+            self._pool.maybe_compact()
         return n
 
     def drain(self) -> None:
@@ -422,7 +543,7 @@ class ServingDaemon:
              "queued_s": t.queued_before_s + (now - t.submitted_at)}
             for t in self.queue.pending() if t.board is not None
         ]
-        self._wal.compact(entries)
+        self._wal.compact(entries, pool_sessions=self._session_log)
 
     def _shed_batch(self, tickets: list[Ticket], reason: str,
                     now: float) -> None:
@@ -606,7 +727,39 @@ class ServingDaemon:
             out[b] = stencils.oracle_run(spec, out[b], steps)
         return out
 
+    def _dispatch_pool_chunk(self, chunk: list[Ticket]) -> None:
+        """Resolve one slab group of resident step tickets with in-place
+        pool dispatches. No journal frame here (each STEP frame was written
+        at submit) and no timeout shed (the step is promised durable, so
+        it must happen exactly once)."""
+        steps = chunk[0].steps
+        # Two steps of one session in one chunk would collapse in the lane
+        # mask (the lane advances once, both tickets resolve): waves of
+        # distinct sessions, in arrival order.
+        waves: list[list[Ticket]] = []
+        for t in chunk:
+            for wave in waves:
+                if all(w.session != t.session for w in wave):
+                    wave.append(t)
+                    break
+            else:
+                waves.append([t])
+        with trace.span("serve.dispatch.pool", requests=len(chunk),
+                        steps=steps):
+            for wave in waves:
+                self.pool.step_group([t.session for t in wave], steps)
+        now = self._clock()
+        for t in chunk:
+            self.queue.resolve(t, None, "pool:bitsliced", now)
+        if self._first_result_s is None:
+            self._first_result_s = now - self._created_at
+        self._batches += 1
+        metrics.inc("serve.batches")
+
     def _dispatch_chunk(self, chunk: list[Ticket]) -> None:
+        if chunk and chunk[0].handle is not None:
+            self._dispatch_pool_chunk(chunk)
+            return
         p = self.policy
         now = self._clock()
         # A ticket past its end-to-end budget sheds here, before the
@@ -727,6 +880,12 @@ class ServingDaemon:
         }
         if self._first_result_s is not None:
             out["cold_first_result_s"] = round(self._first_result_s, 6)
+        if self._pool is not None:
+            s = self._pool.stats()
+            out["pool"] = s
+            for key in ("sessions", "hits", "misses", "evictions", "spills",
+                        "compactions", "settled_skips"):
+                out[f"pool_{key}"] = s[key]
         if self._wal is not None:
             out["wal"] = self._wal.stats()
         if self._aot is not None:

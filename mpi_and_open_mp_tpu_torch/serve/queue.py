@@ -68,8 +68,7 @@ class Ticket:
     #: this carry a resumed ticket's latency would silently forget its
     #: pre-crash queue time and post-resume p99 would flatter the tail.
     queued_before_s: float = 0.0
-    #: Device-resident handle of the session pool (``serve.pool``, not
-    #: ported yet: ROADMAP Queue 1 item 9) for a session step
+    #: Device-resident handle (``serve.pool.Handle``) for a session step
     #: ticket. Set iff ``board`` is ``None``.
     handle: object | None = None
     #: Stencil workload name (``stencils.get``): which rule advances this

@@ -53,8 +53,8 @@ Record types and what :func:`replay` does with them:
     plus the *total* journaled step count), so a rotated journal
     re-materializes the pool exactly as a never-rotated one would.
 
-Handle-lifecycle records (the device-resident session pool; replay
-parses them, the pool itself is not ported yet).
+Handle-lifecycle records (the device-resident session pool,
+``serve.pool``; the daemon re-materializes the pool from them on resume).
 These journal *state transitions of resident sessions* rather than
 tickets — resident step traffic writes exactly one frame per request
 (no ADMIT/DISPATCH/RESOLVE triple), which is what makes the WAL cheap

@@ -415,8 +415,9 @@ def test_batcher_rejects_bad_and_unported_submissions():
         bat.submit(_stack(1, 8, 8)[0], 1, workload="warp-drive")
     with pytest.raises(ValueError, match="3D"):
         bat.submit(_stack(1, 8, 8)[0], 1, workload="gray_scott")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        bat.submit_session("s0", 1)
+    for batcher in (bat, JaxBatcher(max_batch=4)):
+        with pytest.raises(ValueError, match="no session pool"):
+            batcher.submit_session("s0", 1)
     assert len(bat) == 0 and bat.flush() == []
 
 

@@ -78,6 +78,9 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.robust import watchdog\n"
         "assert policy.ServePolicy and queue.ServeQueue and wal.replay\n"
         "assert daemon.ServingDaemon and watchdog.backoff_schedule\n"
+        "from mpi_and_open_mp_tpu_torch.serve import pool\n"
+        "from mpi_and_open_mp_tpu_torch.ops import native_pool\n"
+        "assert pool.SessionPool and native_pool.pool_step_tail\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -140,6 +143,28 @@ def _batcher():
                          ids=["LifeSim-stack", "cli-batch", "batcher"])
 def test_batched_entry_points_raise_without_cuda(entry):
     """The batched entry points default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+
+
+def _session_pool():
+    from mpi_and_open_mp_tpu_torch.serve import SessionPool
+
+    SessionPool()
+
+
+def _daemon_session():
+    from mpi_and_open_mp_tpu_torch.serve import ServingDaemon
+
+    ServingDaemon().create_session("s", np.zeros((8, 8), np.uint8))
+
+
+@pytest.mark.parametrize("entry", [_session_pool, _daemon_session],
+                         ids=["SessionPool", "daemon-create_session"])
+def test_pool_entry_points_raise_without_cuda(entry):
+    """The session pool defaults to the card too."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; nothing to refuse")
     with pytest.raises(RuntimeError, match="device='cpu'"):

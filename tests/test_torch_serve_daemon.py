@@ -519,16 +519,38 @@ def test_chaos_soak_every_ticket_terminal(monkeypatch, make_board):
 
 
 def test_pool_methods_name_the_pool_split(make_board):
-    d, _ = _daemon(ServePolicy())
-    for call in (lambda: d.create_session("s", make_board(8, 8)),
-                 lambda: d.submit_session("s", 1),
-                 lambda: d.step_session("s", 1),
-                 lambda: d.pool):
-        with pytest.raises(NotImplementedError, match="pool split"):
-            call()
-    assert d.sessions() == []
-    with pytest.raises(NotImplementedError, match="pool split"):
-        tserve.ShapeBucketBatcher(device="cpu").submit_session("s", 1)
+    """The session methods on the same inputs in both daemons: a create,
+    a ticketed step through ``pump``, a direct step, the lazily built
+    pool, the sessions, a snapshot and the summary's pool fields; unknown
+    sessions and a pool-less batcher refused with the same errors."""
+    d, _ = _daemon(ServePolicy(max_wait_s=0.0))
+    jd = jserve.ServingDaemon(ServePolicy(max_wait_s=0.0))
+    board = make_board(8, 8)
+    for daemon in (d, jd):
+        assert daemon.sessions() == []
+        with pytest.raises(ValueError, match="unknown session"):
+            daemon.submit_session("s", 1)
+        with pytest.raises(ValueError, match="unknown session"):
+            daemon.step_session("s", 1)
+        h = daemon.create_session("s", board)
+        assert (h.slab, h.lane) == (0, 0)
+        t = daemon.submit_session("s", 1)
+        daemon.pump(drain=True)
+        assert (t.state, t.engine) == (DONE, "pool:bitsliced")
+        assert daemon.step_session("s", 2) == 1
+        assert daemon.sessions() == ["s"]
+        assert daemon.pool.has("s")
+    np.testing.assert_array_equal(d.snapshot_session("s"), oracle_n(board, 3))
+    np.testing.assert_array_equal(d.snapshot_session("s"),
+                                  jd.snapshot_session("s"))
+    ours, theirs = d.summary(), jd.summary()
+    assert ours["pool"] == theirs["pool"]
+    assert ({k: v for k, v in ours.items() if k.startswith("pool_")}
+            == {k: v for k, v in theirs.items() if k.startswith("pool_")})
+    for batcher in (tserve.ShapeBucketBatcher(device="cpu"),
+                    jserve.ShapeBucketBatcher()):
+        with pytest.raises(ValueError, match="no session pool"):
+            batcher.submit_session("s", 1)
 
 
 def test_release_export_adopt_move_tickets(tmp_path, make_board):

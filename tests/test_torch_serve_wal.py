@@ -427,13 +427,38 @@ def test_same_appends_give_identical_bytes(tmp_path, fsync):
 
 
 def test_resume_any_refuses_pool_sessions(tmp_path):
-    """The pool is not ported: a journal holding live pool sessions raises
-    rather than dropping acknowledged work, and stays in place."""
-    path = str(tmp_path / "pool.wal")
-    _write_journal(jwal, path, seed=5)
-    with pytest.raises(NotImplementedError, match="pool split"):
-        ServingDaemon.resume_any(wal_path=path, device="cpu")
-    assert wal.replay(path).pool_sessions
+    """A JAX-written journal holding a live pool session (created, stepped
+    2 + 4 across a compaction) resumes in the port with the session
+    re-materialized: its board equal to the oracle's and to the JAX
+    daemon's resume of a copy of the same files, the pending tickets the
+    same, and the rotated journal carrying the session."""
+    from mpi_and_open_mp_tpu.serve import ServingDaemon as JaxDaemon
+
+    paths = {}
+    for name in ("port", "jax"):
+        d = tmp_path / name
+        d.mkdir()
+        paths[name] = str(d / "pool.wal")
+    _write_journal(jwal, paths["port"], seed=5)
+    for src in glob.glob(paths["port"] + "*"):
+        with open(src, "rb") as a, open(
+                paths["jax"] + src[len(paths["port"]):], "wb") as b:
+            b.write(a.read())
+    board = wal.replay(paths["port"]).pool_sessions["p0"]["board"]
+    d, source, detail = ServingDaemon.resume_any(wal_path=paths["port"],
+                                                 device="cpu")
+    jd, jsource, jdetail = JaxDaemon.resume_any(wal_path=paths["jax"])
+    assert source == jsource == "wal"
+    assert detail["wal_replay"] == jdetail["wal_replay"]
+    assert detail["wal_replay"]["pool_sessions"] == 1
+    assert d.sessions() == jd.sessions() == ["p0"]
+    got = d.snapshot_session("p0")
+    np.testing.assert_array_equal(got, oracle_n(board, 6))
+    np.testing.assert_array_equal(got, jd.snapshot_session("p0"))
+    assert ([t.steps for t in d.queue.pending()]
+            == [t.steps for t in jd.queue.pending()])
+    d._wal.sync()
+    assert wal.replay(paths["port"]).pool_sessions["p0"]["steps"] == 6
 
 
 # ---------------------------------------------------------- daemon + ladder
