@@ -400,7 +400,34 @@ Phases, each of which raises (exit code 1) when it fails:
    ``post-step`` in ``pool`` and in ``settled`` mode, each journal resumed
    to the acked ledger; each pool kernel's device ms a launch at a 500^2
    and a 48^2 plane beside its plain version and bound, and a 1000-step
-   dispatch at 500^2 against ``bitsliced_steps(slab, 1000)``.
+   dispatch at 500^2 against ``bitsliced_steps(slab, 1000)``;
+27. the serving fleet (``serve/router.py``, ``serve/fleet.py``,
+   ``serve/loadgen.py``, ``obs/telemetry.py``) on the card, the counts set
+   to 0 just before each in-process drill and read just after
+   (``FLEET_*``: the JAX bench's fleet and loadgen policies and mix at
+   500^2 and 95x130, steps 100 and 1000): a 3-worker ``Fleet`` with
+   journals takes a 192-ticket burst over 24 session keys (p46gun_big every
+   16th ticket), its deepest worker wedged mid-burst, declared, its journal
+   replayed to nothing pending and its tickets re-homed, every ticket
+   resolved (the plain packed loop's boards on the card, p46gun_big the
+   oracle's), the books balanced, requests a second, p50/p99, steals and
+   the wedge-to-last-re-homed seconds logged; 96 sessions of 500^2 on the
+   same fleet stepped 100 and 1000 steps, the wedged worker rejoined
+   (exactly the whole slab groups whose lead hashes to it claimed), then
+   another worker drained (a whole 16-ticket bucket to one survivor, its
+   sessions after their journaled steps, its journal replaying to
+   nothing), every snapshot row 4's board, the claim's and the drain's
+   seconds logged; ``run_open_loop`` on 3 fresh fleets at 1/2, 1 and 2x
+   the burst's rate for 2 s each, ``saturation_knee`` and the knee's
+   goodput and p50/p99/p999, then the bench's membership cycle at the knee
+   (wedge 0.25, rejoin 0.45, drain 0.65) with telemetry and the elastic
+   controller on, every board and snapshot row 4's, the burn-rate peak and
+   the decisions logged; the worker-process CLI (``FLEET_CLI``) twice,
+   under ``MOMP_CHAOS=kill_worker=1:2`` from the phase's start and clean
+   from the burst's end, beside the in-process drills, both exit 0
+   with the books balanced and every board verified, worker 1's rc 137,
+   every recovery rc 0, the telemetry sidecars merged with their loss
+   counted. Before the last lines: every phase's seconds and the total.
 
 Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -433,6 +460,7 @@ import functools
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -527,8 +555,25 @@ QUAD_NEEDED_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "MUFU")
 MUFU_PER_S = N_SMS * 16 * 1.98e9
 
 
+# When each phase's closing line ("phase N ...") was logged.
+PHASE_ENDS: list[tuple[int, float]] = []
+
+
 def log(msg: str) -> None:
+    m = re.match(r"phase (\d+) ", msg)
+    if m:
+        PHASE_ENDS.append((int(m[1]), time.perf_counter()))
     print(msg, flush=True)
+
+
+def phase_seconds(t_start: float) -> dict[str, float]:
+    """Each phase's seconds: from the previous phase's closing line (the
+    script's start for phase 1) to its own."""
+    out, last = {}, t_start
+    for n, t in PHASE_ENDS:
+        out[str(n)] = round(t - last, 2)
+        last = t
+    return out
 
 
 def card_line() -> str:
@@ -2049,16 +2094,18 @@ def phase_obs(card: str, wrappers: dict) -> dict:
 
 # Phase 24: the tuner on the batched and sharded paths. Each shape's
 # brackets (steps, steps * mult, the least of reps runs each): long enough
-# on the kernel paths for the host clock (the 500^2 stacks' 1000 and 5000
-# steps take ~1.3-10 ms of a kernel), short enough for the frame path's
-# per-board host loop at 512 boards (one round a 64 steps a board).
-TUNE_LIFE = (((64, 500, 500), dict(steps=1000, mult=5, reps=3)),
-             ((8, 500, 500), dict(steps=1000, mult=5, reps=3)),
-             ((512, 95, 130), dict(steps=200, mult=5, reps=2)),
-             ((1, 500, 500), dict(steps=1000, mult=5, reps=3)))
+# on the kernel paths for the host clock (the 500^2 stacks' 1000 and 3000
+# steps take ~1.3-6 ms of a kernel; the difference 2000 steps), short
+# enough for the frame path's per-board host loop at 512 boards (one round
+# a 64 steps a board). Mult 3 and 2 reps (once 5 and 3) leave phase 27
+# room: the tuned paths win by 1.4-13x, far past the brackets' noise.
+TUNE_LIFE = (((64, 500, 500), dict(steps=1000, mult=3, reps=2)),
+             ((8, 500, 500), dict(steps=1000, mult=3, reps=2)),
+             ((512, 95, 130), dict(steps=200, mult=3, reps=2)),
+             ((1, 500, 500), dict(steps=1000, mult=3, reps=2)))
 TUNE_STENCIL = (("heat", (64, 500, 500)), ("wireworld", (64, 500, 500)))
-TUNE_STENCIL_BUDGET = dict(steps=100, mult=5, reps=2)
-TUNE_SHARDED_BUDGET = dict(steps=32, mult=5, reps=2)
+TUNE_STENCIL_BUDGET = dict(steps=100, mult=3, reps=2)
+TUNE_SHARDED_BUDGET = dict(steps=32, mult=3, reps=2)
 TUNE_KERNELS = ("vmem_batch", "bitsliced", "fused", "stencil")
 
 # Phase 25: the serving daemon on the card. Its working directory; the
@@ -2687,7 +2734,9 @@ POOL_ROOT = os.path.join(ROOT, "build", "chip_smoke_pool")
 # 0.3 from default_rng(48), 4 steps a round, 8 rounds, max_batch 8; at 1024
 # sessions of its 48^2 and 256 of p46gun_big's 500^2.
 POOL_AB = ((48, 1024), (500, 256))
-POOL_AB_ROUNDS, POOL_AB_STEPS, POOL_AB_SEED, POOL_AB_DENSITY = 8, 4, 48, 0.3
+# 4 rounds (the bench's 8 halved to give phase 27 room; the rates and
+# their ratio are per ticket, so the rounds set only how long they run).
+POOL_AB_ROUNDS, POOL_AB_STEPS, POOL_AB_SEED, POOL_AB_DENSITY = 4, 4, 48, 0.3
 # pool_step_tail against its plain version: plane extents (a 1-row and a
 # 1-column torus, whose neighbours alias the cell, the bench's, 95x130, the
 # flagship's), slabs of 1 and 2 planes, four masks each.
@@ -3127,21 +3176,25 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     shutil.rmtree(POOL_ROOT, ignore_errors=True)
     os.makedirs(POOL_ROOT)
     crash = {}
+    # The two children side by side: each its own journal and ack file.
+    children = {}
     for mode, spec in (("pool", "crash=post-step:5"),
                        ("settled", "crash=post-step:15")):
         walp = os.path.join(POOL_ROOT, f"{mode}.wal")
         ackp = os.path.join(POOL_ROOT, f"{mode}.acked")
-        t1 = time.perf_counter()
-        child = subprocess.run(
+        children[mode] = (spec, walp, ackp, time.perf_counter(),
+                          subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "tests",
                                           "_torch_wal_crash_driver.py"),
              walp, "every-record", ackp, "4", mode, POOL_DEV.type],
             cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT,
                                **{chaos.ENV: spec}),
-            capture_output=True, text=True, timeout=300)
-        if child.returncode != chaos.CRASH_EXIT:
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    for mode, (spec, walp, ackp, t1, proc) in children.items():
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != chaos.CRASH_EXIT:
             raise AssertionError(f"phase 26 {mode} crash child: rc "
-                                 f"{child.returncode}, {child.stderr[-2000:]}")
+                                 f"{proc.returncode}, {err[-2000:]}")
         acked: dict[str, int] = {}
         for op in (ln.split() for ln in open(ackp).read().splitlines()):
             if op and op[0] == "S":
@@ -3237,6 +3290,509 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
             "checks": checks, "times": times}
 
 
+# Phase 27: the serving fleet on the card, at the flagship's size. The JAX
+# bench's fleet and loadgen lines (bench.py:408-520, 520-700) with their
+# policies (max_batch 8, max_wait 0.005 s; the loadgen's max_depth 256),
+# mix (batch 0.7, resident 0.25, snapshot 0.05), duration (2 s,
+# bench.py:2036) and SLO (p99 0.5 s, goodput 0.5), at p46gun_big's 500^2
+# and phase 6's 95x130 (spec.init(default_rng(46)), p46gun_big every 16th
+# ticket) and steps (100, 1000) where the bench has 48^2 and 64^2 at (4, 8)
+# and (2, 4); the worker-process CLI as JAX serve/fleet.py:467-510 runs it.
+FLEET_ROOT = os.path.join(ROOT, "build", "chip_smoke_fleet")
+FLEET_WORKERS = 3
+FLEET_SHAPES = ((500, 500), (95, 130))
+FLEET_STEPS = (100, 1000)
+FLEET_BURST, FLEET_KEYS, FLEET_GUN_EVERY = 192, 24, 16
+FLEET_SESSIONS, FLEET_DRAIN_TICKETS = 96, 16
+FLEET_LOADGEN_S, FLEET_RATE_MULTS = 2.0, (0.5, 1.0, 2.0)
+FLEET_SLO = dict(p99_s=0.5, goodput_frac=0.5)
+FLEET_CLI = ["--workers", "3", "--requests", "96", "--sessions", "12",
+             "--shapes", "500x500,95x130", "--steps", "100,1000",
+             "--max-batch", "8", "--verify"]
+# Phase 27's kernels, as main names their wrappers: a worker's buckets
+# (rows 4 and 5) and its resident sessions (rows 5 and 12).
+FLEET_KERNELS = ("vmem_batch", "bitsliced", "pool_step_tail",
+                 "pool_lane_write", "pool_lane_read")
+
+
+def phase_fleet(card: str, wrappers: dict) -> dict:
+    """Phase 27 (module docstring): the serving fleet on the card. Returns
+    each drill's record and the kernels' launches in the in-process
+    drills (the worker processes count their own)."""
+    import shutil
+
+    from mpi_and_open_mp_tpu_torch import load_config, stencils
+    from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
+    from mpi_and_open_mp_tpu_torch.ops import life_ops
+    from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.robust import chaos
+    from mpi_and_open_mp_tpu_torch.serve import (
+        SLO, ConsistentHashRing, ElasticityPolicy, Fleet, ScenarioMix,
+        ServePolicy, run_open_loop, saturation_knee, wal)
+    from mpi_and_open_mp_tpu_torch.serve import fleet as fleet_cli
+    from mpi_and_open_mp_tpu_torch.serve.queue import DONE
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    os.makedirs(FLEET_ROOT)
+    counted = {k: wrappers[k] for k in FLEET_KERNELS}
+    launches: dict[str, dict] = {}
+    runs: dict[str, dict] = {}
+    drill_s: dict[str, float] = {}
+
+    def counted_run(label, fn):
+        out, counts = run_counted(counted, fn)
+        launches[label] = counts
+        return out
+
+    def on_card(boards, fn, steps):
+        stack = torch.from_numpy(np.stack(boards)).cuda()
+        return fn(stack, steps).cpu().numpy()
+
+    def plain(boards, steps):
+        """The plain packed loop on the card (no kernel)."""
+        return on_card(boards, tb.life_run_bits_plain_batch, steps)
+
+    def row4(boards, steps):
+        """Row 4's board: one bitlife_vmem_batch launch."""
+        return on_card(boards, lambda x, n: nl.run_path_batch(
+            "vmem-grid", x, n), steps)
+
+    def held(label, tickets, ref) -> int:
+        """Every resolved one-shot board equal to ``ref``'s, a (shape,
+        steps) bucket a call; no ticket resolved on the plain loop or the
+        oracle."""
+        groups: dict[tuple, list] = {}
+        for t in tickets:
+            if t.state == DONE and t.board is not None:
+                groups.setdefault((t.board.shape, t.steps), []).append(t)
+                if t.engine.startswith(("batch:plain", "oracle")):
+                    raise AssertionError(f"phase 27 {label}: {t.engine}")
+        for (_, steps), ts in groups.items():
+            want = ref([t.board for t in ts], steps)
+            got = np.stack([t.result for t in ts])
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"phase 27 {label}: {int((got != want).sum())} cells of "
+                    f"{len(ts)} boards at {steps} steps differ")
+        return sum(len(ts) for ts in groups.values())
+
+    def sessions_held(label, fleet, boards) -> int:
+        """Every session's snapshot equal to row 4's board at its journaled
+        step total (the create board from ``boards``)."""
+        by_steps: dict[tuple, list] = {}
+        for sid in boards:
+            home = fleet.router._home_worker(sid)
+            by_steps.setdefault((int(home.daemon._session_log[sid]["steps"]),
+                                 boards[sid].shape), []).append(sid)
+        for (steps, _), sids in by_steps.items():
+            want = row4([boards[s] for s in sids], steps)
+            for sid, w in zip(sids, want):
+                if not np.array_equal(fleet.snapshot_session(sid), w):
+                    raise AssertionError(f"phase 27 {label}: session {sid} "
+                                         f"at {steps} steps differs")
+        return len(boards)
+
+    def books(label, fleet) -> dict:
+        s = fleet.summary()
+        if not s["balanced"] or s["pending"] or s["in_transit"]:
+            raise AssertionError(f"phase 27 {label}: books {s}")
+        return s
+
+    life = stencils.get("life")
+    rng = np.random.default_rng(46)
+    gun0 = load_config(GUN_BIG).board()
+    gun100 = gun0
+    for _ in range(FLEET_STEPS[0]):
+        gun100 = life_ops.life_step_numpy(gun100)
+
+    # (4, started) The worker-process CLI, clean and under
+    # kill_worker=1:2, each parent spawning its own 3 workers on the card:
+    # the kill run (the longer chain: parent, workers, recovery workers)
+    # from the phase's start, the clean run after the burst, both going on
+    # while the in-process drills run (whose host-bound numbers carry that
+    # contention).
+    procs = {}
+    cli_dirs = {}
+
+    def cli_start(label, spec):
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        env.pop(chaos.ENV, None)
+        env.pop("MOMP_TRACE", None)
+        if spec:
+            env[chaos.ENV] = spec
+        d = cli_dirs[label] = os.path.join(FLEET_ROOT,
+                                           "cli_" + label.split("=")[0])
+        # The parents' output to files: nothing reads a pipe meanwhile.
+        with open(d + ".out", "wb") as out, open(d + ".err", "wb") as err:
+            procs[label] = (time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m",
+                 "mpi_and_open_mp_tpu_torch.serve.fleet", *FLEET_CLI,
+                 "--dir", d], cwd=ROOT, env=env, stdout=out, stderr=err,
+                start_new_session=True))
+
+    def cli_stop():
+        """A failed drill stops the CLI runs too: each parent leads its own
+        session, so its workers go with it."""
+        for _, proc in procs.values():
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+    t_cli = time.perf_counter()
+    cli_start("kill_worker=1:2", "kill_worker=1:2")
+    # (1) A 192-ticket burst over 24 session keys into 3 workers with
+    # journals; the deepest worker wedged mid-burst.
+    burst = []
+    for i in range(FLEET_BURST):
+        shape, steps = FLEET_SHAPES[i % 2], FLEET_STEPS[(i // 2) % 2]
+        gun = i % FLEET_GUN_EVERY == 0  # 500^2 at 100 steps
+        burst.append((gun0 if gun else life.init(rng, shape), steps,
+                      f"s{i % FLEET_KEYS:04d}", gun))
+    policy = ServePolicy(max_batch=8, max_depth=max(64, 2 * FLEET_BURST),
+                         max_wait_s=0.005)
+
+    def burst_drill():
+        fleet = Fleet(FLEET_WORKERS, policy,
+                      wal_dir=os.path.join(FLEET_ROOT, "burst"),
+                      heartbeat_interval_s=0.01)
+        t_start = time.monotonic()
+        tickets = [fleet.submit(b, n, session=k)
+                   for b, n, k, _ in burst[:FLEET_BURST // 2]]
+        fleet.pump()
+        tickets += [fleet.submit(b, n, session=k)
+                    for b, n, k, _ in burst[FLEET_BURST // 2:]]
+        victim = max(fleet.handles,
+                     key=lambda h: h.daemon.queue.depth()).index
+        depth = fleet.handles[victim].daemon.queue.depth()
+        t_kill = time.monotonic()
+        fleet.wedge(victim)
+        fleet.serve_until_drained()
+        return fleet, tickets, victim, depth, t_start, t_kill, time.monotonic()
+
+    t1 = time.perf_counter()
+    try:
+        fleet, tickets, victim, depth, t_start, t_kill, t_end = counted_run(
+            "burst", burst_drill)
+    except BaseException:
+        cli_stop()
+        raise
+    s = books("burst", fleet)
+    rehomed = fleet.router.last_rehomed
+    recovered = [t.resolved_at for t in rehomed if t.resolved_at is not None]
+    # Re-homed tickets resolve as new tickets at their survivors: the
+    # fleet's resolved set, not the submitted one, carries every board.
+    done = fleet.resolved_tickets()
+    guns = [t for t in done if t.board.shape == gun0.shape
+            and np.array_equal(t.board, gun0)]
+    n_guns = sum(1 for *_, gun in burst if gun)
+    rep = wal.replay(fleet.handles[victim].wal_path)
+    if (s["resolved"] != FLEET_BURST or s["shed"] or s["door_shed"]
+            or s["wedged"] != [victim] or not depth or not rehomed
+            or len(recovered) != len(rehomed) or rep.pending
+            or s["rehomed_resolved"] != s["rehomed"] or len(guns) != n_guns
+            or not all(np.array_equal(t.result, gun100) for t in guns)):
+        raise AssertionError(f"phase 27 burst: {s}, victim {victim} depth "
+                             f"{depth}, {len(rehomed)} re-homed, "
+                             f"{len(recovered)} resolved")
+    checked = held("burst", done, plain)
+    rps = s["resolved"] / (t_end - t_start)
+    runs["burst"] = {
+        "fleet_requests_per_sec": rps, "wall_s": t_end - t_start,
+        "fleet_p50_latency_s": s["p50_latency_s"],
+        "fleet_p99_latency_s": s["p99_latency_s"], "steals": s["steals"],
+        "victim": victim, "victim_depth": depth, "rehomed": s["rehomed"],
+        "fleet_kill_recovery_s": max(recovered) - t_kill,
+        "books": s, "launches": launches["burst"]}
+    drill_s["burst"] = time.perf_counter() - t1
+    log(f"  burst: {FLEET_BURST} tickets over {FLEET_KEYS} keys "
+        f"({', '.join(f'{a}x{b}' for a, b in FLEET_SHAPES)} at steps "
+        f"{FLEET_STEPS}), worker {victim} wedged with {depth} pending: "
+        f"fleet_requests_per_sec {rps:.2f}, p50 {s['p50_latency_s']} s, "
+        f"p99 {s['p99_latency_s']} s, steals {s['steals']}, re-homed "
+        f"{s['rehomed']} (all resolved), fleet_kill_recovery_s "
+        f"{max(recovered) - t_kill:.4f}; books balanced; {checked} boards "
+        f"the plain loop's on the card, {len(guns)} p46gun_big the "
+        f"oracle's at {FLEET_STEPS[0]} steps; victim's journal replays to "
+        f"0 pending; launches {launches['burst']} "
+        f"({drill_s['burst']:.2f} s) [{card}]")
+
+    cli_start("clean", None)
+    try:
+        # (2) 96 resident sessions of 500^2 on the same fleet (the wedged
+        # worker out), stepped in rounds; the wedged worker rejoins and claims
+        # whole slab groups; another worker drains.
+        t1 = time.perf_counter()
+        full = ConsistentHashRing(range(FLEET_WORKERS))
+        names = [f"r{i:04d}" for i in range(4 * FLEET_SESSIONS)]
+        lead = [n for n in names if full.lookup(n) == victim][:1]
+        order = lead + [n for n in names if n not in lead][:FLEET_SESSIONS - 1]
+        sboards = {sid: gun0 if k == 1 else life.init(rng, (500, 500))
+                   for k, sid in enumerate(order)}
+
+        def rounds(fleet, sids, steps):
+            ts = [fleet.step_session(sid, steps) for sid in sids]
+            fleet.serve_until_drained()
+            if {t.state for t in ts} != {DONE}:
+                raise AssertionError("phase 27 sessions: a step did not resolve")
+
+        def sessions_drill():
+            for sid, b in sboards.items():
+                fleet.create_session(sid, b)
+            for steps in FLEET_STEPS:
+                rounds(fleet, sboards, steps)
+            before = {h.index: h.daemon.pool.slab_groups()
+                      for h in fleet.router.live_workers()}
+            want = sorted(sid for groups in before.values()
+                          for sids in groups.values()
+                          if full.lookup(str(sids[0])) == victim for sid in sids)
+            t2 = time.perf_counter()
+            claimed = fleet.rejoin_worker(victim)
+            claim_s = time.perf_counter() - t2
+            return want, claimed, claim_s
+
+        want, claimed, claim_s = counted_run("sessions", sessions_drill)
+        moved = sorted(sid for sid in sboards
+                       if fleet.router._home_worker(sid).index == victim)
+        if not want or claimed != len(want) or moved != want:
+            raise AssertionError(f"phase 27 rejoin: claimed {claimed}, whole "
+                                 f"groups {len(want)}, on the rejoiner "
+                                 f"{len(moved)}")
+        sessions_held("rejoin", fleet, sboards)
+        # The drain: the live worker with the most sessions, a whole pending
+        # bucket routed to it, every session's next step journaled first.
+        live = [h for h in fleet.router.live_workers() if h.index != victim]
+        dst = max(live, key=lambda h: len(h.daemon.sessions()))
+        held_sessions = len(dst.daemon.sessions())
+        keys, j = [], 0
+        while len(keys) < FLEET_DRAIN_TICKETS:
+            if fleet.router.target_for(f"d{j:04d}") == dst.index:
+                keys.append(f"d{j:04d}")
+            j += 1
+        dboards = [life.init(rng, (500, 500)) for _ in keys]
+
+        def drain_drill():
+            ts = [fleet.submit(b, FLEET_STEPS[0], session=k)
+                  for b, k in zip(dboards, keys)]
+            steps = [fleet.step_session(sid, FLEET_STEPS[0]) for sid in sboards]
+            t2 = time.perf_counter()
+            stats = fleet.drain_worker(dst.index)
+            drain_s = time.perf_counter() - t2
+            fleet.serve_until_drained()
+            return ts, steps, stats, drain_s
+
+        ts, steps, stats, drain_s = counted_run("drain", drain_drill)
+        rep = wal.replay(dst.wal_path)
+        dkeys = {b.tobytes() for b in dboards}
+        owners = {h.index for h in fleet.router.live_workers()
+                  for t in h.daemon.queue.tickets()
+                  if t.resumed and t.board is not None
+                  and t.board.tobytes() in dkeys}
+        s = books("sessions", fleet)
+        if (stats["tickets_moved"] != FLEET_DRAIN_TICKETS
+                or stats["sessions_moved"] != held_sessions or len(owners) != 1
+                or rep.pending or rep.pool_sessions
+                or {t.state for t in steps} != {DONE} or s["rejoins"] != 1
+                or s["drains"] != 1 or s["drained"] != [dst.index]):
+            raise AssertionError(f"phase 27 drain: {stats}, owners {owners}, "
+                                 f"journal {rep.counts()}, books {s}")
+        held("drain", fleet.resolved_tickets(), plain)
+        sessions_held("drain", fleet, sboards)
+        runs["membership"] = {
+            "claim_s": claim_s, "claimed_sessions": claimed,
+            "drain_s": drain_s, "drained_worker": dst.index,
+            "drain_sessions_moved": stats["sessions_moved"],
+            "drain_tickets_moved": stats["tickets_moved"], "books": s,
+            "launches": {k: launches[k] for k in ("sessions", "drain")}}
+        drill_s["membership"] = time.perf_counter() - t1
+        log(f"  membership: {FLEET_SESSIONS} sessions of 500^2 (p46gun_big "
+            f"among them) created and stepped {FLEET_STEPS}; worker {victim} "
+            f"rejoined, claimed {claimed} sessions in whole slab groups in "
+            f"{claim_s:.4f} s; worker {dst.index} drained in {drain_s:.4f} s "
+            f"({stats['tickets_moved']} tickets in one bucket to one worker, "
+            f"{stats['sessions_moved']} sessions, its journal replays to "
+            f"nothing); every snapshot row 4's board at its journaled total, "
+            f"every one-shot board the plain loop's; books balanced; launches "
+            f"{launches['sessions']}, {launches['drain']} "
+            f"({drill_s['membership']:.2f} s) [{card}]")
+        del fleet
+        torch.cuda.empty_cache()
+
+        # (3) The load generator: 3 fresh fleets at 1/2, 1 and 2x the burst's
+        # requests a second, then one membership cycle at the knee.
+        t1 = time.perf_counter()
+        mix = ScenarioMix(batch=0.7, resident=0.25, snapshot=0.05,
+                          shapes=FLEET_SHAPES, steps=FLEET_STEPS,
+                          sessions=max(8, 2 * FLEET_WORKERS))
+        slo = SLO(**FLEET_SLO)
+        lpolicy = ServePolicy(max_batch=8, max_depth=256, max_wait_s=0.005)
+        rates = [m * rps for m in FLEET_RATE_MULTS]
+
+        def gated(label, fleet, rep):
+            n = held(label, fleet.resolved_tickets(), row4)
+            sessions_held(label, fleet, rep.resident_boards)
+            if not rep.books["balanced"]:
+                raise AssertionError(f"phase 27 {label}: {rep.books}")
+            return n
+
+        reports = []
+        for rate in rates:
+            lfleet = Fleet(FLEET_WORKERS, lpolicy, heartbeat_interval_s=0.01,
+                           telemetry_interval_s=0.02)
+            rep = counted_run(f"loadgen {rate:.1f}/s", lambda: run_open_loop(
+                lfleet, rate, FLEET_LOADGEN_S, mix=mix, slo=slo, seed=17))
+            gated(f"loadgen {rate:.1f}/s", lfleet, rep)
+            reports.append(rep)
+            del lfleet
+        knee = saturation_knee(reports)
+        at_knee = next((r for r in reversed(reports) if r.slo_ok), reports[0])
+        cycle_rate = knee["knee_rps"] or rates[0]
+        cfleet = Fleet(FLEET_WORKERS, lpolicy, heartbeat_interval_s=0.01,
+                       telemetry=True, telemetry_interval_s=0.02,
+                       elasticity=ElasticityPolicy(
+                           slo_p99_s=slo.p99_s, slo_goodput_frac=slo.goodput_frac,
+                           min_workers=1, max_workers=FLEET_WORKERS + 2,
+                           surplus_p99_frac=0.0))
+        cycle: dict = {}
+
+        def ev_wedge(fl):
+            h = max((w for w in fl.handles if not (w.wedged or w.drained)),
+                    key=lambda w: w.daemon.queue.depth())
+            cycle["victim"] = h.index
+            fl.wedge(h.index)
+
+        def ev_rejoin(fl):
+            deadline = time.monotonic() + 10.0
+            while cycle["victim"] not in fl.router.wedged_workers:
+                fl.pump()
+                time.sleep(fl.router.heartbeat_interval_s)
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase 27 cycle: the victim was never "
+                                         "declared")
+            t2 = time.perf_counter()
+            cycle["claimed"] = fl.rejoin_worker(cycle["victim"])
+            cycle["rejoin_s"] = time.perf_counter() - t2
+
+        def ev_drain(fl):
+            h = max((w for w in fl.handles if not (w.wedged or w.drained
+                                                    or w.halted)
+                     and w.index != cycle["victim"]),
+                    key=lambda w: w.daemon.queue.depth())
+            cycle["drained"] = h.index
+            t2 = time.perf_counter()
+            fl.drain_worker(h.index)
+            cycle["drain_s"] = time.perf_counter() - t2
+
+        crep = counted_run("membership cycle", lambda: run_open_loop(
+            cfleet, cycle_rate, FLEET_LOADGEN_S, mix=mix, slo=slo, seed=23,
+            events=[(0.25, ev_wedge), (0.45, ev_rejoin), (0.65, ev_drain)]))
+        gated("membership cycle", cfleet, crep)
+        cs = cfleet.summary()
+        if cs["rejoins"] != 1 or cs["drains"] < 1 or not cs["wedged"]:
+            raise AssertionError(f"phase 27 membership cycle: {cs}")
+        burn = cfleet.burn.summary()
+        runs["loadgen"] = {
+            "rates": rates, "knee": knee,
+            "at_knee": {"offered_rps": at_knee.offered_rps,
+                        "goodput_rps": at_knee.goodput_rps,
+                        "p50_s": at_knee.p50_s, "p99_s": at_knee.p99_s,
+                        "p999_s": at_knee.p999_s, "shed": at_knee.shed},
+            "cycle": {**crep.to_dict(), **cycle, "burn": burn,
+                      "decisions": cfleet.decisions,
+                      "telemetry": cfleet.router.telemetry.summary(),
+                      "books": cs},
+            "launches": {k: v for k, v in launches.items()
+                         if k.startswith(("loadgen", "membership cycle"))}}
+        drill_s["loadgen"] = time.perf_counter() - t1
+        log(f"  loadgen (3 fresh fleets, {FLEET_LOADGEN_S} s each, mix batch "
+            f"0.7 / resident 0.25 / snapshot 0.05, SLO p99 {slo.p99_s} s, "
+            f"goodput {slo.goodput_frac}): offered "
+            + ", ".join(f"{r.offered_rps:.1f}/s -> goodput {r.goodput_rps:.1f},"
+                        f" p99 {r.p99_s:.4f} s, shed {sum(r.shed.values())}, "
+                        f"slo_ok {r.slo_ok}" for r in reports)
+            + f"; saturation_knee {knee['knee_rps']} (breach "
+            f"{knee['breach_rps']}); at the knee goodput "
+            f"{at_knee.goodput_rps:.2f}/s, p50 {at_knee.p50_s:.4f}, p99 "
+            f"{at_knee.p99_s:.4f}, p999 {at_knee.p999_s:.4f} s [{card}]")
+        log(f"  membership cycle at {cycle_rate:.1f}/s (wedge 0.25, rejoin "
+            f"0.45, drain 0.65, telemetry on): goodput {crep.goodput_rps:.2f}/s,"
+            f" p99 {crep.p99_s:.4f} s, shed {crep.shed}, worker "
+            f"{cycle['victim']} rejoined ({cycle['claimed']} claimed, "
+            f"{cycle['rejoin_s']:.4f} s), worker {cycle['drained']} drained "
+            f"({cycle['drain_s']:.4f} s); burn-rate peak short "
+            f"{burn['burn_peak_short']} long {burn['burn_peak_long']}, alerts "
+            f"{burn['burn_alerts']}; decisions {json.dumps(cfleet.decisions)}; "
+            f"every resident snapshot and one-shot board row 4's; books "
+            f"balanced ({drill_s['loadgen']:.2f} s) [{card}]")
+        del cfleet
+        torch.cuda.empty_cache()
+    except BaseException:
+        cli_stop()
+        raise
+
+    # (4, collected) The CLI runs' lines, each worker's own line beside.
+    t1 = time.perf_counter()
+    results = {}
+    for label, (t2, proc) in procs.items():
+        proc.wait(timeout=600)
+        wall = time.perf_counter() - t2
+        with open(cli_dirs[label] + ".out") as out, \
+                open(cli_dirs[label] + ".err") as err:
+            results[label] = (proc.returncode, out.read(), err.read(), wall)
+    cli = {}
+    for label, (rc, out, err, wall) in results.items():
+        try:
+            line = json.loads(out.strip().splitlines()[-1])
+        except (IndexError, ValueError):
+            line = {}
+        tel = line.get("telemetry", {})
+        ok = (rc == 0 and line.get("books_balance") is True
+              and line.get("verified") is True and line.get("device") ==
+              "cuda" and line.get("resolved") == 96 and tel.get("snapshots")
+              and "loss" in tel)
+        if label == "clean":
+            ok = ok and line.get("worker_rcs") == [0, 0, 0]
+        else:
+            ok = (ok and line.get("worker_rcs", [])[1:2] == [137]
+                  and line.get("victims") == [1]
+                  and line.get("recovery_rcs")
+                  and all(r == 0 for r in line["recovery_rcs"])
+                  and line.get("rehomed_parity") is True)
+        if not ok:
+            raise AssertionError(f"phase 27 CLI {label}: rc {rc}, {out[-3000:]}"
+                                 f" {err[-3000:]}")
+        workers = {}
+        for name in sorted(os.listdir(cli_dirs[label])):
+            if name.endswith(".out"):
+                w = fleet_cli._read_worker_line(
+                    os.path.join(cli_dirs[label], name)) or {}
+                workers[name[:-4]] = {k: w.get(k) for k in (
+                    "wall_sec", "resolved", "batches", "verified")}
+        cli[label] = {"rc": rc, "wall_s": wall, **{k: line.get(k) for k in (
+            "worker_rcs", "recovery_rcs", "rehomed", "rehomed_resolved",
+            "resolved", "wall_sec", "fleet_requests_per_sec",
+            "fleet_p99_latency_s", "fleet_kill_recovery_s")},
+            "telemetry_loss": tel["loss"], "workers": workers}
+        log(f"  fleet CLI {label}: rc 0, {cli[label]['wall_s']:.2f} s "
+            f"(the parent's wall_sec {line['wall_sec']}), worker rcs "
+            f"{line['worker_rcs']}, recovery rcs {line['recovery_rcs']}, "
+            f"re-homed {line['rehomed']}, resolved {line['resolved']}, books "
+            f"balanced, verified (every board the plain loop's on the card), "
+            f"telemetry {tel['snapshots']} snapshots, loss {tel['loss']}; "
+            f"each worker's serve seconds "
+            f"{ {k: v['wall_sec'] for k, v in workers.items()} } [{card}]")
+    runs["cli"] = cli
+    drill_s["cli (beside drills 1-3)"] = time.perf_counter() - t_cli
+    drill_s["cli wait after drill 3"] = time.perf_counter() - t1
+    shutil.rmtree(FLEET_ROOT, ignore_errors=True)
+    totals = {k: sum(c[k] for c in launches.values()) for k in FLEET_KERNELS}
+    runs["drill_seconds"] = drill_s
+    log(f"phase 27 serving fleet: ok ({time.perf_counter() - t0:.2f} s; "
+        f"drills {json.dumps({k: round(v, 2) for k, v in drill_s.items()})};"
+        f" launches {totals})")
+    return {"runs": runs, "launches": launches, "totals": totals}
+
+
 def life_ops_oracle(cfg, n: int) -> np.ndarray:
     """``cfg``'s board after ``n`` NumPy oracle steps."""
     from mpi_and_open_mp_tpu_torch.ops import life_ops
@@ -3256,6 +3812,13 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    # Where torch is installed without bytecode and PYTHONDONTWRITEBYTECODE
+    # is set, every child process compiles torch's Python sources again on
+    # import. The children share one bytecode cache under build/ instead;
+    # the first one writes it.
+    os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(ROOT, "build",
+                                                     "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     from mpi_and_open_mp_tpu_torch import LifeSim, load_config, stencils
     from mpi_and_open_mp_tpu_torch.ops import _build, life_ops
     from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
@@ -5885,6 +6448,9 @@ def main() -> int:
     # ------------------- 26. the resident-session pool on its kernels
     pool_rec = phase_pool(card, wrappers, gun_serial)
 
+    # ------------ 27. the serving fleet: router, workers, load, processes
+    fleet_rec = phase_fleet(card, wrappers)
+
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
          "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_vmem.cu",
@@ -6194,6 +6760,19 @@ def main() -> int:
             "exact_cases": pool_rec["checks"][name],
             "launches_by_run": {run: c[name] for run, c in
                                 pool_rec["launches"].items()}})
+    # Phase 27's in-process fleet drills, beside the main path's launches
+    # (the worker processes of its CLI drill count their own).
+    fleet_keys = {"bitlife_vmem_batch": "vmem_batch",
+                  "bitlife_bitsliced": "bitsliced",
+                  "pool_step_tail": "pool_step_tail",
+                  "pool_lane_write": "pool_lane_write",
+                  "pool_lane_read": "pool_lane_read"}
+    for row in kernels:
+        key = fleet_keys.get(row["name"])
+        if key:
+            row["launches_fleet"] = {run: c[key] for run, c in
+                                     fleet_rec["launches"].items()}
+            row["launches"] += fleet_rec["totals"][key]
     kernels[-3]["dispatch_1000_steps_500_ms"] = pool_rec["times"][
         "dispatch_1000_steps_500_ms"]
     kernels[-3]["exact_cases_pool_step"] = pool_rec["checks"]["pool_step"]
@@ -6203,7 +6782,11 @@ def main() -> int:
         f"CLI {json.dumps(tune_rec['cli'])}")
     log(f"serve: {json.dumps(serve_rec['runs'])}")
     log(f"pool: {json.dumps(pool_rec['runs'])}")
-    log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(f"fleet: {json.dumps(fleet_rec['runs'])}")
+    total = time.perf_counter() - t_start
+    log(f"total {total:.1f} s")
+    print(json.dumps({"phase_seconds": phase_seconds(t_start),
+                      "total_s": round(total, 2)}), flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Observability: span tracing, a metrics registry, and trace reporting.
+"""Observability: span tracing, a metrics registry, trace reporting and
+the fleet's telemetry plane.
 
 Counterpart of ``mpi_and_open_mp_tpu/obs``, standard library and torch
 only, and free when off:
@@ -20,14 +21,22 @@ only, and free when off:
     Host-side analysis of a trace file: the phase breakdown, the ring hop
     fit, recoveries and retraces, and a Chrome trace-event export
     (``to_chrome``).
+``telemetry``
+    The fleet's time series: quantile histograms on declared geometric
+    buckets, per-worker snapshot rings, the SLO burn-rate monitor and the
+    CRC-framed sidecar stream a worker process ships (byte-compatible with
+    the JAX package's).
 
-The JAX package's other three modules wait for their callers:
-``profile`` (compiled cost analysis against per-device peaks) and
-``ledger`` (the cross-run JSONL ledger) come with the port's bench entry,
-their only callers being ``bench.py`` and
-``analysis/regression_sentinel.py``; ``telemetry`` (the fleet time series)
-comes with the serving stack, whose router and fleet first call it
-(ROADMAP Queue 1 items 4 and 9).
+The JAX package's other two modules wait for their callers: ``profile``
+(compiled cost analysis against per-device peaks) and ``ledger`` (the
+cross-run JSONL ledger) come with the port's bench entry, their only
+callers being ``bench.py`` and ``analysis/regression_sentinel.py``
+(ROADMAP Queue 1 item 4).
 """
 
-from mpi_and_open_mp_tpu_torch.obs import metrics, report, trace  # noqa: F401
+from mpi_and_open_mp_tpu_torch.obs import (  # noqa: F401
+    metrics,
+    report,
+    telemetry,
+    trace,
+)

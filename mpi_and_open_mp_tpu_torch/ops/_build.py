@@ -111,6 +111,8 @@ def build(names=tuple(SIGNATURES), force: bool = False) -> dict[str, str]:
     registers, shared memory, spills) and records each one's wall seconds
     in :data:`BUILD_SECONDS`. Raises on the first failure."""
     todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}

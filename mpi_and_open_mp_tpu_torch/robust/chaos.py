@@ -60,14 +60,17 @@ same error. Tokens with a hook in the port:
     ``post-evict`` (the daemon's CREATE, STEP, SNAPSHOT or EVICT frame
     journaled, the pool not yet acted on it) and ``post-rejoin``
     (``adopt_session``'s CREATE and STEP frames journaled, the session not
-    yet in the pool). ``mid-drain`` parses as in the JAX package; the
-    fleet that reaches it is not ported yet (ROADMAP Queue 1 item 9).
+    yet in the pool) and ``mid-drain`` (``serve.router.FleetRouter.
+    drain_worker``: a bucket adopted at the destination, the source's
+    ``re-homed`` SHED not yet journaled).
 ``kill_worker=<i>:<k>``
     The daemon whose ``worker_index`` is ``i`` dies as ``crash`` does at
     its ``k``-th batch dispatch, after the DISPATCH record is journaled
     (:func:`kill_worker_armed`). A daemon's index is its constructor's
-    ``worker_index``; the fleet that numbers its workers is not ported
-    yet.
+    ``worker_index``: ``serve.fleet`` numbers its workers 0..N-1, in
+    process (:class:`~mpi_and_open_mp_tpu_torch.serve.fleet.Fleet`) and as
+    worker processes (the CLI's ``--worker-main``; recovery workers run
+    with ``MOMP_CHAOS`` stripped).
 
 Hit counters (:attr:`FaultPlan.serve_failed`, ``crash_hits``,
 ``kill_worker_hits``, ``aot_corrupted``) count in this process, as the JAX

@@ -1,6 +1,6 @@
 """The serving layer over the batched kernels.
 
-Counterpart of the JAX package's ``serve`` package. Ported:
+Counterpart of the JAX package's ``serve`` package, whole:
 
 ``batcher``
     :class:`ShapeBucketBatcher`: callers submit independent boards,
@@ -30,9 +30,21 @@ Counterpart of the JAX package's ``serve`` package. Ported:
     card, retries, preemption drain and the resume ladder (journal,
     checkpoint, fresh), and the pool's session methods;
     ``python -m mpi_and_open_mp_tpu_torch.serve.daemon``.
-
-Not ported yet (ROADMAP Queue 1 item 9): the router, fleet and load
-generator.
+``router``
+    :class:`FleetRouter` and :class:`ConsistentHashRing`: session affinity
+    over a sha256 ring (JAX's placement for every key), the fleet-wide
+    door, work stealing, the wedge ladder (journal replay and re-home),
+    rejoin claims and graceful drains of whole buckets and slab groups,
+    the fleet books.
+``fleet``
+    :class:`Fleet` and :class:`WorkerHandle`: N in-process daemons on one
+    device behind one router, with elasticity and the telemetry tick;
+    ``python -m mpi_and_open_mp_tpu_torch.serve.fleet`` runs the workers
+    as processes, spools in and one JSON line out.
+``loadgen``
+    Open-loop load: seeded Poisson or traced arrivals over a
+    :class:`ScenarioMix`, :func:`run_open_loop`, :func:`sweep` and
+    :func:`saturation_knee` against an :class:`SLO`.
 """
 
 from mpi_and_open_mp_tpu_torch.serve.batcher import (  # noqa: F401
@@ -73,3 +85,26 @@ from mpi_and_open_mp_tpu_torch.serve.pool import (  # noqa: F401
     SessionPool,
 )
 from mpi_and_open_mp_tpu_torch.serve.daemon import ServingDaemon  # noqa: F401
+from mpi_and_open_mp_tpu_torch.serve.router import (  # noqa: F401
+    DEFAULT_MISS_K,
+    DEFAULT_VNODES,
+    ConsistentHashRing,
+    FleetRollup,
+    FleetRouter,
+    affinity_key,
+)
+from mpi_and_open_mp_tpu_torch.serve.fleet import (  # noqa: F401
+    SPOOL_SCHEMA,
+    Fleet,
+    WorkerHandle,
+)
+from mpi_and_open_mp_tpu_torch.serve.loadgen import (  # noqa: F401
+    SLO,
+    LoadgenReport,
+    ScenarioMix,
+    arrivals_poisson,
+    arrivals_trace,
+    run_open_loop,
+    saturation_knee,
+    sweep,
+)

@@ -49,6 +49,11 @@ stamped ``pool:bitsliced``, and ``resume_any`` re-materializes the pool
 from the journal's create boards and step totals. Every admission, shed,
 retry, degrade and drain ticks ``serve.*`` metrics and trace events
 (``obs``): requests == resolved + shed, always.
+
+A fleet (``serve.fleet``) runs N of these behind ``serve.router``'s
+:class:`~mpi_and_open_mp_tpu_torch.serve.router.FleetRouter`, which moves
+work between them through :meth:`ServingDaemon.release`, :meth:`export`,
+:meth:`adopt`, :meth:`adopt_session` and :meth:`evict_session`.
 """
 
 from __future__ import annotations
@@ -302,7 +307,7 @@ class ServingDaemon:
                 "wall": float(entry.get("wall", 0.0))}
         return len(pool_sessions)
 
-    # -- fleet worker-mode hooks -------------------------------------------
+    # -- fleet worker-mode hooks (serve.router) ------------------------------
 
     def release(self, tickets: list[Ticket],
                 now: float | None = None) -> list[dict]:

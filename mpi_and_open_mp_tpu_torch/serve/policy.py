@@ -23,7 +23,7 @@ rejected or abandoned ticket carries exactly one, and metrics count them
 per reason (``serve.shed{reason=...}``).
 
 The elastic half (:class:`ElasticityPolicy`, :class:`ElasticController`)
-is the fleet's scaling loop, pure host code ported ahead of the fleet.
+is the fleet's scaling loop (``serve.fleet.Fleet``'s elasticity tick).
 """
 
 from __future__ import annotations

@@ -59,7 +59,7 @@ class Ticket:
     resolved_at: float | None = None
     resumed: bool = False  # restored from a drain checkpoint
     #: Fleet affinity key: requests sharing a ``session`` route to the
-    #: same worker (consistent hash in ``serve.router``). ``None`` for
+    #: same worker (``serve.router.ConsistentHashRing``). ``None`` for
     #: single-daemon use — affinity then falls back to a per-ticket key.
     session: str | None = None
     #: Seconds this request already spent queued in PREVIOUS processes.

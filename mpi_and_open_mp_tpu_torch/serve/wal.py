@@ -26,8 +26,9 @@ Record types and what :func:`replay` does with them:
     Ticket enters the pending set. ``wall`` is ``time.time()`` at the
     append (monotonic clocks don't survive a process boundary; wall time
     lets the resuming process carry true queued seconds forward).
-    ``session`` is the optional fleet affinity key — the router re-homes
-    a dead worker's pending set by consistent-hashing it, so the key
+    ``session`` is the optional fleet affinity key — the router
+    (``serve.router.FleetRouter.declare_wedged``) re-homes a dead
+    worker's pending set by consistent-hashing it, so the key
     must survive the journal round trip (absent in pre-fleet journals;
     replay surfaces ``None``). ``workload`` names the stencil rule
     (absent in pre-stencil journals; replay surfaces ``"life"`` — which

@@ -81,6 +81,10 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.serve import pool\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_pool\n"
         "assert pool.SessionPool and native_pool.pool_step_tail\n"
+        "from mpi_and_open_mp_tpu_torch.obs import telemetry\n"
+        "from mpi_and_open_mp_tpu_torch.serve import router, fleet, loadgen\n"
+        "assert telemetry.SnapshotShipper and router.FleetRouter\n"
+        "assert fleet.Fleet and fleet.SPOOL_SCHEMA and loadgen.run_open_loop\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -169,6 +173,51 @@ def test_pool_entry_points_raise_without_cuda(entry):
         pytest.skip("a CUDA device is present; nothing to refuse")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         entry()
+
+
+def _fleet():
+    from mpi_and_open_mp_tpu_torch.serve import Fleet
+
+    Fleet(2)
+
+
+def _fleet_cli(tmp_path):
+    from mpi_and_open_mp_tpu_torch.serve import fleet
+
+    fleet.main(["--workers", "2", "--requests", "4", "--dir", str(tmp_path)])
+
+
+def _loadgen():
+    from mpi_and_open_mp_tpu_torch.serve import Fleet, run_open_loop
+
+    run_open_loop(Fleet(2), 10.0, 0.1)
+
+
+def test_fleet_defaults_to_cuda():
+    """``Fleet`` and the fleet CLI default to the card, and the CLI hands
+    its device to every worker process it spawns."""
+    import inspect
+
+    from mpi_and_open_mp_tpu_torch.serve import Fleet, fleet
+
+    assert inspect.signature(Fleet).parameters["device"].default == "cuda"
+    args = fleet.build_parser().parse_args([])
+    assert args.device == "cuda"
+    assert fleet.build_parser().parse_args(
+        ["--device", "cpu"]).device == "cpu"
+
+
+@pytest.mark.parametrize("entry", [_fleet, _fleet_cli, _loadgen],
+                         ids=["Fleet", "cli-fleet", "run_open_loop"])
+def test_fleet_entry_points_raise_without_cuda(entry, tmp_path):
+    """No fleet carries on on the CPU when it finds no card: the fleet, the
+    CLI (before it writes a spool or spawns a worker) and a load run on a
+    default fleet all refuse."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry(tmp_path) if entry is _fleet_cli else entry()
+    assert os.listdir(tmp_path) == []
 
 
 def _stencil_sim():

@@ -10,7 +10,10 @@ replays in the other to the same ``WALReplay``, and the same seeded
 appends give byte-identical files. The crash matrix: a real port daemon in
 a subprocess (``tests/_torch_wal_crash_driver.py``) hard-killed at each of
 3 sites under each of 3 fsync policies, JAX's loss bounds over exactly the
-acked tickets, then ``resume_any`` drained to the oracle's boards.
+acked tickets, then ``resume_any`` drained to the oracle's boards. The
+membership cells: the driver's 3-worker fleet killed at ``post-rejoin``
+and ``mid-drain`` duplicates and never loses (every worker journal read by
+both packages' replays), and the unkilled controls balance the books.
 """
 
 import glob
@@ -633,3 +636,101 @@ def test_crash_matrix_loss_bounds(tmp_path, site, k, fsync):
     for t in d.queue.tickets():
         assert t.state == DONE
         np.testing.assert_array_equal(t.result, oracle_n(t.board, t.steps))
+
+
+# ------------------------------------------------ membership crash matrix
+
+
+def _run_fleet_driver(tmp_path, mode, momp_chaos=None, n=6):
+    wal_dir = str(tmp_path / "fleet")
+    os.makedirs(wal_dir, exist_ok=True)
+    ackp = str(tmp_path / "acked.txt")
+    env = dict(os.environ)
+    env.pop("MOMP_CHAOS", None)
+    env.pop("PYTHONPATH", None)
+    if momp_chaos:
+        env["MOMP_CHAOS"] = momp_chaos
+    proc = subprocess.run(
+        [sys.executable, DRIVER, wal_dir, "every-record", ackp, str(n),
+         mode, "cpu"],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    return proc, wal_dir, ackp
+
+
+def _parse_acks(ackp):
+    created, steps, tickets = [], {}, 0
+    for line in open(ackp):
+        parts = line.split()
+        if parts[0] == "C":
+            created.append(parts[1])
+            steps.setdefault(parts[1], 0)
+        elif parts[0] == "S":
+            steps[parts[1]] += int(parts[2])
+        elif parts[0] == "T":
+            tickets += 1
+    return created, steps, tickets
+
+
+MEMBERSHIP_CELLS = [("rejoin", "post-rejoin"), ("drain", "mid-drain")]
+
+
+@pytest.mark.parametrize("mode,site", MEMBERSHIP_CELLS)
+def test_membership_crash_duplication_not_loss(tmp_path, mode, site):
+    """A kill inside the membership handshake, post-rejoin (destination
+    CREATE and STEP journaled, the source's EVICT not) and mid-drain (the
+    destination's ADMITs journaled, the source's re-homed SHED not):
+    every acked session is in at least one worker journal with its acked
+    step total, bit-equal wherever it is in two, and the tickets over all
+    journals are ``acked <= total <= acked + one bucket``."""
+    proc, wal_dir, ackp = _run_fleet_driver(
+        tmp_path, mode, momp_chaos=f"crash={site}:1")
+    assert proc.returncode == chaos.CRASH_EXIT == 137, (
+        f"crash never fired: rc={proc.returncode} "
+        f"out={proc.stdout!r} err={proc.stderr!r}")
+    created, steps, acked_tickets = _parse_acks(ackp)
+    assert created, "driver acked nothing: the cell tested nothing"
+
+    paths = [os.path.join(wal_dir, f"worker{i}.wal") for i in range(3)]
+    replays = [wal.replay(p) for p in paths]
+    for p, rep in zip(paths, replays):
+        assert jwal.replay(p).counts() == rep.counts()
+
+    for sid in created:
+        copies = [rep.pool_sessions[sid] for rep in replays
+                  if sid in rep.pool_sessions]
+        assert copies, f"acked session {sid} lost across the crash"
+        for c in copies:
+            assert int(c["steps"]) == steps[sid], (sid, c["steps"])
+            np.testing.assert_array_equal(c["board"], copies[0]["board"])
+    if mode == "rejoin":
+        dup = [sid for sid in created if sum(
+            sid in rep.pool_sessions for rep in replays) == 2]
+        assert dup, "post-rejoin kill left no duplicated session"
+
+    from mpi_and_open_mp_tpu_torch.serve import SHED_REHOMED
+
+    total = 0
+    for rep in replays:
+        non_rehomed_shed = sum(
+            len(ids) for reason, ids in rep.shed_reasons.items()
+            if reason != SHED_REHOMED)
+        total += len(rep.pending) + len(rep.resolved_ids) \
+            + non_rehomed_shed
+    assert acked_tickets <= total <= acked_tickets + 6, (
+        mode, acked_tickets, total)
+
+
+@pytest.mark.parametrize("mode", ["rejoin", "drain"])
+def test_membership_clean_run_books_balance(tmp_path, mode):
+    """The unkilled controls: the rejoin claims its sessions back, the
+    drain moves whole buckets and slab groups, and the books balance."""
+    proc, _wal_dir, _ackp = _run_fleet_driver(tmp_path, mode)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr)
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["balanced"], line
+    if mode == "rejoin":
+        assert line["rejoins"] == 1 and line["claimed"] >= 3, line
+    else:
+        assert line["drains"] == 1, line
+        assert line["tickets_moved"] == 6, line
+        assert line["sessions_moved"] == 2, line
