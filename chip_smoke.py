@@ -6,7 +6,7 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the twelve sources (fifteen kernels) of
+1. build the twelve sources (fourteen kernels, one with a tail mode) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel, each one's
    build seconds logged; for each kernel of ``flash_fwd`` and
    ``flash_hop_bwd`` its registers and spills (``-Xptxas -v``), and its
@@ -34,8 +34,9 @@ Phases, each of which raises (exit code 1) when it fails:
    ``bitlife_vmem_batch``, and for the geometry
    ``vmem_batch_launch_geometry`` chooses for 4 and 64 boards of 500^2
    (``bitlife_vmem_batch_attributes``); the same for each
-   ``bitlife_bitsliced_kernel<RT, CT, FULL>``, and for the geometry
-   ``plan_bitsliced`` chooses for 64 and 512 boards of 500^2
+   ``bitlife_bitsliced_kernel<RT, CT, FULL, TAIL>`` (TAIL the pool's
+   tail mode, each form the pool's geometries reach named), and for the
+   geometry ``plan_bitsliced`` chooses for 64 and 512 boards of 500^2
    (``bitlife_bitsliced_attributes``); the same for each
    ``bitlife_fused_kernel<RT>``, and for the geometry
    ``fused_launch_geometry`` chooses at k_max for each frame of phase 3
@@ -377,12 +378,17 @@ Phases, each of which raises (exit code 1) when it fails:
    (a miss, then a hit, both stamped ``aot:bitsliced``); no ticket on the
    card ever stamped ``batch:plain`` or ``oracle``;
 26. the resident-session pool (``serve/pool.py``) on the card, the counts
-   set to 0 just before each run and read just after: ``pool_step_tail``
-   against its plain version on slabs of 1 and 2 planes at 1x7, 7x1, 3x3,
-   48^2, 95x130 and 500^2 under a random, an all-set, an empty and a
-   lane-31 mask, ``pool_lane_write`` and ``pool_lane_read`` at lanes 0, 31,
-   32 and 63, and whole dispatches (``bitlife_bitsliced`` for s - 1 steps,
-   then the tail) against the plain masked step, all exact; p46gun_big and
+   set to 0 just before each run and read just after: ``pool_step``
+   (``bitlife_bitsliced``'s rounds, the last in its tail mode) against its
+   plain version on slabs of 1 and 2 planes at 1x7, 7x1, 3x3, 48^2, 95x130
+   and 500^2 under a random, an all-set, an empty and a lane-31 mask at
+   1, 2, 8, 9, 17 and 33 steps and at 1000 steps at 500^2, every word and
+   change word equal and the input unwritten, the entry's refusals of 0
+   steps and of an output on its input; a profiler trace of one dispatch
+   at 500^2 (4 and 100 steps) holding ``launches(s)``
+   ``bitlife_bitsliced_kernel`` records and no other kernel;
+   ``pool_lane_write`` and ``pool_lane_read`` at lanes 0, 31, 32 and 63,
+   all exact; p46gun_big and
    39 soups of 500^2 (``spec.init(default_rng(46))``) in two slabs, a lone
    step, a 32-lane group and both slabs, 10 000 steps in all, p46gun_big's
    snapshot the oracle's (population 7288) and every soup row 4's board;
@@ -398,9 +404,10 @@ Phases, each of which raises (exit code 1) when it fails:
    at 1024 x 48^2 and 256 x 500^2, each side's boards row 4's before any
    number (``session_vs_ship``, p50, p99); a crash-driver child killed at
    ``post-step`` in ``pool`` and in ``settled`` mode, each journal resumed
-   to the acked ledger; each pool kernel's device ms a launch at a 500^2
-   and a 48^2 plane beside its plain version and bound, and a 1000-step
-   dispatch at 500^2 against ``bitsliced_steps(slab, 1000)``;
+   to the acked ledger; each lane kernel's device ms a launch at a 500^2
+   and a 48^2 plane beside its plain version and bound, and a dispatch's
+   device time (the union of its records) at a 500^2 and a 48^2 plane at 4
+   and 1000 steps against ``bitsliced_steps(slab, s)``'s, in turns;
 27. the serving fleet (``serve/router.py``, ``serve/fleet.py``,
    ``serve/loadgen.py``, ``obs/telemetry.py``) on the card, the counts set
    to 0 just before each in-process drill and read just after
@@ -721,29 +728,36 @@ def device_ms(fn, reps: int, kernel_name: str | None = None,
                        "calls")
 
 
-def device_span_ms(fn, reps: int, kernel_name: str,
-                   launches: int) -> tuple[float, int]:
+def device_span_ms(fn, reps: int, kernel_name: str, launches: int,
+                   tries: int = 3) -> tuple[float, int]:
     """Device milliseconds per call of ``fn()`` that launches
-    ``kernel_name`` ``launches`` times, whose launches may overlap
-    (programmatic dependent launch): the union of the kernel records'
-    intervals in one ``torch.profiler`` trace of ``reps`` calls, over
-    ``reps``, scaled by the records the calls made over those the tracer
-    kept (a lost record leaves a gap). Returns the time and the records
+    ``kernel_name`` (every device record for ``""``) ``launches`` times,
+    whose launches may overlap (programmatic dependent launch): the union
+    of the records' intervals in one ``torch.profiler`` trace of ``reps``
+    calls, over ``reps``, scaled by the records the calls made over those
+    the tracer kept (a lost record leaves a gap); a trace that kept none is
+    taken again, up to ``tries`` traces. Returns the time and the records
     kept."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-    spans = sorted((ev.time_range.start, ev.time_range.end)
-                   for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and kernel_name in ev.name)
-    if not spans:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in prof.events()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and kernel_name in ev.name)
+        if spans:
+            break
+        log(f"  device_span_ms: trace {attempt} kept no {kernel_name} "
+            "record")
+    else:
         raise RuntimeError(f"the profiler kept no device kernel "
-                           f"{kernel_name} in a trace of {reps} calls")
+                           f"{kernel_name} in {tries} traces of {reps} "
+                           "calls")
     total, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -806,9 +820,10 @@ VMEM_KERNEL = re.compile(
     r"bitlife_vmem_(?:cluster_kernelILi(\d+)ELb([01])E|kernel)")
 VMEM_BATCH_KERNEL = re.compile(
     r"bitlife_vmem_(?:cluster_kernelILi(\d+)ELb([01])E|batch_kernel)")
-# bitlife_bitsliced_kernel<RT, CT, FULL>: the rows and columns a thread
-# holds, and whether every segment holds RT.
-SLICED_KERNEL = re.compile(r"bitlife_bitsliced_kernelILi(\d+)ELi(\d+)ELb([01])E")
+# bitlife_bitsliced_kernel<RT, CT, FULL, TAIL>: the rows and columns a
+# thread holds, whether every segment holds RT, and the pool's tail mode.
+SLICED_KERNEL = re.compile(
+    r"bitlife_bitsliced_kernelILi(\d+)ELi(\d+)ELb([01])ELb([01])E")
 # bitlife_fused_kernel<RT>: the rows a thread holds.
 FUSED_KERNEL = re.compile(r"bitlife_fused_kernelILi(\d+)E")
 
@@ -2737,20 +2752,27 @@ POOL_AB = ((48, 1024), (500, 256))
 # 4 rounds (the bench's 8 halved to give phase 27 room; the rates and
 # their ratio are per ticket, so the rounds set only how long they run).
 POOL_AB_ROUNDS, POOL_AB_STEPS, POOL_AB_SEED, POOL_AB_DENSITY = 4, 4, 48, 0.3
-# pool_step_tail against its plain version: plane extents (a 1-row and a
-# 1-column torus, whose neighbours alias the cell, the bench's, 95x130, the
-# flagship's), slabs of 1 and 2 planes, four masks each.
+# pool_step (row 5's rounds, the last in the tail mode) against its plain
+# version: plane extents (a 1-row and a 1-column torus, whose neighbours
+# alias the cell, 3x3, the bench's 48^2, 95x130, the flagship's 500^2),
+# slabs of 1 and 2 planes, four masks each, at step counts that take one,
+# two and three rounds at the halo-8 geometries (1x7, 3x3 and 48^2 take one
+# launch at every count), and 1000 steps at 500^2.
 POOL_TAIL_SHAPES = ((1, 7), (7, 1), (3, 3), (48, 48), (95, 130), (500, 500))
 POOL_MASKS = ("random", "all", "empty", "lane 31")
+POOL_TAIL_STEPS = (1, 2, 8, 9, 17, 33)
+# The traced dispatches at 500^2, and the timed ones (500^2 and 48^2).
+POOL_TRACE_STEPS, POOL_TIME_STEPS = (4, 100), (4, 1000)
 # The default budget (serve/pool.py:95-98) filled with 500^2 one-plane
 # slabs of 1 000 000 bytes: 67 slabs of 32 sessions from 64 distinct
 # boards; rounds of one step_group over every session.
 POOL_BUDGET_ROUNDS, POOL_BUDGET_STEPS, POOL_BUDGET_BOARDS = 3, 100, 64
-# Operations a board-sliced word of the tail: the rule's 15, one 3-input
+# Operations a word that the tail mode adds to its launch: one 3-input
 # LOP3 for the masked merge, an XOR and an OR for the change word.
-POOL_TAIL_OPS_PER_WORD = OPS_PER_SLICED_WORD_STEP + 3
-# Phase 26's kernels, as main names their wrappers.
-POOL_KERNELS = ("bitsliced", "pool_step_tail", "pool_lane_write",
+POOL_TAIL_OPS_PER_WORD = 3
+# Phase 26's kernels, as main names their wrappers (pool_step's launches
+# are row 5's kernel's, counted in both).
+POOL_KERNELS = ("bitsliced", "pool_step", "pool_lane_write",
                 "pool_lane_read")
 
 
@@ -2767,35 +2789,130 @@ def pool_mask(g, kind: str, planes: int) -> torch.Tensor:
     return torch.full((planes,), fill, dtype=torch.int32, device=POOL_DEV)
 
 
+def dispatch_records(calls: list, tries: int = 5) -> list[dict]:
+    """The device records of one traced call of each ``fn`` of ``calls``,
+    ``(fn, want)`` pairs of a pool dispatch and its kernel launches, in one
+    ``torch.profiler`` trace: every kernel record must be
+    ``bitlife_bitsliced_kernel``, and each dispatch is its memset and the
+    kernel records up to the next memset, at most ``want`` of them. The
+    card's tracer loses the records of a trace's first milliseconds (see
+    :func:`grad_step_kernels`), so each trace first runs a discarded
+    warm-up step (20 calls of each, 10 ms), then records one call of each;
+    traces are taken until one keeps all (each shortfall logged; raises
+    after ``tries``). Returns that trace's counts, a dict a call."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    want = [w for _, w in calls]
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for fn, _ in calls:
+                for _ in range(20):
+                    fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            prof.step()
+            for fn, _ in calls:
+                fn()
+                torch.cuda.synchronize()
+            prof.step()
+        names = [ev.name for ev in sorted(
+            (ev for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA),
+            key=lambda ev: ev.time_range.start)]
+        foreign = sorted({n for n in names if "memset" not in n.lower()
+                          and "bitlife_bitsliced_kernel" not in n})
+        got = []
+        for n in names:
+            if "memset" in n.lower():
+                got.append(0)
+            elif got:
+                got[-1] += 1
+        if foreign or len(got) > len(calls) or any(
+                k > w for k, w in zip(got, want)):
+            raise AssertionError(f"phase 26 dispatch trace: kernel records "
+                                 f"{got} after each memset, {want} "
+                                 f"launched; other device work {foreign}")
+        if got == want:
+            return [{"bitlife_bitsliced_kernel": k, "memsets": 1,
+                     "traces": attempt} for k in got]
+        log(f"  dispatch trace {attempt} kept {got} of {want} kernel "
+            "records after each memset")
+    raise AssertionError(f"phase 26: no trace of {tries} kept the "
+                         f"dispatches' {want} kernel records")
+
+
 def pool_kernel_checks() -> dict:
-    """``pool_step_tail``, ``pool_lane_write`` and ``pool_lane_read``
-    against their plain versions, every word equal; then whole dispatches
-    (row 5 for s - 1 steps, then the tail) against the plain masked step.
-    Returns the case counts."""
+    """``pool_step`` against its plain version at ``POOL_TAIL_*``, every
+    word and change word equal, the input unwritten (the plain steps run
+    once a slab, ``_pool_step_plain``'s merge once a mask); the C entry's
+    refusals; a traced dispatch at 500^2 for each of ``POOL_TRACE_STEPS``;
+    then ``pool_lane_write`` and ``pool_lane_read`` against theirs. Returns
+    the case counts and the traces."""
+    from mpi_and_open_mp_tpu_torch.ops import _build
+    from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
     from mpi_and_open_mp_tpu_torch.ops import native_pool as npl
 
     g = torch.Generator(device=POOL_DEV).manual_seed(26)
-    cases = {"pool_step_tail": 0, "pool_lane_write": 0, "pool_lane_read": 0,
-             "pool_step": 0}
-    for planes in (1, 2):
-        for shape in POOL_TAIL_SHAPES:
-            for kind in POOL_MASKS:
-                prev = pool_words(g, (planes, *shape))
-                slab = pool_words(g, (planes, *shape))
-                mask = pool_mask(g, kind, planes)
-                keep = prev.clone()
-                want, got = slab.clone(), slab.clone()
-                want_change = npl._pool_step_tail_plain(prev, want, mask)
-                got_change = npl.pool_step_tail(prev, got, mask)
-                if (not torch.equal(got, want)
-                        or not torch.equal(got_change, want_change)
-                        or not torch.equal(prev, keep)):
-                    raise AssertionError(
-                        f"phase 26 pool_step_tail {planes} x {shape}, mask "
-                        f"{kind}: {diff_count(got, want)} words and "
-                        f"{diff_count(got_change, want_change)} change "
-                        "words differ from the plain version")
-                cases["pool_step_tail"] += 1
+    cases = {"pool_step": 0, "pool_lane_write": 0, "pool_lane_read": 0}
+    t0 = time.perf_counter()
+    runs = [(planes, shape, steps) for planes in (1, 2)
+            for shape in POOL_TAIL_SHAPES for steps in POOL_TAIL_STEPS]
+    for planes, shape, steps in runs + [(1, (500, 500), 1000)]:
+        slab = pool_words(g, (planes, *shape))
+        keep = slab.clone()
+        cur, want_change = npl._pool_step_plain(
+            slab, steps, pool_mask(g, "all", planes))
+        for kind in POOL_MASKS if steps < 1000 else ("random",):
+            mask = pool_mask(g, kind, planes)
+            want = npl._merge(cur, slab, mask)
+            got, change = npl.pool_step(slab, steps, mask)
+            if (not torch.equal(got, want)
+                    or not torch.equal(change, want_change)
+                    or not torch.equal(slab, keep)):
+                raise AssertionError(
+                    f"phase 26 pool_step {planes} x {shape} at {steps} "
+                    f"steps, mask {kind}: {diff_count(got, want)} words and "
+                    f"{diff_count(change, want_change)} change words differ "
+                    f"from the plain version, {diff_count(slab, keep)} "
+                    "input words written")
+            cases["pool_step"] += 1
+    seconds = {"pool_step": time.perf_counter() - t0}
+    # The entry's own refusals: no step, and an output on its input.
+    lib = _build.load("bitlife_bitsliced")
+    geo = tb.plan_bitsliced(tuple(slab.shape))
+    other, change = torch.empty_like(slab), torch.empty(
+        slab.shape[0], dtype=torch.int32, device=POOL_DEV)
+    launched = ctypes.c_int(0)
+    for out, steps, code in ((other, 0, -5), (slab, 1, -6)):
+        rc = lib.bitlife_bitsliced_pool(
+            slab.data_ptr(), out.data_ptr(), other.data_ptr(),
+            mask.data_ptr(), change.data_ptr(), *slab.shape, *geo.args(),
+            steps, torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(launched))
+        if rc != code or launched.value:
+            raise AssertionError(f"phase 26 bitlife_bitsliced_pool at "
+                                 f"{steps} steps: rc {rc}, {launched.value} "
+                                 f"launched, want {code}")
+    try:
+        npl.pool_step(slab, 1, torch.zeros(1, dtype=torch.int32))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("phase 26: a host mask reached the kernel")
+    # A dispatch at 500^2 of each of POOL_TRACE_STEPS, traced: row 5's
+    # launches and a memset only.
+    t0 = time.perf_counter()
+    slab = pool_words(g, (1, 500, 500))
+    mask = pool_mask(g, "random", 1)
+    geo = tb.plan_bitsliced((1, 500, 500))
+    traces = dict(zip(POOL_TRACE_STEPS, dispatch_records([
+        ((lambda s=steps: npl.pool_step(slab, s, mask)), geo.launches(steps))
+        for steps in POOL_TRACE_STEPS])))
+    seconds["traces"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for shape in ((48, 48), (500, 500)):
         slab = pool_words(g, (2, *shape))
         for lane in (0, 31, 32, 63):
@@ -2813,25 +2930,9 @@ def pool_kernel_checks() -> dict:
                                      "write or the read differs")
             cases["pool_lane_write"] += 1
             cases["pool_lane_read"] += 1
-        for steps in (1, 2, 7, 33):
-            slab = pool_words(g, (1, *shape))
-            mask = pool_mask(g, "random", 1)
-            want, change = npl._pool_step_plain(slab, steps, mask)
-            got = slab.clone()
-            got_change = npl.pool_step(got, steps, mask)
-            if (not torch.equal(got, want)
-                    or not torch.equal(got_change, change)):
-                raise AssertionError(f"phase 26 pool_step {shape} at {steps} "
-                                     "steps differs from the plain step")
-            cases["pool_step"] += 1
-    try:
-        npl.pool_step_tail(slab, slab.clone(),
-                           torch.zeros(1, dtype=torch.int32))
-    except ValueError:
-        pass
-    else:
-        raise AssertionError("phase 26: a host mask reached the kernel")
-    return cases
+    seconds["lanes"] = time.perf_counter() - t0
+    return {**cases, "traces": traces,
+            "seconds": {k: round(v, 3) for k, v in seconds.items()}}
 
 
 def pool_oracle(boards: list, steps: int) -> list:
@@ -2876,7 +2977,9 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     runs: dict[str, dict] = {}
 
     def counted_run(label, fn):
+        npl.pool_step.dispatches = 0
         out, counts = run_counted(counted, fn)
+        counts["dispatches"] = npl.pool_step.dispatches
         launches[label] = counts
         return out
 
@@ -2886,10 +2989,12 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
             raise AssertionError(f"phase 26 {label}: {len(bad)} of "
                                  f"{len(want)} sessions differ ({bad[:4]})")
 
-    # (a) The three kernels against their plain versions (not counted).
+    # (a) The kernels against their plain versions (not counted).
     checks = pool_kernel_checks()
     log(f"  pool kernels against their plain versions: {checks}, every "
         "word equal")
+    # A one-plane 500^2 slab's launches at s steps.
+    plane_launches = tb.plan_bitsliced((1, 500, 500)).launches
 
     # (b) The flagship's size: p46gun_big and 39 soups of 500^2 in two
     # slabs; a lone step, a 32-lane group and both slabs, 10 000 steps.
@@ -2917,10 +3022,15 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     want.update(zip(in1, pool_oracle([soups[s] for s in in1], 9000)))
     want["gun"] = gun_board
     counts = launches["flagship"]
+    flag_launches = (plane_launches(1) + plane_launches(999)
+                     + 2 * plane_launches(9000))
     if (dispatches != [1, 1, 2] or len(in0) != 31
             or int(snaps["gun"].sum()) != 7288
-            or counts["pool_step_tail"] != 4 or counts["pool_lane_write"] != 40
-            or counts["pool_lane_read"] != 40 or not counts["bitsliced"]):
+            or counts["dispatches"] != 4
+            or counts["pool_step"] != flag_launches
+            or counts["bitsliced"] != flag_launches
+            or counts["pool_lane_write"] != 40
+            or counts["pool_lane_read"] != 40):
         raise AssertionError(f"phase 26 flagship: dispatches {dispatches}, "
                              f"population {int(snaps['gun'].sum())}, "
                              f"launches {counts}")
@@ -2962,7 +3072,10 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     steps_done = POOL_BUDGET_ROUNDS * POOL_BUDGET_STEPS
     rate = n_sess * steps_done / wall
     counts = launches["default budget"]
-    if counts["pool_step_tail"] != n_slabs * POOL_BUDGET_ROUNDS:
+    n_disp = n_slabs * POOL_BUDGET_ROUNDS
+    if (counts["dispatches"] != n_disp or counts["pool_step"] != n_disp
+            * plane_launches(POOL_BUDGET_STEPS)
+            or counts["bitsliced"] != counts["pool_step"]):
         raise AssertionError(f"phase 26 default budget: launches {counts}")
     # One create more spills exactly one session, the least recently used
     # (the first stepped); its snapshot comes from the host copy.
@@ -3049,7 +3162,8 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     second = counted_run("settled skip", lambda: pool.step_group(stills, 4))
     skip_counts = launches["settled skip"]
     if (first != 1 or second != 0 or pool.counts["settled_skips"] != 1
-            or skip_counts["bitsliced"] or skip_counts["pool_step_tail"]
+            or skip_counts["bitsliced"] or skip_counts["pool_step"]
+            or skip_counts["dispatches"]
             or not all(np.array_equal(pool.snapshot(s), still(k))
                        for k, s in enumerate(stills))):
         raise AssertionError(f"phase 26 settled skip: {first} {second} "
@@ -3225,25 +3339,23 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     runs["crash"] = crash
     shutil.rmtree(POOL_ROOT, ignore_errors=True)
 
-    # (h) Times: each pool kernel a launch at a 500^2 and a 48^2 plane
+    # (h) Times: each lane kernel a launch at a 500^2 and a 48^2 plane
     # (profiler device time, CUDA events beside it), its plain version
-    # (CUDA events) and its bound; a 1000-step dispatch at 500^2 against
-    # bitsliced_steps(slab, 1000), in turns.
+    # (CUDA events) and its bound; a dispatch's device time (the union of
+    # its records, the memset's too) against bitsliced_steps(slab, s)'s at
+    # POOL_TIME_STEPS, in turns: the tail mode's marginal time, beside the
+    # bound of what it adds (the first input read once more, 3 operations
+    # a word) and the plain dispatch at the fewer steps.
     g = torch.Generator(device=POOL_DEV).manual_seed(260)
     times = {}
     for edge in (500, 48):
         words = edge * edge
-        prev = pool_words(g, (1, edge, edge))
         slab = pool_words(g, (1, edge, edge))
         mask = pool_mask(g, "random", 1)
         board = (torch.rand((edge, edge), generator=g, device=POOL_DEV)
                  < 0.4).to(torch.uint8)
         rows = {}
         for name, fn, plain, nbytes, ops in (
-                ("pool_step_tail",
-                 lambda: npl.pool_step_tail(prev, slab, mask),
-                 lambda: npl._pool_step_tail_plain(prev, slab, mask),
-                 12 * words, POOL_TAIL_OPS_PER_WORD * words),
                 ("pool_lane_write",
                  lambda: npl.pool_lane_write(slab, board, 0, 31),
                  lambda: npl._lane_write_plain(slab, board, 0, 31),
@@ -3261,29 +3373,47 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
                 "events_ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 20),
                 "bound_ms": bound, "bound_by": by,
                 "shape": f"1 x {edge} x {edge} int32 slab"}
+        geo = tb.plan_bitsliced((1, edge, edge))
+        bound, by = bound_ms(POOL_TAIL_OPS_PER_WORD * words, 4 * words)
+        for steps in POOL_TIME_STEPS:
+            n, reps = geo.launches(steps), 20 if steps < 100 else 3
+            fns = {"pool_step": lambda: npl.pool_step(slab, steps, mask),
+                   "bitsliced_steps": lambda: tb.bitsliced_steps(slab, steps)}
+            span = {"pool_step": [], "bitsliced_steps": []}
+            for which in ("pool_step", "bitsliced_steps"):
+                fns[which]()
+            for which in ("pool_step", "bitsliced_steps", "bitsliced_steps",
+                          "pool_step"):
+                span[which].append(device_span_ms(
+                    fns[which], reps, "", n + (which == "pool_step"))[0])
+            pool_ms = sum(span["pool_step"]) / 2
+            rows[f"pool_step {steps}"] = {
+                "ms": pool_ms - sum(span["bitsliced_steps"]) / 2,
+                "dispatch_ms": span["pool_step"],
+                "bitsliced_steps_ms": span["bitsliced_steps"],
+                "events_ms": cuda_ms(fns["pool_step"], reps),
+                "plain_ms": (cuda_ms(lambda: npl._pool_step_plain(
+                    slab, steps, mask), 3) if steps < 100 else None),
+                "bound_ms": bound, "bound_by": by, "launches": n,
+                "shape": f"1 x {edge} x {edge} int32 slab, {steps} steps"}
         times[edge] = rows
         log(f"  {edge}^2 plane: " + "; ".join(
             f"{k} {v['ms']:.5f} ms device ({v['events_ms']:.5f} by events), "
-            f"plain {v['plain_ms']:.5f}, bound {v['bound_ms']:.6f} "
-            f"({v['bound_by']})" for k, v in rows.items()) + f" [{card}]")
-    slab = pool_words(g, (1, 500, 500))
-    mask = pool_mask(g, "all", 1)
-    npl.pool_step(slab, 8, mask)
-    tb.bitsliced_steps(slab, 8)
-    dispatch: dict[str, list] = {"pool_step": [], "bitsliced_steps": []}
-    for name in ("pool_step", "bitsliced_steps", "bitsliced_steps",
-                 "pool_step"):
-        fn = ((lambda: npl.pool_step(slab, 1000, mask))
-              if name == "pool_step" else
-              (lambda: tb.bitsliced_steps(slab, 1000)))
-        dispatch[name].append(cuda_ms(fn, 5))
-    times["dispatch_1000_steps_500_ms"] = dispatch
-    log(f"  a 1000-step dispatch of a 500^2 plane: pool_step "
-        f"{dispatch['pool_step']} ms against bitsliced_steps(slab, 1000) "
-        f"{dispatch['bitsliced_steps']} (CUDA events, 5 calls each, in "
-        f"turns) [{card}]")
+            f"plain {v['plain_ms']}, bound {v['bound_ms']:.6f} "
+            f"({v['bound_by']})" for k, v in rows.items()
+            if not k.startswith("pool_step")) + f" [{card}]")
+        for steps in POOL_TIME_STEPS:
+            r = rows[f"pool_step {steps}"]
+            log(f"  {edge}^2 plane, a {steps}-step dispatch: "
+                f"{r['dispatch_ms']} ms device (the union of its "
+                f"{r['launches']} launches and memset; {r['events_ms']:.5f} by "
+                f"events) against bitsliced_steps(slab, {steps}) "
+                f"{r['bitsliced_steps_ms']}, in turns: the tail mode "
+                f"{r['ms']:.6f} ms, bound {r['bound_ms']:.6f} "
+                f"({r['bound_by']}), plain dispatch {r['plain_ms']} [{card}]")
     runs["times"] = times
-    totals = {k: sum(c[k] for c in launches.values()) for k in POOL_KERNELS}
+    totals = {k: sum(c[k] for c in launches.values())
+              for k in (*POOL_KERNELS, "dispatches")}
     log(f"phase 26 session pool: ok ({time.perf_counter() - t0:.2f} s; "
         f"launches {totals})")
     return {"runs": runs, "launches": launches, "totals": totals,
@@ -3311,7 +3441,7 @@ FLEET_CLI = ["--workers", "3", "--requests", "96", "--sessions", "12",
              "--max-batch", "8", "--verify"]
 # Phase 27's kernels, as main names their wrappers: a worker's buckets
 # (rows 4 and 5) and its resident sessions (rows 5 and 12).
-FLEET_KERNELS = ("vmem_batch", "bitsliced", "pool_step_tail",
+FLEET_KERNELS = ("vmem_batch", "bitsliced", "pool_step",
                  "pool_lane_write", "pool_lane_read")
 
 
@@ -3846,7 +3976,7 @@ def main() -> int:
                 "flash_hop_dkv": fhb.flash_hop_dkv,
                 "edge_pair": nh.edge_pair, "halo_frame": nh.halo_frame,
                 "quadrature": nq.trapezoid_circle,
-                "pool_step_tail": npool.pool_step_tail,
+                "pool_step": npool.pool_step,
                 "pool_lane_write": npool.pool_lane_write,
                 "pool_lane_read": npool.pool_lane_read}
 
@@ -4090,24 +4220,37 @@ def main() -> int:
             raise AssertionError(f"bitlife_vmem_batch {b_v} x 500^2: {at}")
 
     # The board-sliced kernels one by one (bitlife_bitsliced_kernel<RT, CT,
-    # FULL>): registers and spills from the build log, none may spill; then
+    # FULL, TAIL>): registers and spills from the build log, none may spill
+    # (the tail forms the pool's geometries reach named); then
     # the batched main path's geometry (64 boards of 500^2, 2 planes) and
     # B = 512's, with what the CUDA runtime reports for each: registers,
     # local bytes (0), shared memory (the dynamic size must be the
     # geometry's smem_bytes) and the clusters the card can hold at once.
     sliced_build = {}
-    for (rt, ct, full), props in ptxas_kernels(
+    pool_forms = {}
+    for planes_p in (1, 2):
+        for shape_p in POOL_TAIL_SHAPES:
+            geo = tb.plan_bitsliced((planes_p, *shape_p))
+            full_p = geo.window_rows == geo.segments * geo.rows_per_thread
+            pool_forms.setdefault(
+                (geo.rows_per_thread, geo.cols_per_thread, full_p),
+                []).append(f"{planes_p}x{shape_p[0]}x{shape_p[1]}")
+    for (rt, ct, full, tail), props in ptxas_kernels(
             logs["bitlife_bitsliced"], SLICED_KERNEL,
-            lambda m: (int(m[1]), int(m[2]), m[3] == "1")).items():
+            lambda m: (int(m[1]), int(m[2]), m[3] == "1",
+                       m[4] == "1")).items():
         label = (f"bitlife_bitsliced_kernel<{rt}, {ct}, "
-                 f"{'full' if full else 'ragged'}>")
+                 f"{'full' if full else 'ragged'}"
+                 f"{', tail' if tail else ''}>")
         sliced_build[label] = props
+        reached = pool_forms.get((rt, ct, full)) if tail else None
         log(f"  bitlife_bitsliced {label}: {props['registers']} registers, "
-            f"{props['spill_stores']} + {props['spill_loads']} bytes spilled")
+            f"{props['spill_stores']} + {props['spill_loads']} bytes spilled"
+            + (f" (the pool's {', '.join(reached)})" if reached else ""))
         if props["spill_stores"] or props["spill_loads"]:
             raise AssertionError(f"{label} spills")
-    want_sliced = len(tb.SLICED_KERNELS) + sum(
-        ct <= tb.SLICED_RAGGED_MAX_COLS for _, ct in tb.SLICED_KERNELS)
+    want_sliced = 2 * (len(tb.SLICED_KERNELS) + sum(
+        ct <= tb.SLICED_RAGGED_MAX_COLS for _, ct in tb.SLICED_KERNELS))
     if len(sliced_build) != want_sliced:
         raise AssertionError(f"bitsliced kernels built: {sorted(sliced_build)}")
     sliced_geo = {}
@@ -6737,10 +6880,39 @@ def main() -> int:
                                     pool_rec["launches"].items()}
             row["launches"] += pool_rec["totals"]["bitsliced"]
     kernels.append(quadrature_row)
-    for name, line in (("pool_step_tail", 170), ("pool_lane_write", 191),
-                       ("pool_lane_read", 203)):
-        main_t, small_t = pool_rec["times"][500][name], pool_rec["times"][48][
-            name]
+    # Row 12: the pool's masked step, the tail mode of row 5's kernel (its
+    # launches are row 5's, counted there too), and the lane kernels.
+    pt = pool_rec["times"]
+    step_t = pt[500][f"pool_step {POOL_TIME_STEPS[0]}"]
+    kernels.append({
+        "name": "pool_step", "route": "cuda",
+        "source": "mpi_and_open_mp_tpu_torch/csrc/bitlife_bitsliced.cu",
+        "replaces": "mpi_and_open_mp_tpu/serve/pool.py:170",
+        "launches": pool_rec["totals"]["pool_step"], "max_abs_err": 0.0,
+        "ms": step_t["ms"], "plain_ms": step_t["plain_ms"],
+        "bound_ms": step_t["bound_ms"], "bound_by": step_t["bound_by"],
+        "library_ms": None,
+        "shape": (f"{step_t['shape']}: bitlife_bitsliced_pool, row 5's "
+                  "launches, the last in the tail mode; no Pallas kernel in "
+                  "the JAX package (an XLA program)"),
+        "note": ("ms: the tail mode's marginal device time, a dispatch's "
+                 "(the union of its profiler records, the change word's "
+                 "memset too) minus bitsliced_steps(slab, s)'s in the same "
+                 "call, in turns; bound_ms: what the tail adds, the first "
+                 "input read once more and 3 operations a word; plain_ms: "
+                 "the whole plain dispatch, CUDA events; launches: row 5's "
+                 "kernel's, in the bitlife_bitsliced row too; no single "
+                 "PyTorch call computes the function"),
+        "by_steps": {edge: {k: v for k, v in pt[edge].items()
+                            if k.startswith("pool_step")}
+                     for edge in (500, 48)},
+        "dispatches": pool_rec["totals"]["dispatches"],
+        "exact_cases": pool_rec["checks"]["pool_step"],
+        "traces": pool_rec["checks"]["traces"],
+        "launches_by_run": {run: c["pool_step"] for run, c in
+                            pool_rec["launches"].items()}})
+    for name, line in (("pool_lane_write", 191), ("pool_lane_read", 203)):
+        main_t, small_t = pt[500][name], pt[48][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mpi_and_open_mp_tpu_torch/csrc/pool_lanes.cu",
@@ -6764,7 +6936,7 @@ def main() -> int:
     # (the worker processes of its CLI drill count their own).
     fleet_keys = {"bitlife_vmem_batch": "vmem_batch",
                   "bitlife_bitsliced": "bitsliced",
-                  "pool_step_tail": "pool_step_tail",
+                  "pool_step": "pool_step",
                   "pool_lane_write": "pool_lane_write",
                   "pool_lane_read": "pool_lane_read"}
     for row in kernels:
@@ -6773,9 +6945,6 @@ def main() -> int:
             row["launches_fleet"] = {run: c[key] for run, c in
                                      fleet_rec["launches"].items()}
             row["launches"] += fleet_rec["totals"][key]
-    kernels[-3]["dispatch_1000_steps_500_ms"] = pool_rec["times"][
-        "dispatch_1000_steps_500_ms"]
-    kernels[-3]["exact_cases_pool_step"] = pool_rec["checks"]["pool_step"]
     log(f"obs, untraced against traced seconds: "
         f"{json.dumps(obs_rec['untraced_vs_traced_s'])}")
     log(f"tune: {json.dumps({k: {'tuned': v['tuned']['path'], 'vs_heuristic': v['vs_heuristic']} for k, v in tune_rec['passes'].items()})}; "

@@ -67,6 +67,22 @@
 // launch: it may begin while the one before it on the stream ends, and
 // waits (griddepcontrol.wait) for that one's memory before touching device
 // memory, which hides much of the gap between the rounds.
+//
+// The tail mode (TAIL, entry bitlife_bitsliced_pool) is the resident-
+// session pool's dispatch: JAX's _pool_step_jit
+// (mpi_and_open_mp_tpu/serve/pool.py:169-189), which steps a slab, keeps
+// the masked lanes' new words and the others' old ones, and returns each
+// plane's change word, lane_change_bits of the last two states. The same
+// rounds run; only the last launches the TAIL form, which runs its last
+// step after its step loop (tail_step): each word the block writes back
+// is stored as soon as it is computed, as (new & mask) | (orig & ~mask),
+// orig the call's first input, and its old ^ new ORed into a thread's
+// word (junk rows and ghost columns never reach it), which is reduced over
+// the block (__reduce_or_sync, the warps through shared memory) into one
+// atomicOr a block on the plane's word, zeroed by the entry on the stream
+// (cudaMemsetAsync). Bound: one more 4-byte read a word than the plain
+// call (orig), and the merge's LOP3 and the change word's XOR and OR a
+// word. The plain forms compile as before (their SASS is unchanged).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -86,6 +102,10 @@ constexpr int kErrShape = -1;
 constexpr int kErrShared = -2;
 constexpr int kErrGeometry = -3;
 constexpr int kErrCluster = -4;
+constexpr int kErrSteps = -5;
+constexpr int kErrAlias = -6;
+// The tail mode's static shared memory: a word a warp.
+constexpr int kTailSharedBytes = kMaxThreads / 32 * 4;
 
 struct Args {
   const uint32_t* in;
@@ -94,6 +114,11 @@ struct Args {
   int bands, halo, R;  // bands a plane, halo rows a side, window rows
   int strips, g, tau, P, nq;
   int off_edge, off_ghost;  // word offsets of the shared arrays (vert at 0)
+  // Read by the TAIL forms only: the call's first input, whose words the
+  // unmasked lanes keep, a lane mask and a change word a plane.
+  const uint32_t* orig;
+  const uint32_t* mask;
+  uint32_t* change;
 };
 
 // The derived geometry of one launch; mirrors ops/bitlife.py:
@@ -194,7 +219,65 @@ __device__ __forceinline__ void publish(const Place& t,
   }
 }
 
+// The tail mode's last step: the step loop's arithmetic for one step, each
+// word that the thread writes back (bit c * RT + i of wb) stored at once
+// into plane (row y0 + i, column x0 + c), its masked lanes new and the
+// others keep's, and its old ^ new ORed into the word returned. The new
+// words are never kept: the step reads only old ones. A copy of the loop's
+// body rather than a function both call: with one, the plain forms'
+// registers were allocated otherwise (their SASS changed). Out of the loop
+// because inside it ptxas hoisted the tests of wb's bits in front of it,
+// more predicates than the card's 7 (ptxas error C7600).
 template <int RT, int CT, bool FULL>
+__device__ __forceinline__ uint32_t tail_step(
+    const uint32_t (&m)[CT][RT], const uint32_t (&above)[CT],
+    const uint32_t (&below)[CT], int n, uint32_t wb, uint32_t* plane,
+    const uint32_t* keep, uint32_t mk, int y0, int x0, int nx) {
+  const unsigned full = 0xffffffffu;
+  uint32_t diff = 0;
+  uint32_t prev[CT];
+#pragma unroll
+  for (int c = 0; c < CT; ++c) prev[c] = above[c];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    uint32_t cur[CT], x[CT], y[CT], s0[CT], s1[CT];
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      cur[c] = m[c][i];
+      const uint32_t nxt =
+          i + 1 >= RT ? below[c]
+          : FULL      ? m[c][i + 1 < RT ? i + 1 : i]
+                      : pick(i + 1 < n, m[c][i + 1 < RT ? i + 1 : i],
+                             below[c]);
+      x[c] = prev[c] ^ nxt;
+      y[c] = prev[c] & nxt;
+      s0[c] = x[c] ^ cur[c];
+      s1[c] = y[c] | (x[c] & cur[c]);
+    }
+    const uint32_t l0 = __shfl_up_sync(full, s0[CT - 1], 1);
+    const uint32_t l1 = __shfl_up_sync(full, s1[CT - 1], 1);
+    const uint32_t r0_ = __shfl_down_sync(full, s0[0], 1);
+    const uint32_t r1_ = __shfl_down_sync(full, s1[0], 1);
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      const uint32_t nw = bitlife::count_rule(
+          c == 0 ? l0 : s0[c > 0 ? c - 1 : 0],
+          c == 0 ? l1 : s1[c > 0 ? c - 1 : 0],
+          c == CT - 1 ? r0_ : s0[c < CT - 1 ? c + 1 : c],
+          c == CT - 1 ? r1_ : s1[c < CT - 1 ? c + 1 : c], x[c], y[c],
+          cur[c]);
+      if ((wb >> (c * RT + i)) & 1u) {
+        const size_t at = static_cast<size_t>(y0 + i) * nx + x0 + c;
+        plane[at] = (nw & mk) | (keep[at] & ~mk);
+        diff |= cur[c] ^ nw;
+      }
+      prev[c] = cur[c];
+    }
+  }
+  return diff;
+}
+
+template <int RT, int CT, bool FULL, bool TAIL>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 bitlife_bitsliced_kernel(const Args a) {
   extern __shared__ uint32_t smem[];
@@ -271,7 +354,8 @@ bitlife_bitsliced_kernel(const Args a) {
   const unsigned full = 0xffffffffu;
   // Steps since the last warp and strip refresh, and their buffers.
   int since_w = 0, since_g = 0, eb = 0, fb = 0;
-  for (int s = 1; s <= k; ++s) {
+  // The tail mode's last step runs apart, after the loop.
+  for (int s = 1; s <= (TAIL ? k - 1 : k); ++s) {
     uint32_t above[CT], below[CT];
     if (P == 1) {
 #pragma unroll
@@ -394,6 +478,58 @@ bitlife_bitsliced_kernel(const Args a) {
     }
   }
 
+  if constexpr (TAIL) {
+    // The last step (s = k): the words this thread writes back (wb: bit
+    // c * RT + i for word i of column c) stored as they are computed, and
+    // their old ^ new ORed into the change word: a warp's OR, the warps'
+    // through shared memory, one atomicOr a block.
+    static_assert(CT * RT <= 32, "a thread's words in one mask word");
+    uint32_t wb = 0;
+    if (owner) {
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const int col = col0 + c;
+        if (col < g || col >= g + w) continue;
+#pragma unroll
+        for (int i = 0; i < RT; ++i) {
+          const int r = r0 + i - a.halo;
+          if ((FULL || i < n) && r >= 0 && r < rb) wb |= 1u << (c * RT + i);
+        }
+      }
+    }
+    uint32_t above[CT], below[CT];
+    if (P == 1) {
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        above[c] = last_of<RT, FULL>(m[c], n);
+        below[c] = m[c][0];
+      }
+    } else {
+      const int rb_ = (k - 1) & 1;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const int col = in_row ? col0 + c : 0;
+        above[c] = vert[(rb_ * P + pa) * tcols + col].y;
+        below[c] = vert[(rb_ * P + pb) * tcols + col].x;
+      }
+    }
+    const size_t base = static_cast<size_t>(blockIdx.y) * ny * nx;
+    uint32_t diff = tail_step<RT, CT, FULL>(
+        m, above, below, n, wb, a.out + base, a.orig + base,
+        a.mask[blockIdx.y], b0 + r0 - a.halo, c0 - g + col0, nx);
+    __shared__ uint32_t warp_or[kMaxThreads / 32];
+    diff = __reduce_or_sync(full, diff);
+    if (lane == 0) warp_or[threadIdx.x >> 5] = diff;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      uint32_t v = 0;
+      for (int j = 0; j < static_cast<int>(blockDim.x >> 5); ++j)
+        v |= warp_or[j];
+      if (v) atomicOr(a.change + blockIdx.y, v);
+    }
+    return;
+  }
+
   // The next round may begin launching; it waits above for these stores.
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   // The band's own rows of the strip's own columns.
@@ -416,19 +552,21 @@ bitlife_bitsliced_kernel(const Args a) {
 
 using KernelFn = void (*)(const Args);
 
-template <int RT, int CT>
+template <int RT, int CT, bool TAIL>
 KernelFn form(bool full) {
-  if (full) return &bitlife_bitsliced_kernel<RT, CT, true>;
-  if constexpr (CT <= 2) return &bitlife_bitsliced_kernel<RT, CT, false>;
+  if (full) return &bitlife_bitsliced_kernel<RT, CT, true, TAIL>;
+  if constexpr (CT <= 2)
+    return &bitlife_bitsliced_kernel<RT, CT, false, TAIL>;
   return nullptr;
 }
 
 // The (RT, CT) pairs compiled (ops/bitlife.py:SLICED_KERNELS): every
 // segment full (FULL, the banded windows) for all, a ragged form (the
-// unbanded window of ny rows) for CT <= 2.
-KernelFn kernel_for(int rt, int ct, bool full) {
-#define SLICED_CASE(RT, CT) \
-  if (rt == RT && ct == CT) return form<RT, CT>(full);
+// unbanded window of ny rows) for CT <= 2; each plain and in the tail mode.
+KernelFn kernel_for(int rt, int ct, bool full, bool tail) {
+#define SLICED_CASE(RT, CT)                                   \
+  if (rt == RT && ct == CT)                                   \
+    return tail ? form<RT, CT, true>(full) : form<RT, CT, false>(full);
   SLICED_CASE(2, 1) SLICED_CASE(4, 1) SLICED_CASE(6, 1) SLICED_CASE(8, 1)
   SLICED_CASE(10, 1) SLICED_CASE(12, 1) SLICED_CASE(16, 1)
   SLICED_CASE(2, 2) SLICED_CASE(4, 2) SLICED_CASE(6, 2) SLICED_CASE(8, 2)
@@ -457,7 +595,7 @@ int layout(int ny, int nx, int bands, int halo, int strips, int cluster,
   const int P = (rows + rt - 1) / rt;
   const int R = halo ? P * rt : ny;
   const bool full = R == P * rt;
-  if (kernel_for(rt, ct, full) == nullptr) return kErrGeometry;
+  if (kernel_for(rt, ct, full, false) == nullptr) return kErrGeometry;
   // Ghosts refreshed through the ring (some launch steps past g), or ghost
   // zones read once (every launch steps at most halo <= g).
   const bool exchange = halo == 0 || g < halo;
@@ -547,24 +685,58 @@ int max_active_clusters(const void* fn, const cudaLaunchConfig_t& cfg,
   return 0;
 }
 
-// Checks the stack and the geometry, configures the launch and asks the
-// card how many clusters of it it can place at once; returns 0 or an error
-// code.
+// Checks the stack and the geometry, configures the launch of the plain or
+// the tail-mode kernel and asks the card how many clusters of it it can
+// place at once; returns 0 or an error code.
 int prepare(int npl, int ny, int nx, int steps, int bands, int halo,
             int strips, int cluster, int g, int rt, int ct, int tau,
-            cudaStream_t stream, Layout* lay, KernelFn* fn,
+            bool tail, cudaStream_t stream, Layout* lay, KernelFn* fn,
             cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
             int* clusters) {
   int rc = check_stack(npl, ny, nx, steps);
   if (rc) return rc;
   rc = layout(ny, nx, bands, halo, strips, cluster, g, rt, ct, tau, lay);
   if (rc) return rc;
-  *fn = kernel_for(rt, ct, lay->full);
+  if (tail && lay->smem + kTailSharedBytes >
+                  static_cast<size_t>(kMaxSharedBytes))
+    return kErrShared;
+  *fn = kernel_for(rt, ct, lay->full, tail);
   rc = configure(reinterpret_cast<const void*>(*fn), *lay, npl, bands,
                  strips, cluster, stream, cfg, attr);
   if (rc) return rc;
   return max_active_clusters(reinterpret_cast<const void*>(*fn), *cfg,
                              cluster, clusters);
+}
+
+// Issues the rounds of a call of `steps` steps from a.in on the stream of
+// `cfg`, ping-ponging between `out` and `scratch` so that the last writes
+// `out`, each a programmatic dependent launch (griddepcontrol in the
+// kernel orders their memory); the last round launches `last`, the others
+// `fn`. Counts in `*launched` the launches issued without error.
+int run_rounds(Args a, KernelFn fn, KernelFn last, cudaLaunchConfig_t cfg,
+               const cudaLaunchAttribute& cluster_attr, void* out,
+               void* scratch, int steps, int* launched) {
+  const int kmax = a.halo ? a.halo : steps;
+  const int rounds = (steps + kmax - 1) / kmax;
+  uint32_t* bufs[2] = {static_cast<uint32_t*>(out),
+                       static_cast<uint32_t*>(scratch)};
+  cudaLaunchAttribute attrs[2] = {cluster_attr, {}};
+  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attrs[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attrs;
+  cfg.numAttrs = 2;
+  int rem = steps;
+  for (int i = 0; i < rounds; ++i) {
+    a.out = bufs[(rounds - 1 - i) & 1];  // the last round writes out
+    a.k = rem < kmax ? rem : kmax;
+    cudaError_t e = cudaLaunchKernelEx(&cfg, i == rounds - 1 ? last : fn, a);
+    if (e == cudaSuccess) e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ++*launched;
+    a.in = a.out;
+    rem -= a.k;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -593,35 +765,59 @@ extern "C" int bitlife_bitsliced(const void* in, void* out, void* scratch,
   int clusters = 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int rc = prepare(npl, ny, nx, steps, bands, halo, strips, cluster, g, rt,
-                   ct, tau, s, &lay, &fn, &cfg, &attr, &clusters);
+                   ct, tau, false, s, &lay, &fn, &cfg, &attr, &clusters);
   if (rc) return rc;
   if (clusters < 1) return kErrCluster;
   if (steps == 0) return 0;
-  const int kmax = halo ? halo : steps;
-  const int rounds = (steps + kmax - 1) / kmax;
-  uint32_t* bufs[2] = {static_cast<uint32_t*>(out),
-                       static_cast<uint32_t*>(scratch)};
-  // Each launch may start before the one before it ends (griddepcontrol in
-  // the kernel orders their memory).
-  cudaLaunchAttribute attrs[2] = {attr, {}};
-  attrs[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attrs[1].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attrs;
-  cfg.numAttrs = 2;
-  Args a{static_cast<const uint32_t*>(in), nullptr, ny, nx, 0, bands, halo,
-         lay.R, strips, g, tau, lay.P, lay.nq, lay.off_edge, lay.off_ghost};
-  int rem = steps;
-  for (int i = 0; i < rounds; ++i) {
-    a.out = bufs[(rounds - 1 - i) & 1];  // the last round writes out
-    a.k = rem < kmax ? rem : kmax;
-    cudaError_t e = cudaLaunchKernelEx(&cfg, fn, a);
-    if (e == cudaSuccess) e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ++*launched;
-    a.in = a.out;
-    rem -= a.k;
+  const Args a{static_cast<const uint32_t*>(in), nullptr, ny, nx, 0, bands,
+               halo, lay.R, strips, g, tau, lay.P, lay.nq, lay.off_edge,
+               lay.off_ghost, nullptr, nullptr, nullptr};
+  return run_rounds(a, fn, fn, cfg, attr, out, scratch, steps, launched);
+}
+
+// A resident-session pool dispatch (JAX mpi_and_open_mp_tpu/serve/pool.py:
+// _pool_step_jit): `steps` steps of the (npl, ny, nx) slab `in` as
+// bitlife_bitsliced runs them, with the same arguments and launches, the
+// last launch in the tail mode: `out` gets (new & mask[p]) | (in & ~mask[p])
+// for each plane p, and change[p] (zeroed here on the stream first) the OR
+// over plane p of the last step's old ^ new. `in` is never written;
+// `mask` and `change` hold npl words. Returns what bitlife_bitsliced
+// returns, and kErrSteps (steps < 1) or kErrAlias (`out` or `scratch` is
+// `in`) before anything runs, or the CUDA error code of the memset.
+extern "C" int bitlife_bitsliced_pool(const void* in, void* out,
+                                      void* scratch, const void* mask,
+                                      void* change, int npl, int ny, int nx,
+                                      int bands, int halo, int strips,
+                                      int cluster, int g, int rt, int ct,
+                                      int tau, int steps, void* stream,
+                                      int* launched) {
+  *launched = 0;
+  if (steps < 1) return kErrSteps;
+  if (out == in || scratch == in) return kErrAlias;
+  Layout lay;
+  KernelFn fn = nullptr, last = nullptr;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = prepare(npl, ny, nx, steps, bands, halo, strips, cluster, g, rt,
+                   ct, tau, true, s, &lay, &last, &cfg, &attr, &clusters);
+  if (rc) return rc;
+  if (clusters < 1) return kErrCluster;
+  if (halo && steps > halo) {  // rounds before the last: the plain form
+    rc = prepare(npl, ny, nx, steps, bands, halo, strips, cluster, g, rt, ct,
+                 tau, false, s, &lay, &fn, &cfg, &attr, &clusters);
+    if (rc) return rc;
+    if (clusters < 1) return kErrCluster;
   }
-  return 0;
+  cudaError_t e = cudaMemsetAsync(change, 0, sizeof(uint32_t) * npl, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Args a{static_cast<const uint32_t*>(in), nullptr, ny, nx, 0, bands,
+               halo, lay.R, strips, g, tau, lay.P, lay.nq, lay.off_edge,
+               lay.off_ghost, static_cast<const uint32_t*>(in),
+               static_cast<const uint32_t*>(mask),
+               static_cast<uint32_t*>(change)};
+  return run_rounds(a, fn, last, cfg, attr, out, scratch, steps, launched);
 }
 
 // What the CUDA runtime reports for the kernel and launch that
@@ -640,7 +836,7 @@ extern "C" int bitlife_bitsliced_attributes(int npl, int ny, int nx,
   cudaLaunchAttribute attr;
   int clusters = 0;
   int rc = prepare(npl, ny, nx, 0, bands, halo, strips, cluster, g, rt, ct,
-                   tau, nullptr, &lay, &fn, &cfg, &attr, &clusters);
+                   tau, false, nullptr, &lay, &fn, &cfg, &attr, &clusters);
   if (rc) return rc;
   cudaFuncAttributes fa;
   cudaError_t e =
@@ -659,7 +855,8 @@ extern "C" const char* bitlife_bitsliced_error(int code) {
   if (code == kErrShape)
     return "the plane stack has an extent < 1, or steps < 0";
   if (code == kErrShared)
-    return "the geometry's shared memory does not fit a block's 227 KB";
+    return "the geometry's shared memory (and the tail mode's word a "
+           "warp) does not fit a block's 227 KB";
   if (code == kErrGeometry)
     return "illegal launch geometry: bands outside [1, ny] (or halo 0 with "
            "more than one band), strips outside [1, min(nx, 16)], (rt, ct) "
@@ -671,5 +868,9 @@ extern "C" const char* bitlife_bitsliced_error(int code) {
   if (code == kErrCluster)
     return "the card cannot place one cluster of this geometry "
            "(cudaOccupancyMaxActiveClusters returned 0)";
+  if (code == kErrSteps)
+    return "a pool dispatch of fewer than 1 step";
+  if (code == kErrAlias)
+    return "a pool dispatch whose out or scratch buffer is its input";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -54,6 +54,7 @@ SIGNATURES = {
     },
     "bitlife_bitsliced": {
         "bitlife_bitsliced": [_P, _P, _P] + [_I] * 12 + [_P, _IP],
+        "bitlife_bitsliced_pool": [_P] * 5 + [_I] * 12 + [_P, _IP],
         "bitlife_bitsliced_attributes": [_I] * 11 + [_IP],
     },
     "stencil_padded": {
@@ -70,7 +71,6 @@ SIGNATURES = {
         "flash_hop_attributes": [_I, _I, _I, _IP],
     },
     "pool_lanes": {
-        "pool_step_tail": [_P] * 4 + [_I] * 3 + [_P],
         "pool_lane_write": [_P, _P] + [_I] * 5 + [_P],
         "pool_lane_read": [_P, _P] + [_I] * 5 + [_P],
     },

@@ -1,38 +1,44 @@
-"""The resident-session pool's step and lane IO as hand-written kernels.
+"""The resident-session pool's masked step and lane IO as hand-written
+kernels.
 
 A pool slab is a board-sliced stack ``(P, ny, nx)`` of int32 words (the
 layout of ``ops.bitlife.pack_batch_bits``): bit ``l % 32`` of plane
-``l // 32`` holds lane ``l``'s whole board. Three wrappers launch the
-entry points of ``csrc/pool_lanes.cu`` on a CUDA slab and run their plain
-versions, beside them here, on a CPU slab; neither falls back to the
-other, and each counts its launches:
+``l // 32`` holds lane ``l``'s whole board. Three wrappers launch their
+kernels on a CUDA slab and run their plain versions, beside them here, on
+a CPU slab; neither falls back to the other, and each counts its launches:
 
-* :func:`pool_step_tail` - one Life step of ``prev``, merged into the slab
-  in place under a per-plane lane mask, and the per-plane change word
-  ``prev ^ cur`` ORed over both spatial axes (JAX
-  ``ops/bitlife.py:lane_change_bits``);
-* :func:`pool_lane_write` - one 0/1 board into one lane, in place;
-* :func:`pool_lane_read` - one lane as a ``(ny, nx)`` uint8 board.
+* :func:`pool_step` - a pool dispatch of ``s`` steps, JAX's
+  ``_pool_step_jit`` (``mpi_and_open_mp_tpu/serve/pool.py:169-189``): the
+  masked lanes stepped, the others passed through, and the per-plane change
+  word of the last step (JAX ``ops/bitlife.py:lane_change_bits``). On the
+  card one ``bitlife_bitsliced_pool`` call (``csrc/bitlife_bitsliced.cu``):
+  row 5's kernel in ``plan_bitsliced(shape).launches(s)`` launches, the
+  last in its tail mode, which merges and ORs the change word as it writes
+  back; nothing else runs but a memset of the change word;
+* :func:`pool_lane_write` - one 0/1 board into one lane, in place
+  (``csrc/pool_lanes.cu``);
+* :func:`pool_lane_read` - one lane as a ``(ny, nx)`` uint8 board (the
+  same source).
 
-:func:`pool_step` is a pool dispatch of ``s`` steps:
-``ops.bitlife.bitsliced_steps`` (the ``bitlife_bitsliced`` kernel) for the
-first ``s - 1`` steps, then one :func:`pool_step_tail`. The JAX package
-runs the same masked step as one XLA program that donates the slab
-(``mpi_and_open_mp_tpu/serve/pool.py:153-208``); here the slab is updated
-in place. Lane masks and change words are int32 tensors whose bits are
-JAX's uint32 words (``np.ndarray.view``); lane 31 is the sign bit, and
-every right shift of the plain versions is masked (``bitlife._srl``).
+Like JAX, which donates the slab and rebinds it, :func:`pool_step`
+returns a new slab and leaves its input unwritten. Lane masks and change
+words are int32 tensors whose bits are JAX's uint32 words
+(``np.ndarray.view``); lane 31 is the sign bit, and every right shift of
+the plain versions is masked (``bitlife._srl``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from mpi_and_open_mp_tpu_torch.ops import _build
 from mpi_and_open_mp_tpu_torch.ops.bitlife import (
-    _i32, _srl, bitsliced_step, bitsliced_steps)
+    _i32, _srl, bitsliced_step, bitsliced_steps, plan_bitsliced)
 
 LIB = "pool_lanes"
+STEP_LIB = "bitlife_bitsliced"
 
 
 def _card_slab(slab: torch.Tensor, name: str) -> None:
@@ -79,14 +85,6 @@ def _merge(cur: torch.Tensor, slab: torch.Tensor,
     return (cur & m) | (slab & ~m)
 
 
-def _pool_step_tail_plain(prev: torch.Tensor, slab: torch.Tensor,
-                          mask: torch.Tensor) -> torch.Tensor:
-    cur = bitsliced_step(prev)
-    change = lane_change_bits(prev, cur)
-    slab.copy_(_merge(cur, slab, mask))
-    return change
-
-
 def _pool_step_plain(slab: torch.Tensor, steps: int,
                      mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """JAX's ``_pool_step_jit`` as a function: ``(merged slab, change
@@ -114,57 +112,53 @@ def _lane_read_plain(slab: torch.Tensor, plane: int,
 
 # ------------------------------------------------------------------ wrappers
 
-def pool_step_tail(prev: torch.Tensor, slab: torch.Tensor,
-                   mask: torch.Tensor) -> torch.Tensor:
-    """One step of ``prev`` merged into ``slab`` in place under ``mask``
-    ((P,) int32: masked lanes take the step, the others keep their bits);
-    returns the change word ``lane_change_bits(prev, step(prev))``, (P,)
-    int32. ``prev`` is never written. The ``pool_step_tail`` kernel on the
-    card (one launch), the plain version on the CPU."""
-    if slab.device.type == "cpu":
-        return _pool_step_tail_plain(prev, slab, mask)
-    _card_slab(slab, "pool_step_tail")
-    _card_slab(prev, "pool_step_tail")
-    if prev.shape != slab.shape or prev.device != slab.device:
-        raise ValueError(f"pool_step_tail: prev {tuple(prev.shape)} on "
-                         f"{prev.device} against a slab "
-                         f"{tuple(slab.shape)} on {slab.device}")
-    if (mask.dtype != torch.int32 or mask.shape != slab.shape[:1]
-            or mask.device != slab.device or not mask.is_contiguous()):
-        raise ValueError(f"pool_step_tail: expected a ({slab.shape[0]},) "
-                         f"int32 mask on {slab.device}, got {mask.dtype} "
-                         f"{tuple(mask.shape)} on {mask.device}")
-    npl, ny, nx = slab.shape
-    change = torch.zeros(npl, dtype=torch.int32, device=slab.device)
-    lib = _build.load(LIB)
-    with torch.cuda.device(slab.device):
-        rc = lib.pool_step_tail(prev.data_ptr(), slab.data_ptr(),
-                                mask.data_ptr(), change.data_ptr(), npl, ny,
-                                nx, _stream())
-    pool_step_tail.launches += 1
-    _build.check(lib, LIB, rc)
-    return change
-
-
-pool_step_tail.launches = 0
-
-
-def pool_step(slab: torch.Tensor, steps: int,
-              mask: torch.Tensor) -> torch.Tensor:
-    """Advance the masked lanes of ``slab`` ``steps`` steps in place (the
-    others pass through bit for bit); returns the change word of the last
-    step, (P,) int32 on the slab's device. ``bitsliced_steps(slab, steps -
-    1)`` gives the state before the last step (a device copy of the slab
-    when ``steps`` is 1), then one :func:`pool_step_tail`. No launch at 0
-    steps (a zero word)."""
+def pool_step(slab: torch.Tensor, steps: int, mask: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Advance the lanes of ``slab`` that ``mask`` ((P,) int32) sets
+    ``steps`` steps; the others pass through bit for bit. Returns ``(new
+    slab, change word)``: the change word, (P,) int32, ORs the last step's
+    old ^ new over each plane (a lane's bit is clear iff its last step
+    changed nothing). The input is never written. At 0 steps the input and
+    a zero word, no launch. On the card one ``bitlife_bitsliced_pool``
+    call in ``plan_bitsliced(slab.shape).launches(steps)`` launches,
+    counted in :attr:`launches` and in ``bitsliced_steps.launches`` (the
+    kernel is row 5's), each call in :attr:`dispatches`; on the CPU the
+    plain version."""
     steps = int(steps)
     if steps < 0:
         raise ValueError(f"pool_step: steps must be >= 0, got {steps}")
     if steps == 0:
-        return torch.zeros(slab.shape[0], dtype=torch.int32,
-                           device=slab.device)
-    prev = bitsliced_steps(slab, steps - 1) if steps > 1 else slab.clone()
-    return pool_step_tail(prev, slab, mask)
+        return slab, torch.zeros(slab.shape[0], dtype=torch.int32,
+                                 device=slab.device)
+    if slab.device.type == "cpu":
+        return _pool_step_plain(slab, steps, mask)
+    _card_slab(slab, "pool_step")
+    if (mask.dtype != torch.int32 or mask.shape != slab.shape[:1]
+            or mask.device != slab.device or not mask.is_contiguous()):
+        raise ValueError(f"pool_step: expected a ({slab.shape[0]},) int32 "
+                         f"mask on {slab.device}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    npl, ny, nx = slab.shape
+    geo = plan_bitsliced((npl, ny, nx))
+    out = torch.empty_like(slab)
+    scratch = torch.empty_like(slab)
+    change = torch.empty(npl, dtype=torch.int32, device=slab.device)
+    launched = ctypes.c_int(0)
+    lib = _build.load(STEP_LIB)
+    with torch.cuda.device(slab.device):
+        rc = lib.bitlife_bitsliced_pool(
+            slab.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            mask.data_ptr(), change.data_ptr(), npl, ny, nx, *geo.args(),
+            steps, _stream(), ctypes.byref(launched))
+    pool_step.launches += launched.value
+    bitsliced_steps.launches += launched.value
+    pool_step.dispatches += 1
+    _build.check(lib, STEP_LIB, rc)
+    return out, change
+
+
+pool_step.launches = 0
+pool_step.dispatches = 0
 
 
 def pool_lane_write(slab: torch.Tensor, board: torch.Tensor, plane: int,

@@ -23,7 +23,8 @@ Counterpart of the JAX package's ``serve`` package, whole:
 ``pool``
     :class:`SessionPool`, :class:`Handle`, :class:`PoolError`: live Life
     sessions resident on the card as bit-lanes of board-sliced slabs,
-    stepped in place (``bitlife_bitsliced`` and ``pool_step_tail``), with
+    stepped by ``bitlife_bitsliced``'s rounds, the last in its tail mode
+    (masked merge and change word), with
     spills under a hard budget, compaction and the settled skip.
 ``daemon``
     :class:`ServingDaemon`: the supervised loop, its engine ladder on the

@@ -9,12 +9,13 @@ on three occasions only: session **create**, **snapshot** and **evict**
 (and a spill or a revival). Everything in between is a handle-sized
 dispatch.
 
-**In-place stepping.** A dispatch of a slab group is
-``ops.native_pool.pool_step``: the ``bitlife_bitsliced`` kernel for
-``steps - 1`` steps, then the ``pool_step_tail`` kernel, which steps once
-more, merges ``(cur & mask) | (slab & ~mask)`` into the slab in place (the
-JAX package donates the slab to its XLA program) and ORs each plane's
-change word. The step count and the lane mask are run-time values, so a
+**Masked stepping.** A dispatch of a slab group is
+``ops.native_pool.pool_step``: the ``bitlife_bitsliced`` kernel's rounds,
+the last in its tail mode, which merges ``(cur & mask) | (slab & ~mask)``
+into a new slab as it writes back and ORs each plane's change word. The
+slab group rebinds its planes to the new slab, as the JAX package rebinds
+the slab it donated to its XLA program; everything reads ``planes`` fresh
+from the group. The step count and the lane mask are run-time values, so a
 lone session and 32 slab-mates take the same launches;
 ``jit.retrace{fn=pool_step}`` ticks once per plane shape, as the JAX
 package compiles once per plane shape. Unmasked lanes come back bit for
@@ -116,7 +117,7 @@ class _Session:
 
 
 def _pool_step(planes: torch.Tensor, steps: int,
-               mask: np.ndarray) -> torch.Tensor:
+               mask: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
     _note_retrace("pool_step", tuple(planes.shape), planes.is_cuda)
     m = torch.from_numpy(mask.view(np.int32)).to(planes.device)
     return native_pool.pool_step(planes, steps, m)
@@ -440,7 +441,8 @@ class SessionPool:
                 lane = sess.handle.lane
                 mask[lane // LANES_PER_PLANE] |= np.uint32(
                     1 << (lane % LANES_PER_PLANE))
-            word = _fetch_later(_pool_step(slab.planes, steps, mask))
+            slab.planes, change = _pool_step(slab.planes, steps, mask)
+            word = _fetch_later(change)
             self._pending_settled[slab_id] = (
                 word, mask, [(sess, sess.handle.lane) for sess in group])
             dispatches += 1

@@ -1,7 +1,7 @@
 """Time the ``bitlife_bitsliced`` kernel of one checkout on the card.
 
     python3 sliced_times.py [--root DIR] [--steps N] [--reps N] [--sweep]
-                            [--json PATH]
+                            [--only TEXT] [--json PATH]
 
 Imports ``mpi_and_open_mp_tpu_torch`` from DIR (by default this script's
 own checkout), builds its ``bitlife_bitsliced`` kernel there (printing each
@@ -9,8 +9,9 @@ kernel's registers and spills from ``-Xptxas -v``), and times one call of N
 steps (10 000, the main path's) on the board-sliced stacks of
 :data:`SHAPES`: the batched main path's 64 boards of 500^2 (board 0
 p46gun_big, 63 soups) and ``chip_smoke.py`` phase 4's shapes (random
-soups). Each time comes two ways: device time from a ``torch.profiler``
-trace (``chip_smoke.py:device_span_ms``: the union of the kernel records'
+soups; ``--only TEXT`` keeps the stacks whose name holds TEXT, as
+``--only main`` the main path's). Each time comes two ways: device time
+from a ``torch.profiler`` trace (``chip_smoke.py:device_span_ms``: the union of the kernel records'
 intervals, as a call's launches may overlap) and CUDA events around
 ``--reps`` calls; and us a step from CUDA events around 2000 and 12 000
 steps, differenced. It prints the card's name and power limit, each stack's bound for the card,
@@ -81,6 +82,7 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10000)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--only", default="")
     ap.add_argument("--json", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -115,6 +117,8 @@ def main() -> int:
         print(f"  clusters of 1..16 blocks the card holds at once (one "
               f"512-thread block a SM): {at_once} [{card}]", flush=True)
     for i, (what, b, ny, nx) in enumerate(SHAPES):
+        if args.only not in what:
+            continue
         cells = cs.soup((b, ny, nx), 500 + i)
         if what.endswith("(main path)"):
             cells[0] = torch.from_numpy(load_config(os.path.join(

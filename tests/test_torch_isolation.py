@@ -80,7 +80,7 @@ def test_import_pulls_in_no_jax():
         "assert daemon.ServingDaemon and watchdog.backoff_schedule\n"
         "from mpi_and_open_mp_tpu_torch.serve import pool\n"
         "from mpi_and_open_mp_tpu_torch.ops import native_pool\n"
-        "assert pool.SessionPool and native_pool.pool_step_tail\n"
+        "assert pool.SessionPool and native_pool.pool_step\n"
         "from mpi_and_open_mp_tpu_torch.obs import telemetry\n"
         "from mpi_and_open_mp_tpu_torch.serve import router, fleet, loadgen\n"
         "assert telemetry.SnapshotShipper and router.FleetRouter\n"

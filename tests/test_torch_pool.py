@@ -1,12 +1,13 @@
 """The port's resident-session pool, held against the JAX package's.
 
-The plain versions beside ``csrc/pool_lanes.cu`` (``ops/native_pool.py``:
-the step tail with its change word, ``lane_change_bits``, the lane write
+The pool's wrappers (``ops/native_pool.py``: the masked step
+``pool_step`` with its change word, ``lane_change_bits``, the lane write
 and read) against the JAX programs they replace
 (``serve/pool.py:_pool_step_jit``, ``_lane_write_jit``, ``_lane_read_jit``,
 ``ops/bitlife.py:lane_change_bits``) on the same numpy words, bit for bit,
-lane 31 (the sign bit of an int32 word) included; a dispatch's calls of
-``bitsliced_steps`` (row 5) and ``pool_step_tail`` (row 12) pinned. Then
+lane 31 (the sign bit of an int32 word) included; a dispatch's one
+``pool_step`` call pinned, and a slab group rebinding to the new slab it
+returns. Then
 the two ``SessionPool``\\ s fed the same boards and operations: boards and
 ``stats()`` equal after each. Then the JAX package's ``tests/test_pool.py``
 cases on the port (handles, lane isolation, one retrace per plane shape,
@@ -151,9 +152,9 @@ def test_lane_change_bits_matches_jax(shape):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_pool_step_matches_jax(shape, steps, mask_kind):
     """JAX's masked donated step against the plain step and against
-    ``pool_step`` (row 5's wrapper for ``steps - 1``, then the tail), in
-    place: merged words equal, JAX's settled word equal to ``~change &
-    mask``."""
+    ``pool_step``, which returns a new slab as JAX rebinds the donated one:
+    its planes JAX's out, JAX's settled word equal to ``~change & mask``,
+    the input tensor unwritten."""
     rng = np.random.default_rng(steps * 131 + sum(shape))
     planes = _words(rng, shape)
     mask = _mask(rng, mask_kind, shape[0])
@@ -165,9 +166,12 @@ def test_pool_step_matches_jax(shape, steps, mask_kind):
     np.testing.assert_array_equal(_u32(merged), out)
     np.testing.assert_array_equal(~_u32(change) & mask, settled)
     slab = _t(planes)
-    change = native_pool.pool_step(slab, steps, _t(mask))
-    np.testing.assert_array_equal(_u32(slab), out)
+    got, change = native_pool.pool_step(slab, steps, _t(mask))
+    assert got.dtype == change.dtype == torch.int32
+    assert got.shape == slab.shape and change.shape == (shape[0],)
+    np.testing.assert_array_equal(_u32(got), out)
     np.testing.assert_array_equal(~_u32(change) & mask, settled)
+    np.testing.assert_array_equal(_u32(slab), planes)
 
 
 @pytest.mark.parametrize("lane", [0, 31, 32, 63])
@@ -192,50 +196,82 @@ def test_lane_write_and_read_match_jax(lane):
         native_pool.pool_lane_read(slab, 2, 0)
 
 
-def _counting(monkeypatch):
-    """Count the calls a dispatch makes of row 5's and row 12's wrappers
-    (the CPU path runs their plain versions, so the launch counts stay 0:
-    the calls are what a card dispatch would launch)."""
-    calls = {"bitsliced_steps": [], "pool_step_tail": 0}
-    real_steps, real_tail = (native_pool.bitsliced_steps,
-                             native_pool.pool_step_tail)
-
-    def steps(planes, n, *a, **kw):
-        calls["bitsliced_steps"].append(int(n))
-        return real_steps(planes, n, *a, **kw)
-
-    def tail(*a):
-        calls["pool_step_tail"] += 1
-        return real_tail(*a)
-
-    monkeypatch.setattr(native_pool, "bitsliced_steps", steps)
-    monkeypatch.setattr(native_pool, "pool_step_tail", tail)
-    return calls
-
-
-def test_a_dispatch_is_row5_for_s_minus_1_steps_then_one_tail(monkeypatch):
+def test_a_dispatch_is_one_pool_step_call(monkeypatch):
+    """A slab dispatch of ``s`` steps is one ``pool_step`` call of ``s``
+    steps (on the card one ``bitlife_bitsliced_pool`` call, row 5's
+    launches and nothing else); 0 steps and a settled skip make none. On
+    the CPU the plain version runs, so no launch is counted."""
     rng = np.random.default_rng(3)
-    tail = native_pool.pool_step_tail
-    calls = _counting(monkeypatch)
+    real = native_pool.pool_step
+    calls = []
+
+    def counting(planes, n, mask):
+        calls.append(int(n))
+        return real(planes, n, mask)
+
+    monkeypatch.setattr(native_pool, "pool_step", counting)
     pool = SessionPool(device="cpu")
     boards = {f"s{i}": _board(rng, 20) for i in range(3)}
     for sid, b in boards.items():
         pool.create(sid, b)
     pool.step_group(list(boards), 5)
-    assert calls == {"bitsliced_steps": [4], "pool_step_tail": 1}
-    pool.step("s0", 1)  # no row-5 call: prev is a copy of the slab
-    assert calls == {"bitsliced_steps": [4], "pool_step_tail": 2}
+    assert calls == [5]
+    pool.step("s0", 1)
+    assert calls == [5, 1]
     assert pool.step_group(list(boards), 0) == 0
-    assert calls == {"bitsliced_steps": [4], "pool_step_tail": 2}
+    assert calls == [5, 1]
     pool.create("q", _still_life(20))
     pool.step("q", 3)
     pool.step("q", 3)  # settled: skipped, no call at all
-    assert calls == {"bitsliced_steps": [4, 2], "pool_step_tail": 3}
+    assert calls == [5, 1, 3]
     assert pool.counts["settled_skips"] == 1
-    assert tail.launches == native_pool.pool_lane_write.launches == 0
+    assert real.launches == real.dispatches == 0
+    assert native_pool.pool_lane_write.launches == 0
     for sid, b in boards.items():
         want = 6 if sid == "s0" else 5
         np.testing.assert_array_equal(pool.snapshot(sid), oracle_n(b, want))
+
+
+@pytest.mark.parametrize("steps", [1, 8, 9])
+@pytest.mark.parametrize("shape", [(1, 7), (7, 1), (48, 48)])
+def test_a_dispatch_rebinds_the_slab(shape, steps):
+    """After ``step_group`` the slab group holds a new planes tensor of the
+    same bytes; the lanes it did not step keep every bit; and the settled
+    bits its change word resolves to are JAX's pool's after the same
+    operations (a still life, a blinker and a soup in one slab, two of
+    them stepped, then every one)."""
+    rng = np.random.default_rng(steps + sum(shape))
+    pool, jax_pool = _pools()
+    boards = {"still": np.zeros(shape, np.uint8),
+              "blink": np.zeros(shape, np.uint8),
+              "soup": (rng.random(shape) < 0.4).astype(np.uint8)}
+    if min(shape) >= 4:
+        boards["still"] = _still_life(shape[0])
+        boards["blink"] = _blinker(shape[0])
+    for sid, b in boards.items():
+        pool.create(sid, b)
+        jax_pool.create(sid, b)
+    slab = pool._slabs[pool.handle("soup").slab]
+    before, nbytes = slab.planes, pool.device_bytes()
+    for p in (pool, jax_pool):
+        assert p.step_group(["still", "blink"], steps) == 1
+    assert slab.planes is not before
+    assert pool.device_bytes() == nbytes
+    lane = pool.handle("soup").lane
+    plane, bit = divmod(lane, LANES_PER_PLANE)
+    np.testing.assert_array_equal(
+        native_pool.pool_lane_read(slab.planes, plane, bit).numpy(),
+        native_pool.pool_lane_read(before, plane, bit).numpy())
+    for p in (pool, jax_pool):
+        p.step_group(list(boards), steps)
+    _same(pool, jax_pool)
+    assert ({sid: pool._sessions[sid].settled for sid in boards}
+            == {sid: jax_pool._sessions[sid].settled for sid in boards})
+    for p in (pool, jax_pool):
+        p.step_group(list(boards), steps)
+    _same(pool, jax_pool)
+    assert ({sid: pool._sessions[sid].settled for sid in boards}
+            == {sid: jax_pool._sessions[sid].settled for sid in boards})
 
 
 # --------------------------------------------------- the two pools, one script

@@ -43,6 +43,8 @@ import jax.numpy as jnp
 from mpi_and_open_mp_tpu.ops import bitlife as jb
 from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
 from mpi_and_open_mp_tpu_torch.ops import native_life as tnl
+from mpi_and_open_mp_tpu_torch.ops.native_pool import (
+    _or_reduce, _pool_step_plain)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,9 +103,12 @@ def _warp_step(t: torch.Tensor, warps: int, gen) -> torch.Tensor:
     return out.movedim(-3, -2).reshape(*lead, rows, cols)
 
 
-def _launch(planes: torch.Tensor, k: int, geo: tb.SlicedGeometry,
-            gen) -> torch.Tensor:
-    """One launch of ``k`` steps (module docstring)."""
+def _launch(planes: torch.Tensor, k: int, geo: tb.SlicedGeometry, gen,
+            tail: tuple | None = None):
+    """One launch of ``k`` steps (module docstring). With ``tail`` (the
+    call's first input and a (P,) lane mask), the tail mode's launch:
+    returns the merged words and the change word, which ORs the last
+    step's old ^ new of the written-back words only."""
     npl, ny, nx = planes.shape
     S, g, P, nq, ct = (geo.strips, geo.ghost, geo.segments, geo.warps,
                        geo.cols_per_thread)
@@ -140,6 +145,8 @@ def _launch(planes: torch.Tensor, k: int, geo: tb.SlicedGeometry,
     exchange = g < k
     wper = geo.warp_ghost * ct
     for s in range(1, k + 1):
+        if tail is not None and s == k:
+            before = x.clone()
         xo = x[..., owner_of]  # the words each column's owner holds
         new = []
         for p, (r0, r1) in enumerate(segs):
@@ -174,12 +181,21 @@ def _launch(planes: torch.Tensor, k: int, geo: tb.SlicedGeometry,
         if nq > 1 and s % wper == 0 and s < k:
             x = torch.where(copy[None, None, :, None], x[..., owner_of], x)
     out = torch.empty_like(planes)
+    diff = torch.empty_like(planes)
     for bi, (b0, b1) in enumerate(bands):
         for r, (c0, c1) in enumerate(strips):
             for c in range(c1 - c0):
                 out[:, b0:b1, c0 + c] = x[:, bi, r, h : h + b1 - b0,
                                           pos_of[g + c]]
-    return out
+                if tail is not None:
+                    diff[:, b0:b1, c0 + c] = (
+                        before[:, bi, r, h : h + b1 - b0, pos_of[g + c]]
+                        ^ out[:, b0:b1, c0 + c])
+    if tail is None:
+        return out
+    orig, mask = tail
+    m = mask[:, None, None]
+    return (out & m) | (orig & ~m), _or_reduce(diff.reshape(npl, -1))
 
 
 def replay(planes: torch.Tensor, steps: int, geo: tb.SlicedGeometry,
@@ -195,6 +211,19 @@ def replay(planes: torch.Tensor, steps: int, geo: tb.SlicedGeometry,
         done += k
     assert geo.launches(steps) == (0 if steps == 0 else -(-steps // kmax))
     return planes.clone()
+
+
+def replay_pool(planes: torch.Tensor, steps: int, mask: torch.Tensor,
+                geo: tb.SlicedGeometry, seed: int = 0):
+    """``bitlife_bitsliced_pool``'s ``steps`` >= 1 steps: :func:`replay`'s
+    launches, the last in the tail mode; returns (merged, change)."""
+    gen = torch.Generator().manual_seed(seed)
+    kmax = geo.halo or steps
+    orig, done = planes, 0
+    while steps - done > kmax:
+        planes = _launch(planes, kmax, geo, gen)
+        done += kmax
+    return _launch(planes, steps - done, geo, gen, tail=(orig, mask))
 
 
 def _check(planes, steps, geo=None, seed=0):
@@ -315,6 +344,26 @@ GEO_SHAPES = [(2, 500, 500), (8, 500, 500), (16, 500, 500), (1, 37, 45),
               (2, 95, 130), (16, 95, 130), (1, 1, 8), (1, 8, 1), (1, 2, 2),
               (1, 3, 3), (1, 1, 1), (3, 2000, 300), (1, 30, 29056),
               (1, 929790, 1), (4, 16350, 56)]
+
+
+@pytest.mark.parametrize("steps", [1, 2, 8, 9, 17])
+@pytest.mark.parametrize("shape", [(1, 1, 7), (1, 7, 1), (2, 3, 3),
+                                   (1, 48, 48), (2, 95, 130)])
+def test_tail_mode_matches_pool_step_plain(shape, steps):
+    """The pool's dispatch (``bitlife_bitsliced_pool``): the rounds of
+    ``plan_bitsliced``'s geometry, the last in the tail mode, whose change
+    word ORs only the words a block writes back (junk halo rows and ghost
+    columns hold poison), word for word and change word for word against
+    ``native_pool._pool_step_plain``. (1, 7, 1) takes 7 one-row bands with
+    a halo of 8 rows, (1, 48, 48) one launch at every step count."""
+    planes = _words(shape, 7 * steps + sum(shape))
+    mask = _words(shape[:1], steps)
+    geo = tb.plan_bitsliced(shape)
+    got, change = replay_pool(planes, steps, mask, geo, seed=steps)
+    want, want_change = _pool_step_plain(planes, steps, mask)
+    assert torch.equal(got, want), (shape, steps, geo)
+    assert torch.equal(change, want_change), (shape, steps, geo)
+    assert torch.equal(planes, _words(shape, 7 * steps + sum(shape)))
 
 
 @pytest.mark.parametrize("shape", GEO_SHAPES)
