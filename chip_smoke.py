@@ -387,11 +387,17 @@ Phases, each of which raises (exit code 1) when it fails:
    steps and of an output on its input; a profiler trace of one dispatch
    at 500^2 (4 and 100 steps) holding ``launches(s)``
    ``bitlife_bitsliced_kernel`` records and no other kernel;
-   ``pool_lane_write`` and ``pool_lane_read`` at lanes 0, 31, 32 and 63,
-   all exact; p46gun_big and
+   ``pool_lane_write`` and ``pool_lane_read`` on page-locked host boards
+   at 500^2, 48^2, 9x14 and 17x33, lanes 0, 31, 32 and 63 (48^2 also one
+   byte off 16), all exact, a pageable and a device board refused;
+   p46gun_big and
    39 soups of 500^2 (``spec.init(default_rng(46))``) in two slabs, a lone
    step, a 32-lane group and both slabs, 10 000 steps in all, p46gun_big's
    snapshot the oracle's (population 7288) and every soup row 4's board;
+   64 distinct 500^2 boards created, then snapshotted, back to back, every
+   board exact, the pool's page-locked bytes one lane ring and torch's
+   page-locked host allocator holding and handing out no byte more after
+   them than after the first create;
    the default 64 MiB budget filled (67 one-plane slabs of 500^2, 2144
    sessions from 64 boards), rounds of 100 steps over every session
    (session-steps a second, Gcups, launches, peak memory), one create more
@@ -404,8 +410,12 @@ Phases, each of which raises (exit code 1) when it fails:
    at 1024 x 48^2 and 256 x 500^2, each side's boards row 4's before any
    number (``session_vs_ship``, p50, p99); a crash-driver child killed at
    ``post-step`` in ``pool`` and in ``settled`` mode, each journal resumed
-   to the acked ledger; each lane kernel's device ms a launch at a 500^2
-   and a 48^2 plane beside its plain version and bound, and a dispatch's
+   to the acked ledger; the link's rate (a 64 MiB page-locked copy each
+   way) and ``nvidia-smi``'s PCIe generation and width; each lane op whole
+   as the pool runs it at a 500^2 and a 48^2 plane, a traced call one
+   kernel record and no copy, its device and host-clock time beside the
+   kernel's record, the plain op and the bound restated for the link (the
+   board over PCIe against the plane's HBM bytes); and a dispatch's
    device time (the union of its records) at a 500^2 and a 48^2 plane at 4
    and 1000 steps against ``bitsliced_steps(slab, s)``'s, in turns;
 27. the serving fleet (``serve/router.py``, ``serve/fleet.py``,
@@ -464,6 +474,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -729,23 +740,33 @@ def device_ms(fn, reps: int, kernel_name: str | None = None,
 
 
 def device_span_ms(fn, reps: int, kernel_name: str, launches: int,
-                   tries: int = 3) -> tuple[float, int]:
+                   tries: int = 6) -> tuple[float, int]:
     """Device milliseconds per call of ``fn()`` that launches
     ``kernel_name`` (every device record for ``""``) ``launches`` times,
     whose launches may overlap (programmatic dependent launch): the union
     of the records' intervals in one ``torch.profiler`` trace of ``reps``
     calls, over ``reps``, scaled by the records the calls made over those
-    the tracer kept (a lost record leaves a gap); a trace that kept none is
-    taken again, up to ``tries`` traces. Returns the time and the records
-    kept."""
-    from torch.profiler import ProfilerActivity, profile
+    the tracer kept (a lost record leaves a gap). Each trace first runs a
+    discarded warm-up step (``reps`` calls, then 10 ms: the card's tracer
+    loses a trace's first records, a whole short trace three times in a
+    row once); a trace that kept none is taken again, up to ``tries``
+    traces. Returns the time and the records kept."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.01)
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
         spans = sorted((ev.time_range.start, ev.time_range.end)
                        for ev in prof.events()
                        if ev.device_type == torch.autograd.DeviceType.CUDA
@@ -2774,6 +2795,22 @@ POOL_TAIL_OPS_PER_WORD = 3
 # are row 5's kernel's, counted in both).
 POOL_KERNELS = ("bitsliced", "pool_step", "pool_lane_write",
                 "pool_lane_read")
+# The lane kernels' exactness planes: the timed 500^2 and 48^2, a ragged
+# 9x14 and 17x33 (126 and 561 cells, not a multiple of the 16-cell chunk).
+POOL_LANE_SHAPES = ((500, 500), (48, 48), (9, 14), (17, 33))
+# The back-to-back check: creates of distinct 500^2 boards, then as many
+# snapshots, no wait between (a slot rewritten before its kernel read it
+# would show).
+POOL_BACK_TO_BACK = 64
+# The lane ops' bound: the board crossing PCIe, 1 B a cell, at the larger
+# of PCIe 5.0 x16's nominal rate a direction and a 64 MiB page-locked
+# copy's measured rate that way; against the plane's HBM bytes a cell
+# (the write reads and writes a word, the read reads one).
+PCIE5_X16_BYTES_PER_S = 63e9
+LINK_COPY_BYTES = 64 << 20
+POOL_LANE_HBM_BYTES = {"pool_lane_write": 8, "pool_lane_read": 4}
+# Calls a lane op's host-clock time averages over.
+POOL_LANE_HOST_CALLS = 200
 
 
 def pool_words(g, shape) -> torch.Tensor:
@@ -2842,6 +2879,114 @@ def dispatch_records(calls: list, tries: int = 5) -> list[dict]:
             "records after each memset")
     raise AssertionError(f"phase 26: no trace of {tries} kept the "
                          f"dispatches' {want} kernel records")
+
+
+def link_rates(reps: int = 5) -> dict[str, float]:
+    """Bytes a second of a ``LINK_COPY_BYTES`` copy from page-locked host
+    memory to the card (``h2d``) and back (``d2h``), CUDA events over
+    ``reps`` copies after one warm-up each."""
+    host = torch.ones(LINK_COPY_BYTES, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(LINK_COPY_BYTES, dtype=torch.uint8, device="cuda")
+    rates = {}
+    for way, dst, src in (("h2d", dev, host), ("d2h", host, dev)):
+        dst.copy_(src, non_blocking=True)
+        ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), reps)
+        rates[way] = LINK_COPY_BYTES / (ms * 1e-3)
+    del host, dev
+    return rates
+
+
+def pcie_line() -> str:
+    """``nvidia-smi``'s PCIe generation and width, the link's maximum."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.max,pcie.link.width.max",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return (out.stdout.strip() or out.stderr.strip()).splitlines()[0]
+
+
+def pinned_bytes() -> dict[str, int] | None:
+    """What torch's page-locked host allocator holds from CUDA and hands
+    out (``torch.cuda.host_memory_stats``; ``None`` where the installed
+    torch lacks it), after a garbage collection (a freed block goes back to
+    the allocator's cache, and stays in what it holds)."""
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+    if stats is None:
+        return None
+    gc.collect()
+    got = stats()
+    return {k: int(got[k]) for k in ("allocated_bytes.current",
+                                     "active_bytes.current")}
+
+
+def lane_bound_ms(name: str, cells: int,
+                  rates: dict[str, float]) -> tuple[float, str]:
+    """A lane op's least time: its board, 1 B a cell, over the link at the
+    larger of the nominal and the measured rate that way, against its
+    plane's HBM bytes; returns the time and which term bounds it."""
+    way = "h2d" if name == "pool_lane_write" else "d2h"
+    t_link = cells / max(PCIE5_X16_BYTES_PER_S, rates[way]) * 1e3
+    t_hbm = POOL_LANE_HBM_BYTES[name] * cells / HBM_BYTES_PER_S * 1e3
+    return (t_link, "link") if t_link >= t_hbm else (t_hbm, "hbm")
+
+
+def host_clock_ms(fn, calls: int) -> float:
+    """Host milliseconds a call of ``fn()`` over ``calls`` calls, synced
+    before and after (one warm-up call first)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / calls * 1e3
+
+
+def lane_records(fn, kernel: str, tries: int = 5) -> dict:
+    """The device records of one traced call of ``fn()``, a lane op: it
+    must be exactly one ``kernel`` record, no copy, no memset, nothing
+    else. Each trace first runs a discarded warm-up step (20 calls, then
+    10 ms: the card's tracer loses a trace's first records); traces are
+    taken until one keeps the record (raises after ``tries``, or at once
+    on any other record)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for attempt in range(1, tries + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.01)
+            prof.step()
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+        names = [ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) > 1 or any(kernel not in n for n in names):
+            raise AssertionError(f"phase 26 {kernel}: one op's device "
+                                 f"records {names}, want one {kernel}")
+        if names:
+            return {"records": len(names), "memcpy": 0, "traces": attempt}
+        log(f"  lane trace {attempt} kept no {kernel} record")
+    raise AssertionError(f"phase 26: no trace of {tries} kept the "
+                         f"{kernel} record")
+
+
+def pinned_board(g, shape, offset: int = 0) -> torch.Tensor:
+    """A random page-locked host uint8 board (0 for about 0.6 of the
+    cells, else any byte 1..255), starting ``offset`` bytes into its
+    buffer."""
+    cells = torch.randint(1, 256, shape, generator=g, device=POOL_DEV,
+                          dtype=torch.int32)
+    live = torch.rand(shape, generator=g, device=POOL_DEV) < 0.4
+    buf = torch.empty(offset + shape[0] * shape[1], dtype=torch.uint8,
+                      pin_memory=True)
+    board = buf[offset:].view(shape)
+    board.copy_(torch.where(live, cells, 0).to(torch.uint8))
+    return board
 
 
 def pool_kernel_checks() -> dict:
@@ -2913,26 +3058,55 @@ def pool_kernel_checks() -> dict:
         for steps in POOL_TRACE_STEPS])))
     seconds["traces"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for shape in ((48, 48), (500, 500)):
-        slab = pool_words(g, (2, *shape))
-        for lane in (0, 31, 32, 63):
-            plane, bit = divmod(lane, 32)
-            board = (torch.rand(shape, generator=g, device=POOL_DEV)
-                     < 0.4).to(torch.uint8)
-            want, got = slab.clone(), slab.clone()
-            npl._lane_write_plain(want, board, plane, bit)
-            npl.pool_lane_write(got, board, plane, bit)
-            read = npl.pool_lane_read(got, plane, bit)
-            if (not torch.equal(got, want) or not torch.equal(
-                    read, npl._lane_read_plain(want, plane, bit))
-                    or not torch.equal(read, board)):
-                raise AssertionError(f"phase 26 lane {lane} at {shape}: the "
-                                     "write or the read differs")
-            cases["pool_lane_write"] += 1
-            cases["pool_lane_read"] += 1
+    cases.update(lane_kernel_checks(g))
+    torch.cuda.synchronize()
     seconds["lanes"] = time.perf_counter() - t0
     return {**cases, "traces": traces,
             "seconds": {k: round(v, 3) for k, v in seconds.items()}}
+
+
+def lane_kernel_checks(g) -> dict:
+    """``pool_lane_write`` and ``pool_lane_read`` on page-locked host
+    boards against their plain versions on the same boards on the card, at
+    ``POOL_LANE_SHAPES`` and lanes 0, 31, 32 and 63 of a 2-plane slab, the
+    48^2 plane also from and into buffers one byte off 16 (the cell-by-cell
+    path); the refusals of a pageable and a device board and of a read
+    with no ``out``. Returns the case counts."""
+    from mpi_and_open_mp_tpu_torch.ops import native_pool as npl
+
+    cases = {"pool_lane_write": 0, "pool_lane_read": 0}
+    runs = [(shape, lane, 0) for shape in POOL_LANE_SHAPES
+            for lane in (0, 31, 32, 63)] + [((48, 48), 33, 1)]
+    for shape, lane, offset in runs:
+        plane, bit = divmod(lane, 32)
+        slab = pool_words(g, (2, *shape))
+        board = pinned_board(g, shape, offset)
+        want, got = slab.clone(), slab.clone()
+        npl._lane_write_plain(want, board.to(POOL_DEV), plane, bit)
+        npl.pool_lane_write(got, board, plane, bit)
+        out = pinned_board(g, shape, offset)
+        npl.pool_lane_read(got, plane, bit, out)
+        torch.cuda.synchronize()
+        if (not torch.equal(got, want) or not torch.equal(
+                out, npl._lane_read_plain(want, plane, bit).cpu())
+                or not torch.equal(out, (board != 0).to(torch.uint8))):
+            raise AssertionError(f"phase 26 lane {lane} at {shape} (offset "
+                                 f"{offset}): the write or the read differs")
+        cases["pool_lane_write"] += 1
+        cases["pool_lane_read"] += 1
+    slab = pool_words(g, (1, 48, 48))
+    for bad in (torch.zeros((48, 48), dtype=torch.uint8),
+                torch.zeros((48, 48), dtype=torch.uint8, device=POOL_DEV)):
+        for call in (lambda: npl.pool_lane_write(slab, bad, 0, 0),
+                     lambda: npl.pool_lane_read(slab, 0, 0, bad),
+                     lambda: npl.pool_lane_read(slab, 0, 0)):
+            try:
+                call()
+            except ValueError:
+                continue
+            raise AssertionError(f"phase 26: a lane op took a board on "
+                                 f"{bad.device} that is not page-locked")
+    return cases
 
 
 def pool_oracle(boards: list, steps: int) -> list:
@@ -2968,6 +3142,8 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     from mpi_and_open_mp_tpu_torch.robust import chaos
     from mpi_and_open_mp_tpu_torch.serve import (
         DEFAULT_DEVICE_BUDGET, ServePolicy, ServingDaemon, SessionPool, wal)
+    from mpi_and_open_mp_tpu_torch.serve import pool as spool
+    from mpi_and_open_mp_tpu_torch.serve.pool import LANE_RING_SLOTS
     from mpi_and_open_mp_tpu_torch.serve.queue import DONE
     from mpi_and_open_mp_tpu_torch.utils.config import load_config
 
@@ -3041,6 +3217,43 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
         f"32-lane group of 999, both slabs 9000): p46gun_big's snapshot the "
         f"oracle's (population 7288), every soup row 4's board at 9999 or "
         f"9000 steps; launches {counts} ({flag_s:.3f} s)")
+
+    # (b2) Back to back: distinct 500^2 boards created with no wait between
+    # them, then snapshotted the same way, every board exact; the ring's
+    # page-locked bytes one ring, and torch's page-locked allocator holding
+    # and handing out what it did after the first create (the ring made).
+    brng = np.random.default_rng(2626)
+    fresh = [life.init(brng, (500, 500)) for _ in range(POOL_BACK_TO_BACK)]
+
+    def back_to_back():
+        pool = SessionPool(device=POOL_DEV)
+        pool.create("f00", fresh[0])
+        before = pinned_bytes()
+        for i, b in enumerate(fresh[1:], 1):
+            pool.create(f"f{i:02d}", b)
+        snaps = [pool.snapshot(f"f{i:02d}") for i in range(len(fresh))]
+        return snaps, pool.lane_ring_bytes(), (before, pinned_bytes())
+
+    snaps, ring_bytes, host = counted_run("back to back", back_to_back)
+    counts = launches["back to back"]
+    bad = [i for i, (a, b) in enumerate(zip(snaps, fresh))
+           if not np.array_equal(a, b)]
+    if (bad or ring_bytes != LANE_RING_SLOTS * 500 * 500
+            or host[0] != host[1]
+            or counts["pool_lane_write"] != POOL_BACK_TO_BACK
+            or counts["pool_lane_read"] != POOL_BACK_TO_BACK):
+        raise AssertionError(f"phase 26 back to back: boards {bad[:4]} "
+                             f"differ, ring {ring_bytes} B, torch's "
+                             f"page-locked allocator {host[0]} then "
+                             f"{host[1]}, launches {counts}")
+    runs["back to back"] = {"boards": POOL_BACK_TO_BACK,
+                            "ring_bytes": ring_bytes,
+                            "host_allocator": host[1], "launches": counts}
+    log(f"  back to back: {POOL_BACK_TO_BACK} creates of distinct 500^2 "
+        f"boards, then {POOL_BACK_TO_BACK} snapshots, every board exact; "
+        f"the ring {ring_bytes} B page-locked; torch's page-locked host "
+        f"allocator {host[1]} after them as after the first create "
+        f"(None: this torch has no host_memory_stats); launches {counts}")
 
     # (c) The default budget filled with 500^2 slabs.
     n_slabs = DEFAULT_DEVICE_BUDGET // (500 * 500 * 4)
@@ -3339,40 +3552,61 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
     runs["crash"] = crash
     shutil.rmtree(POOL_ROOT, ignore_errors=True)
 
-    # (h) Times: each lane kernel a launch at a 500^2 and a 48^2 plane
-    # (profiler device time, CUDA events beside it), its plain version
-    # (CUDA events) and its bound; a dispatch's device time (the union of
-    # its records, the memset's too) against bitsliced_steps(slab, s)'s at
-    # POOL_TIME_STEPS, in turns: the tail mode's marginal time, beside the
-    # bound of what it adds (the first input read once more, 3 operations
-    # a word) and the plain dispatch at the fewer steps.
+    # (h) Times. Each lane op whole, as the pool runs it (serve.pool's
+    # _lane_write of a pageable numpy board and _lane_read through a lane
+    # ring) at a 500^2 and a 48^2 plane: one traced call held to one kernel
+    # record and no copy; its device time (the union of its records) and
+    # host-clock time, the kernel's own record, the plain op (the board to
+    # the card and the plain version, or back; CUDA events) and the bound
+    # restated for the link (link_rates, measured here). Then a dispatch's
+    # device time (the union of its records, the memset's too) against
+    # bitsliced_steps(slab, s)'s at POOL_TIME_STEPS, in turns: the tail
+    # mode's marginal time, beside the bound of what it adds (the first
+    # input read once more, 3 operations a word) and the plain dispatch at
+    # the fewer steps.
+    rates = link_rates()
+    pcie = pcie_line()
+    log(f"  link: a {LINK_COPY_BYTES} B page-locked copy "
+        f"{rates['h2d'] / 1e9:.3f} GB/s to the card, {rates['d2h'] / 1e9:.3f} "
+        f"GB/s back (CUDA events); nvidia-smi pcie.link.gen.max, "
+        f"pcie.link.width.max: {pcie} [{card}]")
     g = torch.Generator(device=POOL_DEV).manual_seed(260)
-    times = {}
+    times = {"link": {"h2d_bytes_per_s": rates["h2d"],
+                      "d2h_bytes_per_s": rates["d2h"], "pcie": pcie}}
     for edge in (500, 48):
         words = edge * edge
         slab = pool_words(g, (1, edge, edge))
         mask = pool_mask(g, "random", 1)
-        board = (torch.rand((edge, edge), generator=g, device=POOL_DEV)
-                 < 0.4).to(torch.uint8)
+        board = np.random.default_rng(edge).random((edge, edge)) < 0.4
+        board = board.astype(np.uint8)
+        ring = spool._LaneRing((edge, edge), POOL_DEV)
+        pinned = pinned_board(g, (edge, edge))
         rows = {}
-        for name, fn, plain, nbytes, ops in (
+        for name, fn, kernel, plain in (
                 ("pool_lane_write",
-                 lambda: npl.pool_lane_write(slab, board, 0, 31),
-                 lambda: npl._lane_write_plain(slab, board, 0, 31),
-                 9 * words, 3 * words),
+                 lambda: spool._lane_write(slab, board, 31, ring),
+                 lambda: npl.pool_lane_write(slab, pinned, 0, 31),
+                 lambda: npl._lane_write_plain(
+                     slab, torch.from_numpy(board).to(POOL_DEV), 0, 31)),
                 ("pool_lane_read",
-                 lambda: npl.pool_lane_read(slab, 0, 31),
-                 lambda: npl._lane_read_plain(slab, 0, 31),
-                 5 * words, 2 * words)):
+                 lambda: spool._lane_read(slab, 31, ring),
+                 lambda: npl.pool_lane_read(slab, 0, 31, pinned),
+                 lambda: npl._lane_read_plain(slab, 0, 31).cpu().numpy())):
             for _ in range(3):
                 fn()
                 plain()
-            bound, by = bound_ms(ops, nbytes)
+            trace = lane_records(fn, f"{name}_kernel")
+            bound, term = lane_bound_ms(name, words, rates)
+            ms = device_span_ms(fn, 50, "", 1)[0]
             rows[name] = {
-                "ms": device_ms(fn, 50, kernel_name=f"{name}_kernel"),
-                "events_ms": cuda_ms(fn, 50), "plain_ms": cuda_ms(plain, 20),
-                "bound_ms": bound, "bound_by": by,
-                "shape": f"1 x {edge} x {edge} int32 slab"}
+                "ms": ms, "host_ms": host_clock_ms(fn, POOL_LANE_HOST_CALLS),
+                "kernel_ms": device_ms(kernel, 50,
+                                       kernel_name=f"{name}_kernel"),
+                "plain_ms": cuda_ms(plain, 20), "bound_ms": bound,
+                "bound_by": "bytes", "bound_term": term,
+                "share": bound / ms, "trace": trace,
+                "shape": f"1 x {edge} x {edge} int32 slab, a {edge}^2 board"}
+        del ring
         geo = tb.plan_bitsliced((1, edge, edge))
         bound, by = bound_ms(POOL_TAIL_OPS_PER_WORD * words, 4 * words)
         for steps in POOL_TIME_STEPS:
@@ -3397,11 +3631,14 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
                 "bound_ms": bound, "bound_by": by, "launches": n,
                 "shape": f"1 x {edge} x {edge} int32 slab, {steps} steps"}
         times[edge] = rows
-        log(f"  {edge}^2 plane: " + "; ".join(
-            f"{k} {v['ms']:.5f} ms device ({v['events_ms']:.5f} by events), "
-            f"plain {v['plain_ms']}, bound {v['bound_ms']:.6f} "
-            f"({v['bound_by']})" for k, v in rows.items()
-            if not k.startswith("pool_step")) + f" [{card}]")
+        log(f"  {edge}^2 plane, the whole lane op as the pool runs it: "
+            + "; ".join(
+                f"{k} {v['ms']:.6f} ms device (one kernel record, no copy), "
+                f"{v['host_ms']:.6f} ms host clock, the kernel's record "
+                f"{v['kernel_ms']:.6f}, plain {v['plain_ms']:.6f}, bound "
+                f"{v['bound_ms']:.6f} ({v['bound_term']}), {v['share']:.3f} "
+                f"of it" for k, v in rows.items()
+                if not k.startswith("pool_step")) + f" [{card}]")
         for steps in POOL_TIME_STEPS:
             r = rows[f"pool_step {steps}"]
             log(f"  {edge}^2 plane, a {steps}-step dispatch: "
@@ -6913,6 +7150,7 @@ def main() -> int:
                             pool_rec["launches"].items()}})
     for name, line in (("pool_lane_write", 191), ("pool_lane_read", 203)):
         main_t, small_t = pt[500][name], pt[48][name]
+        way = "h2d" if name == "pool_lane_write" else "d2h"
         kernels.append({
             "name": name, "route": "cuda",
             "source": "mpi_and_open_mp_tpu_torch/csrc/pool_lanes.cu",
@@ -6920,15 +7158,32 @@ def main() -> int:
             "launches": pool_rec["totals"][name], "max_abs_err": 0.0,
             "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
             "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
-            "library_ms": None,
-            "shape": (f"{main_t['shape']}, one launch a call; no Pallas "
-                      "kernel in the JAX package (an XLA program)"),
+            "library_ms": None, "host_ms": main_t["host_ms"],
+            "share": main_t["share"], "bound_term": main_t["bound_term"],
+            "kernel_ms": main_t["kernel_ms"],
+            "link_bytes_per_s": pt["link"][f"{way}_bytes_per_s"],
+            "pcie": pt["link"]["pcie"],
+            "shape": (f"{main_t['shape']}, one launch an op, the board read "
+                      "or written in page-locked host memory across PCIe; "
+                      "no Pallas kernel in the JAX package (an XLA program)"),
             "at_48": small_t,
-            "note": ("ms: device time per launch from a torch.profiler "
-                     "trace of 50 calls (events_ms: CUDA events); plain_ms: "
-                     "CUDA events over 20 calls; no single PyTorch call "
-                     "computes the function"),
-            "events_ms": main_t["events_ms"],
+            "note": ("ms: the whole op's device time as the pool runs it "
+                     "(serve.pool._lane_write of a pageable numpy board, "
+                     "_lane_read, through a lane ring): the union of its "
+                     "profiler records over 50 calls, a traced call one "
+                     "kernel record and no copy; host_ms: host clock over "
+                     f"{POOL_LANE_HOST_CALLS} calls, synced; kernel_ms: the "
+                     "kernel's own records on a page-locked board; "
+                     "bound_ms: the larger of the board (1 B a cell) over "
+                     "the link at the larger of 63 GB/s and link_bytes_per_s "
+                     "(a 64 MiB page-locked copy that way, CUDA events) and "
+                     "the plane's HBM bytes (8 B a cell for the write, 4 for "
+                     "the read) at 3.35 TB/s, bound_term the larger; "
+                     "plain_ms: the plain op (the board to the card and the "
+                     "plain version, or the plain version and the board "
+                     "back), CUDA events over 20 calls; the parent's op: "
+                     "pool_times.py; no single PyTorch call computes the "
+                     "function"),
             "exact_cases": pool_rec["checks"][name],
             "launches_by_run": {run: c[name] for run, c in
                                 pool_rec["launches"].items()}})

@@ -15,10 +15,15 @@ a CPU slab; neither falls back to the other, and each counts its launches:
   row 5's kernel in ``plan_bitsliced(shape).launches(s)`` launches, the
   last in its tail mode, which merges and ORs the change word as it writes
   back; nothing else runs but a memset of the change word;
-* :func:`pool_lane_write` - one 0/1 board into one lane, in place
-  (``csrc/pool_lanes.cu``);
+* :func:`pool_lane_write` - one board (cells 0 or not) into one lane, in
+  place (``csrc/pool_lanes.cu``);
 * :func:`pool_lane_read` - one lane as a ``(ny, nx)`` uint8 board (the
   same source).
+
+On the card the lane kernels take the board where it lies, in page-locked
+host memory: the write reads it and the read writes it across PCIe inside
+its one launch, through the buffer's mapped device pointer. A pageable or
+device board raises ``ValueError``; nothing stages it.
 
 Like JAX, which donates the slab and rebinds it, :func:`pool_step`
 returns a new slab and leaves its input unwritten. Lane masks and change
@@ -39,6 +44,9 @@ from mpi_and_open_mp_tpu_torch.ops.bitlife import (
 
 LIB = "pool_lanes"
 STEP_LIB = "bitlife_bitsliced"
+# pool_lanes.cu's kErrHost: the board is not page-locked memory the card
+# can map.
+_ERR_HOST = -4
 
 
 def _card_slab(slab: torch.Tensor, name: str) -> None:
@@ -59,6 +67,40 @@ def _check_lane(slab: torch.Tensor, plane: int, bit: int, name: str) -> None:
 
 def _stream():
     return torch.cuda.current_stream().cuda_stream
+
+
+def _host_board(board, shape: tuple, name: str) -> None:
+    """Refuse what the lane kernels cannot reach: anything but a
+    contiguous page-locked host uint8 board of ``shape``."""
+    if not isinstance(board, torch.Tensor):
+        got = type(board).__name__
+    else:
+        if (board.device.type == "cpu" and board.dtype == torch.uint8
+                and tuple(board.shape) == shape and board.is_contiguous()
+                and board.is_pinned()):
+            return
+        got = f"{board.dtype} {tuple(board.shape)} on {board.device}"
+        if board.device.type == "cpu" and not board.is_pinned():
+            got += ", pageable"
+    raise ValueError(f"{name}: on the card the board is a contiguous "
+                     f"page-locked host uint8 tensor of {shape}, got {got}")
+
+
+def _lane_launch(fn, slab: torch.Tensor, board: torch.Tensor, plane: int,
+                 bit: int) -> None:
+    """Launch the lane kernel of wrapper ``fn`` (its entry point has its
+    name) and count it in ``fn.launches``."""
+    name = fn.__name__
+    npl, ny, nx = slab.shape
+    lib = _build.load(LIB)
+    with torch.cuda.device(slab.device):
+        rc = getattr(lib, name)(slab.data_ptr(), board.data_ptr(), npl, ny,
+                                nx, plane, bit, _stream())
+    if rc == _ERR_HOST:
+        raise ValueError(f"{name}: the host board is not page-locked memory "
+                         "mapped for the card")
+    fn.launches += 1
+    _build.check(lib, LIB, rc)
 
 
 # ------------------------------------------------------------ plain versions
@@ -164,8 +206,11 @@ pool_step.dispatches = 0
 def pool_lane_write(slab: torch.Tensor, board: torch.Tensor, plane: int,
                     bit: int) -> None:
     """Write one (ny, nx) board (cells 0 or not) into bit ``bit`` of plane
-    ``plane`` of ``slab``, in place: the ``pool_lane_write`` kernel on the
-    card, the plain version on the CPU."""
+    ``plane`` of ``slab``, in place. On a CUDA slab the board is a
+    page-locked host uint8 tensor, which the ``pool_lane_write`` kernel
+    reads across PCIe (one launch, counted in :attr:`launches`; the board
+    must not be rewritten before the stream passes the launch); on a CPU
+    slab the plain version, any board."""
     plane, bit = int(plane), int(bit)
     _check_lane(slab, plane, bit, "pool_lane_write")
     if tuple(board.shape) != tuple(slab.shape[1:]):
@@ -175,40 +220,32 @@ def pool_lane_write(slab: torch.Tensor, board: torch.Tensor, plane: int,
         _lane_write_plain(slab, board, plane, bit)
         return
     _card_slab(slab, "pool_lane_write")
-    if (board.dtype != torch.uint8 or board.device != slab.device
-            or not board.is_contiguous()):
-        raise ValueError(f"pool_lane_write: expected a contiguous uint8 "
-                         f"board on {slab.device}, got {board.dtype} on "
-                         f"{board.device}")
-    npl, ny, nx = slab.shape
-    lib = _build.load(LIB)
-    with torch.cuda.device(slab.device):
-        rc = lib.pool_lane_write(slab.data_ptr(), board.data_ptr(), npl, ny,
-                                 nx, plane, bit, _stream())
-    pool_lane_write.launches += 1
-    _build.check(lib, LIB, rc)
+    _host_board(board, tuple(slab.shape[1:]), "pool_lane_write")
+    _lane_launch(pool_lane_write, slab, board, plane, bit)
 
 
 pool_lane_write.launches = 0
 
 
-def pool_lane_read(slab: torch.Tensor, plane: int, bit: int) -> torch.Tensor:
+def pool_lane_read(slab: torch.Tensor, plane: int, bit: int,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Bit ``bit`` of plane ``plane`` of ``slab`` as a (ny, nx) uint8
-    board on the slab's device: the ``pool_lane_read`` kernel on the card,
-    the plain version on the CPU."""
+    board. On a CUDA slab the ``pool_lane_read`` kernel writes it across
+    PCIe into ``out``, a page-locked host uint8 tensor the caller passes
+    (one launch, counted in :attr:`launches`; ``out`` holds the board once
+    the stream passes the launch); on a CPU slab the plain version, into
+    ``out`` where one is given. Returns the board."""
     plane, bit = int(plane), int(bit)
     _check_lane(slab, plane, bit, "pool_lane_read")
     if slab.device.type == "cpu":
-        return _lane_read_plain(slab, plane, bit)
+        got = _lane_read_plain(slab, plane, bit)
+        return got if out is None else out.copy_(got)
     _card_slab(slab, "pool_lane_read")
-    npl, ny, nx = slab.shape
-    out = torch.empty((ny, nx), dtype=torch.uint8, device=slab.device)
-    lib = _build.load(LIB)
-    with torch.cuda.device(slab.device):
-        rc = lib.pool_lane_read(slab.data_ptr(), out.data_ptr(), npl, ny, nx,
-                                plane, bit, _stream())
-    pool_lane_read.launches += 1
-    _build.check(lib, LIB, rc)
+    if out is None:
+        raise ValueError("pool_lane_read: on the card the board is read into "
+                         "a page-locked host uint8 tensor `out`")
+    _host_board(out, tuple(slab.shape[1:]), "pool_lane_read")
+    _lane_launch(pool_lane_read, slab, out, plane, bit)
     return out
 
 

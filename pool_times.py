@@ -1,6 +1,8 @@
-"""Time the resident-session pool's dispatch of one checkout on the card.
+"""Time the resident-session pool's dispatch and lane IO of one checkout on
+the card.
 
     python3 pool_times.py [--root DIR] [--reps N] [--json PATH]
+                          [--only dispatch|lanes]
 
 Imports ``mpi_and_open_mp_tpu_torch`` from DIR (by default this script's
 own checkout), builds its ``bitlife_bitsliced`` and ``pool_lanes`` kernels
@@ -17,7 +19,17 @@ beside the same for ``bitsliced_steps(slab, s)`` alone, in turns
 (dispatch, steps, steps, dispatch). The difference is
 what the dispatch adds to row 5's steps. A checkout whose ``pool_step``
 returns ``(slab, change)`` leaves its input unwritten; an older one steps
-the slab in place, and the repeated calls step it on (the same work). It
+the slab in place, and the repeated calls step it on (the same work).
+Then the lane IO (:data:`LANE_SHAPES`): that checkout's own
+``serve.pool._lane_write`` of a pageable 0/1 numpy board into lane 31 of
+a one-plane slab and ``_lane_read`` of it, as its ``SessionPool`` calls
+them (through a ``_LaneRing`` where the checkout has one), write then
+read, each op's device records by name (as above), its device time (the
+union of its records over ``--reps`` calls, as above) and its host-clock
+time (``chip_smoke.py:host_clock_ms``, :data:`LANE_HOST_CALLS` calls,
+synced), beside its bound (``chip_smoke.py:lane_bound_ms`` on the link
+rates ``link_rates`` measures in the same run). ``--only`` runs one of
+the two sections. It
 prints the card's name and power limit, a line a case, then one JSON line
 (written to PATH with ``--json``). To compare two checkouts, run it on
 both, one after the other on one card, in the order parent, change,
@@ -33,6 +45,7 @@ import os
 import re
 import sys
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -42,6 +55,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((48, 48), (95, 130), (500, 500))
 PLANES = (1, 2)
 STEPS = (1, 4, 8, 9, 100, 1000)
+# The lane IO's planes: p46gun_big's and the JAX bench's sessions'.
+LANE_SHAPES = ((500, 500), (48, 48))
+LANE_HOST_CALLS = 200
 
 
 def _helpers():
@@ -80,27 +96,10 @@ def device_ops(fn, tries: int = 3) -> dict[str, int]:
     return best
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--root", default=HERE)
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--json", default=None)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("pool_times: no CUDA device", file=sys.stderr)
-        return 2
-    cs = _helpers()
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    from mpi_and_open_mp_tpu_torch.ops import _build
+def dispatch_rows(cs, args, card) -> list[dict]:
     from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
     from mpi_and_open_mp_tpu_torch.ops import native_pool as npl
 
-    if not os.path.abspath(npl.__file__).startswith(root + os.sep):
-        raise RuntimeError(f"imported {npl.__file__}, not from {root}")
-    card = cs.card_line()
-    print(f"card: {card}", flush=True)
-    _build.build(["bitlife_bitsliced", "pool_lanes"])
     g = torch.Generator(device="cuda").manual_seed(25)
     rows = []
     for planes in PLANES:
@@ -133,7 +132,77 @@ def main() -> int:
                       f"{ms['dispatch']} ms, bitsliced_steps {ms['steps']} "
                       f"ms (device time, in turns), added {d - b:.6f} ms; "
                       f"dispatch ops {ops['dispatch']} [{card}]", flush=True)
-    result = {"root": root, "card": card, "reps": args.reps, "rows": rows}
+    return rows
+
+
+def lane_rows(cs, args, card, rates) -> list[dict]:
+    from mpi_and_open_mp_tpu_torch.serve import pool as sp
+
+    g = torch.Generator(device="cuda").manual_seed(26)
+    rows = []
+    for ny, nx in LANE_SHAPES:
+        slab = torch.randint(-2 ** 31, 2 ** 31, (1, ny, nx), generator=g,
+                             device="cuda", dtype=torch.int64).to(torch.int32)
+        board = (np.random.default_rng(ny).random((ny, nx)) < 0.4).astype(
+            np.uint8)
+        ring = (sp._LaneRing((ny, nx), torch.device("cuda"))
+                if hasattr(sp, "_LaneRing") else None)
+        extra = () if ring is None else (ring,)
+        fns = {"pool_lane_write": lambda: sp._lane_write(slab, board, 31,
+                                                         *extra),
+               "pool_lane_read": lambda: sp._lane_read(slab, 31, *extra)}
+        for name, fn in fns.items():
+            for _ in range(3):
+                fn()
+            ops = device_ops(fn)
+            ms = cs.device_span_ms(fn, args.reps, "", sum(ops.values()))[0]
+            host = cs.host_clock_ms(fn, LANE_HOST_CALLS)
+            bound, term = cs.lane_bound_ms(name, ny * nx, rates)
+            rows.append({"op": name, "ny": ny, "nx": nx, "device_ms": ms,
+                         "host_ms": host, "ops": ops, "bound_ms": bound,
+                         "bound_term": term, "share": bound / ms,
+                         "ring": ring is not None})
+            print(f"  {name} {ny}x{nx}: {ms:.6f} ms device (the union of "
+                  f"its records {ops}), {host:.6f} ms host clock; bound "
+                  f"{bound:.6f} ({term}), {bound / ms:.3f} of it, ring "
+                  f"{ring is not None} [{card}]", flush=True)
+        del ring
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=HERE)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--only", choices=("dispatch", "lanes"), default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("pool_times: no CUDA device", file=sys.stderr)
+        return 2
+    cs = _helpers()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from mpi_and_open_mp_tpu_torch.ops import _build
+    from mpi_and_open_mp_tpu_torch.ops import native_pool as npl
+
+    if not os.path.abspath(npl.__file__).startswith(root + os.sep):
+        raise RuntimeError(f"imported {npl.__file__}, not from {root}")
+    card = cs.card_line()
+    print(f"card: {card}", flush=True)
+    _build.build(["pool_lanes"] if args.only == "lanes"
+                 else ["bitlife_bitsliced", "pool_lanes"])
+    result = {"root": root, "card": card, "reps": args.reps}
+    if args.only != "lanes":
+        result["rows"] = dispatch_rows(cs, args, card)
+    if args.only != "dispatch":
+        rates = cs.link_rates()
+        print(f"  link: {rates['h2d'] / 1e9:.3f} GB/s to the card, "
+              f"{rates['d2h'] / 1e9:.3f} GB/s back (64 MiB page-locked "
+              f"copies, CUDA events); pcie {cs.pcie_line()} [{card}]",
+              flush=True)
+        result["link"] = rates
+        result["lanes"] = lane_rows(cs, args, card, rates)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f, indent=1)

@@ -18,6 +18,7 @@ driver (``tests/_torch_wal_crash_driver.py``) in a subprocess killed at
 each pool site. Small boards, one torch thread.
 """
 
+import gc
 import json
 import os
 import subprocess
@@ -41,6 +42,7 @@ from mpi_and_open_mp_tpu_torch.robust import chaos
 from mpi_and_open_mp_tpu_torch.serve import (
     DEFAULT_DEVICE_BUDGET, LANES_PER_PLANE, Handle, PoolError, ServePolicy,
     ServingDaemon, SessionPool, ShapeBucketBatcher, wal)
+from mpi_and_open_mp_tpu_torch.serve import pool as tpool
 from mpi_and_open_mp_tpu_torch.serve.queue import DONE, PENDING, SHED
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -174,26 +176,136 @@ def test_pool_step_matches_jax(shape, steps, mask_kind):
     np.testing.assert_array_equal(_u32(slab), planes)
 
 
+# Plane shapes of the lane tests: cell counts that are and are not a
+# multiple of the card kernels' 16-cell chunk (126, 1, 561, 2304).
+LANE_SHAPES = [(9, 14), (1, 1), (17, 33), (48, 48)]
+
+
+def _lane_board(rng, shape, dtype) -> np.ndarray:
+    """A host board of ``dtype`` whose live cells are not all 1: bool, or
+    uint8 in 1..255, or int32 anywhere but 0 (256 among them, which a cast
+    to uint8 would make 0)."""
+    live = rng.random(shape) < 0.4
+    if dtype == np.bool_:
+        return live
+    if dtype == np.uint8:
+        values = rng.integers(1, 256, shape)
+    else:
+        values = rng.integers(-2**31, 2**31, shape)
+        values[rng.random(shape) < 0.3] = 256
+        values[values == 0] = -1
+    return np.where(live, values, 0).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.bool_, np.uint8, np.int32])
+@pytest.mark.parametrize("shape", LANE_SHAPES)
 @pytest.mark.parametrize("lane", [0, 31, 32, 63])
-def test_lane_write_and_read_match_jax(lane):
-    rng = np.random.default_rng(lane)
-    planes = _words(rng, (2, 9, 14))
-    board = _board(rng, 14)[:9]
+def test_lane_write_and_read_match_jax(lane, shape, dtype):
+    """The lane write (the wrapper on the board as it comes, and the
+    pool's host path ``_lane_write``) and read (a new board, into ``out``,
+    and ``_lane_read``) against JAX's programs on ``board != 0``, as JAX's
+    pool writes it; every other lane and plane unwritten."""
+    rng = np.random.default_rng([lane, *shape])
+    planes = _words(rng, (2, *shape))
+    board = _lane_board(rng, shape, dtype)
     plane, bit = divmod(lane, LANES_PER_PLANE)
     want = np.asarray(jpool._lane_write_jit(
-        jnp.asarray(planes), jnp.asarray(board, jnp.uint32),
+        jnp.asarray(planes), jnp.asarray(board != 0, jnp.uint32),
         jnp.int32(plane), jnp.uint32(bit)))
     slab = _t(planes)
     native_pool.pool_lane_write(slab, torch.from_numpy(board), plane, bit)
     np.testing.assert_array_equal(_u32(slab), want)
-    read = native_pool.pool_lane_read(slab, plane, bit)
+    via_pool = _t(planes)
+    tpool._lane_write(via_pool, board, lane)
+    np.testing.assert_array_equal(_u32(via_pool), want)
     jread = np.asarray(jpool._lane_read_jit(
         jnp.asarray(want), jnp.int32(plane), jnp.uint32(bit)))
+    np.testing.assert_array_equal(jread, board != 0)
+    read = native_pool.pool_lane_read(slab, plane, bit)
     assert read.dtype == torch.uint8
-    np.testing.assert_array_equal(read.numpy(), board)
     np.testing.assert_array_equal(read.numpy(), jread)
+    out = torch.full(shape, 7, dtype=torch.uint8)
+    assert native_pool.pool_lane_read(slab, plane, bit, out) is out
+    np.testing.assert_array_equal(out.numpy(), jread)
+    got = tpool._lane_read(via_pool, lane)
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, jread)
     with pytest.raises(ValueError, match="outside"):
         native_pool.pool_lane_read(slab, 2, 0)
+
+
+def test_lane_read_returns_an_owned_board():
+    """A snapshot is the caller's own board: mutating it changes neither
+    the slab nor the next snapshot, for a resident session (a lane read),
+    a spilled one (its host copy) and an evicted one's final board."""
+    rng = np.random.default_rng(11)
+    pool = SessionPool(device="cpu", device_budget_bytes=12 * 12 * 4)
+    boards = {f"s{i:02d}": _board(rng, 12) for i in range(33)}
+    for sid, b in boards.items():
+        pool.create(sid, b)  # the 33rd spills s00, the least recently used
+    assert pool.handle("s00") is None
+    h = pool.handle("s01")
+    planes = pool._slabs[h.slab].planes
+    words = planes.clone()
+    for sid in ("s01", "s00"):
+        snap = pool.snapshot(sid)
+        snap ^= 1
+        np.testing.assert_array_equal(pool.snapshot(sid), boards[sid])
+    read = tpool._lane_read(planes, h.lane)
+    read ^= 1
+    assert torch.equal(planes, words)
+    final = pool.evict("s01")
+    final ^= 1
+    assert torch.equal(pool._slabs[h.slab].planes, words)
+    np.testing.assert_array_equal(pool.snapshot("s02"), boards["s02"])
+
+
+@pytest.mark.card
+def test_lane_io_on_the_card_takes_page_locked_boards_from_a_fixed_ring():
+    """On the card: a pageable or device board raises in both lane
+    wrappers (nothing stages it), a read needs its ``out``; and the pool's
+    page-locked bytes stay one ring of ``LANE_RING_SLOTS`` boards over 1000
+    create / snapshot / evict cycles, every board exact and owned, with
+    torch's page-locked host allocator holding and handing out no byte
+    more (``torch.cuda.host_memory_stats``, where this torch has it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the lane kernels reach page-locked "
+                    "host boards only there")
+    slab = torch.zeros((1, 48, 48), dtype=torch.int32, device="cuda")
+    for bad in (torch.zeros((48, 48), dtype=torch.uint8),
+                torch.zeros((48, 48), dtype=torch.uint8, device="cuda")):
+        with pytest.raises(ValueError, match="page-locked"):
+            native_pool.pool_lane_write(slab, bad, 0, 0)
+        with pytest.raises(ValueError, match="page-locked"):
+            native_pool.pool_lane_read(slab, 0, 0, out=bad)
+    with pytest.raises(ValueError, match="page-locked"):
+        native_pool.pool_lane_read(slab, 0, 0)
+    rng = np.random.default_rng(26)
+    boards = [_board(rng, 48) for _ in range(8)]
+    pool = SessionPool(device="cuda")
+    pool.create("first", boards[0])
+    pinned = pool.lane_ring_bytes()
+    assert pinned == tpool.LANE_RING_SLOTS * 48 * 48
+    stats = getattr(torch.cuda, "host_memory_stats", None)
+
+    def allocator():
+        if stats is None:
+            return None
+        gc.collect()
+        got = stats()
+        return got["allocated_bytes.current"], got["active_bytes.current"]
+
+    held = allocator()
+    for i in range(1000):
+        sid, want = f"s{i}", boards[i % len(boards)]
+        pool.create(sid, want)
+        snap = pool.snapshot(sid)
+        np.testing.assert_array_equal(snap, want)
+        snap[:] = 1
+        np.testing.assert_array_equal(pool.evict(sid), want)
+        assert pool.lane_ring_bytes() == pinned
+    assert allocator() == held
+    np.testing.assert_array_equal(pool.snapshot("first"), boards[0])
 
 
 def test_a_dispatch_is_one_pool_step_call(monkeypatch):
