@@ -96,9 +96,8 @@ Phases, each of which raises (exit code 1) when it fails:
    step, the cart shard's the sharded LifeSim's), per-step
    rates from the difference of two step counts, the batched path's split
    into pack, kernel, unpack and the copy to the host, and both batched
-   kernels side by side at B in {1, 2, 4, 7, 8, 16, 32, 64, 128, 256, 512}
-   x 500^2 and {1, 2, 4, 7, 8, 16, 32, 64, 256, 512} x 95x130 (where each
-   wins), their boards compared;
+   kernels side by side at B in ``BATCH_SWEEP`` x 500^2 and x 95x130 (where
+   each wins), their boards compared;
 7. ``stencil_padded`` against its plain version (``stencils.engine.
    step_padded``) on the card, every case bit for bit (max abs error 0.0,
    equal bits): every registered stencil spec, a ``make_lenia(3)`` and
@@ -115,12 +114,13 @@ Phases, each of which raises (exit code 1) when it fails:
 8. the stencil main paths, counts set to 0 just before each:
    ``run_padded_native_batch`` on 64 x 500^2 stacks - wireworld and heat for
    10 000 steps (every board against ``run_roll_batch`` on the card, board
-   0 against the NumPy oracle at 1 000 steps), lenia for 1 000 steps
-   (in [0, 1], and 8 steps against the oracle and the roll engine); then
-   ``LifeSim(workload="heat")`` at 500^2 for 1 000 steps, the batcher on
-   mixed life, heat, wireworld and gray_scott requests, and
-   ``ActiveTileEngine`` on a mostly-dead 2048^2 Life board, each against
-   the NumPy oracle;
+   0 against the NumPy oracle at ``STENCIL_ORACLE_STEPS``), lenia for 1 000
+   steps (in [0, 1], and 8 steps against the oracle and the roll engine);
+   then ``LifeSim(workload="heat")`` at 500^2 for ``STENCIL_ORACLE_STEPS``
+   steps and the batcher on mixed life, heat, wireworld and gray_scott
+   requests, each against the NumPy oracle, and ``ActiveTileEngine`` on a
+   mostly-dead 2048^2 Life board against the compiled one
+   (``life_oracle``);
 9. stencil times at 64 x 500^2 (gray_scott: one 500^2 board): the
    kernel per launch (CUDA events, and device time from a profiler
    trace; the earlier kernel's CUDA-event time from PERF.md in the log
@@ -263,7 +263,13 @@ Phases, each of which raises (exit code 1) when it fails:
    (0, 1, the last two, each side of every 8-shard boundary, 8 drawn from
    a seeded generator) within 1e-6 of the plain ``_block_sum``, the chunk
    sums of 1 and 8 shards equal to the bit and the 8-shard value equal to
-   the bit to the Kahan pass replayed on its own chunk sums; ``Integral``
+   the bit to the Kahan pass replayed on its own chunk sums; runs of the 8
+   shards (``QUAD_SPLITS`` at ``QUAD_SPLIT_N``, the form a process of a
+   mesh across processes launches), each run's chunk sums the one call's
+   and its partials the plain Kahan pass on them to the bit (at 10^12 the
+   replayed pass), within 2e-6 relative of the plain ``shard_partials``
+   below 10^12, the runs' partials summed the one call's value to the
+   bit; ``Integral``
    at the reference's N = 10^12 and
    its 32-bit truncation 3 567 587 328 on 1 and 8 virtual shards, each on
    ``engine == "kernel:quadrature"`` within 2e-5 of pi, counts set to 0
@@ -313,7 +319,8 @@ Phases, each of which raises (exit code 1) when it fails:
    32 steps each; the counts set to 0 just before each run and read just
    after (``stencil_padded`` one launch a step of every round with an
    active tile); every board against the dense sharded runner on the card,
-   the NumPy oracle and the same engine on the CPU (integer rules bit for
+   the oracle (for Life the compiled one, ``life_oracle``; else the NumPy
+   one) and the same engine on the CPU (integer rules bit for
    bit, heat within ``parity_tol_for("offset")``), the counters and stamp
    equal to the CPU engine's, ``exchange_skips`` > 0 on the seed board;
    ``stencil_padded`` against ``step_padded_plain`` on each run's gathered
@@ -444,7 +451,39 @@ Phases, each of which raises (exit code 1) when it fails:
    from the burst's end, beside the in-process drills, both exit 0
    with the books balanced and every board verified, worker 1's rc 137,
    every recovery rc 0, the telemetry sidecars merged with their loss
-   counted. Before the last lines: every phase's seconds and the total.
+   counted;
+28. native IO (``utils/native.py``, ``native/liblifeio.so``, built by
+   ``make -C native`` in phase 1 beside the kernels, so every config the
+   script reads goes through the C parser): the C and Python parsers equal
+   on every ``configs/*.cfg``; ``native.life_steps(bits=True)`` of
+   p46gun_big for 10 000 steps equal to phase 5's board; the C and Python
+   VTK writers byte-identical on p46gun_big's board at step 10 000 and on
+   a 10000^2 soup, in a child process started after phase 6 (the phases
+   it ran beside logged), each writer timed alone there, one after the
+   other; then, with nothing else running, each writer's host
+   milliseconds a snapshot of the 500^2 board (the median of
+   ``VTK_REPS``, the two in turn);
+29. the graft entry (``mpi_and_open_mp_tpu_torch/graft_entry.py``), the
+   counts set to 0 just before each call and read just after:
+   ``entry()``'s step (one ``bitlife_vmem`` launch) bit for bit the plain
+   ``life_step_roll``'s, and ``dryrun_multichip(8)`` on 8 virtual shards
+   of the card (the hop engines' stamps the kernels'; the window, flash
+   and quadrature kernels launched);
+30. the port across two processes on the one card, every rank with a time
+   limit and rc 0 required (staged gloo, ``parallel/procs.py``): the
+   worker ``tests/_torch_dist_worker.py --device cuda`` (its results equal
+   to the one-process run of the same meshes on the card), the Life CLI on
+   p46gun_big (a snapshot every 1 000 steps, ``--fuse-steps 20``) in row 2
+   and cart 2x2 ``native`` (population 7288, the step-9 000 snapshot the
+   one-process board), the
+   integral CLI at 3 567 587 328 on 8 shards (the one-process value to the
+   bit, each rank's 2 launches a compute) and the attention CLI's ring
+   grad step, each rank of a CLI under ``--cli-child`` (its launch counts
+   on stderr); the worker, the two Life runs and ``hello`` side by side
+   (the Life CLI's elapsed logged as taken beside the other pairs); then,
+   once they are done, the integral and attention CLIs and ``pingpong
+   --fit`` alone, one after the other, the staged transport's alpha and
+   1/beta. Before the last lines: every phase's seconds and the total.
 
 Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -520,6 +559,13 @@ BF16_SPACING = 2.0 ** -7
 # Indexed by the kernel's rule id: life, heat, gray_scott, wireworld, lenia.
 STENCIL_RULE_OPS = (5, 4, 19, 12, 10)
 STENCIL_RULE_NAMES = ("life", "heat", "gray_scott", "wireworld", "lenia")
+# Phase 8's NumPy oracle depth: board 0 of the wireworld and heat stacks
+# and LifeSim(workload="heat") (cut from 1000 for time; every board is
+# still held to run_roll_batch on the card at 10 000 steps).
+STENCIL_ORACLE_STEPS = 300
+# Phase 6's stack sizes for both batched kernels side by side, at 500^2 and
+# 95x130 (2, 4, 7, 16, 32, 128 and 256 cut for time).
+BATCH_SWEEP = (1, 8, 64, 512)
 # FP32 instruction issue rate: 132 SMs x 128 lanes x 1.98 GHz. A float
 # stencil's multiply and add may not fuse into an FMA (the plain version
 # rounds each), so each issues on its own: its issue bound counts each
@@ -551,6 +597,11 @@ QUAD_SHARDS = (1, 8)
 # of every 8-shard boundary and this many more drawn from a seeded
 # generator.
 QUAD_SPREAD_RANDOM, QUAD_SPREAD_SEED = 8, 18
+# Runs of shards held to the plain version: on 8 shards, split into runs
+# that start at these shards, at these n (one chunk, which leaves runs
+# past it empty; 8 chunks; the reference's truncated N; 10^12).
+QUAD_SPLITS = ((0, 4), (0, 2, 5), (0, 7))
+QUAD_SPLIT_N = (1000, 10**6, QUAD_REAL_N[1], QUAD_REAL_N[0])
 # Tolerances: the kernel's value within 2e-6 relative of the plain
 # version's (the JAX package's own bound between 1 and 8 shards,
 # tests/test_integral.py:27); a chunk sum within 1e-6 relative (the CPU
@@ -1082,7 +1133,10 @@ def quadrature_pass_ms(fn, tries: int = 2) -> dict[str, float]:
     names = ("quadrature_chunk_kernel", "quadrature_kahan_kernel")
     got = {}
     for attempt in range(1, tries + 1):
-        ms = grad_step_kernels(fn)
+        # A kernel's records by its name without template arguments.
+        ms = {}
+        for k, v in grad_step_kernels(fn).items():
+            ms[k.split("<")[0]] = ms.get(k.split("<")[0], 0.0) + v
         got.update({k: ms[k] for k in names if k in ms and k not in got})
         if len(got) == len(names):
             break
@@ -1090,10 +1144,10 @@ def quadrature_pass_ms(fn, tries: int = 2) -> dict[str, float]:
     return got
 
 
-def kahan_total_np(sums: np.ndarray, shards: int, h: float) -> float:
-    """``qd.shard_total`` in numpy: the same float32 operations in the same
-    order (a step of the loop costs a few µs here against ~15 in torch, so
-    7.6 M chunk sums on 8 shards replay in seconds)."""
+def kahan_partials_np(sums: np.ndarray, shards: int) -> np.ndarray:
+    """``qd.kahan_shards`` in numpy: the same float32 operations in the
+    same order (a step of the loop costs a few µs here against ~15 in
+    torch, so 7.6 M chunk sums on 8 shards replay in seconds)."""
     per = -(-len(sums) // shards)
     vals = np.zeros(shards * per, np.float32)
     vals[:len(sums)] = sums
@@ -1106,10 +1160,83 @@ def kahan_total_np(sums: np.ndarray, shards: int, h: float) -> float:
         np.subtract(t, acc, out=comp)
         np.subtract(comp, y, out=comp)
         acc, t = t, acc
+    return acc
+
+
+def sum_partials_np(acc: np.ndarray, h: float) -> float:
+    """``qd.sum_partials`` in numpy: the partials summed in float32 in
+    shard order, times f32(h)."""
     total = acc[0]
-    for k in range(1, shards):
+    for k in range(1, len(acc)):
         total = np.float32(total + acc[k])
     return float(np.float32(total * np.float32(h)))
+
+
+def kahan_total_np(sums: np.ndarray, shards: int, h: float) -> float:
+    """``qd.shard_total`` in numpy."""
+    return sum_partials_np(kahan_partials_np(sums, shards), h)
+
+
+def quadrature_split_checks(nq, qd, dev, one_at_real) -> list[dict]:
+    """Phase 20's runs of shards. On 8 shards, each split into runs
+    (``QUAD_SPLITS``, the first shard of each run) at each n of
+    ``QUAD_SPLIT_N``: a run's chunk sums the one call's to the bit; its
+    Kahan partials the plain Kahan pass (``qd.kahan_shards``) on its own
+    chunk sums to the bit (at 10^12 the numpy replay of that pass,
+    :func:`kahan_partials_np`, on the one call's) and, below 10^12, within
+    ``QUAD_REL`` of the plain version's (``qd.shard_partials``, its own
+    chunk sums); the runs' partials, concatenated, the one call's, and
+    summed in shard order (``qd.sum_partials``) its value to the bit.
+    ``one_at_real``: the one call's ``nq.launch`` result at 10^12 on 8
+    shards and the replayed pass's partials, already taken. Raises on a
+    difference."""
+    splits = []
+    for n in QUAD_SPLIT_N:
+        h = 2.0 / n
+        per = -(-qd._chunk_grid(n)[0] // 8)
+        real = n == QUAD_REAL_N[0]
+        if real:
+            one_v, one_sums, one_parts, replay = one_at_real
+            replay = torch.from_numpy(replay).to(dev)
+        else:
+            one_v, one_sums, one_parts = nq.launch(0.0, 2.0, n, 8, dev)
+        for starts in QUAD_SPLITS:
+            parts, bad, rel_max = [], [], 0.0
+            for f, end in zip(starts, (*starts[1:], 8)):
+                c = end - f
+                _, sums, got = nq.launch(0.0, 2.0, n, 8, dev, first=f,
+                                         count=c)
+                lo, hi = f * per, min(end * per, one_sums.numel())
+                own = sums[:max(hi - lo, 0)]
+                if not torch.equal(own, one_sums[lo:hi]):
+                    bad.append(f"run [{f}, {end}) chunk sums")
+                want = replay[f:end] if real else qd.kahan_shards(own, c, per)
+                if not torch.equal(got, want):
+                    bad.append(f"run [{f}, {end}) partials {got.tolist()} "
+                               f"against the Kahan pass on its chunk sums "
+                               f"{want.tolist()}")
+                if not real:
+                    plain = qd.shard_partials(qd.f_circle, 0.0, 2.0, n, 8, f,
+                                              c, dev)
+                    rel = float(((got - plain).abs()
+                                 / plain.abs().clamp_min(1e-30)).max())
+                    rel_max = max(rel_max, rel)
+                    if rel > QUAD_REL:
+                        bad.append(f"run [{f}, {end}) partials rel {rel:.3g} "
+                                   f"against shard_partials")
+                parts.append(got)
+            parts = torch.cat(parts)
+            total = float(qd.sum_partials(parts, h))
+            if (bad or not torch.equal(parts, one_parts)
+                    or total != float(one_v)):
+                raise AssertionError(
+                    f"quadrature n={n} in runs from {starts}: {bad}, "
+                    f"partials {parts.tolist()} against the one call's "
+                    f"{one_parts.tolist()}, value {total!r} against "
+                    f"{float(one_v)!r}")
+            splits.append({"n": n, "starts": list(starts), "value": total,
+                           "plain_rel_max": rel_max})
+    return splits
 
 
 def captured(fn):
@@ -1147,7 +1274,7 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
 
     # The interior loop's instructions a point, from the SASS.
     loops = sass_loops(cuobjdump, _build.lib_path("quadrature"),
-                       "quadrature_chunk_kernel")
+                       "quadrature_chunk_kernelILb0E")
     inner = [lp for lp in loops if lp["mufu_rsq"] >= QUAD_POINTS_PER_TRIP]
     if not inner:
         raise AssertionError(f"no loop of {QUAD_POINTS_PER_TRIP} MUFU.RSQ in "
@@ -1178,7 +1305,7 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
         want_sums = qd.chunk_sums(qd.f_circle, 0.0, 2.0, n, dev)
         want_host = want_sums.cpu()
         for p in QUAD_SHARDS:
-            got, sums = nq.launch(0.0, 2.0, n, p, dev)
+            got, sums, _ = nq.launch(0.0, 2.0, n, p, dev)
             got_v = float(got)
             want_v = float(qd.shard_total(want_host, p, h))
             sums_host = sums.cpu()
@@ -1216,8 +1343,8 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
     n = QUAD_REAL_N[0]
     h = 2.0 / n
     n_chunks, last_chunk, _ = qd._chunk_grid(n)
-    got8, sums8 = nq.launch(0.0, 2.0, n, 8, dev)
-    _, sums1 = nq.launch(0.0, 2.0, n, 1, dev)
+    got8, sums8, parts8 = nq.launch(0.0, 2.0, n, 8, dev)
+    _, sums1, _ = nq.launch(0.0, 2.0, n, 1, dev)
     per8 = -(-n_chunks // 8)
     rng = np.random.default_rng(QUAD_SPREAD_SEED)
     picks = ({0, 1, last_chunk - 1, last_chunk}
@@ -1228,7 +1355,8 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
     want = qd._block_sum(qd.f_circle, 0.0, h, g, n)
     spread_rel = float(((sums8[g] - want).abs()
                         / want.abs().clamp_min(1e-30)).max())
-    replay_v = kahan_total_np(sums8.cpu().numpy(), 8, h)
+    replay8 = kahan_partials_np(sums8.cpu().numpy(), 8)
+    replay_v = sum_partials_np(replay8, h)
     if (spread_rel > QUAD_CHUNK_REL or not torch.equal(sums1, sums8)
             or replay_v != float(got8)):
         raise AssertionError(
@@ -1239,12 +1367,26 @@ def phase_c1c4(card: str, wrappers: dict, cuobjdump: str) -> dict:
     spread = {"chunks": sorted(picks), "chunk_rel_max": spread_rel,
               "kahan_replay": replay_v, "seconds":
               time.perf_counter() - t_spread}
-    del sums8, sums1
     log(f"  quadrature n={n}: {len(picks)} chunk sums (0, 1, the last two, "
         f"each side of 7 shard boundaries, {QUAD_SPREAD_RANDOM} drawn) "
         f"within {spread_rel:.3g} of _block_sum; 1 and 8 shards' chunk sums "
         f"equal; the 8-shard value {float(got8)!r} equal to the Kahan "
         f"replay ({spread['seconds']:.2f} s)")
+
+    # Runs of shards, the form a process of a mesh across processes
+    # launches (quadrature_chunk_kernel<true> when its run starts past
+    # chunk 0).
+    t_split = time.perf_counter()
+    splits = quadrature_split_checks(nq, qd, dev,
+                                     (got8, sums8, parts8, replay8))
+    del sums8, sums1, parts8, replay8
+    log(f"  quadrature in runs of shards: {len(splits)} splits (runs from "
+        f"{', '.join(map(str, QUAD_SPLITS))} of 8 shards at n = "
+        f"{', '.join(map(str, QUAD_SPLIT_N))}): each run's chunk sums the "
+        f"one call's and its partials the plain Kahan pass on them, to the "
+        f"bit, within {max(r['plain_rel_max'] for r in splits):.3g} of "
+        f"shard_partials; the runs' partials summed the one call's value to "
+        f"the bit ({time.perf_counter() - t_split:.2f} s)")
 
     # Realistic N through Integral, counts set to 0 just before each
     # compute() and read just after.
@@ -1807,7 +1949,8 @@ def phase_sparse_sharded(card: str, wrappers: dict) -> dict:
         dense = run_dense(torch.from_numpy(board).cuda(), steps).cpu().numpy()
         key = (name, kind, tile, steps)
         if key not in oracles:
-            oracles[key] = stencils.oracle_run(spec, board, steps)
+            oracles[key] = (life_oracle(board, steps) if name == "life"
+                            else stencils.oracle_run(spec, board, steps))
         oracle = oracles[key]
         problems = []
         if not same(spec, got, dense):
@@ -1935,6 +2078,11 @@ def phase_sparse_sharded(card: str, wrappers: dict) -> dict:
             "timings": timings, "exact_cases": kernel_cases}
 
 
+# Traces phase 23's --profile run may take before one keeps the kernel's
+# record (the card's tracer loses records, ROADMAP).
+PROFILE_TRIES = 3
+
+
 def phase_obs(card: str, wrappers: dict) -> dict:
     """Phase 23 (module docstring): the obs layer on the ported paths.
     Returns the traced and untraced seconds side by side and what the
@@ -1998,16 +2146,23 @@ def phase_obs(card: str, wrappers: dict) -> dict:
             f"{held[run]['spans']} [{card}]")
 
     # --profile: a Chrome trace of the serial run, naming the resident
-    # kernel.
+    # kernel. The card's tracer can lose the run's one kernel record, so a
+    # trace without it is taken again, up to PROFILE_TRIES times.
     prof_dir = os.path.join(root, "profile")
-    rc, out, err = run_cli(life_app.main, [GUN_BIG, "--layout", "serial",
-                                           "--profile", prof_dir])
-    prof_file = os.path.join(prof_dir, life_app.PROFILE_FILE)
-    with open(prof_file) as fd:
-        chrome = json.load(fd)
-    kernels = sorted({ev.get("name", "")[:60] for ev in
-                      chrome.get("traceEvents", [])
-                      if ev.get("cat") == "kernel"})
+    for attempt in range(1, PROFILE_TRIES + 1):
+        rc, out, err = run_cli(life_app.main, [GUN_BIG, "--layout",
+                                               "serial", "--profile",
+                                               prof_dir])
+        prof_file = os.path.join(prof_dir, life_app.PROFILE_FILE)
+        with open(prof_file) as fd:
+            chrome = json.load(fd)
+        kernels = sorted({ev.get("name", "")[:60] for ev in
+                          chrome.get("traceEvents", [])
+                          if ev.get("cat") == "kernel"})
+        if rc != 0 or any("bitlife_vmem" in k for k in kernels):
+            break
+        log(f"  --profile: trace {attempt} kept no bitlife_vmem record "
+            f"({kernels})")
     if rc != 0 or not any("bitlife_vmem" in k for k in kernels):
         raise AssertionError(f"phase 23 --profile: rc {rc}, kernels "
                              f"{kernels}")
@@ -4160,6 +4315,598 @@ def phase_fleet(card: str, wrappers: dict) -> dict:
     return {"runs": runs, "launches": launches, "totals": totals}
 
 
+# Phase 28: native IO. The 10000^2 soup each VTK writer writes (its seed
+# and density, made on the host), beside p46gun_big's board at step 10 000;
+# the child process's directory and time limit; the 500^2 snapshots each
+# writer times alone in phase 28 itself.
+VTK_SOUP_SHAPE, VTK_SOUP_SEED, VTK_SOUP_DENSITY = (10000, 10000), 28, 0.35
+VTK_DIR = os.path.join(ROOT, "build", "vtk_phase28")
+VTK_TIMEOUT_S = 600
+VTK_REPS = 5
+
+
+def native_io_child(out_path: str) -> int:
+    """``chip_smoke.py --native-io OUT``: phase 28's host work, in a
+    process of its own beside the phases from 7 on (it needs the library
+    from phase 1 and no card). The C and Python parsers on every
+    ``configs/*.cfg``; p46gun_big after 10 000 steps of the compiled
+    oracle (``native.life_steps(bits=True)``, saved for the parent to hold
+    against the card's board); the C and Python VTK writers on that board
+    and on a 10000^2 soup, each timed alone, one after the other, their
+    files compared byte for byte. Writes the record to OUT as JSON; raises
+    on a difference."""
+    import filecmp
+    import glob
+
+    sys.path.insert(0, ROOT)
+    from mpi_and_open_mp_tpu_torch.utils import config as tcfg
+    from mpi_and_open_mp_tpu_torch.utils import native
+    from mpi_and_open_mp_tpu_torch.utils import vtk
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError(f"native/liblifeio.so did not load "
+                             f"({native._SO_PATH})")
+    rec = {"configs": [], "vtk": {}}
+    for path in sorted(glob.glob(os.path.join(ROOT, "configs", "*.cfg"))):
+        a, b = native.load_config(path), tcfg.load_config_py(path)
+        if ((a.steps, a.save_steps, a.nx, a.ny)
+                != (b.steps, b.save_steps, b.nx, b.ny)
+                or not np.array_equal(a.cells, b.cells)):
+            raise AssertionError(f"{path}: the native and Python parsers "
+                                 "differ")
+        rec["configs"].append(os.path.basename(path))
+    os.makedirs(VTK_DIR, exist_ok=True)
+    t1 = time.perf_counter()
+    gun = native.life_steps(tcfg.load_config_py(GUN_BIG).board(), 10000,
+                            bits=True)
+    rec["oracle_s"] = time.perf_counter() - t1
+    rec["gun_npy"] = os.path.join(VTK_DIR, "gun_10000.npy")
+    np.save(rec["gun_npy"], gun)
+    rng = np.random.default_rng(VTK_SOUP_SEED)
+    boards = {"p46gun_big at step 10000": gun,
+              "10000^2 soup": (rng.random(VTK_SOUP_SHAPE, np.float32)
+                               < VTK_SOUP_DENSITY).astype(np.uint8)}
+    for what, board in boards.items():
+        paths = {name: os.path.join(VTK_DIR, f"{name}.vtk")
+                 for name in ("native", "python")}
+        ms = {}
+        for name, writer in (("native", native.write_vtk),
+                             ("python", vtk.write_vtk_py)):
+            t2 = time.perf_counter()
+            writer(paths[name], board)
+            ms[name] = (time.perf_counter() - t2) * 1e3
+        size = os.path.getsize(paths["native"])
+        if not filecmp.cmp(paths["native"], paths["python"], shallow=False):
+            raise AssertionError(f"{what}: the VTK writers' files differ")
+        for path in paths.values():
+            os.remove(path)
+        rec["vtk"][what] = {"shape": list(board.shape), "bytes": size,
+                            "native_ms": ms["native"],
+                            "python_ms": ms["python"]}
+    rec["seconds"] = time.perf_counter() - t0
+    rec["end_wall"] = time.time()
+    with open(out_path, "w") as fd:
+        json.dump(rec, fd)
+    return 0
+
+
+def phases_beside(t_from: float, t_to: float) -> list[int]:
+    """The phases whose span (from the previous closing line to their
+    own) overlaps ``[t_from, t_to]``."""
+    out, last = [], None
+    for n, t in PHASE_ENDS:
+        if last is not None and last < t_to and t > t_from:
+            out.append(n)
+        last = t
+    return out
+
+
+def vtk_alone_ms(board: np.ndarray) -> dict:
+    """Each VTK writer's host milliseconds a snapshot of ``board``, with
+    nothing else running: ``VTK_REPS`` writes each, the two in turn, the
+    median; their files byte-identical."""
+    import filecmp
+
+    from mpi_and_open_mp_tpu_torch.utils import native, vtk
+
+    paths = {name: os.path.join(VTK_DIR, f"alone_{name}.vtk")
+             for name in ("native", "python")}
+    ms = {"native": [], "python": []}
+    for _ in range(VTK_REPS):
+        for name, writer in (("native", native.write_vtk),
+                             ("python", vtk.write_vtk_py)):
+            t0 = time.perf_counter()
+            writer(paths[name], board)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    if not filecmp.cmp(paths["native"], paths["python"], shallow=False):
+        raise AssertionError("the VTK writers' files differ")
+    for path in paths.values():
+        os.remove(path)
+    return {f"{k}_ms": float(np.median(v)) for k, v in ms.items()}
+
+
+def start_native_io() -> tuple:
+    """Phase 28's child (:func:`native_io_child`), started; its output to
+    files under ``VTK_DIR``. Returns (the process, the record's path, its
+    start on this process's clock and on the wall clock)."""
+    os.makedirs(VTK_DIR, exist_ok=True)
+    out = os.path.join(VTK_DIR, "record.json")
+    with open(out + ".log", "wb") as log_fd:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--native-io", out],
+            cwd=ROOT, stdout=log_fd, stderr=subprocess.STDOUT)
+    return proc, out, (time.perf_counter(), time.time())
+
+
+def phase_native_io(card: str, child: tuple, gun_final: np.ndarray) -> dict:
+    """Phase 28 (module docstring): the child's record (it ran beside the
+    phases from 7 on), the compiled oracle's p46gun_big held against the
+    card's board, then each writer timed alone on that board."""
+    t0 = time.perf_counter()
+    proc, out, t_child = child
+    try:
+        rc = proc.wait(timeout=VTK_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    if rc != 0:
+        raise AssertionError(f"phase 28's child: rc {rc}\n"
+                             f"{open(out + '.log').read()[-3000:]}")
+    with open(out) as fd:
+        rec = json.load(fd)
+    beside = phases_beside(t_child[0],
+                           t_child[0] + rec["end_wall"] - t_child[1])
+    oracle = np.load(rec["gun_npy"])
+    if not np.array_equal(oracle, gun_final) or int(oracle.sum()) != 7288:
+        raise AssertionError("native.life_steps(bits=True) of p46gun_big "
+                             "differs from the card's board")
+    log(f"  parsers: {len(rec['configs'])} configs equal "
+        f"({', '.join(rec['configs'])})")
+    log(f"  native.life_steps(bits=True), p46gun_big 10 000 steps: the "
+        f"card's board, population 7288 ({rec['oracle_s']:.3f} s, host)")
+    for what, r in rec["vtk"].items():
+        log(f"  VTK {what} {tuple(r['shape'])}: byte-identical "
+            f"({r['bytes']} B); a snapshot native {r['native_ms']:.1f} ms, "
+            f"Python {r['python_ms']:.1f} ms (host clock, each alone in the "
+            f"child, one after the other, the child beside phases "
+            f"{beside}) [{card}]")
+    log(f"  the child took {rec['seconds']:.2f} s, beside phases {beside}")
+    alone = vtk_alone_ms(oracle)
+    rec["vtk"]["p46gun_big at step 10000"]["alone"] = alone
+    log(f"  VTK p46gun_big at step 10000 (500, 500), nothing else running: "
+        f"a snapshot native {alone['native_ms']:.3f} ms, Python "
+        f"{alone['python_ms']:.3f} ms (host clock, the median of "
+        f"{VTK_REPS} each, the two in turn) [{card}]")
+    log(f"phase 28 native IO: ok ({time.perf_counter() - t0:.2f} s)")
+    return {**rec["vtk"], "child_beside_phases": beside}
+
+
+def phase_graft_entry(card: str, wrappers: dict) -> dict:
+    """Phase 29 (module docstring): ``graft_entry.entry()``'s step against
+    the plain step, and ``dryrun_multichip(8)`` on the card, the launch
+    counts set to 0 just before each and read just after."""
+    from mpi_and_open_mp_tpu_torch import graft_entry
+    from mpi_and_open_mp_tpu_torch.ops import life_ops
+
+    t0 = time.perf_counter()
+    fn, (board,) = graft_entry.entry()
+    got, counts = run_counted(wrappers, lambda: fn(board))
+    same = torch.equal(got, life_ops.life_step_roll(board))
+    if (not same or counts["vmem"] != 1
+            or any(c for k, c in counts.items() if k != "vmem")):
+        raise AssertionError(f"graft_entry.entry(): equal to the plain step "
+                             f"{same}, launches {counts}")
+    log(f"  entry(): one bitlife_vmem launch, the 512^2 step bit for bit "
+        f"the plain life_step_roll's")
+    t1 = time.perf_counter()
+    _, dry = run_counted(wrappers,
+                         lambda: graft_entry.dryrun_multichip(8))
+    dry_s = time.perf_counter() - t1
+    dry = {k: c for k, c in dry.items() if c}
+    for name in ("window", "flash_fwd", "flash_hop_dq", "flash_hop_dkv",
+                 "quadrature"):
+        if not dry.get(name):
+            raise AssertionError(f"dryrun_multichip(8) launched no {name}: "
+                                 f"{dry}")
+    log(f"  dryrun_multichip(8): ok in {dry_s:.2f} s, the hop engines' "
+        f"stamps the kernels'; launches {json.dumps(dry)} [{card}]")
+    log(f"phase 29 graft entry: ok ({time.perf_counter() - t0:.2f} s)")
+    return {"entry_launches": counts["vmem"], "dryrun_launches": dry,
+            "dryrun_s": dry_s}
+
+
+# Phase 30: runs across two processes on the one card (staged gloo). Each
+# rank's time limit; the integral CLI's N (the reference's 10^12 through
+# its 32-bit atoi) and shards; p46gun_big's save cadence for the Life runs
+# (a snapshot every DIST_SAVE steps, which also sets the CLI's warm-up run
+# to DIST_SAVE steps; the last, at 9 000, is compared) and their halo
+# depth: a staged exchange costs ~1-3 ms (the probe's alpha, PERF.md PR
+# 27), so the runs exchange once every DIST_FUSE steps (the CLI's
+# --fuse-steps) to fit the script's time; the attention CLI's ring.
+DIST_PROCS = 2
+DIST_TIMEOUT_S = 240
+DIST_INTEGRAL_N, DIST_INTEGRAL_SHARDS = 3567587328, 8
+DIST_SAVE, DIST_FUSE = 1000, 20
+DIST_LIFE = {"row native": ["--layout", "row", "--impl", "native",
+                            "--devices", "2"],
+             "cart native": ["--layout", "cart", "--impl", "native",
+                             "--mesh", "2,2", "--virtual-devices", "2"]}
+DIST_ATTENTION = ["--variant", "ring", "--devices", "2", "--seq", "4096",
+                  "--heads", "8", "--head-dim", "128", "--causal", "--grad"]
+DIST_ROOT = os.path.join(ROOT, "build", "dist_phase30")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def start_ranks(label: str, argv_of) -> dict:
+    """``DIST_PROCS`` processes, ``argv_of(rank)`` each (after the
+    interpreter), their output to files under ``DIST_ROOT``; each leads
+    its own session."""
+    procs_ = []
+    for r in range(DIST_PROCS):
+        base = os.path.join(DIST_ROOT, f"{label.replace(' ', '_')}.{r}")
+        with open(base + ".out", "wb") as out, \
+                open(base + ".err", "wb") as err:
+            procs_.append((base, subprocess.Popen(
+                [sys.executable, *argv_of(r)], cwd=ROOT, stdout=out,
+                stderr=err, start_new_session=True)))
+    return {"label": label, "t0": time.perf_counter(), "procs": procs_}
+
+
+def finish_ranks(run: dict) -> dict:
+    """Wait for a run's ranks (each within ``DIST_TIMEOUT_S`` of its
+    start), kill any left, and fail unless every rank exited 0; returns
+    each rank's output and the run's seconds."""
+    outs, rcs = [], []
+    for base, proc in run["procs"]:
+        left = DIST_TIMEOUT_S - (time.perf_counter() - run["t0"])
+        try:
+            proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            pass
+    for base, proc in run["procs"]:
+        if proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        rcs.append(proc.returncode)
+        outs.append((open(base + ".out").read(), open(base + ".err").read()))
+    seconds = time.perf_counter() - run["t0"]
+    if rcs != [0] * DIST_PROCS:
+        raise AssertionError(
+            f"{run['label']} across {DIST_PROCS} processes: rcs {rcs}\n"
+            + "\n".join(f"rank {r}: {o[-1500:]}\n{e[-3000:]}"
+                        for r, (o, e) in enumerate(outs)))
+    return {"outs": outs, "seconds": seconds}
+
+
+def transport_line(err: str) -> dict:
+    """The transport JSON line the primary stamps on stderr."""
+    for line in err.splitlines():
+        if line.startswith('{"transport"'):
+            return json.loads(line)
+    raise AssertionError(f"no transport line: {err[-1500:]}")
+
+
+def phase_processes(card: str, wrappers: dict) -> dict:
+    """Phase 30 (module docstring): the port across two processes on the
+    one card. Four pairs of ranks start together: the worker, the Life CLI
+    on row and on cart, and one pair that runs hello, then waits until the
+    other pairs are done and runs the integral, attention and pingpong
+    CLIs in turn, so that their elapsed, grad step and probe figures time
+    only their own work."""
+    import shutil
+
+    from mpi_and_open_mp_tpu_torch.models.integral import Integral
+    from mpi_and_open_mp_tpu_torch.models.life import LifeSim
+    from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.parallel import context as cx
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
+    from mpi_and_open_mp_tpu_torch.utils.config import (
+        config_from_board, load_config, save_config)
+    from mpi_and_open_mp_tpu_torch.utils.vtk import read_vtk, vtk_path
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_dist_worker as worker
+
+    t0 = time.perf_counter()
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    os.makedirs(DIST_ROOT)
+    me = os.path.abspath(__file__)
+
+    def cli(label, chain):
+        """A pair running ``chain``'s CLIs ([app, *args] each, or ["wait",
+        path]) in turn, each CLI its own run across the two processes."""
+        coords = [f"localhost:{free_port()}" for _ in chain]
+
+        def argv_of(r):
+            argv = [me, "--cli-child"]
+            for i, (app, *args) in enumerate(chain):
+                argv += ["+"] if i else []
+                argv += [app, *args]
+                if app != "wait":
+                    argv += ["--distributed", "--coordinator", coords[i],
+                             "--num-processes", str(DIST_PROCS),
+                             "--process-id", str(r)]
+            return argv
+
+        return start_ranks(label, argv_of)
+
+    gun = load_config(GUN_BIG)
+    cfg_path = os.path.join(DIST_ROOT, "gun_big_save.cfg")
+    save_config(cfg_path, config_from_board(gun.board(), gun.steps,
+                                            DIST_SAVE))
+    coord = f"localhost:{free_port()}"
+    npz = os.path.join(DIST_ROOT, "worker.npz")
+    go = os.path.join(DIST_ROOT, "pingpong.go")
+    runs = {"worker": start_ranks("worker", lambda r: [
+        os.path.join(ROOT, "tests", "_torch_dist_worker.py"), str(r),
+        str(DIST_PROCS), coord, "--device", "cuda", "--snapshot-dir",
+        DIST_ROOT, *(["--out", npz] if r == 0 else [])])}
+    for label, args in DIST_LIFE.items():
+        runs[label] = cli(label, [["life", cfg_path, *args, "--fuse-steps",
+                                   str(DIST_FUSE), "--outdir",
+                                   os.path.join(DIST_ROOT,
+                                                label.replace(" ", "_")),
+                                   "--print-final-population"]])
+    runs["clis"] = cli("clis", [
+        ["hello", "--devices", "4"], ["wait", go],
+        ["integral", str(DIST_INTEGRAL_N), "--devices",
+         str(DIST_INTEGRAL_SHARDS), "--print-value"],
+        ["attention", *DIST_ATTENTION], ["pingpong", "--fit"]])
+
+    # Meanwhile, the one-process runs of the same meshes on the card.
+    m2 = pm.make_mesh_1d(DIST_PROCS, axis="y", device="cuda", virtual=True)
+    one = {"integral": Integral(worker.INTEGRAL_N, mesh=m2).compute()}
+    board = worker.board0()
+    sim = LifeSim(config_from_board(board, worker.LIFE_STEPS, 0),
+                  layout="row", impl="halo", mesh=m2)
+    sim.step(worker.LIFE_STEPS)
+    one["board"] = sim.collect()
+    sp = pm.make_mesh_1d(DIST_PROCS, axis=cx.AXIS_SP, device="cuda",
+                         virtual=True)
+    q, k, v = worker.ring_inputs("cuda")
+    one["ring"] = cx.ring_attention(q, k, v, mesh=sp, causal=True)
+    qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    for name, g in zip("qkv", torch.autograd.grad(
+            (cx.ring_attention(*qkv, mesh=sp, causal=True) ** 2).sum(),
+            qkv)):
+        one[f"d{name}"] = g
+    zs = [cx.zigzag_shard(x, DIST_PROCS) for x in (q, k, v)]
+    one["zigzag"] = cx.ring_attention(*zs, mesh=sp, causal=True,
+                                      layout="zigzag")
+    last_save = (gun.steps - 1) // DIST_SAVE * DIST_SAVE
+    gun_at_save = nl.life_run_vmem(
+        torch.from_numpy(gun.board()).cuda(), last_save).cpu().numpy()
+    m8 = pm.make_mesh_1d(DIST_INTEGRAL_SHARDS, device="cuda", virtual=True)
+    one_integral = Integral(DIST_INTEGRAL_N, mesh=m8).compute()
+
+    rec = {"runs": {}}
+    res = {}
+    try:
+        for label in ("worker", *DIST_LIFE):
+            res[label] = finish_ranks(runs.pop(label))
+        # The other pairs are done: the last pair goes on alone.
+        open(go, "w").close()
+        res["clis"] = finish_ranks(runs.pop("clis"))
+    finally:
+        for run in runs.values():  # a failed pair stops the others
+            for _, proc in run["procs"]:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+    # The worker: its checks passed in both ranks; its results against
+    # the one-process run of the same meshes.
+    got = np.load(npz)
+    diffs = {}
+    for key in ("ring", "dq", "dk", "dv", "zigzag"):
+        want = one[key].detach().cpu().numpy()
+        diffs[key] = float(np.abs(got[key] - want).max())
+    equal = {"integral": bool(got["integral"] == one["integral"]),
+             "board": bool(np.array_equal(got["board"], one["board"])),
+             **{k: d == 0.0 for k, d in diffs.items()}}
+    if (not all(equal.values()) or "DIST_OK" not in res["worker"]["outs"][0][0]
+            or str(got["transport"]) != "gloo-staged"):
+        raise AssertionError(f"the worker across processes against one "
+                             f"process: equal {equal}, max |diff| {diffs}, "
+                             f"transport {got['transport']}")
+    rec["runs"]["worker"] = {"seconds": res["worker"]["seconds"],
+                             "equal_to_one_process": equal}
+    log(f"  worker (integral 10^6, row halo 64x40 x 6 steps and collect, "
+        f"ring h2 n64 d16 output, gradients, zigzag, a rank-0 snapshot): "
+        f"DIST_OK, gloo-staged, every result equal to the one-process run "
+        f"of the same meshes ({res['worker']['seconds']:.2f} s)")
+    for label in DIST_LIFE:
+        (out0, err0), (out1, _) = (
+            (child_sections(o)["life"], child_sections(e)["life"])
+            for o, e in res[label]["outs"])
+        pops = [line for line in err0.splitlines() if line.strip() == "7288"]
+        snap = read_vtk(vtk_path(os.path.join(DIST_ROOT,
+                                              label.replace(" ", "_")),
+                                 last_save))
+        counts = child_launches(err0)
+        if (not pops or len(out0.split()) != 1 or out1.strip()
+                or not np.array_equal(snap, gun_at_save)
+                or transport_line(err0)["transport"] != "gloo-staged"
+                or not counts["life_padded"]):
+            raise AssertionError(f"life {label} across processes: stdout "
+                                 f"{out0!r} / {out1!r}, population lines "
+                                 f"{pops}, snapshot at {last_save} equal "
+                                 f"{np.array_equal(snap, gun_at_save)}, "
+                                 f"launches {counts}")
+        launched = {k: c for k, c in counts.items() if c}
+        rec["runs"][f"life {label}"] = {
+            "seconds": res[label]["seconds"], "elapsed_s": float(out0),
+            "launches_rank0": launched}
+        log(f"  life p46gun_big {label} --fuse-steps {DIST_FUSE} across 2 "
+            f"processes: population 7288, the step-{last_save} snapshot "
+            f"(gathered, written by rank 0) the one-process board, elapsed "
+            f"{float(out0):.3f} s (beside the other pairs), rank 0 launched "
+            f"{json.dumps(launched)} ({res[label]['seconds']:.2f} s) "
+            f"[{card}]")
+    outs = [tuple(child_sections(x) for x in pair)
+            for pair in res["clis"]["outs"]]
+    (out0, err0), (out1, err1) = ((o["integral"], e["integral"])
+                                  for o, e in outs)
+    value = float(next(line for line in err0.splitlines()
+                       if line.startswith("3.14")))
+    # Each rank's chunk and Kahan passes, a warm-up compute and a timed
+    # one; rank 1's run starts past chunk 0 (quadrature_chunk_kernel<true>).
+    quad = [child_launches(e)["quadrature"] for e in (err0, err1)]
+    if value != one_integral or quad != [4, 4] or out1.strip():
+        raise AssertionError(f"integral across processes {value!r} against "
+                             f"one process {one_integral!r}, quadrature "
+                             f"launches by rank {quad}")
+    rec["runs"]["integral"] = {"elapsed_s": float(out0), "value": value,
+                               "quadrature_launches_by_rank": quad}
+    log(f"  integral {DIST_INTEGRAL_N} on {DIST_INTEGRAL_SHARDS} shards "
+        f"across 2 processes: {value!r}, the one-process value to the bit; "
+        f"elapsed {float(out0):.6f} s (alone); quadrature launches by rank "
+        f"{quad} [{card}]")
+    for r, (o, _) in enumerate(outs):
+        if not o["hello"].strip().endswith("ring ok"):
+            raise AssertionError(f"hello rank {r}: {o['hello']!r}")
+    log("  hello --devices 4 across 2 processes: ring ok in both")
+    out0, err0 = outs[0][0]["attention"], outs[0][1]["attention"]
+    counts = child_launches(err0)
+    if ("parity ok" not in err0 or not counts["flash_fwd"]
+            or not counts["flash_hop_dq"]):
+        raise AssertionError(f"attention across processes: {err0[-2000:]}")
+    launched = {k: c for k, c in counts.items() if c}
+    rec["runs"]["attention"] = {"elapsed_s": float(out0),
+                                "launches_rank0": launched}
+    log(f"  attention {' '.join(DIST_ATTENTION)} across 2 processes: parity "
+        f"ok, grad step {float(out0):.6f} s (alone), rank 0 launched "
+        f"{json.dumps(launched)} [{card}]")
+    rec["runs"]["clis"] = {"seconds": res["clis"]["seconds"]}
+    # The probe, alone: the staged transport between the two processes.
+    out0, out1 = outs[0][0]["pingpong"], outs[1][0]["pingpong"]
+    lines = out0.strip().splitlines()
+    fit = json.loads(lines[-1])
+    if (lines[0] != "size,time" or len(lines) != 9 or out1.strip()
+            or fit.get("transport") != "gloo-staged"):
+        raise AssertionError(f"pingpong across processes: {out0!r}")
+    for line in lines[1:-1]:
+        log(f"  pingpong across 2 processes: {line}")
+    rec["pingpong_fit"] = fit
+    log(f"  pingpong --fit across 2 processes (gloo-staged, one card): "
+        f"alpha {fit['alpha_us']:.3f} us, 1/beta "
+        f"{fit['bandwidth_mb_s']} MB/s, r2 {fit['r2']:.3f} [{card}]")
+    shutil.rmtree(DIST_ROOT, ignore_errors=True)
+    log(f"phase 30 processes: ok ({time.perf_counter() - t0:.2f} s)")
+    return rec
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by name: each adds one to its
+    ``launches`` where it launches its kernel."""
+    from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
+    from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd as fhb
+    from mpi_and_open_mp_tpu_torch.ops import native_flash as nf
+    from mpi_and_open_mp_tpu_torch.ops import native_halo as nh
+    from mpi_and_open_mp_tpu_torch.ops import native_life as nl
+    from mpi_and_open_mp_tpu_torch.ops import native_pool as npool
+    from mpi_and_open_mp_tpu_torch.ops import native_quadrature as nq
+    from mpi_and_open_mp_tpu_torch.ops import native_stencil as ns
+
+    return {"vmem": tb.vmem_steps, "fused": tb.fused_steps,
+            "window": tb.window_steps,
+            "life_padded": nl.life_step_padded_native,
+            "vmem_batch": tb.vmem_batch_steps,
+            "bitsliced": tb.bitsliced_steps,
+            "stencil": ns.stencil_step_padded,
+            "flash_fwd": nf.flash_fwd, "flash_hop_dq": fhb.flash_hop_dq,
+            "flash_hop_dkv": fhb.flash_hop_dkv,
+            "edge_pair": nh.edge_pair, "halo_frame": nh.halo_frame,
+            "quadrature": nq.trapezoid_circle,
+            "pool_step": npool.pool_step,
+            "pool_lane_write": npool.pool_lane_write,
+            "pool_lane_read": npool.pool_lane_read}
+
+
+# The markers a ``--cli-child`` rank prints: each CLI's start (on stdout
+# and stderr) and its launch counts (stderr).
+CHILD_APP, CHILD_LAUNCHES = "CHILD_APP ", "CHILD_LAUNCHES "
+
+
+def cli_child(argv: list[str]) -> int:
+    """``chip_smoke.py --cli-child APP ARGS... [+ APP ARGS...]``: one rank
+    of phase 30's runs across processes. Runs each port CLI ``apps.APP``
+    with its ``ARGS`` in turn in this process (``wait PATH`` instead waits
+    for the file PATH), every launch count set to 0 just before each and
+    printed after it on stderr as one ``CHILD_LAUNCHES`` JSON line, each
+    CLI's output after a ``CHILD_APP`` line; stops at the first CLI that
+    fails and returns its exit code."""
+    import importlib
+
+    sys.path.insert(0, ROOT)
+    wrappers = kernel_wrappers()
+    chain, cur = [], []
+    for arg in argv:
+        if arg == "+":
+            chain.append(cur)
+            cur = []
+        else:
+            cur.append(arg)
+    chain.append(cur)
+    for name, *args in chain:
+        if name == "wait":
+            t0 = time.perf_counter()
+            while not os.path.exists(args[0]):
+                if time.perf_counter() - t0 > DIST_TIMEOUT_S:
+                    return 1
+                time.sleep(0.05)
+            continue
+        for stream in (sys.stdout, sys.stderr):
+            print(CHILD_APP + name, file=stream, flush=True)
+        app = importlib.import_module(f"mpi_and_open_mp_tpu_torch.apps.{name}")
+        rc, counts = run_counted(wrappers, lambda: app.main(args))
+        sys.stdout.flush()
+        print(CHILD_LAUNCHES + json.dumps(counts), file=sys.stderr,
+              flush=True)
+        if rc:
+            return rc
+    return 0
+
+
+def child_sections(text: str) -> dict[str, str]:
+    """A ``--cli-child`` rank's stdout or stderr, by CLI."""
+    out, name = {}, None
+    for line in text.splitlines(keepends=True):
+        if line.startswith(CHILD_APP):
+            name = line[len(CHILD_APP):].strip()
+            out[name] = ""
+        elif name is not None:
+            out[name] += line
+    return out
+
+
+def child_launches(err: str) -> dict:
+    """The launch counts a ``--cli-child`` CLI printed."""
+    for line in err.splitlines():
+        if line.startswith(CHILD_LAUNCHES):
+            return json.loads(line[len(CHILD_LAUNCHES):])
+    raise AssertionError(f"no launch counts in a child's stderr: "
+                         f"{err[-2000:]}")
+
+
+def life_oracle(board: np.ndarray, n: int) -> np.ndarray:
+    """``board`` after ``n`` steps of the compiled Life oracle
+    (``utils.native.life_steps``, bit-packed; tier-1 holds it to the NumPy
+    oracle bit for bit): the oracle of the 2048^2 boards, where the NumPy
+    loop costs ~30 ms a step (the NumPy loop, cut for time)."""
+    from mpi_and_open_mp_tpu_torch.utils import native
+
+    return native.life_steps(board, n, bits=True)
+
+
 def life_ops_oracle(cfg, n: int) -> np.ndarray:
     """``cfg``'s board after ``n`` NumPy oracle steps."""
     from mpi_and_open_mp_tpu_torch.ops import life_ops
@@ -4174,6 +4921,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--cli-child"]:
+        return cli_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--native-io"]:
+        return native_io_child(sys.argv[2])
     if not os.path.isdir(os.path.join(ROOT, "mpi_and_open_mp_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository",
               file=sys.stderr)
@@ -4193,8 +4944,6 @@ def main() -> int:
     from mpi_and_open_mp_tpu_torch.ops import native_flash as nf
     from mpi_and_open_mp_tpu_torch.ops import native_halo as nh
     from mpi_and_open_mp_tpu_torch.ops import native_life as nl
-    from mpi_and_open_mp_tpu_torch.ops import native_pool as npool
-    from mpi_and_open_mp_tpu_torch.ops import native_quadrature as nq
     from mpi_and_open_mp_tpu_torch.parallel import haloplan as hp
     from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
     from mpi_and_open_mp_tpu_torch.ops import native_stencil as ns
@@ -4203,19 +4952,7 @@ def main() -> int:
     from mpi_and_open_mp_tpu_torch.stencils import engine as se
     from mpi_and_open_mp_tpu_torch.utils.config import LifeConfig
 
-    wrappers = {"vmem": tb.vmem_steps, "fused": tb.fused_steps,
-                "window": tb.window_steps,
-                "life_padded": nl.life_step_padded_native,
-                "vmem_batch": tb.vmem_batch_steps,
-                "bitsliced": tb.bitsliced_steps,
-                "stencil": ns.stencil_step_padded,
-                "flash_fwd": nf.flash_fwd, "flash_hop_dq": fhb.flash_hop_dq,
-                "flash_hop_dkv": fhb.flash_hop_dkv,
-                "edge_pair": nh.edge_pair, "halo_frame": nh.halo_frame,
-                "quadrature": nq.trapezoid_circle,
-                "pool_step": npool.pool_step,
-                "pool_lane_write": npool.pool_lane_write,
-                "pool_lane_read": npool.pool_lane_read}
+    wrappers = kernel_wrappers()
 
     t_start = time.perf_counter()
     card = card_line()
@@ -4225,8 +4962,18 @@ def main() -> int:
 
     # ------------------------------------------------------------ 1. build
     t0 = time.perf_counter()
+    # The native IO library (host C++, phase 28) beside the kernels, before
+    # any config is read, so every load_config and snapshot of the script
+    # goes through it (utils.native reads the library once).
+    make = subprocess.Popen(["make", "-B", "-C", os.path.join(ROOT, "native")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
     logs = _build.build(force=True)
-    log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (set-up)")
+    make_out = make.communicate(timeout=300)[0]
+    if make.returncode != 0:
+        raise AssertionError(f"make -C native failed:\n{make_out}")
+    log(f"phase 1 build: {time.perf_counter() - t0:.2f} s (set-up; "
+        "native/liblifeio.so built beside the kernels)")
     for name, text in logs.items():
         log(f"  {name}: built in {_build.BUILD_SECONDS[name]:.2f} s")
         if name in ("flash_fwd", "flash_hop_bwd", "stencil_padded",
@@ -5055,9 +5802,8 @@ def main() -> int:
         t_b = min(cuda_ms(lambda: fn(1200)) for _ in range(3))
         return (t_b - t_a) / 1000 * 1e3
 
-    sweep = [((500, 500), b) for b in (1, 2, 4, 7, 8, 16, 32, 64, 128, 256,
-                                       512)]
-    sweep += [((95, 130), b) for b in (1, 2, 4, 7, 8, 16, 32, 64, 256, 512)]
+    sweep = [(shape, b) for shape in ((500, 500), (95, 130))
+             for b in BATCH_SWEEP]
     side_by_side = []
     for shape, b in sweep:
         ny_s = shape[0]
@@ -5093,6 +5839,10 @@ def main() -> int:
         del cells, packed, planes, grid_board, sliced_board
     torch.cuda.empty_cache()
     log(f"phase 6 timings: {time.perf_counter() - t0:.2f} s")
+    # Phase 28's host work, in a process of its own from here on, after
+    # the host-clock figures of phases 2-6 (phase 28 logs the phases it
+    # ran beside).
+    native_io = start_native_io()
 
     # ------------------------------------- 7. stencil kernel against plain
     t0 = time.perf_counter()
@@ -5241,7 +5991,7 @@ def main() -> int:
                         ("lenia", 1000)):
         spec = stencils.get(name)
         stack = stencil_board(spec, (ny, nx), 46, nb)
-        check_at = 8 if name == "lenia" else 1000
+        check_at = 8 if name == "lenia" else STENCIL_ORACLE_STEPS
 
         def main_path():
             early = se.run_padded_native_batch(spec, stack, check_at)
@@ -5277,15 +6027,16 @@ def main() -> int:
                 f"run_roll_batch on the card: max abs error {err}")
         del stack, early, final, roll
 
-    heat_cfg = LifeConfig(steps=1000, save_steps=0, nx=nx, ny=ny,
-                          cells=np.zeros((0, 2), np.int64))
+    heat_cfg = LifeConfig(steps=STENCIL_ORACLE_STEPS, save_steps=0, nx=nx,
+                          ny=ny, cells=np.zeros((0, 2), np.int64))
     hsim = LifeSim(heat_cfg, layout="serial", workload="heat")
     heat_start = hsim.collect()
     hfinal = hsim.run()
     hsim.debug_check()
     err = stencil_err(stencils.get("heat"), torch.from_numpy(hfinal),
                       torch.from_numpy(se.oracle_run(
-                          stencils.get("heat"), heat_start, 1000)),
+                          stencils.get("heat"), heat_start,
+                          STENCIL_ORACLE_STEPS)),
                       "LifeSim(workload='heat') vs the oracle")
     log(f"  LifeSim(workload='heat') {ny}x{nx}, impl={hsim.impl}, "
         f"{hsim.step_count} steps vs the NumPy oracle: max abs error {err}")
@@ -5319,12 +6070,12 @@ def main() -> int:
     tiles = stencils.ActiveTileEngine(stencils.get("life"), sparse_board,
                                       tile=128)
     sparse_final = tiles.step(100)
-    sparse_oracle = se.oracle_run(stencils.get("life"), sparse_board, 100)
+    sparse_oracle = life_oracle(sparse_board, 100)
     if not np.array_equal(sparse_final, sparse_oracle):
         raise AssertionError(
             f"ActiveTileEngine: {int((sparse_final != sparse_oracle).sum())} "
             "cells differ from the oracle")
-    log(f"  ActiveTileEngine 2048^2 life, 100 steps: matches the NumPy "
+    log(f"  ActiveTileEngine 2048^2 life, 100 steps: matches the compiled "
         f"oracle; {tiles.engine_stamp} {tiles.counters()}")
     del mixed, served, sparse_board, sparse_final, sparse_oracle
     torch.cuda.empty_cache()
@@ -6592,6 +7343,27 @@ def main() -> int:
     ckpt_launches = {}
     gun_cfg = load_config(GUN_BIG)
 
+    # The CLI's preemption and resume, two processes one after the other,
+    # beside this phase's in-process runs (a thread waits for them).
+    cli_dir = os.path.join(ck_root, "cli")
+    cli_env = dict(os.environ, PYTHONPATH=ROOT,
+                   MOMP_CHAOS="preempt=5000;noguard")
+    cli_cmd = [sys.executable, "-m", "mpi_and_open_mp_tpu_torch.apps.life",
+               GUN_BIG, "--layout", "serial", "--checkpoint-dir", cli_dir,
+               "--checkpoint-every", "2500", "--print-final-population"]
+    cli_runs = {}
+
+    def cli_preempt_and_resume():
+        for key, extra in (("first", []), ("again", ["--resume"])):
+            cli_runs[key] = subprocess.run(
+                cli_cmd + extra, cwd=ROOT, env=cli_env, capture_output=True,
+                text=True, timeout=300)
+
+    import threading
+
+    cli_thread = threading.Thread(target=cli_preempt_and_resume)
+    cli_thread.start()
+
     def files_of(d):
         return sorted(os.listdir(d))
 
@@ -6702,16 +7474,8 @@ def main() -> int:
         "a straight run")
     del fsim, rsim, rfinal, straight
 
-    cli_dir = os.path.join(ck_root, "cli")
-    cli_env = dict(os.environ, PYTHONPATH=ROOT,
-                   MOMP_CHAOS="preempt=5000;noguard")
-    cli_cmd = [sys.executable, "-m", "mpi_and_open_mp_tpu_torch.apps.life",
-               GUN_BIG, "--layout", "serial", "--checkpoint-dir", cli_dir,
-               "--checkpoint-every", "2500", "--print-final-population"]
-    first = subprocess.run(cli_cmd, cwd=ROOT, env=cli_env,
-                           capture_output=True, text=True, timeout=300)
-    again = subprocess.run(cli_cmd + ["--resume"], cwd=ROOT, env=cli_env,
-                           capture_output=True, text=True, timeout=300)
+    cli_thread.join()
+    first, again = cli_runs["first"], cli_runs["again"]
     first_err = first.stderr.strip().splitlines() or [""]
     again_err = again.stderr.strip().splitlines() or [""]
     resumed = [ln for ln in again_err if ln.startswith('{"resumed"')]
@@ -6830,6 +7594,13 @@ def main() -> int:
 
     # ------------ 27. the serving fleet: router, workers, load, processes
     fleet_rec = phase_fleet(card, wrappers)
+
+    # ------------------------------------------- 28. native IO: parser, VTK
+    vtk_rec = phase_native_io(card, native_io, gun_serial)
+    # ------------------------------------------------- 29. the graft entry
+    graft_rec = phase_graft_entry(card, wrappers)
+    # ------------------------------------- 30. across two processes (gloo)
+    dist_rec = phase_processes(card, wrappers)
 
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
@@ -7200,6 +7971,29 @@ def main() -> int:
             row["launches_fleet"] = {run: c[key] for run, c in
                                      fleet_rec["launches"].items()}
             row["launches"] += fleet_rec["totals"][key]
+    # Phase 29's in-process runs (graft entry, dry run) beside the main
+    # path's launches; phase 30's ranks count their own (rank 0's here).
+    graft_keys = {"bitlife_vmem": "vmem", "bitlife_fused": "fused",
+                  "bitlife_window": "window",
+                  "stencil_padded:life": "life_padded",
+                  "flash_fwd": "flash_fwd", "flash_hop_dq": "flash_hop_dq",
+                  "flash_hop_dkv": "flash_hop_dkv",
+                  "quadrature": "quadrature"}
+    for row in kernels:
+        key = graft_keys.get(row["name"])
+        if key:
+            row["launches_graft"] = {
+                "entry": graft_rec["entry_launches"] if key == "vmem" else 0,
+                "dryrun_multichip(8)": graft_rec["dryrun_launches"].get(
+                    key, 0)}
+            row["launches"] += sum(row["launches_graft"].values())
+            row["launches_processes_rank0"] = {
+                run: r["launches_rank0"].get(key, 0)
+                for run, r in dist_rec["runs"].items()
+                if "launches_rank0" in r}
+    log(f"native IO, host ms a snapshot: {json.dumps(vtk_rec)}")
+    log(f"processes: {json.dumps(dist_rec['runs'])}; pingpong "
+        f"{json.dumps(dist_rec['pingpong_fit'])}")
     log(f"obs, untraced against traced seconds: "
         f"{json.dumps(obs_rec['untraced_vs_traced_s'])}")
     log(f"tune: {json.dumps({k: {'tuned': v['tuned']['path'], 'vs_heuristic': v['vs_heuristic']} for k, v in tune_rec['passes'].items()})}; "

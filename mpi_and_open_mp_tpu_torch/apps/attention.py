@@ -9,7 +9,10 @@ against the dense oracle, the elapsed seconds on stdout, and ``parity ok
 ``--devices N`` runs the ring (or Ulysses) over N virtual shards of
 ``--device``, refused past ``--virtual-devices`` with the JAX package's
 text; ``--ring-layout zigzag`` permutes the operands into zigzag order
-before the timed bracket and the output back after it.
+before the timed bracket, and the check compares in that order. With
+``--distributed`` the ring (or Ulysses) spans the processes: each holds
+its run of the shards, returns its own rows, and checks them against the
+oracle's; a miss in any process fails every one.
 
     python -m mpi_and_open_mp_tpu_torch.apps.attention --variant flash --seq 8192 --heads 8 --head-dim 128 --causal --grad
     python -m mpi_and_open_mp_tpu_torch.apps.attention --variant ring --devices 8 --seq 32768 --heads 8 --head-dim 128 --causal --grad --ring-layout zigzag
@@ -26,10 +29,11 @@ import numpy as np
 import torch
 
 from mpi_and_open_mp_tpu_torch.apps._common import (
-    add_platform_args, apply_platform_args, check_devices, is_primary)
+    add_platform_args, apply_platform_args, check_devices, finish,
+    is_primary, virtual_shards)
 from mpi_and_open_mp_tpu_torch.ops import flash_hop_bwd, native_flash
 from mpi_and_open_mp_tpu_torch.parallel import context
-from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
+from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib, procs
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 
 KERNELS = {"flash_fwd": native_flash.flash_fwd,
@@ -88,13 +92,14 @@ def main(argv=None) -> int:
             p.error(f"--variant flash is single-device; --devices "
                     f"{args.devices} would be silently ignored (use "
                     "--variant ring/ulysses for a sharded run)")
-        shards = 1
+        shards, mesh = 1, None
 
         def fn(q, k, v):
             return context.flash_attention(q, k, v, causal=args.causal,
                                            device=dev, engine=engine)
     else:
-        shards = args.devices or args.virtual_devices or 1
+        shards = (args.devices or virtual_shards(args)
+                  or (mesh_lib.default_shards(dev) if procs.world() else 1))
         check_devices(args, (shards,))
         mesh = mesh_lib.make_mesh_1d(shards, axis=context.AXIS_SP,
                                      device=dev,
@@ -152,18 +157,23 @@ def main(argv=None) -> int:
                 out = fn(q, k, v)
         else:
             out = result
-        if zig:
-            out = context.zigzag_unshard(out, shards)
         groups = args.heads // hkv
         with context._full_f32_matmul():
             want = context.attention_reference(
                 qn.float(), *context._repeat_heads(kn.float(), vn.float(),
                                                    groups),
                 causal=args.causal)
+        # Compared in the ring's order (zigzag's too), on the rows this
+        # process holds (all of them but across processes).
+        if zig:
+            want = context.zigzag_shard(want, shards)
+        if mesh is not None:
+            want = context.local_rows(want, mesh)
         err = float((out.float() - want).abs().max())
         tol = 1e-4 if dtype == torch.float32 else 0.06
-        if not err <= tol:
-            print(f"PARITY FAIL: max|err|={err:.3g} > {tol}", file=sys.stderr)
+        if not procs.agree(err <= tol):
+            print(f"PARITY FAIL: max|err|={err:.3g} > {tol} (here, or in "
+                  "another process)", file=sys.stderr)
             return 1
         if is_primary():
             print(f"parity ok (max|err|={err:.3g})", file=sys.stderr)
@@ -193,7 +203,7 @@ def main(argv=None) -> int:
         print("launches " + " ".join(f"{name}={kernel.launches}"
                                      for name, kernel in KERNELS.items()),
               file=sys.stderr)
-    return 0
+    return finish(0)
 
 
 if __name__ == "__main__":

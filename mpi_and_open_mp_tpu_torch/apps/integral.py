@@ -12,6 +12,9 @@ reproduced unless ``--truncate-32bit`` asks for it (N mod 2^32).
 
 ``--devices N`` cuts the trapezoids over N virtual shards of the device.
 One warm-up ``compute()`` (it builds the kernel) precedes the timed one.
+With ``--distributed`` the shards span the processes: each computes its
+own shards' partials, all of them are gathered and summed in shard order
+(the one-process value to the bit), and the primary prints.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import argparse
 import sys
 
 from mpi_and_open_mp_tpu_torch.apps._common import (
-    add_platform_args, apply_platform_args, check_devices, is_primary)
+    add_platform_args, apply_platform_args, check_devices, finish,
+    is_primary, virtual_shards)
 from mpi_and_open_mp_tpu_torch.models.integral import Integral
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 from mpi_and_open_mp_tpu_torch.utils.timing import Timer, append_times_txt
@@ -42,7 +46,7 @@ def main(argv=None) -> int:
     n = args.n
     if args.truncate_32bit:
         n = n % (1 << 32)
-    shards = args.devices or args.virtual_devices
+    shards = args.devices or virtual_shards(args)
     mesh = None
     if shards:
         check_devices(args, (shards,))
@@ -61,7 +65,7 @@ def main(argv=None) -> int:
             append_times_txt(args.times_file, elapsed)
         if args.print_value:
             print(f"{value!r}", file=sys.stderr)
-    return 0
+    return finish(0)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,16 @@ package's "simulate N devices"), ``--mesh PY,PX`` for a 2-D mesh,
 ``--devices N`` for N shards on a 1-D mesh. Without these the mesh has one
 shard per device of ``--device``'s type: one on one card or on the CPU.
 
+Across processes, as the JAX package's ``--distributed``,
+``--coordinator``, ``--num-processes`` and ``--process-id`` (``apps/
+_common.py``): the mesh spans the processes, each holding a run of the
+mesh's first axis (``--virtual-devices N`` shards each), the halo
+exchanges cross them by the run's transport, the snapshots are gathered
+and written by process 0, and the stdout line and ``times.txt`` come from
+process 0 alone::
+
+    python -m mpi_and_open_mp_tpu_torch.apps.life configs/gun_big_500x500.cfg --layout row --impl native --distributed --coordinator localhost:29500 --num-processes 2 --process-id 0
+
 Checkpoint, stop and resume (the JAX package's contract)::
 
     python -m mpi_and_open_mp_tpu_torch.apps.life configs/gun_big_500x500.cfg --layout serial --checkpoint-dir ck --checkpoint-every 2500
@@ -70,7 +80,9 @@ import time
 
 import numpy as np
 
-from mpi_and_open_mp_tpu_torch.apps._common import check_devices
+from mpi_and_open_mp_tpu_torch.apps._common import (
+    add_distributed_args, apply_platform_args, check_devices, finish,
+    is_primary, virtual_shards)
 from mpi_and_open_mp_tpu_torch.models.life import IMPLS, LAYOUTS, LifeSim
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 from mpi_and_open_mp_tpu_torch.robust.preempt import EXIT_PREEMPTED, Preempted
@@ -98,6 +110,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--virtual-devices", type=int, default=None, metavar="N",
                    help="N virtual shards, all on the one device")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    add_distributed_args(p)
     p.add_argument("--batch", type=int, default=0, metavar="B",
                    help="throughput mode: advance B stacked copies of the "
                         "cfg board together (batched LifeSim; excludes "
@@ -354,7 +367,7 @@ def make_mesh(args):
         py, px = (int(v) for v in args.mesh.split(","))
         check_devices(args, (py, px))
         return mesh_lib.make_mesh_2d(py, px, **kw)
-    n = args.devices or args.virtual_devices
+    n = args.devices or virtual_shards(args)
     if not n:
         return None
     if args.layout == "cart":
@@ -373,6 +386,12 @@ def main(argv=None) -> int:
         parser.error("--serve must be >= 1")
     if args.batch < 0:
         parser.error("--batch must be >= 1")
+    if args.distributed and (args.serve or args.batch
+                             or args.layout == "serial"):
+        parser.error("--distributed runs a sharded layout (row, col, cart) "
+                     "across processes; --serve, --batch and the serial "
+                     "layout are one process's")
+    apply_platform_args(parser, args)
     if serving(args):
         # Serving is its own mode: the daemon owns batching, retries
         # and the queue checkpoint.
@@ -432,6 +451,9 @@ def main(argv=None) -> int:
         elapsed = time.perf_counter() - t0
     if args.debug_check:
         sim.debug_check()
+    if not is_primary():
+        # Output from one rank (3-life/life_mpi.c:64-67).
+        return finish(0)
     for stamp in sim.recoveries:
         print(f"recovered: {stamp}", file=sys.stderr)
     print(f"{elapsed:.6f}")
@@ -439,7 +461,7 @@ def main(argv=None) -> int:
         append_times_txt(args.times_file, elapsed)
     if args.print_final_population:
         print(int(final.sum()), file=sys.stderr)
-    return 0
+    return finish(0)
 
 
 if __name__ == "__main__":

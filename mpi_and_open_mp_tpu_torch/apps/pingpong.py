@@ -12,7 +12,12 @@ stdout line.
     python -m mpi_and_open_mp_tpu_torch.apps.pingpong --devices 2 --reps 2 --max-power 2 --device cpu
 
 The shards are virtual shards of one device (``parallel/fabric.py``): on
-one card a hop is a device copy and one launch, not a fabric.
+one card a hop is a device copy and one launch, not a fabric. With
+``--distributed`` the shards span the processes and a hop that crosses
+them goes by the run's transport, which the fit's JSON line names
+(``"transport"``)::
+
+    python -m mpi_and_open_mp_tpu_torch.apps.pingpong --device cpu --fit --distributed --coordinator localhost:29500 --num-processes 2 --process-id 0
 """
 
 from __future__ import annotations
@@ -22,7 +27,9 @@ import json
 import sys
 
 from mpi_and_open_mp_tpu_torch.apps._common import (
-    add_platform_args, apply_platform_args, check_devices, is_primary)
+    add_platform_args, apply_platform_args, check_devices, finish,
+    is_primary, virtual_shards)
+from mpi_and_open_mp_tpu_torch.parallel import procs
 from mpi_and_open_mp_tpu_torch.parallel import fabric, mesh as mesh_lib
 
 
@@ -39,7 +46,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     apply_platform_args(p, args)
 
-    n = args.devices or args.virtual_devices
+    n = args.devices or virtual_shards(args)
     if n:
         check_devices(args, (n,))
     mesh = mesh_lib.make_mesh_1d(n, device=args.device,
@@ -59,8 +66,11 @@ def main(argv=None) -> int:
             # The machine-readable twin of the stderr line, as the last
             # stdout line: harnesses take the CSV rows above as they are
             # and parse this one.
-            print(json.dumps({"metric": "pingpong_fit", **fit.as_json()}))
-    return 0
+            world = procs.world()
+            transport = {"transport": world.transport} if world else {}
+            print(json.dumps({"metric": "pingpong_fit", **fit.as_json(),
+                              **transport}))
+    return finish(0)
 
 
 if __name__ == "__main__":

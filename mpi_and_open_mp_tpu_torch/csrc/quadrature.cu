@@ -36,6 +36,14 @@
 // partials in float32 in shard order (JAX's psum) and multiplies by
 // f32(h).
 //
+// A call may take a run of the shards, [first, first + count), and then
+// computes only their chunks, [first per, (first + count) per) clipped to
+// the grid: the process of a mesh across processes that holds those
+// shards (models/integral.py). Pass 2 writes each shard's partial to
+// `partials`; the caller gathers every process's partials and sums them in
+// shard order in float32, times f32(h), the operations thread 0 does, so
+// the value is the one-process call's to the bit.
+//
 // Bound on the H100: arithmetic. Each point costs one MUFU.RSQ (inside the
 // correctly rounded square root) at 16 a clock an SM, and some fifteen
 // issued instructions at 128 lanes a clock an SM (chip_smoke.py counts
@@ -131,12 +139,17 @@ __device__ __forceinline__ float thread_sum(float base, float h, bool first,
       __fadd_rn(__fadd_rn(acc[4], acc[5]), __fadd_rn(acc[6], acc[7])));
 }
 
+// RUN: the block's chunk is g0 + blockIdx.x (a run of shards that starts
+// past chunk 0); without it g0 is 0 and unread, so a call from chunk 0
+// (every one-process call) runs the code it ran before runs existed: the
+// offset cost that form 3 registers and ~2 % of its time on the H100.
+template <bool RUN>
 __global__ void __launch_bounds__(kThreads)
-    quadrature_chunk_kernel(float* __restrict__ chunk_sums,
+    quadrature_chunk_kernel(float* __restrict__ chunk_sums, long long g0,
                             long long last_chunk, int last_lane, float a,
                             float h, float chunk_h) {
   __shared__ float red[kThreads / 32];
-  const long long g = blockIdx.x;
+  const long long g = RUN ? g0 + blockIdx.x : blockIdx.x;
   const float base = __fadd_rn(a, __fmul_rn(__ll2float_rn(g), chunk_h));
   // Only the first and the last chunk (one chunk when n < CHUNK) mask
   // lanes and halve weights.
@@ -145,19 +158,23 @@ __global__ void __launch_bounds__(kThreads)
                 : thread_sum<true>(base, h, g == 0, g == last_chunk,
                                    last_lane);
   s = block_sum(s, red);
-  if (threadIdx.x == 0) chunk_sums[g] = s;
+  if (threadIdx.x == 0) chunk_sums[blockIdx.x] = s;
 }
 
+// chunk_sums holds the run's chunks from its first shard's first chunk
+// on, n_chunks of them (past the grid's last, none); the block takes the
+// run's count shards, partial k for its shard k.
 __global__ void quadrature_kahan_kernel(const float* __restrict__ chunk_sums,
                                         float* __restrict__ out,
-                                        long long n_chunks, int shards,
+                                        float* __restrict__ partials,
+                                        long long n_chunks, int count,
                                         long long per, float h) {
   __shared__ float stage[kWarpsMax][kTile];
   __shared__ float partial[kMaxShards];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
   float* tile = stage[warp];
-  for (int k = warp; k < shards; k += warps) {
+  for (int k = warp; k < count; k += warps) {
     const long long first = static_cast<long long>(k) * per;
     float next[kPerLane];
     auto load = [&](long long c0) {
@@ -186,51 +203,77 @@ __global__ void quadrature_kahan_kernel(const float* __restrict__ chunk_sums,
       }
       __syncwarp();
     }
-    if (lane == 0) partial[k] = acc;
+    if (lane == 0) partial[k] = partials[k] = acc;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     float total = 0.0f;
-    for (int k = 0; k < shards; ++k) total = __fadd_rn(total, partial[k]);
+    for (int k = 0; k < count; ++k) total = __fadd_rn(total, partial[k]);
     out[0] = __fmul_rn(total, h);
   }
 }
 
 }  // namespace
 
-// chunk_sums: float32 [n_chunks] scratch on the card; out: one float32.
-// a, h, chunk_h: f32(a), f32(h), f32(CHUNK h), rounded on the host.
-// *launched: the kernels this call launched (0 or 2).
-extern "C" int quadrature(void* chunk_sums, void* out, long long n_chunks,
-                          long long last_chunk, int last_lane, int shards,
-                          long long per, float a, float h, float chunk_h,
+// The chunks of shards [first, first + count): [first per, min((first +
+// count) per, n_chunks)), none when that is empty.
+static long long run_chunks(long long n_chunks, long long per, int first,
+                            int count) {
+  const long long g0 = static_cast<long long>(first) * per;
+  long long g1 = static_cast<long long>(first + count) * per;
+  if (g1 > n_chunks) g1 = n_chunks;
+  return g1 > g0 ? g1 - g0 : 0;
+}
+
+// Shards [first, first + count) of `shards`. chunk_sums: float32 scratch on
+// the card for their chunks (run_chunks of them, at least one);
+// partials: float32 [count], each shard's Kahan partial; out: one float32,
+// the partials summed in shard order times h. a, h, chunk_h: f32(a),
+// f32(h), f32(CHUNK h), rounded on the host. *launched: the kernels this
+// call launched (0, 1 when the run holds no chunk, or 2).
+extern "C" int quadrature(void* chunk_sums, void* out, void* partials,
+                          long long n_chunks, long long last_chunk,
+                          int last_lane, int shards, long long per, int first,
+                          int count, float a, float h, float chunk_h,
                           void* stream, int* launched) {
   *launched = 0;
   if (n_chunks < 1 || n_chunks > kMaxChunks ||
       last_chunk != n_chunks - 1 || last_lane < 0 || last_lane >= kChunk ||
       shards < 1 || shards > kMaxShards || per < 1 ||
-      per * shards < n_chunks)
+      per * shards < n_chunks || first < 0 || count < 1 ||
+      count > shards - first)
     return static_cast<int>(kErrExtent);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  quadrature_chunk_kernel<<<static_cast<unsigned>(n_chunks), kThreads, 0,
-                            s>>>(static_cast<float*>(chunk_sums), last_chunk,
-                                 last_lane, a, h, chunk_h);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  *launched = 1;
-  const int warps = shards < kWarpsMax ? shards : kWarpsMax;
+  const long long g0 = static_cast<long long>(first) * per;
+  const long long chunks = run_chunks(n_chunks, per, first, count);
+  cudaError_t err;
+  if (chunks) {
+    const unsigned grid = static_cast<unsigned>(chunks);
+    float* sums = static_cast<float*>(chunk_sums);
+    if (g0)
+      quadrature_chunk_kernel<true><<<grid, kThreads, 0, s>>>(
+          sums, g0, last_chunk, last_lane, a, h, chunk_h);
+    else
+      quadrature_chunk_kernel<false><<<grid, kThreads, 0, s>>>(
+          sums, 0, last_chunk, last_lane, a, h, chunk_h);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *launched += 1;
+  }
+  const int warps = count < kWarpsMax ? count : kWarpsMax;
   quadrature_kahan_kernel<<<1, 32 * warps, 0, s>>>(
       static_cast<const float*>(chunk_sums), static_cast<float*>(out),
-      n_chunks, shards, per, h);
+      static_cast<float*>(partials), chunks, count, per, h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  *launched = 2;
+  *launched += 1;
   return 0;
 }
 
 extern "C" const char* quadrature_error(int code) {
   if (code == kErrExtent)
-    return "chunks outside [1, 2^31 - 1], shards outside [1, 4096], or a "
-           "chunk geometry that does not cover the grid";
+    return "chunks outside [1, 2^31 - 1], shards outside [1, 4096], a "
+           "run of shards outside them, or a chunk geometry that does not "
+           "cover the grid";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

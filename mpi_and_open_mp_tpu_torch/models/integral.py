@@ -8,7 +8,9 @@ reference's Send/Recv reduction star (``integral.c:39-43``). The
 reference never prints the value (``integral.c:27,44`` comment it out);
 :meth:`Integral.compute` returns it.
 
-The mesh is the port's (``parallel/mesh.py``): every shard on one device.
+The mesh is the port's (``parallel/mesh.py``): every shard on one device,
+or, across processes, each process's run of the shards on its device, the
+partials gathered and summed in shard order.
 Only its shard count matters here, so JAX's axis name ``"i"`` has no
 counterpart (the port's meshes name ``"y"`` or ``"x"``). The reference's
 integrand ``f_circle`` runs the hand-written kernel on the card
@@ -24,7 +26,7 @@ from typing import Callable
 import torch
 
 from mpi_and_open_mp_tpu_torch.ops import native_quadrature, quadrature
-from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
+from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib, procs
 
 
 class Integral:
@@ -49,8 +51,12 @@ class Integral:
         self.engine = "kernel:quadrature" if kernel else "plain"
 
     def compute(self) -> float:
-        """Run the quadrature; returns once the value is on the host."""
+        """Run the quadrature; returns once the value is on the host. On a
+        mesh across processes every process returns the same value, the
+        one-process run's to the bit (a collective)."""
         p = self.mesh.size
+        if self.mesh.procs > 1:
+            return self._compute_across_processes(p)
         if self.engine == "kernel:quadrature":
             out = native_quadrature.launch(self.a, self.b, self.n, p,
                                            self.device)[0]
@@ -58,3 +64,20 @@ class Integral:
             out = quadrature.trapezoid_shard_sum(
                 self.f, self.a, self.b, self.n, p, self.device)
         return float(out.item())
+
+    def _compute_across_processes(self, p: int) -> float:
+        """Each process computes its shards' Kahan partials (the kernel's
+        run of shards on the card); every process gathers all of them and
+        sums them in shard order in float32 (JAX's ``psum``), the
+        operations the one-process run's last step does."""
+        first, count = self.mesh.first_shard, self.mesh.local_size
+        if self.engine == "kernel:quadrature":
+            partials = native_quadrature.launch(
+                self.a, self.b, self.n, p, self.device, first=first,
+                count=count)[2]
+        else:
+            partials = quadrature.shard_partials(
+                self.f, self.a, self.b, self.n, p, first, count, self.device)
+        every = procs.all_gather(partials).cpu()
+        return float(quadrature.sum_partials(every, (self.b - self.a)
+                                             / self.n).item())

@@ -11,7 +11,12 @@ as the reference's four Life drivers:
 A sharded layout holds the board as the stacked shards of a
 ``parallel.mesh.Mesh`` (``(py, px, *C, hs, ws)``, every shard on one
 device: virtual shards of the CPU or of one card), the counterpart of the
-JAX package's one ``jax.Array`` sharded over a device mesh. Its step is
+JAX package's one ``jax.Array`` sharded over a device mesh. On a mesh
+across processes (``parallel.procs``) each process holds its run of the
+mesh's first axis (y for row and cart, x for col); :meth:`collect` gathers
+the board in every process (a collective), and only process 0 writes
+snapshots and checkpoints, as the JAX package's ``collect`` and
+``save_snapshot`` do. Its step is
 
 * ``impl="roll"``: the global torus step by shifts. Any board size: a
   board that does not divide the mesh is stored padded to the next even
@@ -327,15 +332,18 @@ class LifeSim:
         fy, fx = self.padded_shape
         if (fy, fx) != (ny, nx):
             t = F.pad(t, (0, fx - nx, 0, fy - ny))
-        return mesh_lib.shard(t, self._py, self._px)
+        return mesh_lib.local_part(mesh_lib.shard(t, self._py, self._px),
+                                   self.mesh)
 
     def _global(self, board: torch.Tensor) -> torch.Tensor:
         """The stored state as the logical ``(*C, ny, nx)`` board (or the
-        ``(B, ny, nx)`` stack), on the device."""
+        ``(B, ny, nx)`` stack), on the device: gathered from every process
+        on a mesh across processes (a collective)."""
         if self.layout == "serial":
             return board
         ny, nx = self.cfg.shape
-        return mesh_lib.unshard(board)[..., :ny, :nx]
+        return mesh_lib.unshard(mesh_lib.gather(board, self.mesh))[
+            ..., :ny, :nx]
 
     # ---------------------------------------------------------- step builders
 
@@ -433,14 +441,14 @@ class LifeSim:
         py, px = self._py, self._px
 
         def advance(board, n):
-            b = mesh_lib.unshard(board)
+            b = mesh_lib.unshard(mesh_lib.gather(board, self.mesh))
             for _ in range(int(n)):
                 if (fy, fx) != (ny, nx):
                     v = stencils.step_roll(self.spec, b[..., :ny, :nx])
                     b = F.pad(v, (0, fx - nx, 0, fy - ny))
                 else:
                     b = stencils.step_roll(self.spec, b)
-            return mesh_lib.shard(b, py, px)
+            return mesh_lib.local_part(mesh_lib.shard(b, py, px), self.mesh)
 
         return advance
 
@@ -640,9 +648,18 @@ class LifeSim:
         if self.outdir is None:
             raise ValueError("LifeSim(outdir=...) required to save")
         path = vtk_lib.vtk_path(self.outdir, self.step_count)
-        os.makedirs(self.outdir, exist_ok=True)
-        vtk_lib.write_vtk(path, self.collect())
+        board = self.collect()
+        if self._writes_files():
+            os.makedirs(self.outdir, exist_ok=True)
+            vtk_lib.write_vtk(path, board)
         return path
+
+    def _writes_files(self) -> bool:
+        """Whether this process writes the run's files: always, but on a
+        mesh across processes only process 0 (the board is gathered by
+        every process first; the reference writes from one rank,
+        ``3-life/life_mpi.c:54-57``)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def save_state(self) -> None:
         """Persist the current step through every configured channel: a VTK
@@ -659,7 +676,9 @@ class LifeSim:
         if self.batch is not None or self.workload != "life":
             raise ValueError("a checkpoint holds one Life board; batched "
                              "and non-Life sims have no checkpoint channel")
-        checkpoint_lib.save(path, self.collect(), self.step_count)
+        board = self.collect()
+        if self._writes_files():
+            checkpoint_lib.save(path, board, self.step_count)
 
     @classmethod
     def from_checkpoint(cls, path: str | os.PathLike, cfg: LifeConfig,

@@ -76,7 +76,8 @@ SIGNATURES = {
     },
     "halo_edge_pair": [_P] * 5 + [_I, _L, _I, _I] + [_L] * 6 + [_I, _P],
     "halo_frame": [_P] * 3 + [_I] * 5 + [_L] * 3 + [_I, _P],
-    "quadrature": [_P, _P, _L, _L, _I, _I, _L, _F, _F, _F, _P, _IP],
+    "quadrature": [_P, _P, _P, _L, _L, _I, _I, _L, _I, _I, _F, _F, _F, _P,
+                   _IP],
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

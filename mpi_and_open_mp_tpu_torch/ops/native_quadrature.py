@@ -46,28 +46,45 @@ def _check(n: int, shards: int) -> tuple[int, int, int, int]:
     return n_chunks, last_chunk, last_lane, -(-n_chunks // shards)
 
 
-def launch(a: float, b: float, n: int, shards: int,
-           device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """One call of the kernel on the card: ``(value, chunk_sums)``, a 0-dim
-    float32 and the float32 sum of every chunk. Counts its launches on
-    :func:`trapezoid_circle`."""
+def _run_chunks(n_chunks: int, per: int, first: int, count: int) -> int:
+    """The chunks of shards ``[first, first + count)`` (the kernel's
+    ``run_chunks``)."""
+    return max(min((first + count) * per, n_chunks) - first * per, 0)
+
+
+def launch(a: float, b: float, n: int, shards: int, device: torch.device,
+           *, first: int = 0, count: int | None = None
+           ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One call of the kernel on the card over shards ``[first, first +
+    count)`` (all of them by default): ``(value, chunk_sums, partials)``, a
+    0-dim float32 (those shards' partials summed in shard order, times
+    f32(h): the integral when the call takes every shard), the float32 sum
+    of each of their chunks, and each shard's Kahan partial. Counts its
+    launches on :func:`trapezoid_circle`."""
     if device.type != "cuda":
         raise ValueError(f"quadrature: expected a CUDA device, got {device}")
     n_chunks, last_chunk, last_lane, per = _check(n, shards)
+    count = shards - first if count is None else int(count)
+    if not (0 <= first and 1 <= count <= shards - first):
+        raise ValueError(f"quadrature: shards [{first}, {first + count}) "
+                         f"outside the {shards} shards")
     h = (b - a) / n
-    sums = torch.empty(n_chunks, dtype=torch.float32, device=device)
+    sums = torch.empty(max(1, _run_chunks(n_chunks, per, first, count)),
+                       dtype=torch.float32, device=device)
     out = torch.empty((), dtype=torch.float32, device=device)
+    partials = torch.empty(count, dtype=torch.float32, device=device)
     launched = ctypes.c_int(0)
     lib = _build.load("quadrature")
     with torch.cuda.device(device):
         rc = lib.quadrature(
-            sums.data_ptr(), out.data_ptr(), n_chunks, last_chunk, last_lane,
-            shards, per, float(np.float32(a)), float(np.float32(h)),
+            sums.data_ptr(), out.data_ptr(), partials.data_ptr(), n_chunks,
+            last_chunk, last_lane, shards, per, first, count,
+            float(np.float32(a)), float(np.float32(h)),
             float(np.float32(CHUNK * h)),
             torch.cuda.current_stream().cuda_stream, ctypes.byref(launched))
     trapezoid_circle.launches += launched.value
     _build.check(lib, "quadrature", rc)
-    return out, sums
+    return out, sums, partials
 
 
 def trapezoid_circle(a: float, b: float, n: int, shards: int = 1,

@@ -75,25 +75,29 @@ def _block_sum(f: Callable, a: float, h: float, g: torch.Tensor,
 
 
 def chunk_sums(f: Callable, a: float, b: float, n: int,
-               device: str | torch.device = "cpu") -> torch.Tensor:
-    """Float32 sum of every chunk, ``(n_chunks,)`` in chunk order."""
+               device: str | torch.device = "cpu", lo: int = 0,
+               hi: int | None = None) -> torch.Tensor:
+    """Float32 sum of every chunk ``[lo, hi)`` (default: all of them),
+    ``(hi - lo,)`` in chunk order."""
     h = (b - a) / n
     n_chunks, _, _ = _chunk_grid(n)
+    hi = n_chunks if hi is None else min(hi, n_chunks)
     dev = torch.device(device)
-    out = torch.empty(n_chunks, dtype=torch.float32, device=dev)
-    for g0 in range(0, n_chunks, BATCH_CHUNKS):
-        g = torch.arange(g0, min(g0 + BATCH_CHUNKS, n_chunks),
+    out = torch.empty(max(hi - lo, 0), dtype=torch.float32, device=dev)
+    for g0 in range(lo, hi, BATCH_CHUNKS):
+        g = torch.arange(g0, min(g0 + BATCH_CHUNKS, hi),
                          dtype=torch.int64, device=dev)
-        out[g0:g0 + len(g)] = _block_sum(f, a, h, g, n)
+        out[g0 - lo:g0 - lo + len(g)] = _block_sum(f, a, h, g, n)
     return out
 
 
-def kahan_shards(sums: torch.Tensor, shards: int) -> torch.Tensor:
+def kahan_shards(sums: torch.Tensor, shards: int,
+                 per: int | None = None) -> torch.Tensor:
     """Each shard's Kahan-compensated float32 sum of its contiguous
-    ``per = ceil(len(sums) / shards)`` chunk sums, in chunk order; chunks
-    past the last add 0.0. Shape ``(shards,)``."""
+    ``per`` chunk sums (default ``ceil(len(sums) / shards)``), in chunk
+    order; chunks past the last add 0.0. Shape ``(shards,)``."""
     n_chunks = sums.numel()
-    per = -(-n_chunks // shards)
+    per = -(-n_chunks // shards) if per is None else per
     vals = torch.zeros(shards * per, dtype=torch.float32, device=sums.device)
     vals[:n_chunks] = sums
     vals = vals.view(shards, per)
@@ -116,15 +120,34 @@ def trapezoid_shard_sum(f: Callable, a: float, b: float, n: int,
     return shard_total(chunk_sums(f, a, b, n, device), shards, (b - a) / n)
 
 
+def shard_partials(f: Callable, a: float, b: float, n: int, shards: int,
+                   first: int, count: int,
+                   device: str | torch.device = "cpu") -> torch.Tensor:
+    """The Kahan partials of shards ``[first, first + count)`` of
+    ``shards``, float32 ``(count,)``: their chunks only, each shard's as in
+    :func:`kahan_shards` of every chunk (a process of a mesh across
+    processes computes its shards' so; :func:`sum_partials` of everyone's
+    is the one-process integral)."""
+    n_chunks, _, _ = _chunk_grid(n)
+    per = -(-n_chunks // shards)
+    sums = chunk_sums(f, a, b, n, device, first * per, (first + count) * per)
+    return kahan_shards(sums, count, per)
+
+
+def sum_partials(partials: torch.Tensor, h: float) -> torch.Tensor:
+    """The shard partials summed in float32 in shard order, times
+    ``f32(h)`` (JAX's ``lax.psum``, then the width). A 0-dim float32."""
+    total = partials[0]
+    for k in range(1, partials.numel()):
+        total = total + partials[k]
+    return total * _f32(h, partials.device)
+
+
 def shard_total(sums: torch.Tensor, shards: int, h: float) -> torch.Tensor:
     """The integral from the chunk sums in chunk order: each shard's
     :func:`kahan_shards` partial, the partials summed in float32 in shard
     order, times ``f32(h)``. A 0-dim float32 tensor on ``sums``' device."""
-    partials = kahan_shards(sums, shards)
-    total = partials[0]
-    for k in range(1, shards):
-        total = total + partials[k]
-    return total * _f32(h, partials.device)
+    return sum_partials(kahan_shards(sums, shards), h)
 
 
 def trapezoid_serial(f: Callable, a: float, b: float, n: int,

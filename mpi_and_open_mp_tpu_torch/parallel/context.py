@@ -26,8 +26,13 @@ runs over a mesh of virtual shards of one device on the ``"sp"`` axis
 head_dim)``. The ring's K/V rotate by ``parallel/halo.py:ppermute`` and
 every live hop is one launch of the same kernels over the shards folded
 into the head axis (:class:`_RingFlash`); Ulysses re-shards by
-``halo.all_to_all`` around one local launch. Meshes across cards are
-ROADMAP Queue 1's last item.
+``halo.all_to_all`` around one local launch. On a mesh across processes
+(``parallel.procs``) each process holds its run of the shards: the
+rotations and the all-to-all cross the processes, every shard index adds
+the process's first shard (:func:`_ring_positions` takes global ones,
+:func:`_held` cuts a hop's live shards to the run), and both calls take
+the global operands and return the calling process's rows
+(:func:`local_rows`).
 
 Observability (``obs``), as the JAX package's: with ``MOMP_TRACE`` set
 and no chaos plan or guard, a contiguous ring of more than one shard runs
@@ -575,6 +580,24 @@ def _to_shards(x: torch.Tensor, p: int) -> torch.Tensor:
     return _aligned(x.reshape(h, p, n // p, d).transpose(0, 1))
 
 
+def _held_shards(x: torch.Tensor, p: int,
+                 mesh: mesh_lib.Mesh) -> torch.Tensor:
+    """The ``(p, h, n/p, d)`` stack of ``x``'s shards this process holds:
+    all of them, or its run on a mesh across processes."""
+    return _aligned(mesh_lib.local_part(_to_shards(x, p), mesh))
+
+
+def local_rows(x: torch.Tensor, mesh: mesh_lib.Mesh) -> torch.Tensor:
+    """The rows ``(h, n, d) -> (h, n * held / p, d)`` of a sequence-parallel
+    call's global operand that belong to this process's shards (all of
+    them on a mesh of one process): what :func:`ring_attention` and
+    :func:`ulysses_attention` return there, in the operand's order."""
+    p = mesh.axis_sizes[0]
+    nl = x.shape[1] // p
+    return x[:, mesh.first_shard * nl:(mesh.first_shard
+                                       + mesh.local_sizes[0]) * nl]
+
+
 def _from_shards(x: torch.Tensor) -> torch.Tensor:
     p, h, nl, d = x.shape
     return x.transpose(0, 1).reshape(h, p * nl, d)
@@ -665,7 +688,8 @@ def _ring_fold_forward(causal: bool, layout: str, q, k, v,
     wholly in their future; causal zigzag folds only the live (q-half,
     k-half) pairs: ``(lo, lo)`` iff ``src <= idx``, ``(hi, lo)`` always,
     ``(hi, hi)`` iff ``src >= idx``."""
-    p, h, nl, d = q.shape
+    n_held, h, nl, d = q.shape
+    p, first = halo.axis_size(q, AXIS_SP), halo.first_shard(q, AXIS_SP)
     hkv = k.shape[1]
     g = h // hkv
     half = nl // 2
@@ -673,7 +697,7 @@ def _ring_fold_forward(causal: bool, layout: str, q, k, v,
     dev = q.device
 
     def folders(idx):
-        q32 = _fold_groups(q[idx].float(), hkv, g)
+        q32 = _fold_groups(q[idx - first].float(), hkv, g)
         if not zz:
             return (_make_folder(causal, g, nl, q32, lambda r: (
                 _ring_positions(layout, idx, p, nl, r))),)
@@ -683,16 +707,17 @@ def _ring_fold_forward(causal: bool, layout: str, q, k, v,
                 _make_folder(causal, g, half, q32[:, hg:],
                              lambda r: (2 * p - 1 - idx) * half + r))
 
-    shards = [folders(idx) for idx in range(p)]
+    shards = [folders(first + i) for i in range(n_held)]
     rows, rows_half = torch.arange(nl, device=dev), torch.arange(half,
                                                                  device=dev)
 
     def fold(j, state, kb, vb):
         new = []
-        for idx, (fs, st) in enumerate(zip(shards, state)):
-            # After j rotations this shard holds the block of shard src.
+        for i, (fs, st) in enumerate(zip(shards, state)):
+            # After j rotations shard idx holds the block of shard src.
+            idx = first + i
             src = (idx - j) % p
-            kbi, vbi = kb[idx], vb[idx]
+            kbi, vbi = kb[i], vb[i]
             if not zz:
                 if causal and src > idx:  # wholly in this shard's future
                     new.append(st)
@@ -779,7 +804,8 @@ def _ring_fold_backward(causal: bool, layout: str, res, do):
     block gradients to its ``dq`` and to the accumulators in hand. Causal
     skipping and the zigzag live pairs as in :func:`_ring_fold_forward`."""
     q, k, v, o, L = res
-    p, h, nl, d = q.shape
+    n_held, h, nl, d = q.shape
+    p, first = halo.axis_size(q, AXIS_SP), halo.first_shard(q, AXIS_SP)
     hkv = k.shape[1]
     g = h // hkv
     half = nl // 2
@@ -789,10 +815,10 @@ def _ring_fold_backward(causal: bool, layout: str, res, do):
     dev = q.device
 
     def shard_bwd(idx):
-        q32, do32, o32 = (_fold_groups(x[idx].float(), hkv, g)
+        q32, do32, o32 = (_fold_groups(x[idx - first].float(), hkv, g)
                           for x in (q, do, o))
         D = (do32 * o32).sum(dim=-1)
-        Lf = _fold_groups(L[idx], hkv, g)
+        Lf = _fold_groups(L[idx - first], hkv, g)
         if not zz:
             return (_make_bwd(causal, g, scale, nl, q32, do32, Lf, D,
                               lambda r: _ring_positions(layout, idx, p, nl,
@@ -804,44 +830,46 @@ def _ring_fold_backward(causal: bool, layout: str, res, do):
                 (slice(None, hg), lambda r: idx * half + r),
                 (slice(hg, None), lambda r: (2 * p - 1 - idx) * half + r)))
 
-    bwds = [shard_bwd(idx) for idx in range(p)]
+    bwds = [shard_bwd(first + i) for i in range(n_held)]
     rows, rows_half = torch.arange(nl, device=dev), torch.arange(half,
                                                                  device=dev)
-    dq = torch.zeros((p, hkv, nl * g, d), dtype=torch.float32, device=dev)
-    dkb = torch.zeros((p, hkv, nl, d), dtype=torch.float32, device=dev)
+    dq = torch.zeros((n_held, hkv, nl * g, d), dtype=torch.float32,
+                     device=dev)
+    dkb = torch.zeros((n_held, hkv, nl, d), dtype=torch.float32, device=dev)
     dvb = torch.zeros_like(dkb)
     for j, (kb, vb) in _ring_trip((k, v), p):
-        for idx in range(p):
+        for i in range(n_held):
+            idx = first + i
             src = (idx - j) % p
-            kb32, vb32 = kb[idx].float(), vb[idx].float()
+            kb32, vb32 = kb[i].float(), vb[i].float()
             if not zz:
                 if causal and src > idx:
                     continue
-                dqj, dkj, dvj = bwds[idx][0](
+                dqj, dkj, dvj = bwds[i][0](
                     kb32, vb32, _ring_positions(layout, src, p, nl, rows))
-                dq[idx] += dqj
-                dkb[idx] += dkj
-                dvb[idx] += dvj
+                dq[i] += dqj
+                dkb[i] += dkj
+                dvb[i] += dvj
                 continue
-            bwd_lo, bwd_hi = bwds[idx]
+            bwd_lo, bwd_hi = bwds[i]
             k_lo, k_hi = kb32[:, :half], kb32[:, half:]
             v_lo, v_hi = vb32[:, :half], vb32[:, half:]
             kpos_lo = src * half + rows_half
             kpos_hi = (2 * p - 1 - src) * half + rows_half
             if src <= idx:
                 dqj, dkj, dvj = bwd_lo(k_lo, v_lo, kpos_lo)
-                dq[idx, :, :hg] += dqj
-                dkb[idx, :, :half] += dkj
-                dvb[idx, :, :half] += dvj
+                dq[i, :, :hg] += dqj
+                dkb[i, :, :half] += dkj
+                dvb[i, :, :half] += dvj
             dqj, dkj, dvj = bwd_hi(k_lo, v_lo, kpos_lo)
-            dq[idx, :, hg:] += dqj
-            dkb[idx, :, :half] += dkj
-            dvb[idx, :, :half] += dvj
+            dq[i, :, hg:] += dqj
+            dkb[i, :, :half] += dkj
+            dvb[i, :, :half] += dvj
             if src >= idx:
                 dqj, dkj, dvj = bwd_hi(k_hi, v_hi, kpos_hi)
-                dq[idx, :, hg:] += dqj
-                dkb[idx, :, half:] += dkj
-                dvb[idx, :, half:] += dvj
+                dq[i, :, hg:] += dqj
+                dkb[i, :, half:] += dkj
+                dvb[i, :, half:] += dvj
         dkb, dvb = (halo.ppermute(x, AXIS_SP, 1) for x in (dkb, dvb))
     dq = torch.stack([_unfold_groups(x, hkv, g) for x in dq])
     return dq.to(q.dtype), dkb.to(k.dtype), dvb.to(v.dtype)
@@ -862,6 +890,14 @@ def _merge_into(state, lo: int, hi: int, part) -> None:
     o[lo:hi], L[lo:hi] = _merge_partials(o[lo:hi], L[lo:hi], *part)
 
 
+def _held(lo: int, hi: int, x: torch.Tensor) -> tuple[int, int]:
+    """Global ring shards ``[lo, hi)`` as a slice ``[a, b)`` of the stack
+    ``x`` (empty when ``a >= b``): itself unless the ring spans the
+    processes, where ``x`` holds this process's run."""
+    first, n = halo.first_shard(x, AXIS_SP), x.shape[0]
+    return max(lo - first, 0), min(max(hi - first, 0), n)
+
+
 def _ring_forward_hopflash(causal: bool, p: int, q, k, v,
                            hops: _HopTrace | None = None):
     """The ring forward with ``flash_fwd`` as the per-hop engine
@@ -875,9 +911,10 @@ def _ring_forward_hopflash(causal: bool, p: int, q, k, v,
     poison = chaos.hop_poison_spec()
 
     def fold(j, state, kb, vb):
-        lo = j if causal else 0
-        _merge_into(state, lo, p, _hop_partial(q[lo:], kb[lo:], vb[lo:],
-                                               False))
+        lo, hi = _held(j if causal else 0, p, q)
+        if lo < hi:
+            _merge_into(state, lo, hi, _hop_partial(
+                q[lo:hi], kb[lo:hi], vb[lo:hi], False))
         return state
 
     if poison is not None:
@@ -913,11 +950,16 @@ def _ring_forward_hopflash_zz(p: int, q, k, v):
     def fold(j, state, kb, vb):
         s_lo, s_hi = state
         (k_lo, k_hi), (v_lo, v_hi) = kb, vb
-        _merge_into(s_lo, j, p, _hop_partial(q_lo[j:], k_lo[j:], v_lo[j:],
-                                             False))
-        _merge_into(s_hi, 0, p, _hop_partial(q_hi, k_lo, v_lo, False))
-        _merge_into(s_hi, 0, j, _hop_partial(q_hi[:j], k_hi[:j], v_hi[:j],
-                                             False))
+        lo, hi = _held(j, p, q)
+        if lo < hi:
+            _merge_into(s_lo, lo, hi, _hop_partial(
+                q_lo[lo:hi], k_lo[lo:hi], v_lo[lo:hi], False))
+        _merge_into(s_hi, 0, q.shape[0], _hop_partial(q_hi, k_lo, v_lo,
+                                                       False))
+        lo, hi = _held(0, j, q)
+        if lo < hi:
+            _merge_into(s_hi, lo, hi, _hop_partial(
+                q_hi[lo:hi], k_hi[lo:hi], v_hi[lo:hi], False))
         return state
 
     if poison is not None:
@@ -932,7 +974,8 @@ def _ring_forward_hopflash_zz(p: int, q, k, v):
             kb, vb = chaos.poison_hop(kb, vb, 0, poison)
         (k_lo, k_hi), (v_lo, v_hi) = kb, vb
         s_hi = _hop_partial(q_hi, k_lo, v_lo, False)
-        _merge_into(s_hi, 0, p, _hop_partial(q_hi, k_hi, v_hi, True))
+        _merge_into(s_hi, 0, q.shape[0], _hop_partial(q_hi, k_hi, v_hi,
+                                                      True))
         state = (_hop_partial(q_lo, k_lo, v_lo, True), s_hi)
     (o_lo, L_lo), (o_hi, L_hi) = state
     return torch.cat([o_lo, o_hi], dim=2).to(q.dtype), torch.cat(
@@ -951,22 +994,23 @@ def _ring_backward_hopflash(causal: bool, p: int, res, do):
     D = (do.float() * o.float()).sum(dim=-1)
     do = _aligned(do.to(q.dtype))
 
-    def grads(lo, kb, vb, diag):
+    def grads(lo, hi, kb, vb, diag):
         return flash_hop_bwd.hop_block_grads(
-            *(x[lo:].flatten(0, 1) for x in (q, do, L, D, kb, vb)),
+            *(x[lo:hi].flatten(0, 1) for x in (q, do, L, D, kb, vb)),
             causal=diag)
 
     for j, (kb, vb) in _ring_trip((k, v), p):
         if not j:
-            dq, dk, dv = grads(0, kb, vb, causal)
+            dq, dk, dv = grads(0, q.shape[0], kb, vb, causal)
             dq, dk, dv = (x.reshape(s.shape)
                           for x, s in ((dq, q), (dk, k), (dv, v)))
         else:
-            lo = j if causal else 0
-            dqj, dkj, dvj = grads(lo, kb, vb, False)
-            dq[lo:] += dqj.reshape(q[lo:].shape)
-            dk[lo:] += dkj.reshape(k[lo:].shape)
-            dv[lo:] += dvj.reshape(v[lo:].shape)
+            lo, hi = _held(j if causal else 0, p, q)
+            if lo < hi:
+                dqj, dkj, dvj = grads(lo, hi, kb, vb, False)
+                dq[lo:hi] += dqj.reshape(q[lo:hi].shape)
+                dk[lo:hi] += dkj.reshape(k[lo:hi].shape)
+                dv[lo:hi] += dvj.reshape(v[lo:hi].shape)
         dk, dv = (halo.ppermute(x, AXIS_SP, 1) for x in (dk, dv))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -980,14 +1024,14 @@ class _RingFlash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, causal, layout, engine, hops, q, k, v):
-        p = q.shape[0]
+        p = halo.axis_size(q, AXIS_SP)
         if _ring_hop_plan(q, k, p, causal, layout, engine) is None:
             o, L = _ring_fold_forward(causal, layout, q, k, v, hops)
         elif causal and layout == "zigzag":
             o, L = _ring_forward_hopflash_zz(p, q, k, v)
         else:
             o, L = _ring_forward_hopflash(causal, p, q, k, v, hops)
-        ctx.causal, ctx.layout = causal, layout
+        ctx.causal, ctx.layout, ctx.p = causal, layout, p
         ctx.hop_bwd = _ring_hop_bwd_plan(q, k, p, causal, layout,
                                          engine) is not None
         ctx.save_for_backward(q, k, v, o, L)
@@ -997,8 +1041,7 @@ class _RingFlash(torch.autograd.Function):
     def backward(ctx, do):
         res = ctx.saved_tensors
         if ctx.hop_bwd:
-            grads = _ring_backward_hopflash(ctx.causal, res[0].shape[0], res,
-                                            do)
+            grads = _ring_backward_hopflash(ctx.causal, ctx.p, res, do)
         else:
             grads = _ring_fold_backward(ctx.causal, ctx.layout, res, do)
         return (None, None, None, None, *grads)
@@ -1215,7 +1258,7 @@ def ring_attention(q, k, v, devices: int | None = None, causal: bool = False,
         if p == 1:
             return _attention_chunked(q, k, v, causal, eng)
         return _from_shards(_RingFlash.apply(
-            causal, layout, eng, hops, *(_to_shards(x, p)
+            causal, layout, eng, hops, *(_held_shards(x, p, mesh)
                                          for x in (q, k, v))))
 
     stamp = ring_hop_engine_for(q, k, v, p=p, causal=causal, layout=layout,
@@ -1290,7 +1333,8 @@ def ulysses_attention(q, k, v, devices: int | None = None,
     _note_sharded("ulysses", q.shape, k.shape, q.dtype, p, causal, engine,
                   q.is_cuda)
     # (p, h, n/p, d) -> (p, h/p, n, d): scatter heads, gather the sequence.
-    qh, kh, vh = (halo.all_to_all(_to_shards(x, p), 0, 1) for x in (q, k, v))
+    qh, kh, vh = (halo.all_to_all(_held_shards(x, p, mesh), 0, 1)
+                  for x in (q, k, v))
     oh = _attention_chunked(qh.flatten(0, 1), kh.flatten(0, 1),
                             vh.flatten(0, 1), causal, engine)
     return _from_shards(halo.all_to_all(oh.reshape(qh.shape), 1, 0))

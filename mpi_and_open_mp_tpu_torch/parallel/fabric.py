@@ -12,8 +12,11 @@ on a ``"y"`` mesh (``(1, p, n)`` on ``"x"``), and a hop is
 that is a device copy and one launch, not a fabric: the probe measures the
 card's copy and its launch floor (with one shard, the roll of a single
 shard: the dispatch floor, as the JAX package's ``run_pingpong.sh`` says of
-``--devices 1``). The fabric between cards waits for meshes across cards
-(ROADMAP Queue 1, item 3's last part).
+``--devices 1``). On a mesh across processes (``parallel.procs``) each
+process holds its own shards' payloads, and a hop that crosses to the next
+process goes by the run's transport (gloo, NCCL, or gloo staged through
+page-locked host memory when the processes share a card): the probe then
+times that transport.
 
 The α+βn fit (the reference's ``plot.ipynb`` cells 5-6) is
 :func:`fit_alpha_beta`: α the latency intercept, 1/β the asymptotic
@@ -44,13 +47,14 @@ def _axis(mesh: mesh_lib.Mesh) -> str:
 
 
 def buffer(mesh: mesh_lib.Mesh, msg_bytes: int) -> torch.Tensor:
-    """Zeroed int8 payloads of ``max(1, msg_bytes)`` bytes, one a shard,
-    stacked along the mesh axis's shard dimension on the mesh's device."""
+    """Zeroed int8 payloads of ``max(1, msg_bytes)`` bytes, one a shard of
+    this process, stacked along the mesh axis's shard dimension on the
+    mesh's device."""
     shape = [1, max(1, msg_bytes)]
     if SHARD_DIM[_axis(mesh)] == 0:
-        shape[0] = mesh.size
+        shape[0] = mesh.local_size
     else:
-        shape.insert(1, mesh.size)
+        shape.insert(1, mesh.local_size)
     return torch.zeros(shape, dtype=torch.int8, device=mesh.device)
 
 

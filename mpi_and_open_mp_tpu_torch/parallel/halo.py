@@ -17,6 +17,14 @@ the per-shard branches of the JAX package (``lax.axis_index`` under
 first, then exchange the x-padded rows along y, the reference's
 two-phase trick at ``life_cart.c:257-279``.
 
+On a mesh across processes (``parallel.procs``) a stack holds this
+process's run of the shards of the spanning axis: :func:`ppermute` shifts
+the run and trades the wrapping shards with the neighbouring processes,
+:func:`all_to_all` trades blocks in one ``all_to_all_single``,
+:func:`axis_size` counts every process's shards, and the shard branches
+take global indices through :func:`local_index` (a process without shard
+0 or the last shard has no branch to take).
+
 Every exchange passes its incoming top ghost (y) and left ghost (x)
 through :func:`_chaos_ghost`, the fault injection of ``robust.chaos``,
 where the JAX package's ``_chaos_ghost`` sits; the packed paths wrap the
@@ -35,7 +43,8 @@ import torch
 
 from mpi_and_open_mp_tpu_torch.obs import metrics
 from mpi_and_open_mp_tpu_torch.ops import bitlife
-from mpi_and_open_mp_tpu_torch.parallel.mesh import SHARD_DIM
+from mpi_and_open_mp_tpu_torch.parallel import procs
+from mpi_and_open_mp_tpu_torch.parallel.mesh import AXIS_SP, SHARD_DIM
 from mpi_and_open_mp_tpu_torch.robust import chaos
 
 
@@ -45,13 +54,34 @@ def ring_perm(p: int, shift: int = 1) -> list[tuple[int, int]]:
 
 
 def axis_size(x: torch.Tensor, axis_name: str) -> int:
-    """Shards along mesh axis ``axis_name`` of stacked shards ``x``."""
-    return x.shape[SHARD_DIM[axis_name]]
+    """Shards along mesh axis ``axis_name`` of stacked shards ``x``: every
+    process's, when the axis spans the processes."""
+    w = procs.span(axis_name)
+    return x.shape[SHARD_DIM[axis_name]] * (w.procs if w else 1)
+
+
+def first_shard(x: torch.Tensor, axis_name: str) -> int:
+    """The global index on ``axis_name`` of the first shard of ``x``: 0
+    unless the axis spans the processes."""
+    w = procs.span(axis_name)
+    return x.shape[SHARD_DIM[axis_name]] * w.rank if w else 0
+
+
+def local_index(x: torch.Tensor, axis_name: str, i: int) -> int | None:
+    """The index in ``x`` of global shard ``i`` on ``axis_name``, or None
+    when another process holds it."""
+    j = i - first_shard(x, axis_name)
+    return j if 0 <= j < x.shape[SHARD_DIM[axis_name]] else None
 
 
 def ppermute(x: torch.Tensor, axis_name: str, shift: int) -> torch.Tensor:
     """``lax.ppermute(x, axis_name, ring_perm(p, shift))`` on stacked
-    shards: shard ``i`` receives what shard ``i - shift`` holds."""
+    shards: shard ``i`` receives what shard ``i - shift`` holds. One
+    ``torch.roll``; on an axis across processes, the shift of this
+    process's run and a trade of the wrapping shards with its neighbours
+    (``parallel.procs.ring_shift``)."""
+    if procs.span(axis_name):
+        return procs.ring_shift(x, SHARD_DIM[axis_name], shift)
     return torch.roll(x, shift, SHARD_DIM[axis_name])
 
 
@@ -62,7 +92,11 @@ def all_to_all(x: torch.Tensor, split_axis: int,
     ``parallel/context.py``): shard ``i`` cuts its axis ``split_axis``
     into p blocks and sends block ``j`` to shard ``j``, which concatenates
     what it receives along ``concat_axis`` in the order of the senders.
-    Axes count within a shard, as in the JAX call. One permuted copy."""
+    Axes count within a shard, as in the JAX call. One permuted copy; on
+    an ``"sp"`` axis across processes, one ``all_to_all_single`` between
+    them (:class:`_AllToAll`, differentiable)."""
+    if procs.span(AXIS_SP):
+        return _AllToAll.apply(x, split_axis, concat_axis)
     p = x.shape[0]
     s, c = split_axis + 1, concat_axis + 1
     shape = list(x.shape)
@@ -75,6 +109,49 @@ def all_to_all(x: torch.Tensor, split_axis: int,
     y = y.movedim(s, 0).movedim(1, c)
     out = list(y.shape)
     return y.reshape(*out[:c], p * out[c + 1], *out[c + 2:])
+
+
+def _all_to_all_procs(x: torch.Tensor, split_axis: int,
+                      concat_axis: int) -> torch.Tensor:
+    """:func:`all_to_all` when this process holds ``n`` of the ``p = n *
+    P`` shards: block ``j`` of a shard goes to global shard ``j``, so the
+    blocks are grouped by the process that holds their receiver and
+    traded in one ``all_to_all_single``, then each receiver concatenates
+    its blocks in the order of the senders (processes, then shards)."""
+    n = x.shape[0]
+    P = procs.spanning().procs
+    p = n * P
+    s, c = split_axis + 1, concat_axis + 1
+    shape = list(x.shape)
+    if shape[s] % p:
+        raise ValueError(f"all_to_all: axis {split_axis} of size {shape[s]} "
+                         f"does not split over {p} shards")
+    y = x.reshape(*shape[:s], p, shape[s] // p, *shape[s + 1:])
+    # (sender, ..., receiver, block, ...) -> (receiver, sender, ...): the
+    # receivers of process r are the r-th run of n.
+    y = procs.all_to_all(y.movedim(s, 0).contiguous())
+    # (P senders' processes x n receivers, n senders, ...) -> (n
+    # receivers, P x n senders, ...), then as the one-process form.
+    y = y.reshape(P, n, n, *y.shape[2:]).transpose(0, 1)
+    y = y.reshape(n, p, *y.shape[3:]).movedim(1, c)
+    out = list(y.shape)
+    return y.reshape(*out[:c], p * out[c + 1], *out[c + 2:])
+
+
+class _AllToAll(torch.autograd.Function):
+    """The all-to-all across processes, whose backward is the all-to-all
+    back (split and concatenated axes swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis):
+        ctx.axes = (split_axis, concat_axis)
+        return _all_to_all_procs(x, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis = ctx.axes
+        return _all_to_all_procs(g.contiguous(), concat_axis,
+                                 split_axis), None, None
 
 
 def _chaos_ghost(ghost: torch.Tensor) -> torch.Tensor:
@@ -105,8 +182,9 @@ def _note_exchange(kind: str, axis_name: str, x: torch.Tensor,
 
 def _with_shard(x: torch.Tensor, axis_name: str, i: int,
                 value: torch.Tensor) -> torch.Tensor:
-    """``x`` with shard ``i`` of axis ``axis_name`` replaced by ``value``
-    (one shard thick along that axis)."""
+    """``x`` with its shard ``i`` (an index into ``x``, :func:`local_index`
+    of a global one) of axis ``axis_name`` replaced by ``value`` (one shard
+    thick along that axis)."""
     dim = SHARD_DIM[axis_name]
     p = x.shape[dim]
     parts = [x.narrow(dim, 0, i)] if i else []
@@ -169,21 +247,24 @@ def packed_halo_y(e: torch.Tensor, axis_name: str = "y", h: int = 4, *,
     if pad == 0:
         return halo_pad_y(e, axis_name, h)
     _note_exchange("packed_y", axis_name, e, h)
-    p = axis_size(e, axis_name)
     s = h + 1 + pad // 32
     up = _chaos_ghost(ppermute(e[..., -s:, :], axis_name, 1))
     dn = ppermute(e[..., :s, :], axis_name, -1)
-    top = _with_shard(
-        up[..., s - h:, :], axis_name, 0,
-        bitlife.take_rows(_shard_of(up, axis_name, 0),
-                          32 * s - pad - 32 * h, h))
-    last = p - 1
-    dn_last = _shard_of(dn, axis_name, last)
-    bot = _with_shard(dn[..., :h, :], axis_name, last,
-                      bitlife.take_rows(dn_last, pad, h))
-    e = _with_shard(e, axis_name, last,
-                    bitlife.mirror_tail(_shard_of(e, axis_name, last),
-                                        dn_last, pad))
+    # Shard 0 and the last shard, where this process holds them.
+    first = local_index(e, axis_name, 0)
+    last = local_index(e, axis_name, axis_size(e, axis_name) - 1)
+    top = up[..., s - h:, :]
+    if first is not None:
+        top = _with_shard(top, axis_name, first, bitlife.take_rows(
+            _shard_of(up, axis_name, first), 32 * s - pad - 32 * h, h))
+    bot = dn[..., :h, :]
+    if last is not None:
+        dn_last = _shard_of(dn, axis_name, last)
+        bot = _with_shard(bot, axis_name, last,
+                          bitlife.take_rows(dn_last, pad, h))
+        e = _with_shard(e, axis_name, last,
+                        bitlife.mirror_tail(_shard_of(e, axis_name, last),
+                                            dn_last, pad))
     return torch.cat([top, e, bot], dim=-2)
 
 
@@ -201,17 +282,20 @@ def packed_halo_x(block: torch.Tensor, axis_name: str = "x", hx: int = 128,
     if pad == 0:
         return halo_pad_x(block, axis_name, hx)
     _note_exchange("packed_x", axis_name, block, hx)
-    p = axis_size(block, axis_name)
     s = hx + pad
     left = _chaos_ghost(ppermute(block[..., -s:], axis_name, 1))
     right = ppermute(block[..., :s], axis_name, -1)
-    last = p - 1
-    right_last = _shard_of(right, axis_name, last)
-    lb = _with_shard(left[..., pad:], axis_name, 0,
-                     _shard_of(left, axis_name, 0)[..., :hx])
-    rb = _with_shard(right[..., :hx], axis_name, last,
-                     right_last[..., pad:pad + hx])
-    mirrored = torch.cat([_shard_of(block, axis_name, last)[..., :-pad],
-                          right_last[..., :pad]], dim=-1)
-    block = _with_shard(block, axis_name, last, mirrored)
+    first = local_index(block, axis_name, 0)
+    last = local_index(block, axis_name, axis_size(block, axis_name) - 1)
+    lb = left[..., pad:]
+    if first is not None:
+        lb = _with_shard(lb, axis_name, first,
+                         _shard_of(left, axis_name, first)[..., :hx])
+    rb = right[..., :hx]
+    if last is not None:
+        right_last = _shard_of(right, axis_name, last)
+        rb = _with_shard(rb, axis_name, last, right_last[..., pad:pad + hx])
+        mirrored = torch.cat([_shard_of(block, axis_name, last)[..., :-pad],
+                              right_last[..., :pad]], dim=-1)
+        block = _with_shard(block, axis_name, last, mirrored)
     return torch.cat([lb, block, rb], dim=-1)

@@ -37,7 +37,11 @@ Engine stamps, as the JAX package's:
   partitions are slices of it; a partitioned sub-round moves each edge
   pair through one launch of ``csrc/halo_edge_pair.cu``
   (:func:`_rdma_edge_pair`). Off the card the flag gives
-  ``overlap:deferred``, as the JAX package off a TPU;
+  ``overlap:deferred``, as the JAX package off a TPU (on a mesh across
+  processes too: the JAX package's two-process CPU run stamps
+  ``overlap:deferred`` under the flag). On the card a mesh across
+  processes refuses the flag (:func:`plan_halo` raises): its kernels take
+  every shard from one stack, and peer pointers are not ported;
 * ``...:pb{b}`` - suffix on either stamp when the boundary is partitioned
   at ``boundary_steps = b < fuse_steps``;
 * ``overlap:packed`` - the bit-packed twin
@@ -76,7 +80,7 @@ import torch
 
 from mpi_and_open_mp_tpu_torch.obs import metrics
 from mpi_and_open_mp_tpu_torch.ops import native_halo
-from mpi_and_open_mp_tpu_torch.parallel import halo
+from mpi_and_open_mp_tpu_torch.parallel import halo, procs
 from mpi_and_open_mp_tpu_torch.robust import chaos
 
 ENV_OVERLAP = "MOMP_HALO_OVERLAP"
@@ -206,6 +210,14 @@ def plan_halo(layout: str, mesh_axes: tuple[int, int],
     ``MOMP_HALO_RDMA`` mid-process gives a fresh plan. ``boundary_steps``
     (default: coupled, ``== fuse_steps``) must divide ``fuse_steps``."""
     bs = fuse_steps if boundary_steps is None else int(boundary_steps)
+    if (rdma_requested() and on_card(device)
+            and any(procs.span(a) for a in ("y", "x"))):
+        raise NotImplementedError(
+            f"{ENV_RDMA}=1 on a mesh across processes: the rung's kernels "
+            "read every shard's ghosts from one stack on one card, and peer "
+            "pointers between processes are not ported (ROADMAP Queue 1 "
+            f"item 3); unset {ENV_RDMA} for the deferred ring exchange, "
+            "which crosses the processes")
     return _plan(layout, tuple(mesh_axes), tuple(shard_shape),
                  int(radius), int(fuse_steps), bs, int(channels),
                  pack_layout, overlap_enabled(), rdma_requested(),

@@ -6,8 +6,20 @@ runs one program over a ``jax.sharding.Mesh`` of devices (1-D over axis
 sharded layout on 8 virtual CPU devices of one host. The port's
 :class:`Mesh` names the same axes and sizes, and every shard of it lives
 on ONE ``torch.device``: the virtual shards of the CPU in the tests, and
-virtual shards of one card on a GPU. A mesh that would span several CUDA
-devices raises (ROADMAP Queue 1 item 3 carries the multi-card meshes).
+virtual shards of one card on a GPU. A mesh of one process that would span
+several CUDA devices raises.
+
+A mesh made while ``torch.distributed`` runs more than one process
+(``parallel.procs.init``, the CLIs' ``--distributed``) spans the
+processes, as the JAX package's mesh spans the devices of every process
+of a ``jax.distributed`` run: its first axis (``y`` of a 2-D mesh or of a
+row mesh, ``x`` of a column mesh, ``sp``) is cut into ``procs`` contiguous
+runs, and process ``rank`` holds shards ``[first_shard, first_shard +
+local_sizes[0])`` of it, every other axis whole. :func:`local_part` cuts a
+full stack to this process's shards, :func:`gather` puts the full stack
+back together (a collective). The mesh registers its axes with
+``parallel.procs`` when it is made, so the exchanges of
+``parallel.halo`` know which axis crosses the processes.
 
 A sharded board is one stacked tensor ``(py, px, *C, hs, ws)``
 (:func:`shard`): shard ``(i, j)`` holds rows ``[i*hs, (i+1)*hs)`` and
@@ -30,6 +42,7 @@ import dataclasses
 
 import torch
 
+from mpi_and_open_mp_tpu_torch.parallel import procs as procs_lib
 from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
 
 AXIS_Y = "y"
@@ -41,11 +54,32 @@ SHARD_DIM = {AXIS_Y: 0, AXIS_X: 1, AXIS_SP: 0}
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """Named mesh axes and their sizes, every shard on ``device``."""
+    """Named mesh axes and their sizes, every shard of this process on
+    ``device``; ``procs`` processes hold contiguous runs of the first axis
+    (module docstring), this one run ``rank``."""
 
     axis_names: tuple[str, ...]
     axis_sizes: tuple[int, ...]
     device: torch.device
+    procs: int = 1
+    rank: int = 0
+
+    @property
+    def local_sizes(self) -> tuple[int, ...]:
+        """The axis sizes of this process's shards."""
+        return (self.axis_sizes[0] // self.procs, *self.axis_sizes[1:])
+
+    @property
+    def first_shard(self) -> int:
+        """This process's first shard on the first axis."""
+        return self.rank * self.local_sizes[0]
+
+    @property
+    def local_size(self) -> int:
+        n = 1
+        for s in self.local_sizes:
+            n *= s
+        return n
 
     @property
     def shape(self) -> dict[str, int]:
@@ -118,6 +152,13 @@ def device_count(device: str | torch.device = "cuda") -> int:
     return torch.cuda.device_count() if dev.type == "cuda" else 1
 
 
+def default_shards(device: str | torch.device = "cuda") -> int:
+    """A mesh's shards when the caller names none: one a process in a run
+    across processes (each holds one device), else :func:`device_count`."""
+    world = procs_lib.spanning()
+    return world.procs if world is not None else device_count(device)
+
+
 def _make(names: tuple[str, ...], sizes: tuple[int, ...],
           device: str | torch.device, virtual: bool) -> Mesh:
     dev = resolve_device(device)
@@ -126,38 +167,52 @@ def _make(names: tuple[str, ...], sizes: tuple[int, ...],
         if s < 1:
             raise ValueError(f"mesh axis sizes must be >= 1, got {sizes}")
         n *= s
+    world = procs_lib.spanning()
+    if world is not None:
+        if dev.type != world.device.type:
+            raise ValueError(f"a mesh on {dev} in a run whose processes "
+                             f"hold their shards on {world.device}")
+        if sizes[0] % world.procs:
+            raise ValueError(
+                f"mesh axis {names[0]!r} of {sizes[0]} shards does not "
+                f"split over {world.procs} processes")
+        procs_lib.register_axes(names)
+        return Mesh(names, sizes, world.device, world.procs, world.rank)
     count = device_count(dev)
     if not virtual and 1 < n <= count:
         raise NotImplementedError(
             f"a {n}-shard mesh over {count} CUDA devices would span several "
-            "cards; the port runs meshes of virtual shards on one device "
-            "(ask for more shards than devices, or virtual=True). Meshes "
-            "across cards are ROADMAP Queue 1 item 3")
+            "cards in one process; the port runs one process's meshes as "
+            "virtual shards of one device (ask for more shards than "
+            "devices, or virtual=True), and a mesh across cards as one "
+            "process a card (--distributed, parallel.procs; ROADMAP Queue 1 "
+            "item 3)")
     return Mesh(names, sizes, dev)
 
 
 def make_mesh_1d(n: int | None = None, axis: str = AXIS_Y,
                  device: str | torch.device = "cuda",
                  virtual: bool = False) -> Mesh:
-    """1-D mesh of ``n`` shards on axis ``axis`` (default: one per device
-    of ``device``'s type, as the JAX package defaults to all devices). More
+    """1-D mesh of ``n`` shards on axis ``axis`` (default:
+    :func:`default_shards`, as the JAX package defaults to all devices). More
     shards than devices, or ``virtual=True`` (the CLI's
     ``--virtual-devices``), put every shard on the one device."""
     if axis not in SHARD_DIM:
         raise ValueError(f"axis must be one of {tuple(SHARD_DIM)}, got "
                          f"{axis!r}")
     if n is None:
-        n = device_count(device)
+        n = default_shards(device)
     return _make((axis,), (int(n),), device, virtual)
 
 
 def make_mesh_2d(py: int | None = None, px: int | None = None,
                  device: str | torch.device = "cuda",
                  virtual: bool = False) -> Mesh:
-    """2-D ``("y", "x")`` mesh. With no sizes, factorises the device count
-    like ``MPI_Dims_create`` (``6-cartesian/life_cart.c:117-118``)."""
+    """2-D ``("y", "x")`` mesh. With no sizes, factorises
+    :func:`default_shards` like ``MPI_Dims_create``
+    (``6-cartesian/life_cart.c:117-118``)."""
     if py is None and px is None:
-        py, px = dims_create(device_count(device), 2)
+        py, px = dims_create(default_shards(device), 2)
     elif py is None or px is None:
         raise ValueError("pass both py and px, or neither")
     return _make((AXIS_Y, AXIS_X), (int(py), int(px)), device, virtual)
@@ -183,3 +238,32 @@ def unshard(stack: torch.Tensor) -> torch.Tensor:
     c = len(lead)
     order = (*range(2, 2 + c), 0, 2 + c, 1, 3 + c)
     return stack.permute(order).reshape(*lead, py * hs, px * ws)
+
+
+def _span_dim(mesh: Mesh) -> int:
+    return SHARD_DIM[mesh.axis_names[0]]
+
+
+def local_part(stack: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The shards of ``stack`` (the full stack of ``mesh``: :func:`shard`'s
+    for y and x, ``(p, ...)`` for sp) that this process holds: itself on a
+    mesh of one process."""
+    if mesh.procs == 1:
+        return stack
+    dim = _span_dim(mesh)
+    if stack.shape[dim] != mesh.axis_sizes[0]:
+        raise ValueError(
+            f"a stack of {stack.shape[dim]} shards on axis "
+            f"{mesh.axis_names[0]!r}, whose mesh has {mesh.axis_sizes[0]}; "
+            "a run across processes shards the mesh's first axis")
+    return stack.narrow(dim, mesh.first_shard,
+                        mesh.local_sizes[0]).contiguous()
+
+
+def gather(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Inverse of :func:`local_part`: the full stack, from every process's
+    shards (a collective: every process calls it); ``local`` itself on a
+    mesh of one process."""
+    if mesh.procs == 1:
+        return local
+    return procs_lib.all_gather(local, _span_dim(mesh))

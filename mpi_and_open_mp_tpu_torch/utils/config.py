@@ -12,8 +12,9 @@ parsed by ``life_init`` at ``3-life/life2d.c:52-72``)::
 
 ``i`` is the column (x) index and ``j`` the row (y) index of a periodic
 torus. Boards are ``(ny, nx)`` arrays indexed ``board[j, i]``. Counterpart
-of ``mpi_and_open_mp_tpu/utils/config.py`` (its pure-Python parser; the
-native C parser is not ported).
+of ``mpi_and_open_mp_tpu/utils/config.py``: :func:`load_config` takes the
+native C parser when ``native/liblifeio.so`` is built (``utils.native``),
+else :func:`load_config_py`.
 """
 
 from __future__ import annotations
@@ -50,7 +51,18 @@ class LifeConfig:
 
 
 def load_config(path: str | os.PathLike) -> LifeConfig:
-    """Parse a ``.cfg`` file (reference semantics: read pairs to EOF)."""
+    """Parse a ``.cfg`` file (native C parser when built, Python
+    otherwise)."""
+    from mpi_and_open_mp_tpu_torch.utils import native
+
+    if native.available():
+        return native.load_config(path)
+    return load_config_py(path)
+
+
+def load_config_py(path: str | os.PathLike) -> LifeConfig:
+    """Pure-Python ``.cfg`` parser (reference semantics: read pairs to
+    EOF)."""
     with open(path) as fd:
         tokens = fd.read().split()
     if len(tokens) < 4:

@@ -5,7 +5,9 @@ Format-compatible with the reference's ``life_save_vtk``
 writer (``mpi_and_open_mp_tpu/utils/vtk.py``): header with
 ``DIMENSIONS nx+1 ny+1 1``, ``CELL_DATA nx*ny``, scalar field ``life``, one
 cell value per line in ``ind = i + j*nx`` order. Files are named
-``life_%06d.vtk`` by step index.
+``life_%06d.vtk`` by step index. :func:`write_vtk` takes the native C
+writer when ``native/liblifeio.so`` is built (``utils.native``), else
+:func:`write_vtk_py`; both write the same bytes.
 """
 
 from __future__ import annotations
@@ -21,7 +23,19 @@ def vtk_path(outdir: str | os.PathLike, step: int) -> str:
 
 
 def write_vtk(path: str | os.PathLike, board: np.ndarray) -> None:
-    """Write one ``(ny, nx)`` board snapshot."""
+    """Write one ``(ny, nx)`` board snapshot (native C writer when built,
+    Python otherwise)."""
+    from mpi_and_open_mp_tpu_torch.utils import native
+
+    board = np.asarray(board, dtype=np.int32)
+    if native.available():
+        native.write_vtk(path, board)
+        return
+    write_vtk_py(path, board)
+
+
+def write_vtk_py(path: str | os.PathLike, board: np.ndarray) -> None:
+    """The pure-Python writer."""
     board = np.asarray(board, dtype=np.int32)
     ny, nx = board.shape
     lines = [

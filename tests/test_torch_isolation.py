@@ -23,7 +23,9 @@ def _port_sources():
                                           "sliced_times.py",
                                           "vmem_batch_times.py",
                                           "fused_times.py",
-                                          "rung_times.py")]
+                                          "rung_times.py",
+                                          "quad_times.py",
+                                          "tests/_torch_dist_worker.py")]
     for d, _, files in os.walk(PORT):
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -85,6 +87,15 @@ def test_import_pulls_in_no_jax():
         "from mpi_and_open_mp_tpu_torch.serve import router, fleet, loadgen\n"
         "assert telemetry.SnapshotShipper and router.FleetRouter\n"
         "assert fleet.Fleet and fleet.SPOOL_SCHEMA and loadgen.run_open_loop\n"
+        "from mpi_and_open_mp_tpu_torch.utils import native, config, vtk\n"
+        "from mpi_and_open_mp_tpu_torch import graft_entry\n"
+        "from mpi_and_open_mp_tpu_torch.parallel import procs\n"
+        "assert native.life_steps and config.load_config_py and vtk.write_vtk_py\n"
+        "assert graft_entry.entry and graft_entry.dryrun_multichip\n"
+        "assert procs.init and procs.ring_shift and procs.all_to_all\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import _torch_dist_worker\n"
+        "assert _torch_dist_worker.main\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'mpi_and_open_mp_tpu.')) or "
         "m == 'mpi_and_open_mp_tpu')\n"
@@ -399,3 +410,50 @@ def test_chip_smoke_refuses_without_cuda_and_alone(tmp_path):
                              timeout=120)
         assert res.returncode != 0, (cwd, res.stdout)
         assert '"ok"' not in res.stdout, cwd
+
+
+def _procs_init():
+    from mpi_and_open_mp_tpu_torch.parallel import procs
+
+    procs.init("localhost:1", 2, 0)
+
+
+def _worker():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import _torch_dist_worker
+
+    _torch_dist_worker.main(["0", "2", "localhost:1"])
+
+
+def _graft_entry():
+    from mpi_and_open_mp_tpu_torch import graft_entry
+
+    graft_entry.entry()
+
+
+def _graft_dryrun():
+    from mpi_and_open_mp_tpu_torch import graft_entry
+
+    graft_entry.main(["2"])
+
+
+def _life_cli_distributed():
+    from mpi_and_open_mp_tpu_torch.apps import life as life_app
+
+    life_app.main([GLIDER, "--layout", "row", "--distributed",
+                   "--coordinator", "localhost:1", "--num-processes", "2",
+                   "--process-id", "0"])
+
+
+@pytest.mark.parametrize("entry", [_procs_init, _worker, _graft_entry,
+                                   _graft_dryrun, _life_cli_distributed],
+                         ids=["procs-init", "dist-worker", "graft-entry",
+                              "graft-dryrun", "cli-life-distributed"])
+def test_distributed_and_graft_entry_points_raise_without_cuda(entry):
+    """A run across processes, the two-process worker and the graft entry
+    default to the card: without a card they raise before joining any
+    run or doing any work, and never move to the CPU unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; nothing to refuse")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()

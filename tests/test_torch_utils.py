@@ -49,13 +49,15 @@ def test_config_roundtrip(tmp_path):
 
 
 def test_load_config_errors(tmp_path):
+    """The Python parser's errors (``load_config`` takes the native parser
+    when it is built; its errors are ``test_torch_native.py``'s)."""
     bad = tmp_path / "bad.cfg"
     bad.write_text("10 1 5\n")
     with pytest.raises(ValueError, match="at least"):
-        tcfg.load_config(bad)
+        tcfg.load_config_py(bad)
     bad.write_text("10 1 5 5 1\n")
     with pytest.raises(ValueError, match="dangling"):
-        tcfg.load_config(bad)
+        tcfg.load_config_py(bad)
 
 
 def test_vtk_golden_file(tmp_path):
