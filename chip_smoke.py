@@ -483,7 +483,21 @@ Phases, each of which raises (exit code 1) when it fails:
    (the Life CLI's elapsed logged as taken beside the other pairs); then,
    once they are done, the integral and attention CLIs and ``pingpong
    --fit`` alone, one after the other, the staged transport's alpha and
-   1/beta. Before the last lines: every phase's seconds and the total.
+   1/beta;
+31. ``obs/profile.py`` and ``obs/ledger.py`` on the flagship, from phase
+   6's measurements, no timing of its own: ``peaks_for`` of the card's name
+   an H100 row (its label printed), ``cost(life_step_roll)`` at 500^2
+   uint8 its hand count (10 operations and 2 bytes a cell) and its
+   ``roofline`` at phase 6's differenced seconds a step on the headline
+   peaks and on the INT32 rate, beside row 1's bound;
+   ``record_memory_gauges()`` with the packed board live (live bytes at
+   least its bytes, the card's bytes in use above 0); a ledger entry of
+   p46gun_big's cups stamped ``gpu`` with the card's name, appended to
+   ``build/ledger/chip_smoke.jsonl``, loaded back equal and keyed. Every
+   bound the script prints comes from ``obs/profile.py``'s functions and
+   rates; phase 1 rolls a ``meta`` tensor on a thread beside ``nvcc``
+   (``MetaWarmup``), so phase 31's first trace finds torch's meta functions
+   loaded. Before the last lines: every phase's seconds and the total.
 
 Tolerances of phases 10-11 and 21 (``attention_err``). A float32 result (every
 result of float32 operands; ``L`` and the hop kernels' gradients of
@@ -525,39 +539,18 @@ import time
 import numpy as np
 import torch
 
+from mpi_and_open_mp_tpu_torch.obs.profile import (
+    FP32_ISSUE_PER_S, INT32_OPS_PER_S, N_SMS,
+    OPS_PER_SLICED_WORD_STEP, OPS_PER_WORD_STEP, POOL_TAIL_OPS_PER_WORD,
+    attention_bound_ms, bound_ms, lane_bound_ms, quadrature_bound_ms,
+    stencil_bound_ms, stencil_ops)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GUN_BIG = os.path.join(ROOT, "configs", "gun_big_500x500.cfg")
 
-# H100 SXM peaks at the full 700 W power limit. Integer rate: 132 SMs x 64
-# INT32 lanes x 1.98 GHz boost clock (the clock behind the data sheet's 67
-# TFLOP/s FP32 = 132 x 128 lanes x 2 x 1.98 GHz; Hopper issues INT32 at
-# half the FP32 lane count). HBM3 at 3.35 TB/s.
-N_SMS = 132
-INT32_OPS_PER_S = N_SMS * 64 * 1.98e9
-HBM_BYTES_PER_S = 3.35e12
-# The fewest sm_90 instructions known for one packed word (32 cells) per
-# step, counting each funnel shift (SHF) and each 3-input logic op (LOP3)
-# as one: 2 SHF for the word's y neighbours, 2 LOP3 for its column's
-# 3-cell sum (xor3, majority) and 2 for the sum without the centre (both
-# shared with the words to either side), 4 to add the left and right
-# column sums, 5 to add the centre column mod 8, 2 for (n0|c) & n1 & ~n2.
-OPS_PER_WORD_STEP = 17
-# The same count for a board-sliced word (32 boards at one cell): its eight
-# neighbours are whole words, so the 2 SHF drop out.
-OPS_PER_SLICED_WORD_STEP = 15
-# FP32 peak of the data sheet (an FMA counts 2), for the float stencils.
-FP32_FLOPS_PER_S = 67e12
-# Dense BF16 tensor-core peak of the data sheet, for attention's products.
-BF16_FLOPS_PER_S = 989.4e12
 # bfloat16 keeps 8 significant bits: two roundings of nearly equal values
 # differ by at most one spacing, 2^-7 of the magnitude.
 BF16_SPACING = 2.0 ** -7
-# Operations of each stencil rule per cell past the aggregate, counted from
-# csrc/stencil_padded.cu's device functions (compares and logic for the
-# integer rules; add, sub, mul, div, exp each 1 for the float ones; both
-# channels for gray_scott).
-# Indexed by the kernel's rule id: life, heat, gray_scott, wireworld, lenia.
-STENCIL_RULE_OPS = (5, 4, 19, 12, 10)
 STENCIL_RULE_NAMES = ("life", "heat", "gray_scott", "wireworld", "lenia")
 # Phase 8's NumPy oracle depth: board 0 of the wireworld and heat stacks
 # and LifeSim(workload="heat") (cut from 1000 for time; every board is
@@ -566,11 +559,6 @@ STENCIL_ORACLE_STEPS = 300
 # Phase 6's stack sizes for both batched kernels side by side, at 500^2 and
 # 95x130 (2, 4, 7, 16, 32, 128 and 256 cut for time).
 BATCH_SWEEP = (1, 8, 64, 512)
-# FP32 instruction issue rate: 132 SMs x 128 lanes x 1.98 GHz. A float
-# stencil's multiply and add may not fuse into an FMA (the plain version
-# rounds each), so each issues on its own: its issue bound counts each
-# operation as one instruction at this rate, half the data sheet's 67 TFLOP/s.
-FP32_ISSUE_PER_S = N_SMS * 128 * 1.98e9
 # The stencil kernel's times per launch before its redesign, as PERF.md's
 # kernel table records them (row 7: CUDA-event times at 64 x 500^2; row 6:
 # the device time of the Life rule on shards), printed in the log beside
@@ -620,8 +608,6 @@ QUAD_POINTS_PER_TRIP = 64
 # convergence barrier, moves, loop control) is the kernel's overhead, which
 # a bound must not count.
 QUAD_NEEDED_OPS = ("FADD", "FMUL", "FFMA", "FMNMX", "MUFU")
-# MUFU (special-function) issue rate: 132 SMs x 16 a clock x 1.98 GHz.
-MUFU_PER_S = N_SMS * 16 * 1.98e9
 
 
 # When each phase's closing line ("phase N ...") was logged.
@@ -673,46 +659,8 @@ def cuda_ms(fn, reps: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
 def diff_count(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a != b).sum())
-
-
-def stencil_ops(spec, rule: int, offsets, cells: int) -> int:
-    """Operations of one stencil step: the aggregate (an add per tap past
-    the first, a multiply per non-unit weight, per channel) plus the
-    rule's."""
-    taps = len(offsets)
-    per_cell = spec.channels * (taps - 1 + sum(w != 1 for _, _, w in offsets))
-    return cells * (per_cell + STENCIL_RULE_OPS[rule])
-
-
-def stencil_bound_ms(spec, rule: int, offsets, cells: int, in_bytes: int,
-                     out_bytes: int) -> tuple[float, str]:
-    """The least time for one stencil step: the padded input read once and
-    the interior written once over HBM, against :func:`stencil_ops` over
-    the peak of the cell type (FP32 or INT32)."""
-    ops = stencil_ops(spec, rule, offsets, cells)
-    rate = FP32_FLOPS_PER_S if spec.is_float else INT32_OPS_PER_S
-    t_ops = ops / rate * 1e3
-    t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def attention_bound_ms(products: int, h: int, n: int, d: int,
-                       nbytes: int) -> tuple[float, str]:
-    """The least time for ``products`` causal attention products of
-    ``h n^2 d / 2`` multiply-adds each (the bench's count: the forward's
-    two are ``2 h n^2 d`` FLOP) at the BF16 tensor-core peak, against
-    ``nbytes`` read and written once over HBM."""
-    t_ops = products * h * n * n * d / BF16_FLOPS_PER_S * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def nbytes(*xs) -> int:
@@ -1103,23 +1051,6 @@ def sass_fast_path(body: list[tuple[int, str]]) -> list[str]:
                     continue
         i += 1
     return path
-
-
-def quadrature_bound_ms(points: int, needed_per_point: float,
-                        mufu_per_point: float, nbytes: int
-                        ) -> tuple[float, str, dict]:
-    """The least time for ``points`` trapezoid points: the larger of their
-    MUFU instructions at 16 a clock an SM, the arithmetic instructions each
-    point needs (``QUAD_NEEDED_OPS``, counted on the interior loop's fast
-    path) at 128 lanes a clock an SM, and the chunk sums' bytes over
-    HBM."""
-    terms = {"mufu_ms": points * mufu_per_point / MUFU_PER_S * 1e3,
-             "issue_ms": points * needed_per_point / FP32_ISSUE_PER_S * 1e3,
-             "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3}
-    t_ops = max(terms["mufu_ms"], terms["issue_ms"])
-    if t_ops >= terms["bytes_ms"]:
-        return t_ops, "operations", terms
-    return terms["bytes_ms"], "bytes", terms
 
 
 def quadrature_pass_ms(fn, tries: int = 2) -> dict[str, float]:
@@ -2943,9 +2874,6 @@ POOL_TRACE_STEPS, POOL_TIME_STEPS = (4, 100), (4, 1000)
 # slabs of 1 000 000 bytes: 67 slabs of 32 sessions from 64 distinct
 # boards; rounds of one step_group over every session.
 POOL_BUDGET_ROUNDS, POOL_BUDGET_STEPS, POOL_BUDGET_BOARDS = 3, 100, 64
-# Operations a word that the tail mode adds to its launch: one 3-input
-# LOP3 for the masked merge, an XOR and an OR for the change word.
-POOL_TAIL_OPS_PER_WORD = 3
 # Phase 26's kernels, as main names their wrappers (pool_step's launches
 # are row 5's kernel's, counted in both).
 POOL_KERNELS = ("bitsliced", "pool_step", "pool_lane_write",
@@ -2957,13 +2885,10 @@ POOL_LANE_SHAPES = ((500, 500), (48, 48), (9, 14), (17, 33))
 # snapshots, no wait between (a slot rewritten before its kernel read it
 # would show).
 POOL_BACK_TO_BACK = 64
-# The lane ops' bound: the board crossing PCIe, 1 B a cell, at the larger
-# of PCIe 5.0 x16's nominal rate a direction and a 64 MiB page-locked
-# copy's measured rate that way; against the plane's HBM bytes a cell
-# (the write reads and writes a word, the read reads one).
-PCIE5_X16_BYTES_PER_S = 63e9
+# The lane ops' bound (``lane_bound_ms``) takes the link at the larger of
+# PCIe 5.0 x16's nominal rate a direction and the measured rate of a
+# page-locked copy of this many bytes that way.
 LINK_COPY_BYTES = 64 << 20
-POOL_LANE_HBM_BYTES = {"pool_lane_write": 8, "pool_lane_read": 4}
 # Calls a lane op's host-clock time averages over.
 POOL_LANE_HOST_CALLS = 200
 
@@ -3071,17 +2996,6 @@ def pinned_bytes() -> dict[str, int] | None:
     got = stats()
     return {k: int(got[k]) for k in ("allocated_bytes.current",
                                      "active_bytes.current")}
-
-
-def lane_bound_ms(name: str, cells: int,
-                  rates: dict[str, float]) -> tuple[float, str]:
-    """A lane op's least time: its board, 1 B a cell, over the link at the
-    larger of the nominal and the measured rate that way, against its
-    plane's HBM bytes; returns the time and which term bounds it."""
-    way = "h2d" if name == "pool_lane_write" else "d2h"
-    t_link = cells / max(PCIE5_X16_BYTES_PER_S, rates[way]) * 1e3
-    t_hbm = POOL_LANE_HBM_BYTES[name] * cells / HBM_BYTES_PER_S * 1e3
-    return (t_link, "link") if t_link >= t_hbm else (t_hbm, "hbm")
 
 
 def host_clock_ms(fn, calls: int) -> float:
@@ -4804,6 +4718,119 @@ def phase_processes(card: str, wrappers: dict) -> dict:
     return rec
 
 
+class MetaWarmup:
+    """A roll of a ``meta`` tensor on a thread, begun while phase 1 waits on
+    ``nvcc``: torch's Python meta functions import ``torch._dynamo``, its
+    symbolic shapes and sympy on their first call, and where torch's
+    bytecode is not cached those modules compile from source for seconds,
+    which phase 31's ``cost`` would otherwise pay. The main thread runs no
+    torch op and imports nothing while it runs; :meth:`join` logs its
+    seconds and raises what it raised."""
+
+    def __init__(self):
+        import threading
+
+        self.error, self.seconds = None, None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        t0 = time.perf_counter()
+        try:
+            torch.roll(torch.empty((2, 2), device="meta"), 1, 0)
+        except BaseException as e:  # re-raised by join()
+            self.error = e
+        self.seconds = time.perf_counter() - t0
+
+    def join(self):
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        log(f"  meta warm-up beside the build: {self.seconds:.2f} s")
+
+
+# Phase 31: p46gun_big's steady rate in the run ledger, under the JAX
+# bench's metric name, written under build/ and read back.
+PROFILE_LEDGER = os.path.join(ROOT, "build", "ledger", "chip_smoke.jsonl")
+PROFILE_METRIC = "life_steady_cups_p46gun_big"
+
+
+def phase_profile(card: str, gun_packed: torch.Tensor, ny: int, nx: int,
+                  steps: int, us_step: float, row_bound_ms: float) -> dict:
+    """``obs.profile`` and ``obs.ledger`` on the flagship, from phase 6's
+    measurements (no timing of its own): the card's peak row, the plain
+    step's work and its roofline at phase 6's differenced seconds a step,
+    the memory gauges with the packed board live, and a ledger entry of
+    its cups written, read back and keyed."""
+    from mpi_and_open_mp_tpu_torch.obs import ledger, metrics, profile
+    from mpi_and_open_mp_tpu_torch.ops import life_ops
+
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    peak_flops, peak_bw, label = profile.peaks_for(kind)
+    if not label.startswith("h100"):
+        raise AssertionError(f"peaks_for({kind!r}) gave {label}, no H100 row")
+    log(f"  peaks_for({kind!r}): {label}, {peak_flops:.4g} FLOP/s, "
+        f"{peak_bw:.4g} B/s (data sheet) [{card}]")
+
+    board = torch.empty((ny, nx), dtype=torch.uint8, device="meta")
+    work = profile.cost(life_ops.life_step_roll, board)
+    if (work["flops"], work["bytes"]) != (10 * ny * nx, 2 * ny * nx):
+        raise AssertionError(f"cost(life_step_roll) at {ny}x{nx}: {work}")
+    seconds = us_step * 1e-6
+    headline = profile.roofline(work["flops"], work["bytes"], seconds, kind)
+    int32 = profile.roofline(work["flops"], work["bytes"], seconds, kind,
+                             peak_flops=INT32_OPS_PER_S)
+    log(f"  cost(life_step_roll, {ny}x{nx} uint8): {work['flops']:.0f} ops, "
+        f"{work['bytes']:.0f} B ({work['compile_seconds']} s meta trace); "
+        f"roofline at {us_step:.4f} us/step: headline peaks "
+        f"{headline['roofline_pct']} % ({headline['bound']}; flops "
+        f"{headline['flops_pct']} %, bw {headline['bw_pct']} %), INT32 "
+        f"{int32['roofline_pct']} % ({int32['bound']}; flops "
+        f"{int32['flops_pct']} %, bw {int32['bw_pct']} %); row 1's bound "
+        f"{row_bound_ms:.4f} ms a {steps}-step call = "
+        f"{row_bound_ms / steps * 1e3:.6f} us/step on the packed kernel's "
+        f"{OPS_PER_WORD_STEP} INT32 instructions a 32-cell word [{card}]")
+
+    live = profile.record_memory_gauges()
+    gauges = metrics.snapshot()["gauges"]
+    in_use = gauges["memory.device_bytes_in_use{device=0}"]
+    watermark = gauges["memory.live_buffer_watermark_bytes"]
+    packed = gun_packed.numel() * gun_packed.element_size()
+    if not (live >= packed and in_use > 0 and watermark >= live):
+        raise AssertionError(f"memory gauges: live {live}, watermark "
+                             f"{watermark}, in use {in_use}, packed {packed}")
+    log(f"  record_memory_gauges(): live {live} B (the packed board "
+        f"{packed} B), watermark {watermark} B, device 0 in use {in_use} B")
+
+    cups = ny * nx / seconds
+    record = {"metric": PROFILE_METRIC, "value": cups,
+              "unit": "cell_updates_per_sec", "board": [ny, nx],
+              "steps": steps, "dtype": "uint8", "backend": "gpu",
+              "impl": "vmem", "device_kind": kind, "roofline": int32}
+    entry = ledger.stamp(record, source="chip_smoke.py", platform="gpu",
+                         device_kind=kind,
+                         device_count=torch.cuda.device_count())
+    if os.path.exists(PROFILE_LEDGER):
+        os.remove(PROFILE_LEDGER)
+    ledger.append(entry, PROFILE_LEDGER)
+    loaded = ledger.load(PROFILE_LEDGER)
+    if loaded != [json.loads(json.dumps(entry))]:
+        raise AssertionError(f"ledger read back {loaded}, wrote {entry}")
+    key = ledger.config_key(loaded[0])
+    found = ledger.query(loaded, metric=PROFILE_METRIC, shape=f"{ny}x{nx}",
+                         topology=f"gpu:{torch.cuda.device_count()}")
+    if len(found) != 1:
+        raise AssertionError(f"ledger query found {len(found)} of 1: {key}")
+    log(f"  ledger: {PROFILE_METRIC} {cups:.6g} cups, {key}, "
+        f"git {loaded[0]['git_sha']}, read back from "
+        f"{os.path.relpath(PROFILE_LEDGER, ROOT)}")
+    log(f"phase 31 profile and ledger: ok ({time.perf_counter() - t0:.2f} s)")
+    return {"peaks": label, "cost": work, "roofline_headline": headline,
+            "roofline_int32": int32, "live_bytes": live,
+            "device_bytes_in_use": in_use, "ledger_key": key, "cups": cups}
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by name: each adds one to its
     ``launches`` where it launches its kernel."""
@@ -4968,7 +4995,9 @@ def main() -> int:
     make = subprocess.Popen(["make", "-B", "-C", os.path.join(ROOT, "native")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
+    warm = MetaWarmup()
     logs = _build.build(force=True)
+    warm.join()
     make_out = make.communicate(timeout=300)[0]
     if make.returncode != 0:
         raise AssertionError(f"make -C native failed:\n{make_out}")
@@ -7601,6 +7630,9 @@ def main() -> int:
     graft_rec = phase_graft_entry(card, wrappers)
     # ------------------------------------- 30. across two processes (gloo)
     dist_rec = phase_processes(card, wrappers)
+    # ------------------- 31. obs.profile and obs.ledger on the flagship
+    profile_rec = phase_profile(card, gun_packed, ny, nx, n_main,
+                                vmem_us_step, vmem_bound)
 
     kernels = [
         {"name": "bitlife_vmem", "route": "cuda",
@@ -8001,6 +8033,7 @@ def main() -> int:
     log(f"serve: {json.dumps(serve_rec['runs'])}")
     log(f"pool: {json.dumps(pool_rec['runs'])}")
     log(f"fleet: {json.dumps(fleet_rec['runs'])}")
+    log(f"profile: {json.dumps(profile_rec)}")
     total = time.perf_counter() - t_start
     log(f"total {total:.1f} s")
     print(json.dumps({"phase_seconds": phase_seconds(t_start),

@@ -1,5 +1,5 @@
-"""Observability: span tracing, a metrics registry, trace reporting and
-the fleet's telemetry plane.
+"""Observability: span tracing, a metrics registry, trace reporting, the
+fleet's telemetry plane, the run ledger and work models.
 
 Counterpart of ``mpi_and_open_mp_tpu/obs``, standard library and torch
 only, and free when off:
@@ -27,14 +27,22 @@ only, and free when off:
     CRC-framed sidecar stream a worker process ships (byte-compatible with
     the JAX package's).
 
-The JAX package's other two modules wait for their callers: ``profile``
-(compiled cost analysis against per-device peaks) and ``ledger`` (the
-cross-run JSONL ledger) come with the port's bench entry, their only
-callers being ``bench.py`` and ``analysis/regression_sentinel.py``
-(ROADMAP Queue 1 item 4).
+``ledger``
+    The cross-run JSONL ledger, byte-compatible with the JAX package's:
+    every bench line stamped with git SHA, platform, device kind and a
+    configuration key, the store ``analysis/regression_sentinel.py``
+    judges a new run against. Standard library only.
+``profile``
+    Work models and rooflines in the card's terms: ``cost`` counts a plain
+    PyTorch function's operations and bytes on ``meta`` tensors,
+    ``roofline`` places a measured time against the H100's data-sheet
+    peaks (the JAX package's table beside them), ``record_memory_gauges``
+    gauges live and in-use bytes; and the card's issue rates and the
+    bound functions ``chip_smoke.py`` holds each kernel to.
 """
 
 from mpi_and_open_mp_tpu_torch.obs import (  # noqa: F401
+    ledger,
     metrics,
     report,
     telemetry,

@@ -32,7 +32,9 @@ N, REPS = 10**12, 3
 
 def _helpers():
     """``chip_smoke.py``'s timing helpers, from this script's checkout (a
-    compared checkout's own ``chip_smoke.py`` may differ)."""
+    compared checkout's own ``chip_smoke.py`` may differ). Call it after the
+    checkout under test is first on ``sys.path``: the helpers import the
+    card's rates and bounds from its ``obs/profile.py``."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -47,9 +49,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("quad_times: no CUDA device", file=sys.stderr)
         return 2
-    helpers = _helpers()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    helpers = _helpers()
     from mpi_and_open_mp_tpu_torch.ops import _build
     from mpi_and_open_mp_tpu_torch.ops import native_quadrature as nq
 

@@ -61,7 +61,9 @@ SWEEP_STEPS = 2000
 
 def _helpers():
     """``chip_smoke.py``'s timing helpers, from this script's checkout (a
-    compared checkout's own ``chip_smoke.py`` may differ)."""
+    compared checkout's own ``chip_smoke.py`` may differ). Call it after the
+    checkout under test is first on ``sys.path``: the helpers import the
+    card's rates and bounds from its ``obs/profile.py``."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_helpers", os.path.join(HERE, "chip_smoke.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -88,9 +90,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("sliced_times: no CUDA device", file=sys.stderr)
         return 2
-    cs = _helpers()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    cs = _helpers()
     from mpi_and_open_mp_tpu_torch import load_config
     from mpi_and_open_mp_tpu_torch.ops import _build
     from mpi_and_open_mp_tpu_torch.ops import bitlife as tb
