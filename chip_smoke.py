@@ -6,7 +6,8 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 Phases, each of which raises (exit code 1) when it fails:
 
-1. build the twelve sources (fourteen kernels, one with a tail mode) of
+1. build the thirteen sources (fourteen kernels, one with a tail mode, and
+   ``peer_window.cu``'s host calls, the RDMA rung's CUDA IPC) of
    ``mpi_and_open_mp_tpu_torch/csrc`` with nvcc, in parallel, each one's
    build seconds logged; for each kernel of ``flash_fwd`` and
    ``flash_hop_bwd`` its registers and spills (``-Xptxas -v``), and its
@@ -471,19 +472,32 @@ Phases, each of which raises (exit code 1) when it fails:
    and quadrature kernels launched);
 30. the port across two processes on the one card, every rank with a time
    limit and rc 0 required (staged gloo, ``parallel/procs.py``): the
-   worker ``tests/_torch_dist_worker.py --device cuda`` (its results equal
-   to the one-process run of the same meshes on the card), the Life CLI on
-   p46gun_big (a snapshot every 1 000 steps, ``--fuse-steps 20``) in row 2
-   and cart 2x2 ``native`` (population 7288, the step-9 000 snapshot the
+   worker ``tests/_torch_dist_worker.py --device cuda`` under
+   ``MOMP_HALO_RDMA=1`` (its results equal to the one-process run of the
+   same meshes on the card; its rung drill's ``halo_frame`` of each rank's
+   run of a cart 2x2 stack, uint8 and float32 at depth 1 and 2, read
+   through the neighbour's window, gathered and equal bit for bit to
+   ``halo_frame`` and ``halo_frame_plain`` on the global stack here, heat
+   through ``run_sharded`` at ``fuse_steps=2, boundary_steps=1``
+   (``overlap:rdma:pb1``, ``halo_edge_pair`` launched) equal to the
+   one-process run, no ``procs.exchange`` call in either), the Life CLI on
+   p46gun_big (a snapshot every 1 000 steps) in row 2 and cart 2x2
+   ``native`` through the staged exchange (``--fuse-steps 20``) and on the
+   RDMA rung (``MOMP_HALO_RDMA=1``, ``--fuse-steps 1``: 10 000 rounds,
+   ``overlap:rdma``, ``halo_frame`` launched, no ``procs.exchange`` call,
+   a handshake a round) (population 7288, the step-9 000 snapshot the
    one-process board), the
    integral CLI at 3 567 587 328 on 8 shards (the one-process value to the
    bit, each rank's 2 launches a compute) and the attention CLI's ring
    grad step, each rank of a CLI under ``--cli-child`` (its launch counts
-   on stderr); the worker, the two Life runs and ``hello`` side by side
-   (the Life CLI's elapsed logged as taken beside the other pairs); then,
-   once they are done, the integral and attention CLIs and ``pingpong
-   --fit`` alone, one after the other, the staged transport's alpha and
-   1/beta;
+   and its calls between processes on stderr); the worker, the four Life
+   runs and ``hello`` side by side (the Life CLI's elapsed logged as taken
+   beside the other pairs); then, once they are done, alone, one after the
+   other: the rung's times (``rung-times``: a handshake and a frame round
+   on the host clock, the frame kernel through the window by profiler,
+   beside the one-process frame at the same block measured here), the
+   integral and attention CLIs and ``pingpong --fit``, the staged
+   transport's alpha and 1/beta;
 31. ``obs/profile.py`` and ``obs/ledger.py`` on the flagship, from phase
    6's measurements, no timing of its own: ``peaks_for`` of the card's name
    an H100 row (its label printed), ``cost(life_step_roll)`` at 500^2
@@ -631,6 +645,28 @@ def phase_seconds(t_start: float) -> dict[str, float]:
     return out
 
 
+CHILDREN: list[subprocess.Popen] = []
+
+
+def spawn(argv: list[str], **kw) -> subprocess.Popen:
+    """``subprocess.Popen(argv, **kw)`` leading a session of its own,
+    recorded so that :func:`stop_children` ends it, and whatever it
+    started, however the script ends."""
+    proc = subprocess.Popen(argv, start_new_session=True, **kw)
+    CHILDREN.append(proc)
+    return proc
+
+
+def stop_children() -> None:
+    """Kill the process group of every child :func:`spawn` started (a
+    failed phase can leave one running: phase 28's child, a rank of
+    phase 30) and reap the children."""
+    for proc in CHILDREN:
+        with contextlib.suppress(ProcessLookupError, PermissionError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -698,26 +734,38 @@ def attention_err(got, want, tol, what, extra=0.0) -> tuple[float, float]:
 
 
 def device_ms(fn, reps: int, kernel_name: str | None = None,
-              tries: int = 3) -> float:
+              tries: int = 6) -> float:
     """Device milliseconds per call of ``fn()`` from ``torch.profiler``
     traces of ``reps`` calls, without the host's launch gaps that CUDA
     events around fast kernels take in. The tracer on the card's machine
-    can lose kernel records (from a few to nearly all of a trace's), so
-    for ``kernel_name`` (a kernel that each call launches once) this is
-    the mean duration of the records kept, pooled over traces until at
-    least half of one trace's ``reps`` are kept or ``tries`` traces are
-    taken (each shortfall logged; raises when none is kept). With no
+    can lose kernel records (from a few to nearly all of a trace's, and
+    all of three short traces in a row once), so each trace first runs a
+    discarded warm-up step (``reps`` calls, then 10 ms, as in
+    :func:`device_span_ms`), and for ``kernel_name`` (a kernel that each
+    call launches once) this is the mean duration of the records kept,
+    pooled over traces until at least half of one trace's ``reps`` are
+    kept or ``tries`` traces are taken (each shortfall logged). With no
     name it is the total device time of one trace over ``reps``, which
-    reads low by whatever the tracer lost."""
-    from torch.profiler import ProfilerActivity, profile
+    reads low by whatever the tracer lost. When every trace kept none,
+    the time is :func:`cuda_ms` of ``reps`` calls, logged as such: it
+    includes the launch gaps."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     kept = []
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(0.01)
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
         us = [ev.time_range.elapsed_us() for ev in prof.events()
               if ev.device_type == torch.autograd.DeviceType.CUDA
               and (kernel_name is None or kernel_name in ev.name)]
@@ -733,9 +781,11 @@ def device_ms(fn, reps: int, kernel_name: str | None = None,
                 return sum(kept) / len(kept) / 1e3
     if kept:
         return sum(kept) / len(kept) / 1e3
-    raise RuntimeError(f"the profiler kept no device kernel "
-                       f"{kernel_name or ''} in {tries} traces of {reps} "
-                       "calls")
+    log(f"  device_ms: the profiler kept no device kernel "
+        f"{kernel_name or ''} in {tries} traces of {reps} calls; CUDA "
+        "events instead (launch gaps included)")
+    fn()
+    return cuda_ms(fn, reps)
 
 
 def device_span_ms(fn, reps: int, kernel_name: str, launches: int,
@@ -749,7 +799,9 @@ def device_span_ms(fn, reps: int, kernel_name: str, launches: int,
     discarded warm-up step (``reps`` calls, then 10 ms: the card's tracer
     loses a trace's first records, a whole short trace three times in a
     row once); a trace that kept none is taken again, up to ``tries``
-    traces. Returns the time and the records kept."""
+    traces, and when all kept none the time is :func:`cuda_ms` of
+    ``reps`` calls (launch gaps included), logged. Returns the time and
+    the records kept."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(1, tries + 1):
@@ -775,9 +827,10 @@ def device_span_ms(fn, reps: int, kernel_name: str, launches: int,
         log(f"  device_span_ms: trace {attempt} kept no {kernel_name} "
             "record")
     else:
-        raise RuntimeError(f"the profiler kept no device kernel "
-                           f"{kernel_name} in {tries} traces of {reps} "
-                           "calls")
+        log(f"  device_span_ms: the profiler kept no device kernel "
+            f"{kernel_name} in {tries} traces of {reps} calls; CUDA events "
+            "instead (launch gaps included)")
+        return cuda_ms(fn, reps), 0
     total, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
         if a > hi:
@@ -3579,7 +3632,7 @@ def phase_pool(card: str, wrappers: dict, gun_board: np.ndarray) -> dict:
         walp = os.path.join(POOL_ROOT, f"{mode}.wal")
         ackp = os.path.join(POOL_ROOT, f"{mode}.acked")
         children[mode] = (spec, walp, ackp, time.perf_counter(),
-                          subprocess.Popen(
+                          spawn(
             [sys.executable, os.path.join(ROOT, "tests",
                                           "_torch_wal_crash_driver.py"),
              walp, "every-record", ackp, "4", mode, POOL_DEV.type],
@@ -3861,11 +3914,10 @@ def phase_fleet(card: str, wrappers: dict) -> dict:
                                            "cli_" + label.split("=")[0])
         # The parents' output to files: nothing reads a pipe meanwhile.
         with open(d + ".out", "wb") as out, open(d + ".err", "wb") as err:
-            procs[label] = (time.perf_counter(), subprocess.Popen(
+            procs[label] = (time.perf_counter(), spawn(
                 [sys.executable, "-m",
                  "mpi_and_open_mp_tpu_torch.serve.fleet", *FLEET_CLI,
-                 "--dir", d], cwd=ROOT, env=env, stdout=out, stderr=err,
-                start_new_session=True))
+                 "--dir", d], cwd=ROOT, env=env, stdout=out, stderr=err))
 
     def cli_stop():
         """A failed drill stops the CLI runs too: each parent leads its own
@@ -4347,7 +4399,7 @@ def start_native_io() -> tuple:
     os.makedirs(VTK_DIR, exist_ok=True)
     out = os.path.join(VTK_DIR, "record.json")
     with open(out + ".log", "wb") as log_fd:
-        proc = subprocess.Popen(
+        proc = spawn(
             [sys.executable, os.path.abspath(__file__), "--native-io", out],
             cwd=ROOT, stdout=log_fd, stderr=subprocess.STDOUT)
     return proc, out, (time.perf_counter(), time.time())
@@ -4449,6 +4501,20 @@ DIST_LIFE = {"row native": ["--layout", "row", "--impl", "native",
 DIST_ATTENTION = ["--variant", "ring", "--devices", "2", "--seq", "4096",
                   "--heads", "8", "--head-dim", "128", "--causal", "--grad"]
 DIST_ROOT = os.path.join(ROOT, "build", "dist_phase30")
+# The RDMA rung across the processes (MOMP_HALO_RDMA=1, RUNG_ENV): the
+# same two Life runs at --fuse-steps 1, one halo_frame round a step
+# reading the other rank's shards through its window (10 000 rounds, each
+# a race that a missing wait would lose; the worker runs under the flag
+# too); then, alone after the other pairs, the rung's times at cart 2x2's
+# run of p46gun_big (RUNG_TIME_BLOCK, depth 1): RUNG_TIME_REPS handshakes
+# and frame rounds on the host clock, and the frame kernel's device time
+# by profiler over RUNG_TIME_KERNELS launches, rank 0 alone.
+RUNG_ENV = {"MOMP_HALO_RDMA": "1"}
+DIST_RUNG = {"row rung": DIST_LIFE["row native"],
+             "cart rung": DIST_LIFE["cart native"]}
+RUNG_TIME_BLOCK = (1, 2, 250, 250)
+RUNG_TIME_REPS, RUNG_TIME_KERNELS = 2000, 50
+CHILD_RUNG = "CHILD_RUNG "
 
 
 def free_port() -> int:
@@ -4459,18 +4525,19 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def start_ranks(label: str, argv_of) -> dict:
+def start_ranks(label: str, argv_of, env: dict | None = None) -> dict:
     """``DIST_PROCS`` processes, ``argv_of(rank)`` each (after the
-    interpreter), their output to files under ``DIST_ROOT``; each leads
-    its own session."""
+    interpreter), with ``env`` over this process's environment, their
+    output to files under ``DIST_ROOT``; each leads its own session."""
     procs_ = []
+    full_env = {**os.environ, **(env or {})}
     for r in range(DIST_PROCS):
         base = os.path.join(DIST_ROOT, f"{label.replace(' ', '_')}.{r}")
         with open(base + ".out", "wb") as out, \
                 open(base + ".err", "wb") as err:
-            procs_.append((base, subprocess.Popen(
+            procs_.append((base, spawn(
                 [sys.executable, *argv_of(r)], cwd=ROOT, stdout=out,
-                stderr=err, start_new_session=True)))
+                stderr=err, env=full_env)))
     return {"label": label, "t0": time.perf_counter(), "procs": procs_}
 
 
@@ -4509,17 +4576,97 @@ def transport_line(err: str) -> dict:
     raise AssertionError(f"no transport line: {err[-1500:]}")
 
 
+def child_procs(err: str) -> dict:
+    """The calls between processes a ``--cli-child`` CLI printed."""
+    for line in err.splitlines():
+        if line.startswith(CHILD_PROCS):
+            return json.loads(line[len(CHILD_PROCS):])
+    raise AssertionError(f"no process calls in a child's stderr: "
+                         f"{err[-2000:]}")
+
+
+def rung_times_child(argv: list[str]) -> int:
+    """``rung-times`` in a ``--cli-child`` chain: one rank of phase 30's
+    timing of the RDMA rung (``RUNG_TIME_*``), joined at the chain's
+    ``--distributed`` flags. Each rank holds its
+    run of p46gun_big on cart 2x2; both time ``RUNG_TIME_REPS``
+    handshakes, then as many ``halo_frame`` rounds (copy into the window,
+    publish, launch; synced), on the host clock; then rank 0 alone, rank 1
+    waiting at a barrier, the frame kernel's device time by profiler on
+    the run's table (no publish: the slots hold the last round). Rank 0
+    prints the figures as one ``CHILD_RUNG`` JSON line on stderr."""
+    import argparse
+
+    from mpi_and_open_mp_tpu_torch.ops import native_halo as nh
+    from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
+    from mpi_and_open_mp_tpu_torch.parallel import procs
+    from mpi_and_open_mp_tpu_torch.utils.config import load_config
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--distributed", action="store_true")
+    ap.add_argument("--coordinator")
+    ap.add_argument("--num-processes", type=int)
+    ap.add_argument("--process-id", type=int)
+    a = ap.parse_args(argv)
+    w = procs.init(a.coordinator, a.num_processes, a.process_id, "cuda")
+    mesh = pm.make_mesh_2d(w.procs, 2, device="cuda")
+    board = torch.from_numpy(load_config(GUN_BIG).board()).cuda()
+    block = pm.local_part(pm.shard(board, *mesh.axis_sizes), mesh)
+    if tuple(block.shape) != RUNG_TIME_BLOCK:
+        raise AssertionError(f"rung-times: a run of {tuple(block.shape)}")
+    rec = {}
+
+    def host_us(fn):
+        procs.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RUNG_TIME_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / RUNG_TIME_REPS * 1e6
+
+    rec["handshake_us"] = host_us(lambda: procs.handshake())
+    nh.halo_frame(block, 1, "cart")
+    rec["round_us"] = host_us(lambda: nh.halo_frame(block, 1, "cart"))
+    launch = next(v for v in nh._FRAME_LAUNCHES.values()
+                  if isinstance(v, nh._RunFrameLaunch))
+    procs.barrier()
+    torch.cuda.synchronize()
+    if w.rank == 0:
+        out = torch.empty(launch.shape, dtype=launch.dtype, device="cuda")
+        src = launch.window.ptrs[launch.window.rank]
+        stream = torch.cuda.current_stream().cuda_stream
+        rec["ipc_frame_ms"] = device_ms(
+            lambda: launch.fn(src, out.data_ptr(), *launch.args, stream),
+            RUNG_TIME_KERNELS, "halo_frame_kernel")
+    procs.barrier()
+    if w.rank == 0:
+        print(CHILD_RUNG + json.dumps(rec), file=sys.stderr, flush=True)
+    procs.shutdown()
+    return 0
+
+
+def child_rung(err: str) -> dict:
+    for line in err.splitlines():
+        if line.startswith(CHILD_RUNG):
+            return json.loads(line[len(CHILD_RUNG):])
+    raise AssertionError(f"no rung times in a child's stderr: {err[-2000:]}")
+
+
 def phase_processes(card: str, wrappers: dict) -> dict:
     """Phase 30 (module docstring): the port across two processes on the
-    one card. Four pairs of ranks start together: the worker, the Life CLI
-    on row and on cart, and one pair that runs hello, then waits until the
-    other pairs are done and runs the integral, attention and pingpong
-    CLIs in turn, so that their elapsed, grad step and probe figures time
-    only their own work."""
+    one card. Six pairs of ranks start together: the worker, the Life CLI
+    on row and on cart through the staged exchange and on the RDMA rung,
+    and one pair that runs hello, then waits until the other pairs are
+    done and runs the rung's times and the integral, attention and
+    pingpong CLIs in turn, so that their times, elapsed, grad step and
+    probe figures time only their own work."""
     import shutil
 
     from mpi_and_open_mp_tpu_torch.models.integral import Integral
     from mpi_and_open_mp_tpu_torch.models.life import LifeSim
+    from mpi_and_open_mp_tpu_torch import stencils
+    from mpi_and_open_mp_tpu_torch.ops import native_halo as nh
     from mpi_and_open_mp_tpu_torch.ops import native_life as nl
     from mpi_and_open_mp_tpu_torch.parallel import context as cx
     from mpi_and_open_mp_tpu_torch.parallel import mesh as pm
@@ -4535,7 +4682,7 @@ def phase_processes(card: str, wrappers: dict) -> dict:
     os.makedirs(DIST_ROOT)
     me = os.path.abspath(__file__)
 
-    def cli(label, chain):
+    def cli(label, chain, env=None):
         """A pair running ``chain``'s CLIs ([app, *args] each, or ["wait",
         path]) in turn, each CLI its own run across the two processes."""
         coords = [f"localhost:{free_port()}" for _ in chain]
@@ -4551,7 +4698,7 @@ def phase_processes(card: str, wrappers: dict) -> dict:
                              "--process-id", str(r)]
             return argv
 
-        return start_ranks(label, argv_of)
+        return start_ranks(label, argv_of, env)
 
     gun = load_config(GUN_BIG)
     cfg_path = os.path.join(DIST_ROOT, "gun_big_save.cfg")
@@ -4563,15 +4710,17 @@ def phase_processes(card: str, wrappers: dict) -> dict:
     runs = {"worker": start_ranks("worker", lambda r: [
         os.path.join(ROOT, "tests", "_torch_dist_worker.py"), str(r),
         str(DIST_PROCS), coord, "--device", "cuda", "--snapshot-dir",
-        DIST_ROOT, *(["--out", npz] if r == 0 else [])])}
-    for label, args in DIST_LIFE.items():
+        DIST_ROOT, *(["--out", npz] if r == 0 else [])], RUNG_ENV)}
+    life_runs = {**{k: (v, DIST_FUSE, None) for k, v in DIST_LIFE.items()},
+                 **{k: (v, 1, RUNG_ENV) for k, v in DIST_RUNG.items()}}
+    for label, (args, fuse, env) in life_runs.items():
         runs[label] = cli(label, [["life", cfg_path, *args, "--fuse-steps",
-                                   str(DIST_FUSE), "--outdir",
+                                   str(fuse), "--outdir",
                                    os.path.join(DIST_ROOT,
                                                 label.replace(" ", "_")),
-                                   "--print-final-population"]])
+                                   "--print-final-population"]], env)
     runs["clis"] = cli("clis", [
-        ["hello", "--devices", "4"], ["wait", go],
+        ["hello", "--devices", "4"], ["wait", go], ["rung-times"],
         ["integral", str(DIST_INTEGRAL_N), "--devices",
          str(DIST_INTEGRAL_SHARDS), "--print-value"],
         ["attention", *DIST_ATTENTION], ["pingpong", "--fit"]])
@@ -4601,11 +4750,33 @@ def phase_processes(card: str, wrappers: dict) -> dict:
         torch.from_numpy(gun.board()).cuda(), last_save).cpu().numpy()
     m8 = pm.make_mesh_1d(DIST_INTEGRAL_SHARDS, device="cuda", virtual=True)
     one_integral = Integral(DIST_INTEGRAL_N, mesh=m8).compute()
+    # The worker's rung drill on one process: the frames of the global
+    # stacks by the kernel and by its plain version, heat on a virtual 2x2
+    # mesh under the flag; and the one-process frame kernel at the rung
+    # times' block, by profiler.
+    for dtype in worker.RUNG_DTYPES:
+        stack = pm.shard(torch.from_numpy(worker.rung_board(dtype)).cuda(),
+                         DIST_PROCS, 2)
+        for d in worker.RUNG_DEPTHS:
+            one[f"rung_frame_{dtype}_d{d}"] = (
+                nh.halo_frame(stack, d, "cart"),
+                nh.halo_frame_plain(stack, d, "cart"))
+    with env_set("MOMP_HALO_RDMA", "1"):
+        m22 = pm.make_mesh_2d(DIST_PROCS, 2, device="cuda", virtual=True)
+        one["rung_heat"] = stencils.run_sharded(
+            stencils.get("heat"), worker.heat_board(),
+            worker.RUNG_HEAT_STEPS, mesh=m22, layout="cart", fuse_steps=2,
+            boundary_steps=1)
+        one["rung_heat_engine"] = stencils.run_sharded.last_plan.engine
+    time_block = pm.shard(torch.from_numpy(gun.board()).cuda(), DIST_PROCS,
+                          2)[:1].contiguous()
+    one_frame_ms = device_ms(lambda: nh.halo_frame(time_block, 1, "cart"),
+                             RUNG_TIME_KERNELS, "halo_frame_kernel")
 
     rec = {"runs": {}}
     res = {}
     try:
-        for label in ("worker", *DIST_LIFE):
+        for label in ("worker", *life_runs):
             res[label] = finish_ranks(runs.pop(label))
         # The other pairs are done: the last pair goes on alone.
         open(go, "w").close()
@@ -4626,18 +4797,50 @@ def phase_processes(card: str, wrappers: dict) -> dict:
     equal = {"integral": bool(got["integral"] == one["integral"]),
              "board": bool(np.array_equal(got["board"], one["board"])),
              **{k: d == 0.0 for k, d in diffs.items()}}
+    for dtype in worker.RUNG_DTYPES:
+        for d in worker.RUNG_DEPTHS:
+            key = f"rung_frame_{dtype}_d{d}"
+            kern, plain = (x.cpu().numpy() for x in one[key])
+            equal[key] = bool(np.array_equal(got[key], kern)
+                              and np.array_equal(got[key], plain))
+    equal["rung_heat"] = bool(np.array_equal(
+        got["rung_heat"], one["rung_heat"].cpu().numpy()))
+    rung_counts = {k: int(got[f"rung_{k}"]) for k in (
+        "frame_launches", "frame_exchanges", "heat_pair_launches",
+        "heat_frame_launches", "heat_exchanges", "handshakes")}
+    frames = len(worker.RUNG_DTYPES) * len(worker.RUNG_DEPTHS)
     if (not all(equal.values()) or "DIST_OK" not in res["worker"]["outs"][0][0]
-            or str(got["transport"]) != "gloo-staged"):
+            or str(got["transport"]) != "gloo-staged"
+            or str(got["rung_heat_engine"]) != "overlap:rdma:pb1"
+            or one["rung_heat_engine"] != "overlap:rdma:pb1"
+            or rung_counts["frame_launches"] != frames
+            or not rung_counts["heat_pair_launches"]
+            or not rung_counts["heat_frame_launches"]
+            or rung_counts["frame_exchanges"] or rung_counts["heat_exchanges"]):
         raise AssertionError(f"the worker across processes against one "
                              f"process: equal {equal}, max |diff| {diffs}, "
-                             f"transport {got['transport']}")
+                             f"transport {got['transport']}, heat "
+                             f"{got['rung_heat_engine']}, rung counts "
+                             f"{rung_counts}")
     rec["runs"]["worker"] = {"seconds": res["worker"]["seconds"],
-                             "equal_to_one_process": equal}
+                             "equal_to_one_process": equal,
+                             "rung_rank0": rung_counts,
+                             "launches_rank0": {
+                                 "halo_frame": rung_counts["frame_launches"]
+                                 + rung_counts["heat_frame_launches"],
+                                 "edge_pair": rung_counts[
+                                     "heat_pair_launches"]}}
     log(f"  worker (integral 10^6, row halo 64x40 x 6 steps and collect, "
-        f"ring h2 n64 d16 output, gradients, zigzag, a rank-0 snapshot): "
-        f"DIST_OK, gloo-staged, every result equal to the one-process run "
-        f"of the same meshes ({res['worker']['seconds']:.2f} s)")
-    for label in DIST_LIFE:
+        f"ring h2 n64 d16 output, gradients, zigzag, a rank-0 snapshot; "
+        f"under MOMP_HALO_RDMA=1 the rung's drill: halo_frame of each "
+        f"rank's run of cart 2x2 48x40 uint8 and float32 at depth 1 and 2 "
+        f"through the windows, heat pb1 through run_sharded): DIST_OK, "
+        f"gloo-staged, every result equal to the one-process run of the "
+        f"same meshes, the rung's frames to halo_frame and "
+        f"halo_frame_plain on the global stack bit for bit, heat "
+        f"overlap:rdma:pb1 bit for bit; rank 0's rung counts "
+        f"{json.dumps(rung_counts)} ({res['worker']['seconds']:.2f} s)")
+    for label in life_runs:
         (out0, err0), (out1, _) = (
             (child_sections(o)["life"], child_sections(e)["life"])
             for o, e in res[label]["outs"])
@@ -4646,27 +4849,60 @@ def phase_processes(card: str, wrappers: dict) -> dict:
                                               label.replace(" ", "_")),
                                  last_save))
         counts = child_launches(err0)
+        calls = [child_procs(child_sections(e)["life"])
+                 for _, e in res[label]["outs"]]
+        fuse, env = life_runs[label][1:]
+        stamp = "overlap:rdma" if env else "overlap:deferred"
+        rung_ok = (not env or (counts["halo_frame"] and all(
+            c["exchange_calls"] == 0 and c["handshakes"] for c in calls)))
         if (not pops or len(out0.split()) != 1 or out1.strip()
                 or not np.array_equal(snap, gun_at_save)
                 or transport_line(err0)["transport"] != "gloo-staged"
-                or not counts["life_padded"]):
+                or not counts["life_padded"] or not rung_ok
+                or not any(f"engine={stamp}," in k
+                           for k in calls[0]["plans"])):
             raise AssertionError(f"life {label} across processes: stdout "
                                  f"{out0!r} / {out1!r}, population lines "
                                  f"{pops}, snapshot at {last_save} equal "
                                  f"{np.array_equal(snap, gun_at_save)}, "
-                                 f"launches {counts}")
+                                 f"launches {counts}, calls between the "
+                                 f"processes by rank {calls}")
         launched = {k: c for k, c in counts.items() if c}
+        steps = gun.steps
         rec["runs"][f"life {label}"] = {
             "seconds": res[label]["seconds"], "elapsed_s": float(out0),
-            "launches_rank0": launched}
-        log(f"  life p46gun_big {label} --fuse-steps {DIST_FUSE} across 2 "
-            f"processes: population 7288, the step-{last_save} snapshot "
-            f"(gathered, written by rank 0) the one-process board, elapsed "
-            f"{float(out0):.3f} s (beside the other pairs), rank 0 launched "
-            f"{json.dumps(launched)} ({res[label]['seconds']:.2f} s) "
-            f"[{card}]")
+            "fuse_steps": fuse, "us_per_step": float(out0) / steps * 1e6,
+            "launches_rank0": launched, "calls_by_rank": calls}
+        log(f"  life p46gun_big {label} --fuse-steps {fuse} across 2 "
+            f"processes{' under MOMP_HALO_RDMA=1' if env else ''}: "
+            f"population 7288, the step-{last_save} snapshot (gathered, "
+            f"written by rank 0) the one-process board, plans "
+            f"{json.dumps(calls[0]['plans'])}, elapsed {float(out0):.3f} s "
+            f"({float(out0) / steps * 1e6:.1f} us a step; beside the other "
+            f"pairs), rank 0 launched {json.dumps(launched)}, "
+            f"procs.exchange calls by rank "
+            f"{[c['exchange_calls'] for c in calls]}, handshakes "
+            f"{[c['handshakes'] for c in calls]} "
+            f"({res[label]['seconds']:.2f} s) [{card}]")
     outs = [tuple(child_sections(x) for x in pair)
             for pair in res["clis"]["outs"]]
+    times = child_rung(outs[0][1]["rung-times"])
+    times["one_process_frame_ms"] = one_frame_ms
+    # The block read once and the frame written once, as phase 18's bound.
+    cells = (int(np.prod(RUNG_TIME_BLOCK[:2])) * (RUNG_TIME_BLOCK[2] + 2)
+             * (RUNG_TIME_BLOCK[3] + 2))
+    times["bound_ms"], times["bound_by"] = bound_ms(
+        0, int(np.prod(RUNG_TIME_BLOCK)) + cells)
+    rec["rung_times"] = times
+    log(f"  rung times alone, cart 2x2's run of p46gun_big "
+        f"{RUNG_TIME_BLOCK} uint8, depth 1: a handshake "
+        f"{times['handshake_us']:.2f} us, a frame round (copy, publish, "
+        f"launch) {times['round_us']:.2f} us on the host clock over "
+        f"{RUNG_TIME_REPS}; the frame kernel through the window "
+        f"{times['ipc_frame_ms']:.6f} ms of device time against "
+        f"{one_frame_ms:.6f} ms on one process at the same block "
+        f"(profiler, {RUNG_TIME_KERNELS} launches); bound "
+        f"{times['bound_ms']:.7f} ms ({times['bound_by']}) [{card}]")
     (out0, err0), (out1, err1) = ((o["integral"], e["integral"])
                                   for o, e in outs)
     value = float(next(line for line in err0.splitlines()
@@ -4859,8 +5095,9 @@ def kernel_wrappers() -> dict:
 
 
 # The markers a ``--cli-child`` rank prints: each CLI's start (on stdout
-# and stderr) and its launch counts (stderr).
+# and stderr), its launch counts and its calls between processes (stderr).
 CHILD_APP, CHILD_LAUNCHES = "CHILD_APP ", "CHILD_LAUNCHES "
+CHILD_PROCS = "CHILD_PROCS "
 
 
 def cli_child(argv: list[str]) -> int:
@@ -4868,12 +5105,19 @@ def cli_child(argv: list[str]) -> int:
     of phase 30's runs across processes. Runs each port CLI ``apps.APP``
     with its ``ARGS`` in turn in this process (``wait PATH`` instead waits
     for the file PATH), every launch count set to 0 just before each and
-    printed after it on stderr as one ``CHILD_LAUNCHES`` JSON line, each
-    CLI's output after a ``CHILD_APP`` line; stops at the first CLI that
-    fails and returns its exit code."""
+    printed after it on stderr as one ``CHILD_LAUNCHES`` JSON line (``rung-
+    times ARGS`` instead runs :func:`rung_times_child`), then
+    one ``CHILD_PROCS`` line: its ``procs.exchange`` calls, its ring
+    handshakes (``procs.handshake``, the RDMA rung's) and the halo plans it
+    built by engine stamp (``halo.schedule.traced``); each CLI's output
+    after a ``CHILD_APP`` line; stops at the first CLI that fails and
+    returns its exit code."""
     import importlib
 
     sys.path.insert(0, ROOT)
+    from mpi_and_open_mp_tpu_torch.obs import metrics
+    from mpi_and_open_mp_tpu_torch.parallel import procs
+
     wrappers = kernel_wrappers()
     chain, cur = [], []
     for arg in argv:
@@ -4893,11 +5137,24 @@ def cli_child(argv: list[str]) -> int:
             continue
         for stream in (sys.stdout, sys.stderr):
             print(CHILD_APP + name, file=stream, flush=True)
+        if name == "rung-times":
+            rung_times_child(args)
+            continue
         app = importlib.import_module(f"mpi_and_open_mp_tpu_torch.apps.{name}")
+        procs.exchange.calls = procs.handshake.calls = 0
+        plans0 = metrics.snapshot()["counters"]
         rc, counts = run_counted(wrappers, lambda: app.main(args))
         sys.stdout.flush()
         print(CHILD_LAUNCHES + json.dumps(counts), file=sys.stderr,
               flush=True)
+        plans = {k: v - plans0.get(k, 0)
+                 for k, v in metrics.snapshot()["counters"].items()
+                 if k.startswith("halo.schedule.traced")
+                 and v != plans0.get(k, 0)}
+        print(CHILD_PROCS + json.dumps({
+            "exchange_calls": procs.exchange.calls,
+            "handshakes": procs.handshake.calls, "plans": plans}),
+            file=sys.stderr, flush=True)
         if rc:
             return rc
     return 0
@@ -4992,9 +5249,8 @@ def main() -> int:
     # The native IO library (host C++, phase 28) beside the kernels, before
     # any config is read, so every load_config and snapshot of the script
     # goes through it (utils.native reads the library once).
-    make = subprocess.Popen(["make", "-B", "-C", os.path.join(ROOT, "native")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+    make = spawn(["make", "-B", "-C", os.path.join(ROOT, "native")],
+                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     warm = MetaWarmup()
     logs = _build.build(force=True)
     warm.join()
@@ -7291,23 +7547,29 @@ def main() -> int:
         """A profiler trace of ``lo`` steps: the frame and edge-pair
         kernels, the Life rule kernel and the rest (the rolls, slices and
         concatenations of the exchange) per step, device kernels per step
-        and the idle share."""
+        and the idle share. A trace that kept no record (see
+        :func:`device_ms`) is taken again, up to six."""
         rec = {"plan_note": sim_.plan_note}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t_wall = time.perf_counter()
-            sim_._advance(sim_.board, lo)
-            torch.cuda.synchronize()
-            t_wall = time.perf_counter() - t_wall
-        split = {"halo_frame": 0.0, "halo_edge_pair": 0.0,
-                 "stencil_padded": 0.0, "other": 0.0}
-        count = 0
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                count += 1
-                key = next((k for k in split if k in ev.name), "other")
-                split[key] += ev.time_range.elapsed_us()
-        if not count:
-            raise RuntimeError(f"{name}: the profiler saw no device kernel")
+        for attempt in range(1, 7):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t_wall = time.perf_counter()
+                sim_._advance(sim_.board, lo)
+                torch.cuda.synchronize()
+                t_wall = time.perf_counter() - t_wall
+            split = {"halo_frame": 0.0, "halo_edge_pair": 0.0,
+                     "stencil_padded": 0.0, "other": 0.0}
+            count = 0
+            for ev in prof.events():
+                if ev.device_type == torch.autograd.DeviceType.CUDA:
+                    count += 1
+                    key = next((k for k in split if k in ev.name), "other")
+                    split[key] += ev.time_range.elapsed_us()
+            if count:
+                break
+            log(f"  {name}: trace {attempt} kept no device record")
+        else:
+            raise RuntimeError(f"{name}: the profiler saw no device kernel "
+                               "in 6 traces")
         busy = sum(split.values())
         exchange = (split["halo_frame"] + split["halo_edge_pair"]
                     + split["other"])
@@ -8023,6 +8285,18 @@ def main() -> int:
                 run: r["launches_rank0"].get(key, 0)
                 for run, r in dist_rec["runs"].items()
                 if "launches_rank0" in r}
+    # Phase 30's rung across the processes: rank 0's launches in each run,
+    # and the frame's times through the window beside one process's.
+    for row in kernels:
+        key = {"halo_frame": "halo_frame",
+               "halo_edge_pair": "edge_pair"}.get(row["name"])
+        if key:
+            row["launches_processes_rank0"] = {
+                run: r["launches_rank0"].get(key, 0)
+                for run, r in dist_rec["runs"].items()
+                if "launches_rank0" in r}
+        if key == "halo_frame":
+            row["rung_across_processes"] = dist_rec["rung_times"]
     log(f"native IO, host ms a snapshot: {json.dumps(vtk_rec)}")
     log(f"processes: {json.dumps(dist_rec['runs'])}; pingpong "
         f"{json.dumps(dist_rec['pingpong_fit'])}")
@@ -8047,4 +8321,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_children()
+    sys.exit(rc)

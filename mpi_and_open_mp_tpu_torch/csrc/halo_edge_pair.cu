@@ -21,8 +21,13 @@
 // offsets, int64 [4][shards]: the forward and backward edges' offsets from
 // their base pointers, then the offsets in from_prev and from_next that
 // receive them. ops/native_halo.py builds it on the host once per geometry
-// and keeps it on the card. A mesh across cards can later put peer
-// pointers in its place without a new kernel.
+// and keeps it on the card. On a mesh across processes (the RDMA rung's
+// windows, parallel/peers.py) the table is read-side: fwd and bwd are both
+// this rank's window slot, which holds its run's forward edges and then its
+// backward edges, rows 0 and 1 name each local shard's predecessor's
+// forward edge and successor's backward edge, in this slot or in a ring
+// neighbour rank's slot mapped into this process by CUDA IPC, and rows 2
+// and 3 the shard's own place in the outputs. The kernel is the same.
 //
 // Edges are read in place through their strides: the edge is a slice of
 // the block, (C, e, ws) rows for y or (C, hs, e) column strips for x,

@@ -19,8 +19,13 @@
 // table of element offsets, int64 [9][shards], row 3 (dy + 1) + (dx + 1).
 // ops/native_halo.py builds it on the host once per geometry and keeps it
 // on the card. A layout's unsharded axis (x on row, y on col) is a 1-shard
-// ring there: the shard is its own neighbour, the local wrap. A mesh across
-// cards can later put peer pointers in its place without a new kernel.
+// ring there: the shard is its own neighbour, the local wrap. On a mesh
+// across processes (the RDMA rung's windows, parallel/peers.py) src is this
+// rank's window slot, which holds its run of shards, and the offsets of the
+// sources that the ring neighbour ranks hold point into their window slots,
+// mapped into this process by CUDA IPC: the same kernel then reads the
+// neighbours' shards in place, with the event waits and the host handshake
+// before the launch standing in for the TPU kernel's barrier semaphore.
 //
 // Grid (bands, shards, channels): one block of 8 warps owns a band of 8
 // output rows of one (shard, channel) plane, one warp a row. The source

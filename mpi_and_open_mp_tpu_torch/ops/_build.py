@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
 Each ``csrc/<name>.cu`` has a plain C interface (one entry point per
-kernel, :data:`SIGNATURES`) and is compiled by ``nvcc`` for Hopper
+kernel, :data:`SIGNATURES`; ``peer_window.cu`` holds host calls only, the
+RDMA rung's CUDA IPC) and is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into ``build/kernels/lib<name>.so`` at the root of the
 checkout, at first use, then loaded with ``ctypes``. A library older
 than any source is rebuilt. :func:`build` compiles several sources at once,
@@ -29,12 +30,14 @@ NVCC_FLAGS = [
 
 # Argument types of each library's C entry points (pointers and the stream
 # as c_void_p: a default ctypes int would cut a pointer to 32 bits; _L is
-# a 64-bit extent or stride; _F a float32; _IP is an int out-parameter): a list for the one entry point named like the
+# a 64-bit extent or stride; _F a float32; _IP is an int out-parameter, _PP
+# a pointer out-parameter): a list for the one entry point named like the
 # library, or a dict of entry point -> list where one source holds several
 # entry points.
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _IP = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 SIGNATURES = {
     "bitlife_vmem": {
         "bitlife_vmem": [_P, _P] + [_I] * 9 + [_P],
@@ -76,6 +79,14 @@ SIGNATURES = {
     },
     "halo_edge_pair": [_P] * 5 + [_I, _L, _I, _I] + [_L] * 6 + [_I, _P],
     "halo_frame": [_P] * 3 + [_I] * 5 + [_L] * 3 + [_I, _P],
+    "peer_window": {
+        "peer_window_alloc": [_L, _PP, _PP, _P, _P],
+        "peer_window_open": [_P, _P, _PP, _PP],
+        "peer_window_close": [_P, _P, _I],
+        "peer_window_record": [_P, _P],
+        "peer_window_wait": [_P, _P],
+        "peer_window_can_access": [_I, _I, _IP],
+    },
     "quadrature": [_P, _P, _P, _L, _L, _I, _I, _L, _I, _I, _F, _F, _F, _P,
                    _IP],
 }

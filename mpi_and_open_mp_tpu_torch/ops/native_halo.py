@@ -24,6 +24,19 @@ strides; on a CPU tensor it runs the plain version, the two ring
 Each kernel takes each shard's sources from a table of element offsets,
 built on the host once per geometry and kept on the card
 (:func:`_offset_table`, :func:`frame_table`).
+
+On a mesh across processes (``parallel.procs``) a stack holds this
+process's run of the shards of the spanning axis, and its ring neighbours'
+shards lie in other processes. On the card both kernels then read them in
+place, through the RDMA rung's windows (``parallel.peers``): a round copies
+the run's block (or its fresh edge strips) into this rank's window slot
+(one device copy), publishes it (an event, a handshake with the two ring
+neighbours, the waits) and launches the unchanged kernel on a table of
+element offsets from that slot into its own slot and the neighbours'
+(:func:`run_frame_table`, :func:`run_edge_table`, built once per geometry;
+:class:`_RunFrameLaunch`, :class:`_RunEdgePair`). No cell goes through host
+memory. On a CPU tensor the plain versions cross the processes through
+``parallel.halo.ppermute``.
 """
 
 from __future__ import annotations
@@ -35,7 +48,7 @@ import numpy as np
 import torch
 
 from mpi_and_open_mp_tpu_torch.ops import _build
-from mpi_and_open_mp_tpu_torch.parallel import halo
+from mpi_and_open_mp_tpu_torch.parallel import halo, peers, procs
 from mpi_and_open_mp_tpu_torch.parallel.mesh import SHARD_DIM
 
 # gridDim.y of the launch: one row of blocks per shard (both kernels);
@@ -87,7 +100,10 @@ def edge_pair(fwd_edge: torch.Tensor, bwd_edge: torch.Tensor,
     _check(fwd_edge, bwd_edge, axis_name)
     if fwd_edge.device.type == "cpu":
         return edge_pair_plain(fwd_edge, bwd_edge, axis_name)
-    out = _launch(fwd_edge, bwd_edge, axis_name)
+    if procs.span(axis_name):
+        out = _run_edge_pair(fwd_edge, bwd_edge, axis_name)
+    else:
+        out = _launch(fwd_edge, bwd_edge, axis_name)
     if fwd_edge.numel():
         edge_pair.launches += 1
     return out
@@ -210,7 +226,7 @@ def halo_frame(block: torch.Tensor, depth: int, layout: str) -> torch.Tensor:
     on the card (one launch), :func:`halo_frame_plain` on the CPU. Refuses
     a depth below 1 or past a shard's extent."""
     key = (block.shape, block.stride(), block.dtype, block.device, depth,
-           layout)
+           layout, procs.spanning())
     launch = _FRAME_LAUNCHES.get(key)
     if launch is None:
         _check_frame(block, depth, layout)
@@ -218,7 +234,10 @@ def halo_frame(block: torch.Tensor, depth: int, layout: str) -> torch.Tensor:
             return halo_frame_plain(block, depth, layout)
         if len(_FRAME_LAUNCHES) >= MAX_FRAME_LAUNCHES:
             _FRAME_LAUNCHES.clear()
-        launch = _FRAME_LAUNCHES[key] = _FrameLaunch(block, depth, layout)
+        spans = [a for a in FRAME_RINGS[layout] if procs.span(a)]
+        launch = _FRAME_LAUNCHES[key] = (
+            _RunFrameLaunch(block, depth, layout, spans[0]) if spans
+            else _FrameLaunch(block, depth, layout))
     return launch(block)
 
 
@@ -289,16 +308,29 @@ class _FrameLaunch:
         if block.element_size() not in (1, 2, 4, 8):
             raise ValueError(f"halo_frame: elements of 1, 2, 4 or 8 bytes, "
                              f"got {block.dtype}")
-        g = frame_geometry(block, depth)
+        src = self._source(block)
+        g = frame_geometry(src, depth)
         if g.shards > MAX_SHARDS or g.channels > MAX_CHANNELS:
             raise ValueError(f"halo_frame: {g.shards} shards of {g.channels} "
                              f"channels, past {MAX_SHARDS} or {MAX_CHANNELS}")
-        py, px = block.shape[:2]
-        self.table = frame_table(py, px, layout, tuple(block.stride()[:2]),
-                                 block.device)
+        self.table = self._table(src, layout)
         self.fn = _build.load("halo_frame").halo_frame
         self.args = (self.table.data_ptr(), g.shards, g.channels, g.h, g.w,
                      g.d, g.sc, g.sr, g.sw, block.element_size())
+
+    def _source(self, block: torch.Tensor) -> torch.Tensor:
+        """The stack the kernel reads, whose strides the launch takes: the
+        block itself."""
+        return block
+
+    def _table(self, src: torch.Tensor, layout: str) -> torch.Tensor:
+        py, px = src.shape[:2]
+        return frame_table(py, px, layout, tuple(src.stride()[:2]),
+                           src.device)
+
+    def _src_ptr(self, block: torch.Tensor) -> int:
+        """The kernel's source pointer for this round's ``block``."""
+        return block.data_ptr()
 
     def __call__(self, block: torch.Tensor) -> torch.Tensor:
         if not self.empty and self.device.index != torch.cuda.current_device():
@@ -308,7 +340,8 @@ class _FrameLaunch:
         if self.empty:
             return out
         stream = torch.cuda.current_stream(self.device).cuda_stream
-        rc = self.fn(block.data_ptr(), out.data_ptr(), *self.args, stream)
+        rc = self.fn(self._src_ptr(block), out.data_ptr(), *self.args,
+                     stream)
         if rc:
             _build.check(_build.load("halo_frame"), "halo_frame", rc)
         halo_frame.launches += 1
@@ -317,3 +350,209 @@ class _FrameLaunch:
 
 _FRAME_LAUNCHES: dict[tuple, _FrameLaunch] = {}
 halo_frame.launches = 0
+
+
+# ------------------------------------------------ runs across processes
+
+
+def _run_geometry(mesh_axes: tuple[int, int], span_axis: str, procs_: int,
+                  rank: int):
+    """This process's run of a ``mesh_axes`` mesh whose ``span_axis`` is
+    cut into ``procs_`` runs: its extents ``(ly, lx)``, the run length ``n``
+    and each local shard's global indices ``(gi, gj)``."""
+    py, px = mesh_axes
+    n = (py if span_axis == "y" else px) // procs_
+    ly, lx = (n, px) if span_axis == "y" else (py, n)
+    i, j = np.meshgrid(np.arange(ly), np.arange(lx), indexing="ij")
+    if span_axis == "y":
+        return (ly, lx), n, (i + rank * n, j)
+    return (ly, lx), n, (i, j + rank * n)
+
+
+def _holder(si, sj, span_axis: str, n: int, strides: tuple[int, int]):
+    """The rank holding global shard ``(si, sj)`` and its element offset in
+    that rank's run (a stack of ``strides``)."""
+    if span_axis == "y":
+        return si // n, (si % n) * strides[0] + sj * strides[1]
+    return sj // n, si * strides[0] + (sj % n) * strides[1]
+
+
+def run_frame_table(mesh_axes: tuple[int, int], layout: str, span_axis: str,
+                    procs_: int, rank: int, shard_strides: tuple[int, int]
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """The frame table of process ``rank``'s run (:func:`frame_table`'s
+    sources, ``mesh_axes`` the global mesh, ``span_axis`` cut into
+    ``procs_`` runs): ``(owners, offsets)``, int64 ``(9, shards of the
+    run)``, for local shard ``s = i * lx + j`` in each column the rank that
+    holds each of its nine sources and the source's element offset in that
+    rank's run (a stack of ``shard_strides``, as the window slot holds
+    it)."""
+    rings = FRAME_RINGS[layout]
+    py, px = mesh_axes
+    _, n, (gi, gj) = _run_geometry(mesh_axes, span_axis, procs_, rank)
+    owners, offsets = [], []
+    for dy, dx in FRAME_SOURCES:
+        si = (gi + dy) % py if "y" in rings else gi
+        sj = (gj + dx) % px if "x" in rings else gj
+        r, off = _holder(si, sj, span_axis, n, shard_strides)
+        owners.append(r)
+        offsets.append(off)
+    return (np.stack(owners).reshape(9, -1).astype(np.int64),
+            np.stack(offsets).reshape(9, -1).astype(np.int64))
+
+
+def run_edge_table(mesh_axes: tuple[int, int], axis_name: str, procs_: int,
+                   rank: int, per_shard: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """The edge-pair table of process ``rank``'s run along the spanning
+    ``axis_name`` (cut into ``procs_`` runs), read-side where
+    :func:`_offset_table` is write-side: ``(owners, offsets)``, int64
+    ``(2, shards)`` and ``(4, shards)``. For local shard ``t``, row 0 is
+    the holder and element offset of its predecessor's forward edge (its
+    ``from_prev``), row 1 of its successor's backward edge (its
+    ``from_next``), in that rank's window slot, which holds the run's
+    forward edges and then its backward edges, ``per_shard`` elements a
+    shard; rows 2 and 3 of ``offsets`` are ``t``'s place in the two
+    outputs."""
+    py, px = mesh_axes
+    (ly, lx), n, (gi, gj) = _run_geometry(mesh_axes, axis_name, procs_,
+                                          rank)
+    local = ly * lx
+    strides = (lx * per_shard, per_shard)
+    if axis_name == "y":
+        pred, succ = ((gi - 1) % py, gj), ((gi + 1) % py, gj)
+    else:
+        pred, succ = (gi, (gj - 1) % px), (gi, (gj + 1) % px)
+    r_prev, o_prev = _holder(*pred, axis_name, n, strides)
+    r_next, o_next = _holder(*succ, axis_name, n, strides)
+    mine = np.arange(local).reshape(ly, lx) * per_shard
+    owners = np.stack([r_prev, r_next]).reshape(2, -1).astype(np.int64)
+    offsets = np.stack([o_prev, o_next + local * per_shard, mine, mine])
+    return owners, offsets.reshape(4, -1).astype(np.int64)
+
+
+def _device_table(window: "peers.Window", owners: np.ndarray,
+                  offsets: np.ndarray, elem: int,
+                  device: torch.device) -> torch.Tensor:
+    """``offsets`` (rows of sources first, as many as ``owners`` has) made
+    relative to this rank's window slot, on the card."""
+    table = offsets.copy()
+    k = owners.shape[0]
+    table[:k] = window.offsets(owners, offsets[:k], elem)
+    return torch.from_numpy(table).to(device)
+
+
+class _RunFrameLaunch(_FrameLaunch):
+    """:func:`halo_frame` over this process's run on the card, the ring
+    ``span_axis`` crossing the processes: the kernel reads a window of one
+    block a slot (``parallel.peers``) on the run's frame table. A round
+    copies the block into the window, publishes it and launches the kernel
+    on the slot (module docstring)."""
+
+    def __init__(self, block: torch.Tensor, depth: int, layout: str,
+                 span_axis: str):
+        self.span_axis = span_axis
+        super().__init__(block, depth, layout)
+
+    def _source(self, block: torch.Tensor) -> torch.Tensor:
+        nbytes = block.numel() * block.element_size()
+        self.window = peers.Window(nbytes, block.device)
+        self.slots = [s[:nbytes].view(block.dtype).view(block.shape)
+                      for s in self.window.slots]
+        return self.slots[0]
+
+    def _table(self, src: torch.Tensor, layout: str) -> torch.Tensor:
+        w = procs.span(self.span_axis)
+        mesh_axes = (halo.axis_size(src, "y"), halo.axis_size(src, "x"))
+        owners, offsets = run_frame_table(mesh_axes, layout, self.span_axis,
+                                          w.procs, w.rank,
+                                          tuple(src.stride()[:2]))
+        return _device_table(self.window, owners, offsets,
+                             src.element_size(), src.device)
+
+    def _src_ptr(self, block: torch.Tensor) -> int:
+        self.slots[self.window.parity].copy_(block)
+        return self.window.publish()
+
+
+class _RunEdgePair:
+    """:func:`edge_pair` along an axis that crosses the processes, on the
+    card: a window of the run's forward and backward edges a slot, the
+    run's read-side table (:func:`run_edge_table`) on the card and the
+    library call's arguments."""
+
+    def __init__(self, fwd_edge: torch.Tensor, axis_name: str):
+        w = procs.span(axis_name)
+        self.shape, self.dtype = fwd_edge.shape, fwd_edge.dtype
+        self.device = fwd_edge.device
+        shards = fwd_edge.shape[0] * fwd_edge.shape[1]
+        if shards > MAX_SHARDS:
+            raise ValueError(f"edge_pair: {shards} shards, past {MAX_SHARDS}")
+        nbytes = fwd_edge.numel() * fwd_edge.element_size()
+        self.window = peers.Window(2 * nbytes, fwd_edge.device)
+        self.slots = [(s[:nbytes].view(self.dtype).view(self.shape),
+                       s[nbytes:2 * nbytes].view(self.dtype).view(self.shape))
+                      for s in self.window.slots]
+        per_shard = fwd_edge[0, 0].numel()
+        mesh_axes = (halo.axis_size(fwd_edge, "y"),
+                     halo.axis_size(fwd_edge, "x"))
+        owners, offsets = run_edge_table(mesh_axes, axis_name, w.procs,
+                                         w.rank, per_shard)
+        self.table = _device_table(self.window, owners, offsets,
+                                   fwd_edge.element_size(), self.device)
+        sc, sr, sw = _edge_strides(self.slots[0][0])
+        rows, cols = fwd_edge.shape[-2:]
+        self.fn = _build.load("halo_edge_pair").halo_edge_pair
+        self.args = (self.table.data_ptr(), shards, per_shard, rows, cols,
+                     sc, sr, sw, sc, sr, sw, fwd_edge.element_size())
+
+    def __call__(self, fwd_edge: torch.Tensor, bwd_edge: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        fwd_slot, bwd_slot = self.slots[self.window.parity]
+        fwd_slot.copy_(fwd_edge)
+        bwd_slot.copy_(bwd_edge)
+        src = self.window.publish()
+        prev_out = torch.empty(self.shape, dtype=self.dtype,
+                               device=self.device)
+        next_out = torch.empty_like(prev_out)
+        stream = torch.cuda.current_stream(self.device).cuda_stream
+        rc = self.fn(src, src, prev_out.data_ptr(), next_out.data_ptr(),
+                     *self.args, stream)
+        if rc:
+            _build.check(_build.load("halo_edge_pair"), "halo_edge_pair", rc)
+        return prev_out, next_out
+
+
+def _run_edge_pair(fwd_edge: torch.Tensor, bwd_edge: torch.Tensor,
+                   axis_name: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``halo_edge_pair`` over this process's run (checked by
+    the caller, which counts the launch)."""
+    if fwd_edge.device.type != "cuda":
+        raise ValueError(f"edge_pair: expected a CUDA or CPU tensor, got "
+                         f"{fwd_edge.device}")
+    if fwd_edge.numel() == 0:
+        empty = torch.empty(fwd_edge.shape, dtype=fwd_edge.dtype,
+                            device=fwd_edge.device)
+        return empty, torch.empty_like(empty)
+    key = (fwd_edge.shape, fwd_edge.dtype, fwd_edge.device, axis_name,
+           procs.spanning())
+    pair = _EDGE_RUNS.get(key)
+    if pair is None:
+        pair = _EDGE_RUNS[key] = _RunEdgePair(fwd_edge, axis_name)
+    with torch.cuda.device(fwd_edge.device):
+        return pair(fwd_edge, bwd_edge)
+
+
+_EDGE_RUNS: dict[tuple, _RunEdgePair] = {}
+
+
+def _forget_runs() -> None:
+    """Drop the launch records of runs across processes (their windows
+    close with the run, ``procs.shutdown``)."""
+    for key in [k for k, v in _FRAME_LAUNCHES.items()
+                if isinstance(v, _RunFrameLaunch)]:
+        del _FRAME_LAUNCHES[key]
+    _EDGE_RUNS.clear()
+
+
+procs.at_shutdown(_forget_runs)

@@ -36,12 +36,17 @@ Engine stamps, as the JAX package's:
   diagonal corners read from the diagonal shard, and the round's three
   partitions are slices of it; a partitioned sub-round moves each edge
   pair through one launch of ``csrc/halo_edge_pair.cu``
-  (:func:`_rdma_edge_pair`). Off the card the flag gives
+  (:func:`_rdma_edge_pair`). On a mesh across processes the stack is this
+  process's run, and the same two kernels read the ring neighbours' shards
+  in their device memory through CUDA IPC windows (``parallel.peers``,
+  ``ops/native_halo.py``): a round copies the run's block or fresh edges
+  into this rank's window, trades one host token with each ring neighbour
+  and waits on their events, then launches; no cell goes through host
+  memory, as the JAX package's remote copies reach other processes'
+  devices on a multi-host slice. Off the card the flag gives
   ``overlap:deferred``, as the JAX package off a TPU (on a mesh across
   processes too: the JAX package's two-process CPU run stamps
-  ``overlap:deferred`` under the flag). On the card a mesh across
-  processes refuses the flag (:func:`plan_halo` raises): its kernels take
-  every shard from one stack, and peer pointers are not ported;
+  ``overlap:deferred`` under the flag);
 * ``...:pb{b}`` - suffix on either stamp when the boundary is partitioned
   at ``boundary_steps = b < fuse_steps``;
 * ``overlap:packed`` - the bit-packed twin
@@ -80,7 +85,7 @@ import torch
 
 from mpi_and_open_mp_tpu_torch.obs import metrics
 from mpi_and_open_mp_tpu_torch.ops import native_halo
-from mpi_and_open_mp_tpu_torch.parallel import halo, procs
+from mpi_and_open_mp_tpu_torch.parallel import halo
 from mpi_and_open_mp_tpu_torch.robust import chaos
 
 ENV_OVERLAP = "MOMP_HALO_OVERLAP"
@@ -210,14 +215,6 @@ def plan_halo(layout: str, mesh_axes: tuple[int, int],
     ``MOMP_HALO_RDMA`` mid-process gives a fresh plan. ``boundary_steps``
     (default: coupled, ``== fuse_steps``) must divide ``fuse_steps``."""
     bs = fuse_steps if boundary_steps is None else int(boundary_steps)
-    if (rdma_requested() and on_card(device)
-            and any(procs.span(a) for a in ("y", "x"))):
-        raise NotImplementedError(
-            f"{ENV_RDMA}=1 on a mesh across processes: the rung's kernels "
-            "read every shard's ghosts from one stack on one card, and peer "
-            "pointers between processes are not ported (ROADMAP Queue 1 "
-            f"item 3); unset {ENV_RDMA} for the deferred ring exchange, "
-            "which crosses the processes")
     return _plan(layout, tuple(mesh_axes), tuple(shard_shape),
                  int(radius), int(fuse_steps), bs, int(channels),
                  pack_layout, overlap_enabled(), rdma_requested(),
@@ -270,10 +267,11 @@ def _rdma_edge_pair(fwd_edge: torch.Tensor, bwd_edge: torch.Tensor,
     """One ghost-pair exchange over the ``axis_name`` ring of ``p`` shards:
     ``(from_prev, from_next)``, the predecessor's ``fwd_edge`` and the
     successor's ``bwd_edge`` (``ops.native_halo.edge_pair``: one launch of
-    ``halo_edge_pair`` on the card). ``collective_id`` is the JAX package's
-    ring id, checked; on one card it carries no meaning. The partitioned
-    sub-rounds take it: their ghosts come from fresh strips, not from a
-    block."""
+    ``halo_edge_pair`` on the card; on a mesh across processes, over this
+    process's run, the neighbour ranks' edges read through their windows).
+    ``collective_id`` is the JAX package's ring id, checked; here it
+    carries no meaning. The partitioned sub-rounds take it: their ghosts
+    come from fresh strips, not from a block."""
     if collective_id != COLLECTIVE_IDS.get(axis_name):
         raise ValueError(f"collective_id {collective_id} is not the "
                          f"{axis_name!r} ring's ({COLLECTIVE_IDS})")
@@ -290,19 +288,24 @@ def _rdma_frame(block: torch.Tensor, plan: HaloPlan, *,
     (``ops.native_halo.halo_frame``: one launch of ``halo_frame`` on the
     card), equal to :func:`padded_round_block`: the y ring's ghosts on
     row, the x ring's on col, both and the diagonal corners on cart.
-    ``collective_ids`` are the JAX package's ids of the rings it carries
-    (``COLLECTIVE_IDS``, y before x), checked; on one card they carry no
-    meaning. The frame takes the place of the JAX package's ghost pairs
-    and the concatenations around them; an active ``MOMP_CHAOS`` halo
-    fault lands on it as the module docstring says."""
+    ``block`` is the stack of every shard, or this process's run of them on
+    a mesh across processes (the kernel then reads the neighbour ranks'
+    shards through their windows). ``collective_ids`` are the JAX
+    package's ids of the rings it carries (``COLLECTIVE_IDS``, y before x),
+    checked; here they carry no meaning. The frame takes the place of the
+    JAX package's ghost pairs and the concatenations around them; an
+    active ``MOMP_CHAOS`` halo fault lands on it as the module docstring
+    says, on every shard of the run as on every shard of one process."""
     want = tuple(COLLECTIVE_IDS[a]
                  for a in native_halo.FRAME_RINGS[plan.layout])
     if tuple(collective_ids) != want:
         raise ValueError(f"collective_ids {tuple(collective_ids)} are not "
                          f"the {plan.layout!r} rings' {want}")
-    if tuple(block.shape[:2]) != plan.mesh_axes:
+    shards = (halo.axis_size(block, "y"), halo.axis_size(block, "x"))
+    if shards != plan.mesh_axes:
         raise ValueError(f"the plan's mesh is {plan.mesh_axes}, but the "
-                         f"block holds {tuple(block.shape[:2])} shards")
+                         f"block holds {tuple(block.shape[:2])} shards, "
+                         f"{shards} with the other processes' runs")
     frame = native_halo.halo_frame(block, plan.depth, plan.layout)
     spec = chaos.halo_ghost_spec()
     if spec is None:

@@ -32,6 +32,21 @@ axis spans the processes, the others stay inside each process, and
 and no mesh, find the process layout by the name. One axis name cannot
 span the processes for one mesh and stay local for another in the same
 run (:func:`register_axes` raises).
+
+The RDMA rung (``MOMP_HALO_RDMA=1`` on the card, ``parallel.peers``)
+moves no cell through these exchanges: its kernels read the ring
+neighbours' windows in device memory. It takes two host calls from here:
+:func:`all_gather_bytes`, once a window, for the windows' IPC handles (over
+gloo on the CPU; on an ``nccl`` world over a gloo group made at
+:func:`init` for it, a form unverified: the card's machine has one card),
+and :func:`handshake` with the two ring neighbours, once a round. The
+handshake is a one-byte token each way through named pipes (made once
+under the temporary directory and removed as soon as every rank has
+opened them; the rung's ranks share a host, as CUDA IPC needs): a wait
+looks for its token for a few tens of microseconds, then sleeps in the
+kernel until it lands. :func:`shutdown`
+closes the windows (:func:`at_shutdown`) and the pipes. :func:`exchange` and :func:`handshake`
+count their calls (``.calls``), as a kernel wrapper counts its launches.
 """
 
 from __future__ import annotations
@@ -39,6 +54,10 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
+import select
+import shutil
+import tempfile
+import time
 
 import torch
 
@@ -64,6 +83,12 @@ class World:
 
 
 _WORLD: World | None = None
+# The gloo group of the host-side calls on an nccl world (None on a gloo
+# world, whose default group is gloo).
+_HOST_GROUP = None
+# Callables run by shutdown() before it leaves the run (parallel.peers
+# closes its windows there).
+_SHUTDOWN_HOOKS: list = []
 # Axis name -> whether it spans the processes, for the meshes made so far.
 _AXES: dict[str, bool] = {}
 # Page-locked staging buffers of the gloo-staged transport, by (bytes,
@@ -87,7 +112,7 @@ def init(coordinator: str | None, num_processes: int | None,
     which stands where the JAX package runs its cluster auto-detection; the
     world size and rank as given, else from ``WORLD_SIZE`` and ``RANK``.
     Raises when no CUDA device is present and ``device`` asks for one."""
-    global _WORLD
+    global _WORLD, _HOST_GROUP
     import torch.distributed as dist
 
     from mpi_and_open_mp_tpu_torch.utils.device import resolve_device
@@ -109,6 +134,8 @@ def init(coordinator: str | None, num_processes: int | None,
         init_method=f"tcp://{coordinator}" if coordinator else "env://",
         world_size=procs, rank=rank,
         timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
+    if transport == "nccl":
+        _HOST_GROUP = dist.new_group(backend="gloo")
     _WORLD = World(dist.get_world_size(), dist.get_rank(), transport, dev)
     return _WORLD
 
@@ -123,16 +150,28 @@ def spanning() -> World | None:
     return _WORLD if _WORLD is not None and _WORLD.procs > 1 else None
 
 
+def at_shutdown(fn) -> None:
+    """Run ``fn()`` in :func:`shutdown`, in every process, before the run is
+    left (once however often it is registered)."""
+    if fn not in _SHUTDOWN_HOOKS:
+        _SHUTDOWN_HOOKS.append(fn)
+
+
 def shutdown() -> None:
-    """Leave the run (a barrier first, so no rank leaves a peer waiting)."""
-    global _WORLD
+    """Leave the run: the :func:`at_shutdown` hooks (the rung's windows
+    closed), then a barrier, so no rank leaves a peer waiting."""
+    global _WORLD, _HOST_GROUP
     import torch.distributed as dist
 
     if _WORLD is None:
         return
+    for fn in _SHUTDOWN_HOOKS:
+        fn()
     barrier()
     dist.destroy_process_group()
+    _close_pipes()
     _WORLD = None
+    _HOST_GROUP = None
     _AXES.clear()
     _STAGING.clear()
 
@@ -209,9 +248,13 @@ def exchange(send: torch.Tensor, to: int, frm: int) -> torch.Tensor:
     wire = _to_wire(send, w, "send")
     out = _empty_wire(wire.numel(), w, "recv")
     ops = [dist.P2POp(dist.isend, wire, to), dist.P2POp(dist.irecv, out, frm)]
+    exchange.calls += 1
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return _from_wire(out, send, w)
+
+
+exchange.calls = 0
 
 
 def ring_shift(x: torch.Tensor, dim: int, shift: int) -> torch.Tensor:
@@ -265,6 +308,110 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
     out = _empty_wire(mine.numel(), w, "a2a-recv")
     dist.all_to_all_single(out, mine)
     return _from_wire(out, x, w)
+
+
+def all_gather_bytes(data: bytes) -> list[bytes]:
+    """Every process's ``data`` (equal lengths), in rank order, over gloo
+    on the host whatever the transport: the rung's window handles."""
+    import torch.distributed as dist
+
+    w = spanning()
+    if w is None:
+        return [bytes(data)]
+    mine = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    parts = [torch.empty_like(mine) for _ in range(w.procs)]
+    dist.all_gather(parts, mine, group=_HOST_GROUP)
+    return [p.numpy().tobytes() for p in parts]
+
+
+# Bytes of the handshake pipes' directory in the gather that shares it.
+PIPE_DIR_BYTES = 4096
+# Seconds a handshake looks for a neighbour's token before it sleeps until
+# the token lands: a waking reader costs tens of microseconds, a lagging
+# neighbour may take a round's host work.
+HANDSHAKE_SPIN_S = 50e-6
+# The handshake's file descriptors: this rank's two pipes (tokens from its
+# ring predecessor and from its successor) and its ends of theirs.
+_PIPES: dict = {}
+
+
+def _pipes() -> dict:
+    """The ring handshake's named pipes (module docstring), open in this
+    process: made at the first :func:`handshake`, which every process of
+    the run calls at the same point (a collective). Rank ``r`` reads pipe
+    ``r.from_prev`` and ``r.from_next``; its predecessor writes the first,
+    its successor the second, so that a token's direction is its pipe even
+    where the predecessor is the successor (two processes)."""
+    if _PIPES:
+        return _PIPES
+    w = spanning()
+    prev, nxt = (w.rank - 1) % w.procs, (w.rank + 1) % w.procs
+    path = b""
+    if w.rank == 0:
+        path = os.path.abspath(tempfile.mkdtemp(
+            prefix="momp_handshake_")).encode()
+    name = all_gather_bytes(path.ljust(PIPE_DIR_BYTES, b"\0"))[0]
+    name = name.rstrip(b"\0").decode()
+    if not os.path.isdir(name):
+        raise RuntimeError(
+            f"rank {w.rank} cannot see rank 0's handshake directory {name}: "
+            "the ranks of the RDMA rung share one host")
+    mine = {d: os.path.join(name, f"{w.rank}.from_{d}")
+            for d in ("prev", "next")}
+    for p in mine.values():
+        os.mkfifo(p)
+    # Read ends opened read-write, so that no open waits for a writer.
+    _PIPES.update({f"from_{d}": os.open(p, os.O_RDWR | os.O_NONBLOCK)
+                   for d, p in mine.items()})
+    barrier()
+    _PIPES["to_next"] = os.open(os.path.join(name, f"{nxt}.from_prev"),
+                                os.O_WRONLY)
+    _PIPES["to_prev"] = os.open(os.path.join(name, f"{prev}.from_next"),
+                                os.O_WRONLY)
+    barrier()
+    if w.rank == 0:
+        shutil.rmtree(name)
+    return _PIPES
+
+
+def _close_pipes() -> None:
+    for fd in _PIPES.values():
+        os.close(fd)
+    _PIPES.clear()
+
+
+def handshake(timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
+    """One token to each ring neighbour (ranks ``rank - 1`` and ``rank +
+    1`` modulo the run's processes) and one from each, through the named
+    pipes of the run's host (:func:`_pipes`): a read looks for its token
+    for up to ``HANDSHAKE_SPIN_S``, yielding the core between looks, then
+    sleeps in the kernel until it lands. When it returns, both neighbours
+    have reached the same point of their round (the rung's counterpart of
+    the JAX kernel's neighbour barrier, ``parallel.peers``). Past
+    ``timeout_s`` without a token it raises (a neighbour died)."""
+    handshake.calls += 1
+    fds = _pipes()
+    os.write(fds["to_next"], b"\1")
+    os.write(fds["to_prev"], b"\1")
+    for d in ("from_prev", "from_next"):
+        fd, spin_end = fds[d], time.perf_counter() + HANDSHAKE_SPIN_S
+        while True:
+            try:
+                if os.read(fd, 1):
+                    break
+            except BlockingIOError:
+                pass
+            if time.perf_counter() < spin_end:
+                os.sched_yield()
+                continue
+            ready, _, _ = select.select([fd], [], [], timeout_s)
+            if not ready:
+                raise RuntimeError(
+                    f"handshake {handshake.calls}: no token "
+                    f"{d.replace('_', ' ')} rank within {timeout_s} s")
+
+
+handshake.calls = 0
 
 
 def agree(ok: bool) -> bool:

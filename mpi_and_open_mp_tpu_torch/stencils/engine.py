@@ -562,7 +562,9 @@ def make_sharded_runner(spec: StencilSpec, mesh, layout: str,
     """Build ``(run, plan)`` for a board sharded over ``mesh``:
     ``run(board, n)`` advances a ``(*C, ny, nx)`` board on the mesh's
     device ``n`` torus steps by plan-scheduled halo rounds over its
-    stacked shards, and returns the board.
+    stacked shards, and returns the board. On a mesh across processes
+    (``parallel.procs``) each process steps its run of the shards and the
+    board comes back gathered in every process (a collective).
 
     ``overlap=None`` lets the plan decide (geometry and the
     ``MOMP_HALO_OVERLAP`` kill switch); ``False`` forces the sequential
@@ -606,14 +608,14 @@ def make_sharded_runner(spec: StencilSpec, mesh, layout: str,
             lambda b: step_padded_family(spec, b, family, torch))
 
     def run(board, n):
-        stack = mesh_lib.shard(torch.as_tensor(board, device=mesh.device),
-                               py, px)
+        stack = mesh_lib.local_part(mesh_lib.shard(
+            torch.as_tensor(board, device=mesh.device), py, px), mesh)
         rounds, rem = divmod(int(n), fuse_steps)
         for _ in range(rounds):
             stack = haloplan.fused_step(plan, step_fn, stack)
         if rem:
             stack = haloplan.fused_step(plan_for(rem), step_fn, stack)
-        return mesh_lib.unshard(stack)
+        return mesh_lib.unshard(mesh_lib.gather(stack, mesh))
 
     return run, plan
 

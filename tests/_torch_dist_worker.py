@@ -16,12 +16,24 @@ on meshes that span the processes:
   against the dense oracle on this process's rows (1e-4 and 1e-3, the JAX
   worker's tolerances), and the zigzag layout's output;
 * a snapshot, gathered by every process and written by process 0 alone
-  (each process names its own directory; process 1's stays empty).
+  (each process names its own directory; process 1's stays empty);
+* the RDMA rung's drill (:func:`rung_drill`): ``ops.native_halo.halo_frame``
+  of this process's run of a cart stack (``nprocs`` x 2 shards of a 48 x
+  40 board) of uint8 and of float32 at depth 1 and 2, gathered; heat
+  through ``stencils.run_sharded`` on that mesh at ``fuse_steps=2,
+  boundary_steps=1``, 5 steps (two partitioned rounds and a coupled one);
+  the window handles' byte gather and ring handshakes. On the card under
+  ``MOMP_HALO_RDMA=1`` the frames are the ``halo_frame`` kernel reading
+  the neighbour rank's shards through its window, and heat's plan is
+  ``overlap:rdma:pb1`` (``halo_edge_pair`` a sub-round); elsewhere the
+  plain versions and ``overlap:deferred:pb1``. ``--only-rung`` runs this
+  drill alone.
 
 Process 0 prints ``DIST_OK``. With ``--out`` it also writes the run's
 results (the integral value, the board, the gathered ring output,
-gradients and zigzag output) as an ``.npz`` for a caller to hold against
-the one-process run of the same meshes. It imports nothing of JAX.
+gradients and zigzag output, the rung's gathered frames, heat board, plan
+stamp and counts) as an ``.npz`` for a caller to hold against the
+one-process run of the same meshes. It imports nothing of JAX.
 """
 
 import argparse
@@ -63,6 +75,74 @@ def board0() -> np.ndarray:
     return (np.random.default_rng(0).random(BOARD) < 0.35).astype(np.uint8)
 
 
+# The rung's drill: a cart mesh of (nprocs, 2) shards of this board, the
+# frames' dtypes and depths, heat's steps (fuse_steps 2, boundary_steps 1:
+# two partitioned rounds, then a coupled round of one step) and the
+# handshakes of the host drill.
+RUNG_BOARD = (48, 40)
+RUNG_DTYPES = ("uint8", "float32")
+RUNG_DEPTHS = (1, 2)
+RUNG_HEAT_STEPS = 5
+RUNG_HANDSHAKES = 20
+
+
+def rung_board(dtype: str) -> np.ndarray:
+    """The drill's board of ``dtype``: every byte value for uint8, [0, 1)
+    for float32, from one seed each."""
+    rng = np.random.default_rng(29 + RUNG_DTYPES.index(dtype))
+    if dtype == "uint8":
+        return rng.integers(0, 256, RUNG_BOARD, dtype=np.uint8)
+    return rng.random(RUNG_BOARD).astype(np.float32)
+
+
+def heat_board() -> np.ndarray:
+    from mpi_and_open_mp_tpu_torch import stencils
+
+    return stencils.get("heat").init(np.random.default_rng(29), RUNG_BOARD)
+
+
+def rung_drill(dev: torch.device, nprocs: int) -> dict:
+    """The RDMA rung's drill (module docstring) on this process's runs;
+    returns the gathered frames (``frame_<dtype>_d<depth>``), heat's board
+    and stamp, the kernels' launches and ``procs.exchange`` calls in the
+    frames and in heat, and the host drill's handshakes."""
+    from mpi_and_open_mp_tpu_torch import stencils
+    from mpi_and_open_mp_tpu_torch.ops import native_halo
+
+    out = {}
+    mesh = mesh_lib.make_mesh_2d(nprocs, 2, device=dev)
+    frames0, exch0 = native_halo.halo_frame.launches, procs.exchange.calls
+    for dtype in RUNG_DTYPES:
+        stack = mesh_lib.local_part(mesh_lib.shard(
+            torch.from_numpy(rung_board(dtype)).to(dev), nprocs, 2), mesh)
+        for d in RUNG_DEPTHS:
+            frame = native_halo.halo_frame(stack, d, "cart")
+            out[f"frame_{dtype}_d{d}"] = mesh_lib.gather(
+                frame, mesh).cpu().numpy()
+    out["frame_launches"] = native_halo.halo_frame.launches - frames0
+    out["frame_exchanges"] = procs.exchange.calls - exch0
+    pairs0, frames0 = (native_halo.edge_pair.launches,
+                       native_halo.halo_frame.launches)
+    exch0 = procs.exchange.calls
+    heat = stencils.run_sharded(stencils.get("heat"), heat_board(),
+                                RUNG_HEAT_STEPS, mesh=mesh, layout="cart",
+                                fuse_steps=2, boundary_steps=1)
+    out["heat"] = heat.cpu().numpy()
+    out["heat_engine"] = np.array(stencils.run_sharded.last_plan.engine)
+    out["heat_pair_launches"] = native_halo.edge_pair.launches - pairs0
+    out["heat_frame_launches"] = native_halo.halo_frame.launches - frames0
+    out["heat_exchanges"] = procs.exchange.calls - exch0
+    # The host half: the handles' byte gather, then ring handshakes.
+    w = procs.world()
+    got = procs.all_gather_bytes(bytes([w.rank]) * 8)
+    assert got == [bytes([r]) * 8 for r in range(nprocs)], got
+    calls0 = procs.handshake.calls
+    for _ in range(RUNG_HANDSHAKES):
+        procs.handshake()
+    out["handshakes"] = procs.handshake.calls - calls0
+    return {f"rung_{k}": np.asarray(v) for k, v in out.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("proc_id", type=int)
@@ -73,6 +153,8 @@ def main(argv=None) -> int:
     ap.add_argument("--snapshot-dir", default=None,
                     help="where each process names its snapshot directory "
                          "(default: TMPDIR)")
+    ap.add_argument("--only-rung", action="store_true",
+                    help="run the RDMA rung's drill alone")
     args = ap.parse_args(argv)
     torch.set_num_threads(1)
     world = procs.init(args.coordinator, args.nprocs, args.proc_id,
@@ -80,6 +162,14 @@ def main(argv=None) -> int:
     assert world.procs == args.nprocs and world.rank == args.proc_id
     dev = world.device
     results = {"transport": np.array(world.transport)}
+    if args.only_rung:
+        results.update(rung_drill(dev, args.nprocs))
+        if args.proc_id == 0 and args.out:
+            np.savez(args.out, **results)
+        procs.shutdown()
+        if args.proc_id == 0:
+            print("DIST_OK", flush=True)
+        return 0
 
     # The integral: each process its shards' partials, summed in order.
     mesh = mesh_lib.make_mesh_1d(args.nprocs, axis="y", device=dev)
@@ -136,6 +226,7 @@ def main(argv=None) -> int:
     results["zigzag"] = gathered(out_z)
     for name, gg in zip("qkv", grads):
         results[f"d{name}"] = gathered(context.local_rows(gg, sp))
+    results.update(rung_drill(dev, args.nprocs))
 
     # Snapshot: collective collect, process 0 alone writes.
     base = args.snapshot_dir or os.environ.get("TMPDIR", "/tmp")

@@ -6,7 +6,12 @@ the meshes that span them. ``tests/_torch_dist_worker.py`` runs the JAX
 worker's drill (integral, row halo Life and ``collect``, ring attention
 and its gradients, zigzag, a process-0 snapshot); its results are held
 bit for bit against the one-process run of the same meshes here, and the
-board and the value against the JAX package's oracle. The CLI cases run
+board and the value against the JAX package's oracle. The worker's RDMA rung drill (``--only-rung``: the
+frames of each process's run of a cart stack, partitioned heat through
+``run_sharded``, the window handles' byte gather and the ring handshakes)
+is held against the JAX package's ``padded_round_block`` and the
+one-process runs; its plans across processes on a faked card against
+the JAX package's stamps on a faked TPU. The CLI cases run
 the port's CLIs with ``--distributed`` in two processes. Every process
 runs on one torch thread, with a time limit, and is killed on failure.
 """
@@ -24,6 +29,7 @@ import torch
 from mpi_and_open_mp_tpu.ops.life_ops import life_step_numpy as jax_oracle
 from mpi_and_open_mp_tpu_torch.models.integral import Integral
 from mpi_and_open_mp_tpu_torch.models.life import LifeSim
+from mpi_and_open_mp_tpu_torch.ops import native_halo
 from mpi_and_open_mp_tpu_torch.parallel import context, haloplan
 from mpi_and_open_mp_tpu_torch.parallel import mesh as mesh_lib
 from mpi_and_open_mp_tpu_torch.parallel import procs
@@ -239,20 +245,138 @@ def test_two_process_attention_cli_grad(variant):
     assert f"variant={variant} seq=128 devices=2" in outs[0][1]
 
 
-def test_rdma_rung_refused_across_processes_on_the_card(monkeypatch):
-    """On the card the rung's kernels take every shard from one stack, so
-    a mesh across processes refuses ``MOMP_HALO_RDMA=1`` naming the
-    roadmap; on the CPU the flag gives the deferred exchange."""
+@pytest.mark.parametrize("layout,mesh_axes,shard,k,b", [
+    ("row", (2, 1), (16, 16), 2, None), ("cart", (2, 2), (16, 16), 2, 1),
+    ("col", (1, 4), (16, 16), 1, None)], ids=["row", "cart-pb1", "col"])
+def test_rdma_rung_plans_across_processes_on_the_card(monkeypatch, layout,
+                                                      mesh_axes, shard, k,
+                                                      b):
+    """On a faked card a mesh across two processes plans the rung under
+    ``MOMP_HALO_RDMA=1``, ``overlap:rdma`` and ``overlap:rdma:pb1`` as the
+    JAX package stamps on a TPU (its backend faked), the whole plan equal
+    to JAX's; off the card the flag gives the deferred exchange, as the JAX
+    package's two-process CPU run does."""
+    from mpi_and_open_mp_tpu.parallel import haloplan as jhp
+
     monkeypatch.setenv(haloplan.ENV_RDMA, "1")
     world = procs.World(2, 0, "gloo-staged", torch.device("cpu"))
     monkeypatch.setattr(procs, "_WORLD", world)
-    monkeypatch.setattr(procs, "_AXES", {"y": True, "x": False})
+    spans = "x" if layout == "col" else "y"
+    monkeypatch.setattr(procs, "_AXES", {"y": spans == "y",
+                                         "x": spans == "x"})
     monkeypatch.setattr(haloplan, "on_card", lambda device: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        haloplan.plan_halo("row", (2, 1), (16, 16), 1, 1, device="cpu")
-    monkeypatch.setattr(haloplan, "on_card", lambda device: False)
-    assert haloplan.plan_halo("row", (2, 1), (16, 16), 1, 1,
-                              device="cpu").engine == "overlap:deferred"
+    monkeypatch.setattr(jhp.jax, "default_backend", lambda: "tpu")
+    jhp._plan.cache_clear()
+    haloplan._plan.cache_clear()
+    try:
+        ours = haloplan.plan_halo(layout, mesh_axes, shard, 1, k,
+                                  boundary_steps=b, device="cpu")
+        theirs = jhp.plan_halo(layout, mesh_axes, shard, 1, k,
+                               boundary_steps=b)
+        assert ours.engine == "overlap:rdma" + (f":pb{b}" if b else "")
+        assert ours == haloplan.HaloPlan(**theirs.__dict__)
+        monkeypatch.setattr(haloplan, "on_card", lambda device: False)
+        monkeypatch.setattr(jhp.jax, "default_backend", lambda: "cpu")
+        jhp._plan.cache_clear()
+        off = haloplan.plan_halo(layout, mesh_axes, shard, 1, k,
+                                 boundary_steps=b, device="cpu")
+        assert off.engine == jhp.plan_halo(
+            layout, mesh_axes, shard, 1, k, boundary_steps=b).engine
+        assert off.engine.split(":pb")[0] == "overlap:deferred"
+    finally:
+        jhp._plan.cache_clear()
+        haloplan._plan.cache_clear()
+
+
+@pytest.fixture(scope="module")
+def rung_run(tmp_path_factory):
+    """The worker's RDMA rung drill (``--only-rung``) across two gloo
+    processes on the CPU, once for the module: rank 0's ``.npz``."""
+    out = tmp_path_factory.mktemp("rung") / "rung.npz"
+    coord = f"localhost:{_free_port()}"
+    outs = run_ranks(lambda r: [
+        WORKER, str(r), "2", coord, "--device", "cpu", "--only-rung",
+        *(["--out", str(out)] if r == 0 else [])])
+    assert "DIST_OK" in outs[0][0]
+    return dict(np.load(out))
+
+
+def _jax_frames(board, layout, mesh_shape, depth):
+    """JAX's ``padded_round_block`` under shard_map over ``board`` on the
+    CPU mesh, as the stacked per-shard frames ``(py, px, H, W)``."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from mpi_and_open_mp_tpu.parallel import haloplan as jhp
+    from mpi_and_open_mp_tpu.parallel import mesh as jmesh
+
+    py, px = mesh_shape
+    jm = jmesh.make_mesh_2d(py, px)
+    spec = P("y", "x")
+    arr = jax.device_put(jnp.asarray(board), NamedSharding(jm, spec))
+    out = np.array(jax.jit(jmesh.shard_map(
+        lambda blk: jhp.padded_round_block(layout, blk, depth), mesh=jm,
+        in_specs=spec, out_specs=spec, check_vma=False))(arr))
+    return mesh_lib.shard(torch.from_numpy(out), py, px).numpy()
+
+
+@pytest.mark.parametrize("depth", worker.RUNG_DEPTHS)
+@pytest.mark.parametrize("dtype", worker.RUNG_DTYPES)
+def test_two_process_run_frames_match_jax(rung_run, dtype, depth):
+    """Each rank's frame of its run of a cart 2x2 stack (``halo_frame``,
+    its plain version on the CPU, whose ghosts cross the processes),
+    gathered, equals the JAX package's one-process ``padded_round_block``
+    on the same global block, bit for bit, and the port's one-process
+    frame; the frames crossed the processes through ``procs.exchange``
+    (the deferred ring) and launched nothing."""
+    board = worker.rung_board(dtype)
+    got = rung_run[f"rung_frame_{dtype}_d{depth}"]
+    assert got.dtype == np.dtype(dtype)
+    np.testing.assert_array_equal(got, _jax_frames(board, "cart", (2, 2),
+                                                   depth))
+    stack = mesh_lib.shard(torch.from_numpy(board), 2, 2)
+    np.testing.assert_array_equal(
+        got, native_halo.halo_frame(stack, depth, "cart").numpy())
+    assert int(rung_run["rung_frame_launches"]) == 0
+    assert int(rung_run["rung_frame_exchanges"]) > 0
+
+
+def test_two_process_partitioned_heat_matches_one_process(rung_run):
+    """Heat through ``run_sharded`` on cart 2x2 across two processes at
+    ``fuse_steps=2, boundary_steps=1`` (two partitioned rounds and a
+    coupled one) equals the one-process run bit for bit and the JAX
+    package's within its tolerance; under the flag on the CPU its plan is
+    ``overlap:deferred:pb1``, as the JAX package off a TPU."""
+    from mpi_and_open_mp_tpu import stencils as jstencils
+    from mpi_and_open_mp_tpu.parallel import mesh as jmesh
+    from mpi_and_open_mp_tpu.stencils import engine as jengine
+
+    from mpi_and_open_mp_tpu_torch import stencils
+
+    board = worker.heat_board()
+    m = mesh_lib.make_mesh_2d(2, 2, device="cpu")
+    want = stencils.run_sharded(stencils.get("heat"), board,
+                                worker.RUNG_HEAT_STEPS, mesh=m,
+                                layout="cart", fuse_steps=2,
+                                boundary_steps=1)
+    np.testing.assert_array_equal(rung_run["rung_heat"], want.numpy())
+    jax_out = np.asarray(jengine.run_sharded(
+        jstencils.get("heat"), board, worker.RUNG_HEAT_STEPS,
+        mesh=jmesh.make_mesh_2d(2, 2), layout="cart", fuse_steps=2,
+        boundary_steps=1))
+    assert stencils.parity_ok(stencils.get("heat"), rung_run["rung_heat"],
+                              jax_out, **stencils.parity_tol_for("offset"))
+    assert str(rung_run["rung_heat_engine"]) == "overlap:deferred:pb1"
+    assert int(rung_run["rung_heat_pair_launches"]) == 0
+
+
+def test_two_process_handles_gather_and_handshakes(rung_run):
+    """The rung's host calls between two gloo processes: the byte gather
+    of the window handles returned every rank's bytes in rank order (the
+    worker asserts it), and the ring handshakes all completed."""
+    assert int(rung_run["rung_handshakes"]) == worker.RUNG_HANDSHAKES
+    assert str(rung_run["transport"]) == "gloo"
 
 
 def test_mesh_roles_and_local_parts(monkeypatch):
